@@ -34,3 +34,9 @@ if hypothesis is not None:
         suppress_health_check=list(hypothesis.HealthCheck),
     )
     hypothesis.settings.load_profile("repro")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (repro_torch's CUDA kernels); skips without one"
+    )
