@@ -107,6 +107,33 @@ def valid_masks(samples: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     return (t[None, :] < counts[:, None]).to(samples.dtype)
 
 
+def ragged_gather(samples: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Densify ragged chains: row t of chain m becomes ``samples[m, t % counts[m]]``.
+
+    Every machine keeps contributing under stragglers and the output stays a
+    dense ``(M, T, d)`` tensor — the shared gather behind subpostAvg, pool,
+    consensus and the pooled clouds of the KDE combiners. An empty chain
+    (``counts[m] = 0``) has no valid row and repeats its row 0.
+    """
+    T = samples.shape[1]
+    t = torch.arange(T, device=samples.device)
+    idx = t[None, :] % counts.long().clamp(min=1)[:, None]  # (M, T)
+    return torch.gather(samples, 1, idx[:, :, None].expand(-1, -1, samples.shape[2]))
+
+
+def categorical(gen: torch.Generator, logits: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` independent draws from Categorical(softmax(logits)) → (n,) int64."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.multinomial(probs, n, replacement=True, generator=gen)
+
+
+def gumbel(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise ``−log(−log u)`` with u uniform in (0, 1)."""
+    tiny = torch.finfo(like.dtype).tiny
+    u = torch.rand(shape, generator=gen, dtype=like.dtype, device=like.device)
+    return -torch.log(-torch.log(u.clamp(min=tiny)))
+
+
 def log_weight_bruteforce(theta_sel: torch.Tensor, h: torch.Tensor | float) -> torch.Tensor:
     """Unnormalized log w_t (Eq. 3.5) for selected samples ``(..., M, d)``."""
     mean = theta_sel.mean(dim=-2, keepdim=True)

@@ -42,7 +42,8 @@ def fit_moments(
 ) -> GaussianMoments:
     """Sample mean/covariance of ``samples`` ``(..., T, d)``.
 
-    ``mask (..., T)`` marks valid rows (ragged chains). The covariance uses
+    ``mask (..., T)`` marks valid rows (ragged chains); invalid rows may hold
+    NaN, which stays out of the moments. The covariance uses
     the unbiased 1/(T−1) normalizer and is jittered for Cholesky stability.
     """
     T, d = samples.shape[-2:]
@@ -51,10 +52,11 @@ def fit_moments(
         mean = samples.mean(dim=-2)
         centered = samples - mean.unsqueeze(-2)
     else:
-        mask = mask.to(samples.dtype)
-        n = mask.sum(dim=-1).clamp(min=2.0)
-        mean = (samples * mask.unsqueeze(-1)).sum(dim=-2) / n.unsqueeze(-1)
-        centered = (samples - mean.unsqueeze(-2)) * mask.unsqueeze(-1)
+        n = mask.to(samples.dtype).sum(dim=-1).clamp(min=2.0)
+        # where-select, not mask-multiply: invalid rows may hold NaN
+        valid = mask.bool().unsqueeze(-1)
+        mean = torch.where(valid, samples, 0.0).sum(dim=-2) / n.unsqueeze(-1)
+        centered = torch.where(valid, samples - mean.unsqueeze(-2), 0.0)
     denom = (n - 1.0).clamp(min=1.0)
     if diag:
         var = (centered**2).sum(dim=-2) / denom.unsqueeze(-1) + jitter

@@ -13,8 +13,10 @@ after a failed launch.
 Build: at the first kernel call (or an explicit :func:`build`), every source
 is compiled by its own ``nvcc`` for ``sm_90a``, all started together, into a
 shared library under ``kernels/build/`` whose name carries a hash of the
-source and the flags, and is loaded with :mod:`ctypes`. A library already
-built from the same source and flags is loaded as it is.
+source and the flags, and is loaded with :mod:`ctypes`. Kernels that share a
+source (the machine KDE and its single-cloud form) share one build and one
+library. A library already built from the same source and flags is loaded as
+it is.
 
 Each :class:`Kernel` keeps ``launches``, a plain count that its wrapper raises
 by one where it launches the kernel and nowhere else.
@@ -72,6 +74,14 @@ KERNELS: Dict[str, Kernel] = {
         "img_log_weights", "img_weights.cu",
         replaces="src/repro/kernels/img_weights/kernel.py:54",
     ),
+    "machine_kde_log_density": Kernel(
+        "machine_kde_log_density", "kde_density.cu",
+        replaces="src/repro/kernels/kde_density/kernel.py:166",
+    ),
+    "kde_log_density": Kernel(
+        "kde_log_density", "kde_density.cu",
+        replaces="src/repro/kernels/kde_density/kernel.py:239",
+    ),
 }
 
 _BUILD_LOCK = threading.Lock()
@@ -90,38 +100,44 @@ def _nvcc() -> str:
 def build() -> float:
     """Build (or load) every kernel's library; returns the seconds it took.
 
-    One ``nvcc`` per source, all running at once. Raises with the compiler's
-    output when one fails.
+    One ``nvcc`` per distinct library, all running at once. Raises with the
+    compiler's output when one fails.
     """
     with _BUILD_LOCK:
         t0 = time.perf_counter()
-        pending = [k for k in KERNELS.values() if k._lib is None]
+        pending: Dict[Path, list] = {}
+        for k in KERNELS.values():
+            if k._lib is None:
+                pending.setdefault(k.library_path(), []).append(k)
         if not pending:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for k in pending:
-            out = k.library_path()
+        procs = []
+        for out, ks in pending.items():
             if out.exists():
-                k.build_log = f"{out.name}: built earlier from the same source"
+                for k in ks:
+                    k.build_log = f"{out.name}: built earlier from the same source"
                 continue
-            tmp = out.with_suffix(f".tmp{id(k)}.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
-            procs[k.name] = (k, tmp, out, subprocess.Popen(
+            tmp = out.with_suffix(f".tmp{id(ks[0])}.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(ks[0].source)]
+            procs.append((ks, tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ))
+            )))
         failed = []
-        for k, tmp, out, proc in procs.values():
+        for ks, tmp, out, proc in procs:
             log, _ = proc.communicate()
-            k.build_log = log
+            for k in ks:
+                k.build_log = log
             if proc.returncode != 0:
-                failed.append(f"{k.source.name} (nvcc exit {proc.returncode}):\n{log}")
+                failed.append(f"{ks[0].source.name} (nvcc exit {proc.returncode}):\n{log}")
             else:
                 tmp.replace(out)  # atomic: a reader never sees half a library
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-        for k in pending:
-            k._lib = ctypes.CDLL(str(k.library_path()))
+        for out, ks in pending.items():
+            lib = ctypes.CDLL(str(out))
+            for k in ks:
+                k._lib = lib
         return time.perf_counter() - t0
 
 

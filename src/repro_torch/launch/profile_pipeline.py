@@ -1,42 +1,48 @@
 """Where the device time of the paper's pipeline goes, from torch.profiler.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_pipeline
+    PYTHONPATH=src python -m repro_torch.launch.profile_pipeline [--combiner all]
 
-Runs ``Pipeline(PAPER_SPEC).run()`` on the card once to warm up, once
-unprofiled, then once under ``torch.profiler`` (CUDA activity only), and
-prints one JSON line: the wall seconds of both timed runs, the device time
-summed over kernels, the device's busy and idle shares of the profiled run's
-wall time, its stage times, and the kernels that took the most device time
-with their launch counts.
+Runs ``Pipeline(spec).run()`` (``PAPER_SPEC``, or ``ALL_SPEC`` with
+``--combiner all``; the same choices as ``mcmc_run``) on the card once to
+warm up, once unprofiled, then once under ``torch.profiler`` (CUDA activity
+only), and prints one JSON line: the spec, the wall seconds of both timed
+runs, the device time summed over kernels, the device's busy and idle shares
+of the profiled run's wall time, its stage times, and the kernels that took
+the most device time with their launch counts.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
+from typing import Optional, Sequence
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.api import Pipeline
-from repro_torch.launch.mcmc_run import PAPER_SPEC
+from repro_torch.launch.mcmc_run import add_combiner_option, spec_for
 
 TOP_KERNELS = 12
 
 
-def main() -> int:
-    Pipeline(PAPER_SPEC).run()  # warm-up: allocator, cuBLAS/cuSOLVER handles, kernel build
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_combiner_option(ap)
+    spec = spec_for(ap.parse_args(argv).combiner)
+    Pipeline(spec).run()  # warm-up: allocator, cuBLAS/cuSOLVER handles, kernel build
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    Pipeline(PAPER_SPEC).run()
+    Pipeline(spec).run()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     # device activity only: tracing every CPU op would slow the host-bound
     # run and understate the busy share
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        board = Pipeline(PAPER_SPEC).run()
+        board = Pipeline(spec).run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side rows only: a CPU op's row also carries the device time of
@@ -49,6 +55,7 @@ def main() -> int:
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "spec": spec.to_json(),
         "wall_s": wall,
         "unprofiled_wall_s": plain_wall,
         "device_kernel_s": device_us / 1e6,

@@ -205,3 +205,211 @@ if __name__ == "__main__":
         print(name, options, "max mean spread / sd:",
               float(((means.max(0) - means.min(0)) / sds.mean(0)).max()),
               "max sd ratio:", float((sds.max(0) / sds.min(0)).max()))
+
+
+# ---------------------------------------------------------------------------
+# the registry as a whole, and the combiners of the second ring
+# ---------------------------------------------------------------------------
+
+from repro.core.combiners import available_combiners as jax_available_combiners  # noqa: E402
+from repro.core.combiners import canonical_combiners as jax_canonical_combiners  # noqa: E402
+from repro_torch.core.combiners import (  # noqa: E402
+    available_combiners,
+    canonical_combiners,
+    filter_options,
+)
+
+
+def test_registry_names_and_aliases_match_reference():
+    assert canonical_combiners() == jax_canonical_combiners()
+    assert len(canonical_combiners()) == 11
+    assert available_combiners() == jax_available_combiners()
+    for alias in available_combiners():
+        # each alias resolves to the port's counterpart of repro's function
+        assert get_combiner(alias).__name__ == jax_get_combiner(alias).__name__, alias
+
+
+def _ragged_inputs(seed):
+    samples = _subposterior_draws(seed=seed)
+    counts = np.array([T, T - 50, 120, T], np.int32)
+    return samples, counts
+
+
+def _both(name, samples, counts, n_draws, **options):
+    jres = jax_get_combiner(name)(
+        jax.random.PRNGKey(0), jnp.asarray(samples), n_draws,
+        counts=None if counts is None else jnp.asarray(counts), **options)
+    tres = get_combiner(name)(
+        torch.Generator().manual_seed(0), torch.from_numpy(samples), n_draws,
+        counts=None if counts is None else torch.from_numpy(counts), **options)
+    return jres, tres
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
+@pytest.mark.parametrize("name", ["subpost_average", "consensus", "pool"])
+def test_baseline_draws_match_reference(name, ragged):
+    """Deterministic in the draws: the same rows (atol 1e-6 on values ~1;
+    consensus goes through an inverse and a Cholesky solve, atol 1e-5)."""
+    samples, counts = _ragged_inputs(4)
+    jres, tres = _both(name, samples, counts if ragged else None, 100)
+    atol = 1e-5 if name == "consensus" else 1e-6
+    np.testing.assert_allclose(tres.samples.numpy(), np.asarray(jres.samples), atol=atol)
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
+def test_online_moments_match_reference(ragged):
+    """The Welford chunk fold and its product: rtol 1e-4 (mean), 1e-3 (cov)."""
+    samples, counts = _ragged_inputs(4)
+    jres, tres = _both("online", samples, counts if ragged else None, 100)
+    np.testing.assert_allclose(tres.moments.mean.numpy(), np.asarray(jres.moments.mean),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tres.moments.cov.numpy(), np.asarray(jres.moments.cov),
+                               rtol=1e-3, atol=1e-7)
+
+
+def test_online_single_sample_folds_match_chunk_fold_and_reference():
+    """Welford one sample at a time ≡ one chunk fold ≡ repro's single-sample
+    fold, to float32 rounding (rtol 1e-4 on m2 entries of size ~1e1)."""
+    from repro.core.combiners import online_init as jax_online_init
+    from repro.core.combiners import online_update as jax_online_update
+    from repro_torch.core.combiners import online_init, online_update, online_update_chunk
+
+    samples, _ = _ragged_inputs(5)
+    chunk = samples[:, :40]
+    state, jstate = online_init(M, D), jax_online_init(M, D)
+    for m in range(M):
+        for t in range(40):
+            state = online_update(state, m, torch.from_numpy(chunk[m, t]))
+            jstate = jax_online_update(jstate, m, jnp.asarray(chunk[m, t]))
+    folded = online_update_chunk(online_init(M, D), torch.from_numpy(chunk))
+    for got, want in zip(state, folded):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+    for got, want in zip(state, jstate):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
+def test_importance_pool_diagnostics_match_reference(ragged):
+    """ess, log_weight_max and h_mean are deterministic in the draws (the
+    resample comes after them). log w is a difference of KDE scores of size
+    ~1e2 in float32, so ess is held to rtol 1e-4 and the others to 1e-5."""
+    samples, counts = _ragged_inputs(4)
+    jres, tres = _both("importance_pool", samples, counts if ragged else None, 100)
+    for key, rtol in (("ess", 1e-4), ("log_weight_max", 1e-5), ("h_mean", 1e-5)):
+        np.testing.assert_allclose(float(tres.extras[key]), float(jres.extras[key]), rtol=rtol)
+
+
+@pytest.mark.parametrize("rescale", [False, True])
+def test_weierstrass_schedule_and_shape_match_reference(rescale):
+    samples, counts = _ragged_inputs(4)
+    jres, tres = _both("weierstrass", samples, counts, 100, rescale=rescale, init_pool=200)
+    np.testing.assert_allclose(float(tres.extras["h_final"]), float(jres.extras["h_final"]),
+                               rtol=1e-6)
+    assert tres.extras["n_chains"] == int(jres.extras["n_chains"])
+    assert tres.extras["n_sweeps_per_chain"] == int(jres.extras["n_sweeps_per_chain"])
+    assert tres.extras["final_log_weight"].shape == np.asarray(jres.extras["final_log_weight"]).shape
+
+
+@pytest.mark.parametrize("options", [{}, {"depth": 2, "n_trees": 3}, {"within": "uniform"}],
+                         ids=["default", "depth2", "uniform"])
+def test_rpt_structure_matches_reference(options):
+    samples, counts = _ragged_inputs(4)
+    jres, tres = _both("rpt", samples, counts, 100, **options)
+    for key in ("depth", "leaf_size", "n_trees"):
+        assert tres.extras[key] == int(jres.extras[key]), key
+    assert 1.0 <= float(tres.extras["leaf_perplexity"]) <= tres.extras["n_trees"] * 2 ** tres.extras["depth"]
+
+
+def _two_gaussians(seed=0, T=2000):
+    """Two Gaussian subposteriors with a closed-form product N(μ*, Σ*)."""
+    rng = np.random.default_rng(seed)
+    mu = np.array([[-0.3, 0.2], [0.3, 0.0]])
+    sd = np.array([[0.5, 0.4], [0.4, 0.6]])
+    samples = (mu[:, None, :] + sd[:, None, :] * rng.standard_normal((2, T, 2))).astype(np.float32)
+    prec = 1.0 / sd**2
+    var_star = 1.0 / prec.sum(0)
+    return samples, (prec * mu).sum(0) * var_star, np.sqrt(var_star)
+
+
+# Monte Carlo bands, from repro's and the port's draws over keys/seeds 0–3 at
+# these settings (n = 2,000 draws, T = 2,000 per machine): the draws' means
+# scatter by up to 0.14·σ* around μ* and the two packages' sds differ by up
+# to 4 %; each method also has its own smoothing bias in the sd (weierstrass
+# ~1.3×σ*, rpt ~0.8×σ*). Held: |mean − μ*| and |mean − repro's mean| below
+# 0.35·σ*; sd / σ* within [0.7, 1.45]; sd / repro's sd within [1/1.15, 1.15];
+# the correlation within 0.1 of repro's (both ~0).
+STOCHASTIC_CASES = [
+    ("importance_pool", {}),
+    ("weierstrass", {}),
+    ("weierstrass", {"init_pool": 1000}),
+    ("rpt", {}),
+    ("online", {}),
+]
+
+
+@pytest.mark.parametrize("name,options", STOCHASTIC_CASES,
+                         ids=["importance_pool", "weierstrass", "weierstrass-init_pool", "rpt",
+                              "online"])
+def test_stochastic_combiners_hit_the_analytic_product(name, options):
+    samples, mu_star, sd_star = _two_gaussians()
+    n = 2000
+    jd = np.asarray(jax_get_combiner(name)(jax.random.PRNGKey(1), jnp.asarray(samples), n,
+                                           **options).samples)
+    td = get_combiner(name)(torch.Generator().manual_seed(1), torch.from_numpy(samples), n,
+                            **options).samples.numpy()
+    assert td.shape == (n, 2) and np.isfinite(td).all()
+    assert np.all(np.abs(td.mean(0) - mu_star) < 0.35 * sd_star), (td.mean(0), mu_star)
+    assert np.all(np.abs(td.mean(0) - jd.mean(0)) < 0.35 * sd_star), (td.mean(0), jd.mean(0))
+    ratio = td.std(0) / sd_star
+    assert np.all((ratio > 0.7) & (ratio < 1.45)), ratio
+    ratio = td.std(0) / jd.std(0)
+    assert np.all((ratio > 1 / 1.15) & (ratio < 1.15)), ratio
+    assert abs(np.corrcoef(td.T)[0, 1] - np.corrcoef(jd.T)[0, 1]) < 0.1
+
+
+# repro's conformance contracts (tests/test_combiner_conformance.py) over the
+# port's eleven names; garbage beyond counts is NaN here, not 1e4: the port's
+# masked moments where-select, so NaN must stay inert in every combiner.
+CM, CT, CD = 3, 120, 2
+
+
+def _conformance_cloud():
+    rng = np.random.default_rng(0)
+    centers = np.linspace(-1.0, 1.0, CM)[:, None, None] * np.ones((1, 1, CD))
+    return torch.from_numpy((centers + 0.5 * rng.standard_normal((CM, CT, CD))).astype(np.float32))
+
+
+@pytest.mark.parametrize("name", jax_canonical_combiners())
+@pytest.mark.parametrize("n_draws", [37, 64])
+def test_conformance_emits_exactly_n_draws(name, n_draws):
+    res = get_combiner(name)(torch.Generator().manual_seed(1), _conformance_cloud(), n_draws)
+    want = (CM * CT, CD) if name == "pool" else (n_draws, CD)
+    assert tuple(res.samples.shape) == want, name
+    assert torch.isfinite(res.samples).all(), name
+
+
+@pytest.mark.parametrize("name", jax_canonical_combiners())
+def test_conformance_nan_beyond_counts_is_inert(name):
+    cloud = _conformance_cloud()
+    counts = torch.tensor([CT, 80, 50], dtype=torch.int32)
+    for m in range(CM):
+        cloud[m, counts[m]:] = float("nan")
+    res = get_combiner(name)(torch.Generator().manual_seed(2), cloud, 64, counts=counts)
+    assert torch.isfinite(res.samples).all(), name
+    assert float(res.samples.abs().max()) < 100.0, name
+
+
+@pytest.mark.parametrize("name", jax_canonical_combiners())
+def test_conformance_unknown_options_are_dropped(name):
+    import inspect
+
+    fn = get_combiner(name)
+    opts = filter_options(fn, dict(rescale=True, n_batch=2, no_such_option=1))
+    passthrough = any(
+        p.kind is inspect.Parameter.VAR_KEYWORD and not p.name.startswith("_")
+        for p in inspect.signature(fn).parameters.values()
+    )
+    if not passthrough:
+        assert "no_such_option" not in opts
+    res = fn(torch.Generator().manual_seed(3), _conformance_cloud(), 16, **opts)
+    assert torch.isfinite(res.samples).all(), name

@@ -258,7 +258,7 @@ def test_spec_id_is_byte_identical_to_reference(fields):
 
 def test_spec_validates_against_the_ports_registries():
     with pytest.raises(KeyError):
-        RunSpec(model="logreg", combiner="weierstrass").validate()
+        RunSpec(model="logreg", combiner="no_such_combiner").validate()
     with pytest.raises(KeyError):
         RunSpec(model="logreg", sampler="hmc").validate()
     with pytest.raises(ValueError):

@@ -13,7 +13,14 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import kde_density
 from repro_torch.kernels.img_weights import img_log_weights, img_log_weights_ref
+from repro_torch.kernels.kde_density import (
+    kde_log_density,
+    kde_log_density_ref,
+    machine_kde_log_density,
+    machine_kde_log_density_ref,
+)
 from repro_torch.kernels.logreg_loglik import (
     logreg_loglik,
     logreg_loglik_grad,
@@ -89,3 +96,99 @@ def test_cuda_wrappers_check_operands(cuda_device):
         logreg_loglik_grad(X.double(), y, beta)
     with pytest.raises(ValueError):
         img_log_weights(torch.randn(4, 3, 2, device=cuda_device).transpose(0, 2), 1.0)
+
+
+def _kde_inputs(device, Q, M, T, d, *, ragged=False, seed=0):
+    """Draws at the logreg path's scale: a shared centre ~N(0, I), machine
+    offsets and spread 0.03; queries drawn from the pooled valid rows; NaN
+    beyond counts (with an empty and a single-row machine) when ragged."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    centre = torch.randn((d,), generator=gen, device=device)
+    s = centre + 0.03 * torch.randn((M, 1, d), generator=gen, device=device) \
+        + 0.03 * torch.randn((M, T, d), generator=gen, device=device)
+    q = s.reshape(M * T, d)[torch.randint(0, M * T, (Q,), generator=gen, device=device)]
+    h = 0.02 + 0.03 * torch.rand((M,), generator=gen, device=device)
+    counts = None
+    if ragged:
+        counts = torch.randint(1, T + 1, (M,), generator=gen, device=device).to(torch.int32)
+        counts[1], counts[2] = 0, 1
+        rows = torch.arange(T, device=device)[None, :, None]
+        s = torch.where(rows < counts[:, None, None], s, float("nan"))
+    return q.contiguous(), s.contiguous(), h, counts
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+# Against the plain version in float64: the kernel's direct Σ(q−s)² form in
+# float32 is off by ~1e-4 on log p̂ (sums over d and T in float32; values up
+# to ~1e3), so atol 1e-3 per machine (×M for the product over machines) and
+# rtol 1e-5; −inf (empty machines) in the same places.
+@pytest.mark.parametrize("Q,M,T,d,ragged", [(12000, 10, 1200, 50, False), (1000, 10, 1200, 50, False),
+                                            (500, 5, 1201, 37, True), (1, 1, 1, 1, False),
+                                            (300, 3, 200, 130, True), (129, 2, 33, 65, False)])
+@pytest.mark.parametrize("reduce", ["none", "product", "mixture", "product_mixture"])
+@pytest.mark.parametrize("weights", ["counts", "uniform"])
+def test_machine_kde_kernel_matches_float64_plain(cuda_device, Q, M, T, d, ragged, reduce, weights):
+    q, s, h, counts = _kde_inputs(cuda_device, Q, M, T, d, ragged=ragged)
+    got = machine_kde_log_density(q, s, h, counts, reduce=reduce, mixture_weights=weights)
+    torch.cuda.synchronize()
+    want = machine_kde_log_density_ref(q.double(), s.double(), h.double(), counts, reduce=reduce,
+                                       mixture_weights=weights)
+    for i, (g, w) in enumerate(zip(_as_tuple(got), _as_tuple(want))):
+        assert g.dtype == torch.float32 and not torch.isnan(g).any()
+        assert torch.equal(torch.isneginf(g), torch.isneginf(w))
+        fin = torch.isfinite(w)
+        atol = 1e-3 * (M if reduce in ("product", "product_mixture") and i == 0 else 1)
+        torch.testing.assert_close(g.double()[fin], w[fin], rtol=1e-5, atol=atol)
+
+
+def test_kde_cloud_kernel_matches_float64_plain(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for nq, ns, d in ((300, 700, 7), (1, 1, 1), (257, 100, 130)):
+        q = torch.randn((nq, d), generator=gen, device=cuda_device)
+        c = torch.randn((ns, d), generator=gen, device=cuda_device)
+        got = kde_log_density(q, c, 0.5)
+        torch.cuda.synchronize()
+        want = kde_log_density_ref(q, c, 0.5)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_machine_kde_kernel_is_deterministic(cuda_device):
+    q, s, h, _ = _kde_inputs(cuda_device, 12000, 10, 1200, 50)
+    first = machine_kde_log_density(q, s, h, reduce="product_mixture")
+    for _ in range(3):
+        for a, b in zip(first, machine_kde_log_density(q, s, h, reduce="product_mixture")):
+            assert torch.equal(a, b)
+
+
+def test_kde_kernels_count_one_launch_per_call(cuda_device):
+    q, s, h, counts = _kde_inputs(cuda_device, 300, 4, 200, 9, ragged=True)
+    machine = kernels.KERNELS["machine_kde_log_density"]
+    cloud = kernels.KERNELS["kde_log_density"]
+    for reduce in ("none", "product", "mixture", "product_mixture"):
+        before = (machine.launches, cloud.launches)
+        machine_kde_log_density(q, s, h, counts, reduce=reduce)
+        assert (machine.launches, cloud.launches) == (before[0] + 1, before[1])
+    before = (machine.launches, cloud.launches)
+    kde_log_density(q, s[0], 0.3)
+    assert (machine.launches, cloud.launches) == (before[0], before[1] + 1)
+    torch.cuda.synchronize()
+
+
+def test_kde_wrapper_raises_when_the_launch_fails(cuda_device, monkeypatch):
+    """A CUDA error from the C entry point raises, and counts no launch."""
+    lib, _ = kde_density.ops._entry()
+
+    def failing(*args):
+        return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(kde_density.ops, "_entry", lambda: (lib, failing))
+    q, s, h, _ = _kde_inputs(cuda_device, 10, 2, 20, 3)
+    before = kernels.KERNELS["machine_kde_log_density"].launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        machine_kde_log_density(q, s, h)
+    assert kernels.KERNELS["machine_kde_log_density"].launches == before
+    with pytest.raises(TypeError):
+        machine_kde_log_density(q.double(), s, h)

@@ -22,6 +22,12 @@ from repro.kernels.logreg_loglik import logreg_loglik_grad_ref as jax_logreg_ref
 from repro_torch import kernels
 from repro_torch.core.combiners import log_weight_bruteforce
 from repro_torch.kernels.img_weights import img_log_weights, img_log_weights_ref
+from repro_torch.kernels.kde_density import (
+    kde_log_density,
+    kde_log_density_ref,
+    machine_kde_log_density,
+    machine_kde_log_density_ref,
+)
 from repro_torch.kernels.logreg_loglik import (
     logreg_loglik,
     logreg_loglik_grad,
@@ -136,7 +142,16 @@ def test_cpu_tensors_take_the_plain_version_and_never_count_a_launch():
         assert torch.equal(a, b)
     theta = torch.randn(70, 4, 9)
     assert torch.equal(img_log_weights(theta, 0.4), img_log_weights_ref(theta, 0.4))
-    assert kernels.launch_counts() == {"logreg_loglik_grad": 0, "img_log_weights": 0}
+    q, s = torch.randn(30, 9), torch.randn(4, 70, 9)
+    for reduce in ("none", "product_mixture"):
+        got = machine_kde_log_density(q, s, 0.4, reduce=reduce)
+        want = machine_kde_log_density_ref(q, s, 0.4, reduce=reduce)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a, b)
+    assert torch.equal(kde_log_density(q, s[0], 0.4), kde_log_density_ref(q, s[0], 0.4))
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    assert len(kernels.KERNELS) == 4
 
 
 def test_wrappers_reject_mismatched_shapes():
