@@ -22,8 +22,17 @@ a non-zero exit:
               (``ALL_SPEC``): the KDE kernel must have launched, the eleven
               logL2 values must sit inside their CPU bands and the first
               three must equal phase 4's; per-combiner seconds after it;
+4c. stream  — combine-while-sampling, ``Pipeline(STREAM_SPEC)
+              .stream_combine()`` (ALL_SPEC folded every 120 draws, fused):
+              launch counts derived from the spec (``online_update`` once per
+              fold chunk), 50 finite trajectory values, finals equal to 4b's;
+              then the subscriber path (bitwise the same finals for the
+              buffered combiners, no ``online_update`` launch) and an
+              interrupted-then-resumed checkpointed run (bitwise the same θ);
 5. timing   — CUDA-event times of each kernel and its plain version at the
-              paths' shapes, beside the least time the card could take;
+              paths' shapes, beside the least time the card could take, and
+              the card time of PyTorch's attention at the LM sidecar's shape
+              (the yardstick of the one TPU kernel not yet ported);
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -45,6 +54,7 @@ import time
 # data sheet gives no L2 rate to bound that warm time with.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense, tensor cores
 
 # logL2 band of the main path: the port's full-width run on the CPU
 # (python -m repro_torch.launch.mcmc_run --device cpu --seeds 0 1 2) gave,
@@ -128,10 +138,10 @@ def check_bands(board, bands):
             raise AssertionError(f"logL2({name}) = {err} outside its band")
 
 
-def least_ms(nbytes, flops):
+def least_ms(nbytes, flops, peak=F32_FLOPS):
     """(least ms, what bounds it): bytes over the HBM rate or flops over the
-    float32 rate, whichever is larger."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    ``peak`` rate (float32 by default), whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
 
 
@@ -193,6 +203,7 @@ def device_ms(fn, *, iters=50, flush=None):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     phase("1 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only on an "
@@ -225,7 +236,8 @@ def main() -> int:
         logreg_loglik_grad,
         logreg_loglik_grad_ref,
     )
-    from repro_torch.launch.mcmc_run import ALL_SPEC, PAPER_SPEC
+    from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
+    from repro_torch.launch.mcmc_run import ALL_SPEC, PAPER_SPEC, STREAM_SPEC
 
     dev = torch.device("cuda", 0)
 
@@ -359,6 +371,62 @@ def main() -> int:
         err32["kde_log_density"] = max(err32.get("kde_log_density", 0.0), e32)
         errs["kde_log_density"] = max(errs.get("kde_log_density", 0.0), e64)
 
+    # online_update sums the chunk mean and the centred Gram in another order
+    # than the plain version. Against the plain version in float64 the
+    # tolerance is the kernel's own float32 rounding: count exact, mean within
+    # 1e-5·(1 + |mean|), m2 within 1e-5·max|m2| of each machine. Against the
+    # float32 plain version, whose rounding adds as much again, 1e-4 (the
+    # reference tests' figure). Shapes: the path's fold (M=10, C=120, d=50),
+    # ragged counts with NaN beyond them and an empty machine, C = 1, C < 32
+    # with d = 65, and M = d = 1.
+    def online_inputs(M, C, d, *, ragged=False):
+        count = torch.full((M,), 240.0, device=dev)
+        mean = torch.randn((M, d), generator=gen, device=dev)
+        a = torch.randn((M, 2 * d, d), generator=gen, device=dev)
+        chunk = mean[:, None, :] + 0.3 + torch.randn((M, C, d), generator=gen, device=dev)
+        counts = None
+        if ragged:
+            counts = torch.randint(1, C + 1, (M,), generator=gen, device=dev).to(torch.int32)
+            counts[0] = 0
+            rows = torch.arange(C, device=dev)[None, :, None]
+            chunk = torch.where(rows < counts[:, None, None], chunk, float("nan"))
+        return count, mean, a.transpose(1, 2) @ a, chunk.contiguous(), counts
+
+    def online_err(label, got, want, rel):
+        """Max abs error of the state; raises outside the stated tolerance."""
+        (c, mu, m2), (cw, muw, m2w) = got, want
+        mu_err = (mu.double() - muw.double()).abs()
+        m2_err = (m2.double() - m2w.double()).abs()
+        scale = m2w.double().abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+        ok = (bool(torch.equal(c.double(), cw.double()))
+              and bool(torch.isfinite(mu).all()) and bool(torch.isfinite(m2).all())
+              and bool((mu_err <= rel * (1.0 + muw.double().abs())).all())
+              and bool((m2_err <= rel * scale).all()))
+        max_err = max(float(mu_err.max()), float(m2_err.max()))
+        print(f"  {label}: max_abs_err={max_err:.3e} (mean rel {rel:g}·(1+|mean|), "
+              f"m2 rel {rel:g}·max|m2|, count exact) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: kernel disagrees with its plain version")
+        return max_err
+
+    for label, (M, C, d, ragged) in {"path fold": (10, 120, 50, False),
+                                     "path fold ragged": (10, 120, 50, True),
+                                     "C=1": (3, 1, 50, False), "C=31 d=65 ragged": (4, 31, 65, True),
+                                     "M=d=1": (1, 7, 1, False)}.items():
+        count, mean, m2, chunk, counts = online_inputs(M, C, d, ragged=ragged)
+        got = online_moments_update(count, mean, m2, chunk, counts)
+        torch.cuda.synchronize()
+        want64 = online_moments_update_ref(count.double(), mean.double(), m2.double(),
+                                           chunk.double(), counts)
+        e64 = online_err(f"online_update {label} {(M, C, d)} vs float64 plain", got, want64, 1e-5)
+        e32 = online_err(f"online_update {label} {(M, C, d)} vs float32 plain", got,
+                         online_moments_update_ref(count, mean, m2, chunk, counts), 1e-4)
+        errs["online_update"] = max(errs.get("online_update", 0.0), e64)
+        err32["online_update"] = max(err32.get("online_update", 0.0), e32)
+        if ragged:  # the empty machine comes back as it went in, bit for bit
+            if not all(torch.equal(x[0], y[0]) for x, y in zip(got, (count, mean, m2))):
+                raise AssertionError("online_update changed a machine whose chunk count is 0")
+
     phase("4 main path: Pipeline(PAPER_SPEC).run() on the card")
     print(f"  spec {PAPER_SPEC.to_json()}", flush=True)
     kernels.reset_launches()
@@ -413,10 +481,166 @@ def main() -> int:
         res = combine_spec_draws(ALL_SPEC, theta, (name,))[name]
         torch.cuda.synchronize()
         combine_s[name] = time.perf_counter() - t0
+        if name == "online":
+            all_online = res.moments  # one plain fold of the whole stack
         if name == "importance_pool":
             print(f"  importance_pool ess={float(res.extras['ess']):.2f} of "
                   f"{theta.shape[0] * theta.shape[1]} pooled draws", flush=True)
     print(f"  combine_s_by_combiner={json.dumps(combine_s)}", flush=True)
+    all_errors, all_theta = dict(board.errors), theta
+
+    phase("4c stream: Pipeline(STREAM_SPEC).stream_combine() on the card (fused)")
+    print(f"  spec {STREAM_SPEC.to_json()}", flush=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pipe = Pipeline(STREAM_SPEC)
+    sr = pipe.stream_combine()
+    board = pipe.run()  # the stream's finals and groundtruth, scored
+    torch.cuda.synchronize()
+    stream_wall = time.perf_counter() - t0
+    launches_stream = kernels.launch_counts()
+    fused = pipe.sample()
+    print(f"  backend={fused.backend} wall_s={stream_wall:.3f} "
+          f"timings_s={json.dumps(board.timings)}", flush=True)
+    print(f"  launches={json.dumps(launches_stream)}", flush=True)
+    for row in sr.trajectory:
+        print(f"  t={row['t']:5d} {sr.metric}({row['combiner']:15s}) = {row['error']:.4f} "
+              f"[{row['elapsed_s']:.3f}s]", flush=True)
+    # the same chains and finals as 4b; online_update once per fold chunk
+    # (ceil(T / stream_every)); IMG weights once per sweep of every
+    # nonparametric estimate (one per boundary, n_estimate draws in batches of
+    # max(n_batch, 8)); estimates are taken by the combiners that have one
+    every = STREAM_SPEC.stream_every
+    n_chunks = -(-STREAM_SPEC.T // every)
+    n_batch = max(int(dict(STREAM_SPEC.combiner_options)["n_batch"]), 8)
+    from repro_torch.core.combiners import get_streaming_combiner
+    estimating = [n for n in STREAM_SPEC.combiner_names()
+                  if get_streaming_combiner(n).estimate is not None]
+    expected = {
+        "logreg_loglik_grad": launches["logreg_loglik_grad"],
+        "img_log_weights": launches["img_log_weights"] + n_chunks * -(-sr.n_estimate // n_batch),
+        "machine_kde_log_density": launches["machine_kde_log_density"],
+        "kde_log_density": 0,
+        "online_update": n_chunks,
+    }
+    for name, n in expected.items():
+        if launches_stream[name] != n:
+            raise AssertionError(f"{name} launched {launches_stream[name]} times on the stream "
+                                 f"path, expected {n}")
+    values = [row["error"] for row in sr.trajectory]
+    if len(values) != n_chunks * len(estimating) or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"trajectory: {len(values)} rows for {n_chunks} boundaries x "
+                             f"{len(estimating)} estimating combiners, finite: "
+                             f"{all(math.isfinite(v) for v in values)}")
+    if [r["t"] for r in sr.trajectory] != sorted(r["t"] for r in sr.trajectory):
+        raise AssertionError("trajectory rows out of boundary order")
+    if not torch.equal(fused.theta, all_theta):
+        raise AssertionError("the fused stream's draws differ from the one-shot stage's")
+    print(f"  {len(values)} finite trajectory values ({n_chunks} boundaries x {estimating}); "
+          f"theta bitwise the one-shot stage's", flush=True)
+    # online's moments come from the kernel's fold in ten chunks, 4b's from
+    # one plain fold of the whole stack, so its logL2 (~66) moves by merge
+    # rounding: 6.1e-5 on an H100 (8 float32 spacings of 7.6e-6 at 66).
+    # 1e-3 leaves 16x room over that reading and still catches a fault in
+    # the moments that moves logL2 by 1.5e-5 of its value; the moment checks
+    # below hold the merge itself much tighter. Every other name: same θ,
+    # same generator, so within 1e-4 (bitwise in fact).
+    ONLINE_LOGL2_TOL = 1e-3
+    for name, err in sorted(board.errors.items()):
+        tol = ONLINE_LOGL2_TOL if name == "online" else 1e-4
+        diff = abs(err - all_errors[name])
+        print(f"  final logL2({name}) = {err:.6f}, 4b {all_errors[name]:.6f}, |diff| {diff:.3e} "
+              f"(tol {tol:g}) {'ok' if diff <= tol else 'FAIL'}", flush=True)
+        if not diff <= tol:
+            raise AssertionError(f"stream final logL2({name}) = {err}, 4b gave {all_errors[name]}")
+
+    # the subscriber path: the host folds (online through its plain chunk
+    # merge), the same θ; finals bitwise for the buffered combiners
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pipe_sub = Pipeline(STREAM_SPEC)
+    sub = pipe_sub.stream_combine(fused=False, score=False)
+    torch.cuda.synchronize()
+    sub_wall = time.perf_counter() - t0
+    launches_sub = kernels.launch_counts()
+    print(f"  subscriber: backend={pipe_sub.sample().backend} wall_s={sub_wall:.3f} "
+          f"launches={json.dumps(launches_sub)}", flush=True)
+    if launches_sub["online_update"] != 0:
+        raise AssertionError("the subscriber path launched online_update")
+    if [(r["t"], r["combiner"]) for r in sub.trajectory] != \
+            [(r["t"], r["combiner"]) for r in sr.trajectory]:
+        raise AssertionError("subscriber trajectory rows differ from the fused ones")
+    for name in STREAM_SPEC.combiner_names():
+        if name == "online":
+            continue
+        if not torch.equal(sub.combined[name].samples, sr.combined[name].samples):
+            raise AssertionError(f"subscriber final {name} differs from the fused one")
+    # online: the same generator draws from moments that differ by merge
+    # rounding. Limits, each from two readings on an H100: the sound gaps
+    # (kernel fold against the host's ten-chunk fold: mean 2.1e-6, cov
+    # 4.4e-7 of max|cov|) and a planted merge fault (the δδᵀ·n_a·n_b/n term
+    # dropped), which the script measures below and must fail. The product
+    # mean within 2e-5·(1 + |mean|), the covariance within 1e-5·max|cov|;
+    # they bind the kernel fold against the host's ten-chunk fold and against
+    # 4b's single plain fold of the whole stack alike.
+    from repro_torch.core.combiners.online import (
+        OnlineMoments, online_init, online_product, online_update_chunk)
+
+    mf = sr.combined["online"].moments
+
+    def moment_gap(m):
+        mean_rel = float(((mf.mean - m.mean).abs() / (1 + m.mean.abs())).max())
+        cov_rel = float((mf.cov - m.cov).abs().max() / m.cov.abs().max())
+        return mean_rel, cov_rel
+
+    def within(gap):
+        return gap[0] <= 2e-5 and gap[1] <= 1e-5
+
+    # the planted fault: each chunk folded alone, the states summed with no
+    # between-chunk δδᵀ term
+    parts = [online_update_chunk(online_init(STREAM_SPEC.M, fused.theta.shape[-1],
+                                             device=dev), fused.theta[:, t:t + every])
+             for t in range(0, STREAM_SPEC.T, every)]
+    count = sum(q.count for q in parts)
+    faulty = online_product(OnlineMoments(
+        count, sum(q.count[:, None] * q.mean for q in parts) / count[:, None],
+        sum(q.m2 for q in parts)))
+    gaps = {"subscriber (host ten-chunk fold)": moment_gap(sub.combined["online"].moments),
+            "4b (one plain fold of the stack)": moment_gap(all_online),
+            "planted fault (no δδᵀ merge term)": moment_gap(faulty)}
+    for label, gap in gaps.items():
+        print(f"  online product vs the fused kernel fold, {label}: mean |diff|/(1+|mean|) "
+              f"{gap[0]:.3e}, cov |diff|/max|cov| {gap[1]:.3e} (limits 2e-05, 1e-05) "
+              f"{'within' if within(gap) else 'outside'}", flush=True)
+    *sound, fault = gaps.values()
+    if not all(within(g) for g in sound):
+        raise AssertionError("online moments outside merge rounding of the fused ones")
+    if within(fault):
+        raise AssertionError("the online moment limits let a dropped merge term pass")
+    print("  subscriber finals bitwise the fused ones for the ten buffered combiners", flush=True)
+
+    # interrupted at 600 draws, then resumed: the same θ, bitwise
+    import tempfile
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        part = Pipeline(STREAM_SPEC, checkpoint_dir=ckpt, checkpoint_every=every).stream_combine(
+            max_steps=STREAM_SPEC.T // 2, score=False)
+        pipe_res = Pipeline(STREAM_SPEC, checkpoint_dir=ckpt, checkpoint_every=every)
+        full = pipe_res.stream_combine(score=False)
+        torch.cuda.synchronize()
+        resumed = pipe_res.sample()
+        print(f"  resume: first session {part.t_done}/{part.total} complete={part.complete}, "
+              f"second {full.t_done}/{full.total} complete={full.complete} "
+              f"backend={resumed.backend} wall_s={time.perf_counter() - t0:.3f}", flush=True)
+    if part.complete or part.t_done != STREAM_SPEC.T // 2 or not full.complete:
+        raise AssertionError("the interrupted run did not stop at max_steps and then finish")
+    if not torch.equal(resumed.theta, fused.theta):
+        raise AssertionError("the resumed run's θ differs from the fused run's")
+    for name in STREAM_SPEC.combiner_names():
+        if not torch.equal(full.combined[name].samples, sub.combined[name].samples):
+            raise AssertionError(f"resumed final {name} differs from the uninterrupted one")
+    print("  resumed θ bitwise the fused run's; resumed finals bitwise the subscriber run's",
+          flush=True)
 
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
@@ -493,17 +717,65 @@ def main() -> int:
                          "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
                          "shape": f"Q={Q} M={M} T={T} d={d} {reduce}"})
 
+    # online_update at the stream path's fold
+    M, C, d = 10, 120, 50
+    count, mean, m2, chunk, _ = online_inputs(M, C, d)
+    nbytes = 4 * (M * C * d + 2 * (M + M * d + M * d * d))
+    flops = 2 * M * C * d * d + 2 * M * C * d + 4 * M * d * d  # Gram, mean + centring, merge
+    bound, bound_by = least_ms(nbytes, flops)
+    ms, host = device_ms(lambda: online_moments_update(count, mean, m2, chunk))
+    cold, _ = device_ms(lambda: online_moments_update(count, mean, m2, chunk), flush=flush)
+    # ten calls behind the sleep: the plain version is ~30 launches a call,
+    # and more would fill the stream's queue
+    plain, plain_host = device_ms(lambda: online_moments_update_ref(count, mean, m2, chunk),
+                                  iters=10)
+    print(f"  online_update M={M} C={C} d={d}: kernel {ms * 1e3:.2f} us "
+          f"(cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} us/call), "
+          f"plain {plain * 1e3:.2f} us (host {plain_host * 1e3:.2f} us/call), "
+          f"bound {bound * 1e3:.3f} us by {bound_by}", flush=True)
+    rows.append({"name": "online_update", "ms": ms, "cold_ms": cold, "host_ms": host,
+                 "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                 "shape": f"M={M} C={C} d={d}"})
+
+    # flash_attention is not ported (LM sidecar): PyTorch's attention at the
+    # attention shape of repro/configs/llama3_2_3b.py (8 KV heads, 3 query
+    # heads each, head dim 128, causal, bf16), batch 1, S = T = 4096, as the
+    # yardstick of that TPU kernel; causal work = half of 4·S·T·hd per query head
+    B, K, G, hd, S = 1, 8, 3, 128, 4096
+    q = torch.randn((B, K * G, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, K, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, K, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        sdpa(q[:, :, :8], k[:, :, :8], v[:, :, :8], is_causal=True, enable_gqa=True)
+        run = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+        how = "enable_gqa"
+    except TypeError:  # an older PyTorch: repeat the KV heads for it
+        k_rep, v_rep = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+        run = lambda: sdpa(q, k_rep, v_rep, is_causal=True)  # noqa: E731
+        how = "KV heads repeated"
+    nbytes = 2 * (2 * B * K * G * S * hd + 2 * B * K * S * hd)  # q, out; k, v
+    flops = 2 * B * K * G * S * S * hd  # causal half of 4·S·T·hd per query head
+    att_bound, att_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
+    att_ms, att_host = device_ms(run, iters=20)
+    print(f"  flash_attention (not ported) yardstick: scaled_dot_product_attention B={B} "
+          f"Hq={K * G} Hkv={K} S=T={S} hd={hd} causal bf16 ({how}): {att_ms * 1e3:.2f} us "
+          f"(host enqueue {att_host * 1e3:.2f} us/call), bound {att_bound * 1e3:.2f} us by "
+          f"{att_by}", flush=True)
+
     phase("6 summary")
+    print(f"  chip_smoke ran {time.perf_counter() - t_start:.1f} s, the build included", flush=True)
     out = []
     for r in rows:
         k = kernels.KERNELS[r["name"]]
         entry = {
             "name": r["name"], "route": "cuda", "source": os.path.relpath(k.source, root),
-            "replaces": k.replaces, "launches": launches[r["name"]],
+            "replaces": k.replaces, "launches": launches_stream[r["name"]],
             "max_abs_err": errs[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "cold_ms": r["cold_ms"], "host_ms": r["host_ms"], "shape": r["shape"],
-            "launches_by_path": {"paper": launches_paper[r["name"]], "all": launches[r["name"]]},
+            "launches_by_path": {"paper": launches_paper[r["name"]], "all": launches[r["name"]],
+                                 "stream": launches_stream[r["name"]]},
         }
         if r["name"] in err32:
             entry["max_abs_err_float32_plain"] = err32[r["name"]]

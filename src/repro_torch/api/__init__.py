@@ -10,6 +10,12 @@
                    combiner_options={"weight_eval": "kernel", "n_batch": 16})
     print(Pipeline(spec).run().table())          # on the card
     print(Pipeline(spec, device="cpu").run().table())
+
+Combine while sampling (``RunSpec.stream_every > 0``)::
+
+    sr = Pipeline(dataclasses.replace(spec, stream_every=120)).stream_combine()
+    sr.trajectory   # one row per (chunk boundary, combiner with an estimate)
+    sr.combined     # the finals, bitwise the batch combine's for buffered combiners
 """
 
 from repro_torch.api.pipeline import (  # noqa: F401
@@ -17,7 +23,21 @@ from repro_torch.api.pipeline import (  # noqa: F401
     Pipeline,
     Scoreboard,
     ShardedData,
+    StreamResult,
+    StreamSetup,
     SubposteriorDraws,
     combine_spec_draws,
+)
+from repro_torch.api.resumable import (  # noqa: F401
+    ResumableSample,
+    sample_subposteriors_resumable,
+)
+from repro_torch.api.streaming import (  # noqa: F401
+    FusedFold,
+    ShardChainStream,
+    StreamChunk,
+    StreamedSample,
+    fused_fold,
+    stream_sample,
 )
 from repro_torch.api.spec import RunSpec  # noqa: F401

@@ -5,11 +5,18 @@ The port of ``repro/api/sampling.py`` for MH-style samplers. The reference
 batch from the start: positions ``(M, d)``, per-chain step sizes ``(M, 1)``,
 and a subposterior log-density ``(M, d) -> (M,)`` over the stacked shards.
 No chain reads another chain's state.
+
+The chain driver comes in two parts, after the reference's chunk backend
+(``repro/api/backends.py``, ``_setup_one`` / ``_chunk_one``):
+:func:`setup_shard_chains` (init, warmup, burn-in) and :func:`shard_chunk`
+(the next n kept draws). Both draw from one generator in order, so a run cut
+into chunks of any size draws exactly the numbers of the one-shot run, which
+is setup plus one chunk of T.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -19,7 +26,7 @@ from repro_torch.core.subposterior import (
     partition_data,
 )
 from repro_torch.models.bayes import BayesModel
-from repro_torch.samplers import filter_options, run_chain, sampler_spec
+from repro_torch.samplers import chain_collect, chain_setup, filter_options, sampler_spec
 from repro_torch.samplers.base import MCMCKernel
 
 Data = Dict[str, torch.Tensor]
@@ -85,6 +92,48 @@ def make_shard_kernel(
     )
 
 
+def setup_shard_chains(
+    sk: ShardKernel,
+    lp: LogDensityFn,
+    gen: torch.Generator,
+    n_chains: int,
+    *,
+    burn_in: int,
+    warmup: int,
+    step_size: float,
+) -> Tuple[Any, "torch.Tensor | float"]:
+    """Init, warmup and burn-in of ``n_chains`` chains on the batched
+    log-density ``lp``: ``(kernel state, step size)``.
+
+    Adaptive kernels spend ``warmup`` dual-averaging transitions per chain
+    and return their adapted ``(M, 1)`` steps; non-adaptive ones treat the
+    warmup as extra burn-in and return ``step_size``. ``sk.build(lp, step)``
+    rebuilds the kernel the setup ended with.
+    """
+    pos0 = sk.init_position(gen, (n_chains,))
+    if sk.adaptive and warmup > 0:
+        _, state, eps = chain_setup(
+            gen, lambda e: sk.build(lp, e), pos0,
+            burn_in=burn_in, warmup=warmup,
+            initial_step_size=step_size, target_accept=sk.target_accept,
+        )
+    else:
+        _, state, eps = chain_setup(
+            gen, sk.build(lp, step_size), pos0,
+            burn_in=burn_in + (0 if sk.adaptive else warmup), initial_step_size=step_size,
+        )
+    return state, eps
+
+
+def shard_chunk(
+    kernel: MCMCKernel, gen: torch.Generator, state: Any, n: int
+) -> Tuple[Any, torch.Tensor, torch.Tensor]:
+    """The next ``n`` kept draws of every chain: ``(state, theta (M, n, d),
+    accepted (M, n) bool)``."""
+    state, theta, info = chain_collect(gen, kernel, state, n)
+    return state, theta, info.is_accepted
+
+
 def run_shard_chain(
     sk: ShardKernel,
     shards: Data,
@@ -96,26 +145,21 @@ def run_shard_chain(
     warmup: int,
     step_size: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chains of all shards: ``(theta (M, T, d), mean_accept (M,))``.
-
-    Adaptive kernels spend ``warmup`` dual-averaging transitions per chain;
-    non-adaptive ones treat them as extra burn-in.
-    """
-    n_chains = counts.shape[0]
-    pos0 = sk.init_position(gen, (n_chains,))
+    """The chains of all shards in one go: ``(theta (M, T, d), mean_accept (M,))``,
+    :func:`setup_shard_chains` then one :func:`shard_chunk` of T."""
     lp = sk.logpdf(shards, counts)
-    if sk.adaptive and warmup > 0:
-        pos, info = run_chain(
-            gen, lambda eps: sk.build(lp, eps), pos0, num_samples,
-            burn_in=burn_in, warmup=warmup,
-            initial_step_size=step_size, target_accept=sk.target_accept,
-        )
-    else:
-        pos, info = run_chain(
-            gen, sk.build(lp, step_size), pos0, num_samples,
-            burn_in=burn_in + (0 if sk.adaptive else warmup),
-        )
-    return pos, info.is_accepted.to(torch.float32).mean(dim=-1)
+    state, eps = setup_shard_chains(
+        sk, lp, gen, counts.shape[0], burn_in=burn_in, warmup=warmup, step_size=step_size
+    )
+    _, theta, accepted = shard_chunk(sk.build(lp, eps), gen, state, num_samples)
+    return theta, accepted.to(torch.float32).mean(dim=-1)
+
+
+def is_padded(model: BayesModel, shards: Data, counts: torch.Tensor) -> bool:
+    """Whether some shard holds edge-padded rows (then the counts correct the
+    log-likelihood)."""
+    keys = model.shard_keys or tuple(shards)
+    return bool((counts != shards[keys[0]].shape[1]).any())
 
 
 def sample_subposteriors(
@@ -137,19 +181,19 @@ def sample_subposteriors(
 
     Partitions ``data`` (edge-padded) unless ``shards``/``counts`` are given.
     """
+    from repro_torch.api.backends import BackendId
+
     if shards is None or counts is None:
         shards, counts = partition_data(data, num_shards, only=model.shard_keys, pad=True)
-    keys = model.shard_keys or tuple(shards)
-    padded = bool((counts != shards[keys[0]].shape[1]).any())
     sk = make_shard_kernel(
         model, num_shards, sampler or model.default_sampler,
-        use_counts=padded, sampler_options=sampler_options,
+        use_counts=is_padded(model, shards, counts), sampler_options=sampler_options,
     )
     theta, acc = run_shard_chain(
         sk, shards, counts, gen,
         num_samples=num_samples, burn_in=burn_in, warmup=warmup, step_size=step_size,
     )
-    return SampleResult(theta, acc, counts, f"batched[{counts.device.type}]")
+    return SampleResult(theta, acc, counts, BackendId.batched(counts.device.type))
 
 
 def groundtruth_chain(

@@ -34,7 +34,9 @@ class RunSpec:
     Zero values mean "use the registry/paper default" (``sampler=None`` →
     the model's ``default_sampler``, ``burn_in=0`` → T/6, ``n=0`` → the
     model's ``default_n``). ``combiner`` may be ``"all"``, one name, or a
-    tuple of names. ``stream_every``, ``mesh_shape`` and ``sgld_batch`` are
+    tuple of names. ``stream_every > 0`` samples in chunks of that many draws
+    and lets ``Pipeline.stream_combine`` fold each chunk as it lands (0: one
+    chunk); a negative value is refused. ``mesh_shape`` and ``sgld_batch`` are
     kept for the shared ``spec_id``; the port does not run those paths yet.
     """
 

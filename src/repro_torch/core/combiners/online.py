@@ -1,11 +1,22 @@
 """Online parametric combiner (paper §4: combine as samples stream in).
 
-The port of the batch face of ``repro/core/combiners/online.py``: Welford
-moments per machine, O(d²) state and O(1) work per sample, so the
-parametric product estimate needs no gathered ``(M, T, d)`` stack. The
-registered ``online`` combiner folds the whole stack through one chunk update
-and samples the product. The streaming slot and the scan face (and the
-``online_update`` kernel behind it) come with the streaming slice.
+The port of ``repro/core/combiners/online.py``: Welford moments per machine,
+O(d²) state and O(1) work per sample, so the parametric product estimate
+needs no gathered ``(M, T, d)`` stack. Three faces:
+
+- batch: ``online(gen, samples, n_draws, counts=...)`` folds the whole stack
+  through one chunk update and samples the product;
+- streaming (host): :data:`ONLINE_STREAMING`, whose state is
+  :class:`OnlineMoments` and whose folds run the plain
+  :func:`online_update_chunk`; its estimate is its finalize;
+- scan (the fused streaming path): :data:`ONLINE_SCAN`, whose folds run the
+  hand-written ``online_update`` kernel through
+  :func:`online_update_chunk_kernel`.
+
+The kernel and the plain fold agree to float32 rounding per fold, never
+bitwise (see :mod:`repro_torch.kernels.online_update.ops`), so fused and
+subscriber ``online`` results agree to merge rounding; the bitwise streaming
+guarantee belongs to the buffered combiners.
 """
 
 from __future__ import annotations
@@ -14,7 +25,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.combiners.api import CombineResult, counts_or_full, register
+from repro_torch.core.combiners.api import (
+    CombineResult,
+    ScanStreamingFace,
+    StreamingCombiner,
+    counts_or_full,
+    register,
+    register_scan_face,
+)
 from repro_torch.core.gaussian import GaussianMoments, product_moments, sample_gaussian
 
 
@@ -89,6 +107,21 @@ def online_update_chunk(
     )
 
 
+def online_update_chunk_kernel(
+    state: OnlineMoments,
+    chunk: torch.Tensor,
+    chunk_counts: Optional[torch.Tensor] = None,
+) -> OnlineMoments:
+    """The same merge as :func:`online_update_chunk`, computed by the fused
+    ``online_update`` kernel on the card (one launch for all machines) and by
+    its plain version on the CPU; the scan face's update."""
+    from repro_torch.kernels.online_update import online_moments_update
+
+    return OnlineMoments(*online_moments_update(
+        state.count, state.mean, state.m2, chunk, chunk_counts
+    ))
+
+
 def online_product(state: OnlineMoments, *, jitter: float = 1e-8) -> GaussianMoments:
     """Current parametric product estimate from streaming moments."""
     d = state.mean.shape[-1]
@@ -97,7 +130,32 @@ def online_product(state: OnlineMoments, *, jitter: float = 1e-8) -> GaussianMom
     return product_moments(state.mean, state.m2 / denom + jitter * eye)
 
 
-@register("online", "online_parametric")
+def _finalize(
+    gen: torch.Generator,
+    state: OnlineMoments,
+    n_draws: int,
+    *,
+    jitter: float = 1e-8,
+    **_ignored,
+) -> CombineResult:
+    prod = online_product(state, jitter=jitter)
+    return CombineResult(
+        samples=sample_gaussian(gen, prod, n_draws),
+        acceptance_rate=torch.ones((), device=state.mean.device),
+        moments=prod,
+    )
+
+
+# estimate IS finalize: sampling the moment product is already O(d²)
+ONLINE_STREAMING = StreamingCombiner(
+    init=online_init,
+    update=online_update_chunk,
+    finalize=_finalize,
+    estimate=_finalize,
+)
+
+
+@register("online", "online_parametric", streaming=ONLINE_STREAMING)
 def online(
     gen: torch.Generator,
     samples: torch.Tensor,
@@ -113,9 +171,25 @@ def online(
     state = online_update_chunk(
         online_init(M, d, samples.dtype, samples.device), samples, counts
     )
-    prod = online_product(state, jitter=jitter)
-    return CombineResult(
-        samples=sample_gaussian(gen, prod, n_draws),
-        acceptance_rate=torch.ones((), device=samples.device),
-        moments=prod,
-    )
+    return _finalize(gen, state, n_draws, jitter=jitter)
+
+
+def _online_scan_estimate(
+    gen, state: OnlineMoments, n_draws: int, *, jitter: float = 1e-8, **_ignored
+) -> torch.Tensor:
+    """Trajectory draws of the fused path: the host estimate's moment-product
+    sample, as raw draws."""
+    return sample_gaussian(gen, online_product(state, jitter=jitter), n_draws)
+
+
+# the host state is the scan state: OnlineMoments pass through to_state, and
+# the fused path's folds run the kernel
+ONLINE_SCAN = register_scan_face(
+    "online",
+    ScanStreamingFace(
+        init=online_init,
+        update=online_update_chunk_kernel,
+        to_state=lambda scan_state, theta, counts: scan_state,
+        estimate=_online_scan_estimate,
+    ),
+)

@@ -82,6 +82,10 @@ KERNELS: Dict[str, Kernel] = {
         "kde_log_density", "kde_density.cu",
         replaces="src/repro/kernels/kde_density/kernel.py:239",
     ),
+    "online_update": Kernel(
+        "online_update", "online_update.cu",
+        replaces="src/repro/kernels/online_update/kernel.py:69",
+    ),
 }
 
 _BUILD_LOCK = threading.Lock()

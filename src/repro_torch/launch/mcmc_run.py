@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --seeds 0 1 2
     PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --seeds 0 1 2 --combiner all
+    PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --combiner all --stream-every 120
 
 The default spec is the paper's §8.1 logistic-regression experiment at full
 width (:data:`PAPER_SPEC`: n=50,000, d=50, M=10, T=1200, MALA, the
@@ -9,7 +10,11 @@ parametric / nonparametric / semiparametric combiners with kernel-scored IMG
 sweeps of 16 chains). ``--combiner all`` scores every registered combiner
 (:data:`ALL_SPEC`: the same run, plus a density-guided Weierstrass start over
 a 1,000-point pool); ``--combiner NAME ...`` scores the named ones under
-ALL_SPEC's options. Each seed prints its scoreboard as one JSON line.
+ALL_SPEC's options. ``--stream-every N`` combines while sampling
+(``Pipeline.stream_combine``, :data:`STREAM_SPEC` is ALL_SPEC at N = 120 =
+T/10) and prints the trajectory first; ``--checkpoint-dir`` /
+``--checkpoint-every`` persist the sampling stage and resume it. Each seed
+prints its scoreboard as one JSON line.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ ALL_SPEC = RunSpec(
     combiner="all",
     combiner_options={"weight_eval": "kernel", "n_batch": 16, "init_pool": 1000},
 )
+STREAM_SPEC = dataclasses.replace(ALL_SPEC, stream_every=120)
 
 
 def spec_for(combiner: Optional[Sequence[str]]) -> RunSpec:
@@ -53,16 +59,47 @@ def add_combiner_option(ap: argparse.ArgumentParser) -> None:
     )
 
 
+def print_trajectory(sr) -> None:
+    """The stream's trajectory, as the reference CLI prints it."""
+    first = sr.trajectory[0] if sr.trajectory else None
+    if first is not None:
+        print(
+            f"streaming: first {sr.metric} estimate ({first['combiner']}, t={first['t']}) "
+            f"after {first['elapsed_s']:.1f}s; {len(sr.trajectory)} trajectory points "
+            f"over {sr.t_done}/{sr.total} draws"
+        )
+    for row in sr.trajectory:
+        err = "  -  " if row["error"] is None else f"{row['error']:.4f}"
+        print(f"  t={row['t']:6d} {sr.metric}({row['combiner']:15s}) = {err}"
+              f"  [{row['elapsed_s']:.1f}s]")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seeds", type=int, nargs="+", default=[PAPER_SPEC.seed])
     add_combiner_option(ap)
+    ap.add_argument(
+        "--stream-every", type=int, default=0,
+        help="combine-while-sampling: fold every N landed draws into the streaming "
+        "combiners and print the scoreboard trajectory (0 = off)",
+    )
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="persist/resume the sampling stage here (chunked kernel state)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="draws per sampling checkpoint (with --checkpoint-dir; 0 = at end)")
     args = ap.parse_args(argv)
-    base = spec_for(args.combiner)
+    if args.checkpoint_dir is not None and len(args.seeds) > 1:
+        # a checkpoint belongs to one spec, and the seed is part of it
+        ap.error("--checkpoint-dir takes one seed (each seed is its own run to resume)")
+    base = dataclasses.replace(spec_for(args.combiner), stream_every=args.stream_every)
     for seed in args.seeds:
         spec = dataclasses.replace(base, seed=seed)
-        board = Pipeline(spec, device=args.device).run()
+        pipe = Pipeline(spec, device=args.device, checkpoint_dir=args.checkpoint_dir,
+                        checkpoint_every=args.checkpoint_every)
+        if args.stream_every > 0:
+            print_trajectory(pipe.stream_combine())
+        board = pipe.run()
         print(json.dumps({"seed": seed, "device": args.device or "cuda", **board.to_dict()}))
     return 0
 

@@ -1,19 +1,22 @@
 """Where the device time of the paper's pipeline goes, from torch.profiler.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_pipeline [--combiner all]
+    PYTHONPATH=src python -m repro_torch.launch.profile_pipeline [--combiner all] [--stream-every 120]
 
 Runs ``Pipeline(spec).run()`` (``PAPER_SPEC``, or ``ALL_SPEC`` with
-``--combiner all``; the same choices as ``mcmc_run``) on the card once to
-warm up, once unprofiled, then once under ``torch.profiler`` (CUDA activity
-only), and prints one JSON line: the spec, the wall seconds of both timed
-runs, the device time summed over kernels, the device's busy and idle shares
-of the profiled run's wall time, its stage times, and the kernels that took
-the most device time with their launch counts.
+``--combiner all``; the same choices as ``mcmc_run``; with ``--stream-every
+N`` the fused ``stream_combine()`` first, then the scoreboard from its
+finals) on the card once to warm up, once unprofiled, then once under
+``torch.profiler`` (CUDA activity only), and prints one JSON line: the spec,
+the wall seconds of both timed runs, the device time summed over kernels,
+the device's busy and idle shares of the profiled run's wall time, its stage
+times, and the kernels that took the most device time with their launch
+counts.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -28,21 +31,32 @@ from repro_torch.launch.mcmc_run import add_combiner_option, spec_for
 TOP_KERNELS = 12
 
 
+def run(spec):
+    """The spec's scoreboard; a streaming spec combines while it samples."""
+    pipe = Pipeline(spec)
+    if spec.stream_every > 0:
+        pipe.stream_combine()
+    return pipe.run()
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_combiner_option(ap)
-    spec = spec_for(ap.parse_args(argv).combiner)
-    Pipeline(spec).run()  # warm-up: allocator, cuBLAS/cuSOLVER handles, kernel build
+    ap.add_argument("--stream-every", type=int, default=0,
+                    help="profile the fused combine-while-sampling run at this cadence")
+    args = ap.parse_args(argv)
+    spec = dataclasses.replace(spec_for(args.combiner), stream_every=args.stream_every)
+    run(spec)  # warm-up: allocator, cuBLAS/cuSOLVER handles, kernel build
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    Pipeline(spec).run()
+    run(spec)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     # device activity only: tracing every CPU op would slow the host-bound
     # run and understate the busy share
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        board = Pipeline(spec).run()
+        board = run(spec)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side rows only: a CPU op's row also carries the device time of

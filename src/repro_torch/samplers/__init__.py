@@ -10,7 +10,14 @@ from repro_torch.samplers.adaptation import (  # noqa: F401
     da_update,
     warmup_chain,
 )
-from repro_torch.samplers.base import MCMCKernel, StepInfo, run_chain, run_chains  # noqa: F401
+from repro_torch.samplers.base import (  # noqa: F401
+    MCMCKernel,
+    StepInfo,
+    chain_collect,
+    chain_setup,
+    run_chain,
+    run_chains,
+)
 from repro_torch.samplers.mala import mala_kernel  # noqa: F401
 from repro_torch.samplers.registry import (  # noqa: F401
     SamplerSpec,

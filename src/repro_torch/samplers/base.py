@@ -33,6 +33,71 @@ class StepInfo(NamedTuple):
     log_density: torch.Tensor
 
 
+def chain_setup(
+    gen: torch.Generator,
+    kernel: "MCMCKernel | Callable[[torch.Tensor], MCMCKernel]",
+    position: torch.Tensor,
+    *,
+    burn_in: int = 0,
+    warmup: int = 0,
+    initial_step_size: float = 0.1,
+    target_accept: float = 0.8,
+) -> Tuple[MCMCKernel, Any, "torch.Tensor | float"]:
+    """Warmup and burn-in of the chains in ``position (..., d)``:
+    ``(kernel, state, step_size)``, ready for :func:`chain_collect`.
+
+    ``kernel`` may be a factory ``step_size -> MCMCKernel``; ``warmup > 0``
+    requires one: ``warmup`` dual-averaging transitions adapt each chain's
+    step size toward ``target_accept`` from ``initial_step_size``, and the
+    kernel returned is frozen at the adapted ``(..., 1)`` steps (the returned
+    ``step_size``; ``initial_step_size`` otherwise). Warmup and burn-in
+    transitions are discarded.
+    """
+    step_size: "torch.Tensor | float" = initial_step_size
+    if warmup > 0:
+        from repro_torch.samplers import adaptation
+
+        if isinstance(kernel, MCMCKernel) or not callable(kernel):
+            raise TypeError(
+                "warmup needs a kernel factory (step_size -> MCMCKernel); "
+                "got a built kernel whose step size cannot be adapted"
+            )
+        kernel, position, step_size = adaptation.warmup_chain(
+            gen, kernel, position, warmup,
+            initial_step_size=initial_step_size, target_accept=target_accept,
+        )
+    elif not isinstance(kernel, MCMCKernel) and callable(kernel):
+        kernel = kernel(initial_step_size)
+    state = kernel.init(position)
+    for _ in range(burn_in):
+        state, _ = kernel.step(gen, state)
+    return kernel, state, step_size
+
+
+def chain_collect(
+    gen: torch.Generator,
+    kernel: MCMCKernel,
+    state: Any,
+    num_samples: int,
+    *,
+    thin: int = 1,
+) -> Tuple[Any, torch.Tensor, StepInfo]:
+    """``num_samples`` kept draws from a live state: ``(state, (..., T, d),
+    info (..., T))``; ``thin`` keeps every thin-th transition."""
+    position = state.position
+    batch = position.shape[:-1]
+    out = torch.empty((num_samples,) + tuple(position.shape), dtype=position.dtype,
+                      device=position.device)
+    infos = []
+    for t in range(num_samples):
+        for _ in range(thin):
+            state, info = kernel.step(gen, state)
+        out[t] = state.position
+        infos.append(info)
+    stacked = StepInfo(*(torch.stack(f, dim=-1) for f in zip(*infos)))
+    return state, out.movedim(0, len(batch)).contiguous(), stacked
+
+
 def run_chain(
     gen: torch.Generator,
     kernel: "MCMCKernel | Callable[[torch.Tensor], MCMCKernel]",
@@ -47,41 +112,15 @@ def run_chain(
 ) -> Tuple[torch.Tensor, StepInfo]:
     """Drive the chains of ``position (..., d)``; returns ``(..., T, d)`` + info ``(..., T)``.
 
-    ``kernel`` may be a factory ``step_size -> MCMCKernel``; ``warmup > 0``
-    requires one: ``warmup`` dual-averaging transitions adapt each chain's
-    step size toward ``target_accept`` from ``initial_step_size``, then the
-    chains run at their frozen adapted steps (``(..., 1)`` step sizes). Warmup
-    and burn-in transitions are discarded; ``thin`` keeps every thin-th draw.
+    :func:`chain_setup` (warmup, burn-in) then :func:`chain_collect`, which
+    draw from ``gen`` in that order.
     """
-    if warmup > 0:
-        from repro_torch.samplers import adaptation
-
-        if isinstance(kernel, MCMCKernel) or not callable(kernel):
-            raise TypeError(
-                "warmup needs a kernel factory (step_size -> MCMCKernel); "
-                "got a built kernel whose step size cannot be adapted"
-            )
-        kernel, position, _eps = adaptation.warmup_chain(
-            gen, kernel, position, warmup,
-            initial_step_size=initial_step_size, target_accept=target_accept,
-        )
-    elif not isinstance(kernel, MCMCKernel) and callable(kernel):
-        kernel = kernel(initial_step_size)
-    state = kernel.init(position)
-    for _ in range(burn_in):
-        state, _ = kernel.step(gen, state)
-
-    batch = position.shape[:-1]
-    out = torch.empty((num_samples,) + tuple(position.shape), dtype=position.dtype,
-                      device=position.device)
-    infos = []
-    for t in range(num_samples):
-        for _ in range(thin):
-            state, info = kernel.step(gen, state)
-        out[t] = state.position
-        infos.append(info)
-    stacked = StepInfo(*(torch.stack(f, dim=-1) for f in zip(*infos)))
-    return out.movedim(0, len(batch)).contiguous(), stacked
+    kernel, state, _ = chain_setup(
+        gen, kernel, position, burn_in=burn_in, warmup=warmup,
+        initial_step_size=initial_step_size, target_accept=target_accept,
+    )
+    _, out, info = chain_collect(gen, kernel, state, num_samples, thin=thin)
+    return out, info
 
 
 def run_chains(

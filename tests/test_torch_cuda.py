@@ -26,6 +26,7 @@ from repro_torch.kernels.logreg_loglik import (
     logreg_loglik_grad,
     logreg_loglik_grad_ref,
 )
+from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -192,3 +193,142 @@ def test_kde_wrapper_raises_when_the_launch_fails(cuda_device, monkeypatch):
     assert kernels.KERNELS["machine_kde_log_density"].launches == before
     with pytest.raises(TypeError):
         machine_kde_log_density(q.double(), s, h)
+
+
+# online_update: the kernel sums the chunk mean and the centred Gram in
+# another order than the plain version. Against the plain version in float64
+# the kernel's own float32 rounding is the tolerance: count exact, mean within
+# 1e-5·(1 + |mean|), m2 within 1e-5·max|m2| of each machine. Against the
+# float32 plain version, whose own rounding adds as much again, 1e-4 relative
+# (the reference tests' figure), 1e-4·max|m2| per machine for m2.
+def _online_inputs(device, M, C, d, *, ragged=False, seed=0):
+    """A running state after some draws, and a chunk shifted from it; NaN
+    beyond each count (with an empty machine) when ragged."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    count = torch.full((M,), 240.0, device=device)
+    mean = torch.randn((M, d), generator=gen, device=device)
+    a = torch.randn((M, 2 * d, d), generator=gen, device=device)
+    m2 = a.transpose(1, 2) @ a
+    chunk = mean[:, None, :] + 0.3 + torch.randn((M, C, d), generator=gen, device=device)
+    counts = None
+    if ragged:
+        counts = torch.randint(1, C + 1, (M,), generator=gen, device=device).to(torch.int32)
+        counts[0] = 0
+        rows = torch.arange(C, device=device)[None, :, None]
+        chunk = torch.where(rows < counts[:, None, None], chunk, float("nan"))
+    return count, mean, m2, chunk.contiguous(), counts
+
+
+def _assert_online_close(got, want, *, rel):
+    (c, mu, m2), (cw, muw, m2w) = got, want
+    assert torch.equal(c.double(), cw.double())
+    assert torch.isfinite(mu).all() and torch.isfinite(m2).all()
+    mu_err = (mu.double() - muw.double()).abs() / (1.0 + muw.double().abs())
+    assert float(mu_err.max()) <= rel
+    scale = m2w.double().abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+    assert float(((m2.double() - m2w.double()).abs() / scale).max()) <= rel
+
+
+@pytest.mark.parametrize("M,C,d,ragged", [(10, 120, 50, False), (10, 120, 50, True),
+                                          (3, 1, 50, False), (4, 31, 65, True), (1, 7, 1, False),
+                                          (2, 300, 130, True)])
+def test_online_update_kernel_matches_float64_plain(cuda_device, M, C, d, ragged):
+    count, mean, m2, chunk, counts = _online_inputs(cuda_device, M, C, d, ragged=ragged)
+    got = online_moments_update(count, mean, m2, chunk, counts)
+    torch.cuda.synchronize()
+    want64 = online_moments_update_ref(count.double(), mean.double(), m2.double(),
+                                       chunk.double(), counts)
+    _assert_online_close(got, want64, rel=1e-5)
+    _assert_online_close(got, online_moments_update_ref(count, mean, m2, chunk, counts), rel=1e-4)
+
+
+def test_online_update_kernel_empty_machine_is_bitwise_unchanged(cuda_device):
+    count, mean, m2, chunk, _ = _online_inputs(cuda_device, 3, 40, 50)
+    counts = torch.tensor([0, 40, 0], dtype=torch.int32, device=cuda_device)
+    c, mu, s = online_moments_update(count, mean, m2, chunk, counts)
+    for m in (0, 2):
+        assert torch.equal(c[m], count[m]) and torch.equal(mu[m], mean[m]) and torch.equal(s[m], m2[m])
+
+
+def test_online_update_kernel_counts_beyond_c_mirror_the_plain_version(cuda_device):
+    count, mean, m2, chunk, _ = _online_inputs(cuda_device, 2, 20, 9)
+    counts = torch.tensor([25, 20], dtype=torch.int32, device=cuda_device)
+    got = online_moments_update(count, mean, m2, chunk, counts)
+    want = online_moments_update_ref(count.double(), mean.double(), m2.double(), chunk.double(),
+                                     counts)
+    _assert_online_close(got, want, rel=1e-5)
+
+
+def test_online_update_kernel_takes_a_slice_of_the_draw_buffer(cuda_device):
+    """A (M, C, d) slice of a (M, T, d) buffer (machine stride T·d) folds as
+    its contiguous copy does, bitwise."""
+    count, mean, m2, buf, _ = _online_inputs(cuda_device, 10, 1200, 50)
+    view = buf[:, 120:240]
+    assert not view.is_contiguous()
+    for a, b in zip(online_moments_update(count, mean, m2, view),
+                    online_moments_update(count, mean, m2, view.contiguous())):
+        assert torch.equal(a, b)
+
+
+def test_online_update_kernel_is_deterministic_and_symmetric(cuda_device):
+    count, mean, m2, chunk, counts = _online_inputs(cuda_device, 10, 120, 50, ragged=True)
+    first = online_moments_update(count, mean, m2, chunk, counts)
+    assert torch.equal(first[2], first[2].transpose(1, 2))
+    for _ in range(3):
+        for a, b in zip(first, online_moments_update(count, mean, m2, chunk, counts)):
+            assert torch.equal(a, b)
+
+
+def test_online_update_counts_one_launch_per_call(cuda_device):
+    count, mean, m2, chunk, counts = _online_inputs(cuda_device, 4, 50, 70, ragged=True)
+    k = kernels.KERNELS["online_update"]
+    before = k.launches
+    online_moments_update(count, mean, m2, chunk, counts)
+    online_moments_update(count, mean, m2, chunk)
+    assert k.launches == before + 2
+    torch.cuda.synchronize()
+
+
+def test_online_update_wrapper_raises_when_the_launch_fails(cuda_device, monkeypatch):
+    from repro_torch.kernels.online_update import ops
+
+    lib, _ = ops._entry()
+    monkeypatch.setattr(ops, "_entry", lambda: (lib, lambda *args: 9))
+    count, mean, m2, chunk, _ = _online_inputs(cuda_device, 2, 10, 3)
+    before = kernels.KERNELS["online_update"].launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        online_moments_update(count, mean, m2, chunk)
+    assert kernels.KERNELS["online_update"].launches == before
+    with pytest.raises(TypeError):
+        online_moments_update(count, mean, m2, chunk.double())
+    with pytest.raises(ValueError):
+        online_moments_update(count, mean, m2, chunk.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+def test_stream_combine_fused_and_subscriber_agree_on_card(cuda_device):
+    """A small logreg stream on the card: the same θ in both modes, bitwise
+    finals for the buffered combiners, online's to merge rounding, and one
+    online_update launch per fused chunk (none on the subscriber path)."""
+    from repro_torch.api import Pipeline, RunSpec
+
+    spec = RunSpec(model="logreg", sampler="mala", M=4, T=200, warmup=30, n=2000,
+                   groundtruth_T=100, seed=0, stream_every=64,
+                   combiner=("parametric", "online", "pool", "nonparametric", "consensus"),
+                   combiner_options={"weight_eval": "kernel", "n_batch": 16})
+    k = kernels.KERNELS["online_update"]
+    before = k.launches
+    pf = Pipeline(spec, device=cuda_device)
+    sf = pf.stream_combine(n_estimate=64, score=False)
+    assert k.launches == before + 4  # 64, 128, 192 and the tail to 200
+    ps = Pipeline(spec, device=cuda_device)
+    su = ps.stream_combine(n_estimate=64, score=False, fused=False)
+    assert k.launches == before + 4
+    assert torch.equal(pf.sample().theta, ps.sample().theta)
+    assert pf.sample().backend == "batched[cuda,fused]"
+    assert ps.sample().backend == "batched[cuda,chunked]"
+    assert [(r["t"], r["combiner"]) for r in sf.trajectory] == \
+        [(r["t"], r["combiner"]) for r in su.trajectory]
+    for name in ("parametric", "pool", "nonparametric", "consensus"):
+        assert torch.equal(sf.combined[name].samples, su.combined[name].samples), name
+    torch.testing.assert_close(sf.combined["online"].moments.mean, su.combined["online"].moments.mean,
+                               rtol=1e-4, atol=1e-4)

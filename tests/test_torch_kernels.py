@@ -33,6 +33,7 @@ from repro_torch.kernels.logreg_loglik import (
     logreg_loglik_grad,
     logreg_loglik_grad_ref,
 )
+from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -150,8 +151,11 @@ def test_cpu_tensors_take_the_plain_version_and_never_count_a_launch():
                         want if isinstance(want, tuple) else (want,)):
             assert torch.equal(a, b)
     assert torch.equal(kde_log_density(q, s[0], 0.4), kde_log_density_ref(q, s[0], 0.4))
+    state = (torch.zeros(4), torch.zeros(4, 9), torch.zeros(4, 9, 9))
+    for a, b in zip(online_moments_update(*state, s), online_moments_update_ref(*state, s)):
+        assert torch.equal(a, b)
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
-    assert len(kernels.KERNELS) == 4
+    assert len(kernels.KERNELS) == 5
 
 
 def test_wrappers_reject_mismatched_shapes():
