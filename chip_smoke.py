@@ -29,10 +29,17 @@ a non-zero exit:
               then the subscriber path (bitwise the same finals for the
               buffered combiners, no ``online_update`` launch) and an
               interrupted-then-resumed checkpointed run (bitwise the same θ);
+4d. serve   — the LM sidecar's serving path, ``python -m
+              repro_torch.launch.serve --arch llama3.2-3b --batch 2
+              --prompt-len 4096 --gen 16`` at full width (random weights from
+              the seed), first in float32, then in bfloat16: 28
+              ``flash_attention`` launches a prefill and no other kernel, 32
+              in-vocabulary tokens, and each stage's logits against the
+              last-position logits of ``forward(prompt + generated[:-1])``;
 5. timing   — CUDA-event times of each kernel and its plain version at the
               paths' shapes, beside the least time the card could take, and
-              the card time of PyTorch's attention at the LM sidecar's shape
-              (the yardstick of the one TPU kernel not yet ported);
+              of PyTorch's ``scaled_dot_product_attention`` beside the flash
+              kernel (a yardstick only: the port never calls it);
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -236,8 +243,12 @@ def main() -> int:
         logreg_loglik_grad,
         logreg_loglik_grad_ref,
     )
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.launch import serve
     from repro_torch.launch.mcmc_run import ALL_SPEC, PAPER_SPEC, STREAM_SPEC
+    from repro_torch.models.lm import model as lm_model
 
     dev = torch.device("cuda", 0)
 
@@ -427,6 +438,48 @@ def main() -> int:
             if not all(torch.equal(x[0], y[0]) for x, y in zip(got, (count, mean, m2))):
                 raise AssertionError("online_update changed a machine whose chunk count is 0")
 
+    # flash_attention sums q·k and P·v in float32 in another order than the
+    # plain version's matrix products. Against the plain version in float64
+    # on the same inputs: float32 within 2e-5 (+ 2e-5·|out|); bfloat16 within
+    # the output's own rounding, 2^-8 relative (1e-2 on values of size ~1).
+    # Against the float32 plain version: float32 1e-4 (the roundings add),
+    # bfloat16 1e-2 (both round one float32 value to bfloat16). Shapes: the
+    # serving path's prefill (llama3.2-3b: 8 KV heads of 3 query heads, hd
+    # 128, S = T = 4096, causal) in bf16 and float32, the reference tests'
+    # GQA / hd_v≠hd and ragged non-causal shapes, MLA's hd 192 with hd_v 128,
+    # a kv_len inside the causal reach, and every row masked (kv_len 0:
+    # zeros, no NaN).
+    flash_cases = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype)
+        "serving path": (2, 4096, 4096, 8, 3, 128, 128, True, None, torch.bfloat16),
+        "serving path float32": (2, 4096, 4096, 8, 3, 128, 128, True, None, torch.float32),
+        "GQA hd_v=16": (2, 128, 128, 2, 2, 32, 16, True, None, torch.float32),
+        "ragged non-causal S=100 T=160": (1, 100, 160, 1, 4, 16, 16, False, None, torch.float32),
+        "MLA hd=192 hd_v=128": (1, 300, 300, 4, 1, 192, 128, True, None, torch.bfloat16),
+        "kv_len=17 hd=36": (2, 70, 90, 2, 3, 36, 20, True, 17, torch.float32),
+        "every row masked": (1, 65, 65, 1, 5, 8, 8, True, 0, torch.float32),
+    }
+    for label, (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype) in flash_cases.items():
+        q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, t, kh, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, t, kh, hd_v), generator=gen, device=dev).to(dtype)
+        out = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        tag = f"flash_attention {label} {(b, s, t, kh, g, hd, hd_v)} causal={causal} kv_len={kv_len} " \
+              f"{str(dtype).split('.')[-1]}"
+        e64 = check_close(f"{tag} vs float64 plain", out, flash_attention_ref(
+            q.double(), k.double(), v.double(), causal=causal, kv_len=kv_len),
+            rtol=2e-5 if f32 else 1e-2, atol=2e-5 if f32 else 1e-2)
+        e32 = check_close(f"{tag} vs {'float32' if f32 else 'bfloat16'} plain", out,
+                          flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len),
+                          rtol=1e-4 if f32 else 1e-2, atol=1e-4 if f32 else 1e-2)
+        errs["flash_attention"] = max(errs.get("flash_attention", 0.0), e64)
+        err32["flash_attention"] = max(err32.get("flash_attention", 0.0), e32)
+        if kv_len == 0 and not bool((out == 0).all()):
+            raise AssertionError("flash_attention: a fully masked row is not zero")
+        del q, k, v, out
+    torch.cuda.empty_cache()
+
     phase("4 main path: Pipeline(PAPER_SPEC).run() on the card")
     print(f"  spec {PAPER_SPEC.to_json()}", flush=True)
     kernels.reset_launches()
@@ -439,6 +492,8 @@ def main() -> int:
     for name in ("logreg_loglik_grad", "img_log_weights"):
         if launches_paper[name] <= 0:
             raise AssertionError(f"{name} was never launched on the main path")
+    if launches_paper["flash_attention"] != 0:
+        raise AssertionError("flash_attention launched on the MCMC path")
     check_bands(board, CPU_LOGL2)
     paper_errors = dict(board.errors)
 
@@ -467,6 +522,8 @@ def main() -> int:
     for name, n in expected.items():
         if launches[name] <= 0 or launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times on the path, expected {n}")
+    if launches["flash_attention"] != 0:
+        raise AssertionError("flash_attention launched on the ALL_SPEC path")
     check_bands(board, CPU_LOGL2_ALL)
     for name, err in paper_errors.items():
         if abs(board.errors[name] - err) > 1e-4:
@@ -522,6 +579,7 @@ def main() -> int:
         "machine_kde_log_density": launches["machine_kde_log_density"],
         "kde_log_density": 0,
         "online_update": n_chunks,
+        "flash_attention": 0,
     }
     for name, n in expected.items():
         if launches_stream[name] != n:
@@ -642,6 +700,91 @@ def main() -> int:
     print("  resumed θ bitwise the fused run's; resumed finals bitwise the subscriber run's",
           flush=True)
 
+    phase("4d serve: LM sidecar prefill + greedy decode, llama3.2-3b full width, B=2, S=4096")
+    serve_argv = ["--arch", "llama3.2-3b", "--batch", "2", "--prompt-len", "4096", "--gen", "16",
+                  "--seed", "0"]
+
+    def serve_run(dtype):
+        """The CLI's main path with the counts reset: 28 flash launches (one
+        per layer's prefill attention; S = 4096 > attn_chunk), nothing else."""
+        kernels.reset_launches()
+        out = serve.main(serve_argv + ["--dtype", dtype])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        n_layers = lm_config("llama3.2-3b").num_layers
+        print(f"  {dtype}: prefill_s={out['prefill_s']:.4f} decode_ms_per_tok="
+              f"{out['decode_s_per_tok'] * 1e3:.3f} launches={json.dumps(counts)}", flush=True)
+        want = {name: (n_layers if name == "flash_attention" else 0) for name in counts}
+        if counts != want:
+            raise AssertionError(f"serve ({dtype}) launched {counts}, expected {want}")
+        tokens = out["tokens"]
+        if tokens.shape != (2, 16) or not bool(((tokens >= 0) & (tokens < 128_256)).all()):
+            raise AssertionError(f"serve ({dtype}): tokens {tuple(tokens.shape)} out of range")
+        return out, counts
+
+    def forward_tail(model, out):
+        """forward(prompt + generated[:-1])'s logits at the 16 positions whose
+        next token the serving run chose (prefill's last, then each decode)."""
+        seq = torch.cat([out["prompt"], out["tokens"][:, :-1]], dim=1)
+        with torch.inference_mode():
+            logits, _ = lm_model.forward(model, seq)
+            tail = logits[:, -out["tokens"].shape[1]:].to(torch.float32, copy=True)
+        del logits
+        torch.cuda.empty_cache()
+        return tail
+
+    def invariant(label, out, fwd, tol):
+        """Each stage's logits within ``tol`` of forward's; the chosen token
+        equal to forward's argmax wherever forward's top-2 gap exceeds tol."""
+        gap = float((out["logits"] - fwd).abs().max())
+        top2 = fwd.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > tol
+        agree = out["tokens"] == fwd.argmax(-1)
+        ok = gap <= tol and bool(agree[clear].all())
+        print(f"  {label}: max |stage logits - forward logits| = {gap:.4e} (tol {tol:.4e}); "
+              f"tokens agree at {int(agree[clear].sum())}/{int(clear.sum())} positions whose "
+              f"top-2 gap > tol ({int(agree.sum())}/{agree.numel()} overall) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: decode disagrees with forward")
+        return gap
+
+    # float32: decode (einsum over the cache) against forward (flash) differs
+    # only by summation order; 2e-3 is the reference's own consistency figure
+    # (tests/test_model_consistency.py) on logits of size ~1
+    out32, _ = serve_run("float32")
+    _, model32, prompt32 = serve.setup(serve.parse(serve_argv + ["--dtype", "float32"]))
+    if not torch.equal(prompt32, out32["prompt"]):
+        raise AssertionError("serve.setup drew another prompt from the same seed")
+    gap32 = invariant("float32 decode vs forward", out32, forward_tail(model32, out32), 2e-3)
+    del out32
+    # bfloat16: the tolerance is bf16's own error at full width, measured on
+    # the bf16 run's sequence against the float32 model of the same draws
+    # (bf16 weights are the float32 ones rounded): both the stages and
+    # forward sit within about that of the float32 logits, so their gap
+    # within twice it
+    out16, launches_serve = serve_run("bfloat16")
+    _, model16, _ = serve.setup(serve.parse(serve_argv + ["--dtype", "bfloat16"]))
+    fwd16 = forward_tail(model16, out16)
+    dev16 = float((fwd16 - forward_tail(model32, out16)).abs().max())
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  bfloat16 forward vs float32 forward on the same tokens: max |diff| = {dev16:.4e}",
+          flush=True)
+    gap16 = invariant("bfloat16 decode vs forward", out16, fwd16, 2.0 * dev16)
+    warm = serve.generate(model16, out16["prompt"], 16)  # the same weights, warm
+    torch.cuda.synchronize()
+    serve_record = {
+        "prefill_s": out16["prefill_s"], "decode_s_per_tok": out16["decode_s_per_tok"],
+        "warm_prefill_s": warm["prefill_s"], "warm_decode_s_per_tok": warm["decode_s_per_tok"],
+        "warm_tokens_equal": bool(torch.equal(warm["tokens"], out16["tokens"])),
+        "invariant_gap_float32": gap32, "invariant_gap_bfloat16": gap16,
+        "bfloat16_vs_float32": dev16,
+    }
+    print(f"  serve {json.dumps(serve_record)}", flush=True)
+    del model16, warm, out16, fwd16
+    torch.cuda.empty_cache()
+
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
 
@@ -737,48 +880,76 @@ def main() -> int:
                  "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
                  "shape": f"M={M} C={C} d={d}"})
 
-    # flash_attention is not ported (LM sidecar): PyTorch's attention at the
-    # attention shape of repro/configs/llama3_2_3b.py (8 KV heads, 3 query
-    # heads each, head dim 128, causal, bf16), batch 1, S = T = 4096, as the
-    # yardstick of that TPU kernel; causal work = half of 4·S·T·hd per query head
-    B, K, G, hd, S = 1, 8, 3, 128, 4096
-    q = torch.randn((B, K * G, S, hd), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((B, K, S, hd), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, K, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    # flash_attention at the serving path's prefill shape (B=2) and the table's
+    # (B=1): 8 KV heads of 3 query heads, hd 128, S = T = 4096, causal, bf16.
+    # Work: 2·(hd + hd_v) flop per visible (query, kv) pair, S(S+1)/2 pairs per
+    # head; bytes: q, k, v read once, out written once. The bound is over the
+    # bf16 tensor-core rate (the inputs' type); the float32 form (the kernel's
+    # own FMA arithmetic) beside it. PyTorch's scaled_dot_product_attention
+    # on the same tensors (q and k/v as (B, heads, S, hd) views) is the
+    # library yardstick; the port never calls it.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    try:
-        sdpa(q[:, :, :8], k[:, :, :8], v[:, :, :8], is_causal=True, enable_gqa=True)
-        run = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
-        how = "enable_gqa"
-    except TypeError:  # an older PyTorch: repeat the KV heads for it
-        k_rep, v_rep = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
-        run = lambda: sdpa(q, k_rep, v_rep, is_causal=True)  # noqa: E731
-        how = "KV heads repeated"
-    nbytes = 2 * (2 * B * K * G * S * hd + 2 * B * K * S * hd)  # q, out; k, v
-    flops = 2 * B * K * G * S * S * hd  # causal half of 4·S·T·hd per query head
-    att_bound, att_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
-    att_ms, att_host = device_ms(run, iters=20)
-    print(f"  flash_attention (not ported) yardstick: scaled_dot_product_attention B={B} "
-          f"Hq={K * G} Hkv={K} S=T={S} hd={hd} causal bf16 ({how}): {att_ms * 1e3:.2f} us "
-          f"(host enqueue {att_host * 1e3:.2f} us/call), bound {att_bound * 1e3:.2f} us by "
-          f"{att_by}", flush=True)
+    flash_rows = {}
+    for B in (2, 1):
+        K, G, hd, S = 8, 3, 128, 4096
+        q = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
+        qh, kh_, vh = q.reshape(B, S, K * G, hd).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        try:
+            sdpa(qh[:, :, :8], kh_[:, :, :8], vh[:, :, :8], is_causal=True, enable_gqa=True)
+            lib_run = lambda: sdpa(qh, kh_, vh, is_causal=True, enable_gqa=True)  # noqa: E731
+            how = "enable_gqa"
+        except TypeError:  # an older PyTorch: repeat the KV heads for it
+            k_rep, v_rep = kh_.repeat_interleave(G, dim=1), vh.repeat_interleave(G, dim=1)
+            lib_run = lambda: sdpa(qh, k_rep, v_rep, is_causal=True)  # noqa: E731
+            how = "KV heads repeated"
+        # a reading only: the library keeps P in bf16, the kernel in float32
+        lib_gap = float((flash_attention(q, k, v).float()
+                         - lib_run().transpose(1, 2).reshape(B, S, K, G, hd).float()).abs().max())
+        nbytes = 2 * (2 * B * S * K * G * hd + 2 * B * S * K * hd)
+        flops = 2 * (hd + hd) * B * K * G * S * (S + 1) // 2
+        bound, bound_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
+        bound32, _ = least_ms(nbytes, flops)
+        run = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        ms, host = device_ms(run, iters=10)
+        cold, _ = device_ms(run, iters=5, flush=flush)
+        lib_ms, lib_host = device_ms(lib_run, iters=20)
+        # one plain call behind the sleep: it is ~10 launches over GBs of scores
+        plain, plain_host = device_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=1)
+        print(f"  flash_attention B={B} K={K} G={G} S=T={S} hd={hd} causal bf16: kernel "
+              f"{ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} "
+              f"us/call), plain {plain * 1e3:.2f} us, scaled_dot_product_attention ({how}) "
+              f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {bound_by} at the bf16 "
+              f"tensor-core rate ({bound32 * 1e3:.2f} us at the float32 rate; {flops:.4e} flop, "
+              f"{nbytes / 1e6:.1f} MB); max |kernel - library| {lib_gap:.3e}", flush=True)
+        flash_rows[B] = {"name": "flash_attention", "ms": ms, "cold_ms": cold, "host_ms": host,
+                         "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                         "bound_ms_float32": bound32, "library_ms": lib_ms,
+                         "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} causal bf16"}
+        del q, k, v, qh, kh_, vh
+        torch.cuda.empty_cache()
+    rows.append(dict(flash_rows[2], at_B1={key: flash_rows[1][key] for key in (
+        "ms", "cold_ms", "plain_ms", "bound_ms", "bound_ms_float32", "library_ms")}))
 
     phase("6 summary")
     print(f"  chip_smoke ran {time.perf_counter() - t_start:.1f} s, the build included", flush=True)
     out = []
     for r in rows:
-        k = kernels.KERNELS[r["name"]]
+        name = r.pop("name")
+        k = kernels.KERNELS[name]
+        # each kernel's launches on its own main path: the serving run for
+        # flash_attention, the stream (which runs every MCMC kernel) otherwise
+        main_launches = launches_serve if name == "flash_attention" else launches_stream
         entry = {
-            "name": r["name"], "route": "cuda", "source": os.path.relpath(k.source, root),
-            "replaces": k.replaces, "launches": launches_stream[r["name"]],
-            "max_abs_err": errs[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "cold_ms": r["cold_ms"], "host_ms": r["host_ms"], "shape": r["shape"],
-            "launches_by_path": {"paper": launches_paper[r["name"]], "all": launches[r["name"]],
-                                 "stream": launches_stream[r["name"]]},
+            "name": name, "route": "cuda", "source": os.path.relpath(k.source, root),
+            "replaces": k.replaces, "launches": main_launches[name],
+            "max_abs_err": errs[name], "library_ms": None, **r,
+            "launches_by_path": {"paper": launches_paper[name], "all": launches[name],
+                                 "stream": launches_stream[name], "serve": launches_serve[name]},
         }
-        if r["name"] in err32:
-            entry["max_abs_err_float32_plain"] = err32[r["name"]]
+        if name in err32:
+            entry["max_abs_err_float32_plain"] = err32[name]
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

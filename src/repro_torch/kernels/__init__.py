@@ -86,6 +86,10 @@ KERNELS: Dict[str, Kernel] = {
         "online_update", "online_update.cu",
         replaces="src/repro/kernels/online_update/kernel.py:69",
     ),
+    "flash_attention": Kernel(
+        "flash_attention", "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:113",
+    ),
 }
 
 _BUILD_LOCK = threading.Lock()

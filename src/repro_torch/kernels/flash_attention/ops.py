@@ -1,0 +1,118 @@
+"""Public wrapper of the GQA flash-attention forward: dispatch by the tensor's device.
+
+CUDA tensors launch the hand-written kernel (``csrc/flash_attention.cu``),
+one launch per call; CPU tensors take the plain version (``ref.py``). The
+reference wrapper's transposes to ``(B·K, S, G·hd)``, its padding of S and T
+to block multiples and its ``min_kernel_s=64`` fallback to its jnp version
+are not carried over: the kernel reads q, k and v in place through their
+strides and masks the ragged S and T tails itself.
+
+On the card q, k and v must share a device and a dtype (float32 or
+bfloat16), have a contiguous last axis, hd and hd_v ≤ 256, G ≤ 64 and
+B·K ≤ 65,535; anything else raises. The output is a new contiguous tensor
+in q's dtype. Forward only: the result carries no gradient (the backward
+comes with the training slice).
+
+Tolerance: the kernel sums q·k and P·v in float32 in another order than the
+plain version's matrix products, so the two agree to float32 rounding (and,
+in bfloat16, to the output's rounding), never bitwise. A fixed input gives
+the same bits on every run (no float atomics).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import KERNELS, check_error, device_index, stream_handle
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+KERNEL = KERNELS["flash_attention"]
+MAX_HEAD_DIM = 256
+MAX_GROUP = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+@functools.cache
+def _entry():
+    """The loaded library and its entry point with C types set."""
+    lib = KERNEL.lib()
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [_I, _I, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, _I, *[_L] * 10, _P]
+    fn.restype = _I
+    lib.flash_attention_error_string.argtypes = [_I]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _vec4(t: torch.Tensor) -> bool:
+    """Every row of ``t`` starts aligned for one 4-element vector load."""
+    strides = [st for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
+    return t.data_ptr() % (4 * t.element_size()) == 0 and all(st % 4 == 0 for st in strides)
+
+
+def _launch(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
+    b, s, kh, g, hd = q.shape
+    t, hd_v = k.shape[1], v.shape[-1]
+    device = q.device
+    for name, x in (("k", k), ("v", v)):
+        if x.device != device or x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype} on {x.device}; q is {q.dtype} on {device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q, k, v must be float32 or bfloat16 on the card, got {q.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.shape[-1] > 1 and x.stride(-1) != 1:
+            raise ValueError(f"{name}'s last axis must be contiguous, got strides {x.stride()}")
+    if hd > MAX_HEAD_DIM or hd_v > MAX_HEAD_DIM or hd < 1 or hd_v < 1:
+        raise ValueError(f"need 1 <= hd, hd_v <= {MAX_HEAD_DIM}; got hd={hd} hd_v={hd_v}")
+    if g > MAX_GROUP or b * kh > 65535:
+        raise ValueError(f"need G <= {MAX_GROUP} and B*K <= 65535; got G={g} B={b} K={kh}")
+    out = torch.empty((b, s, kh, g, hd_v), dtype=q.dtype, device=device)
+    if out.numel() == 0:
+        return out  # nothing to compute: no launch
+    vec = int(_vec4(q)) | int(_vec4(k)) << 1 | int(_vec4(v)) << 2
+    lib, fn = _entry()
+    err = fn(
+        device_index(device), _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal), hd ** -0.5, vec,
+        *q.stride()[:4], k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), stream_handle(device),
+    )
+    check_error(KERNEL, err, lib.flash_attention_error_string)
+    KERNEL.launches += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, K, G, hd)
+    k: torch.Tensor,  # (B, T, K, hd)
+    v: torch.Tensor,  # (B, T, K, hd_v)
+    *,
+    causal: bool = True,
+    kv_len: Optional[int] = None,  # kv positions ≥ kv_len are masked (None ⇒ T)
+) -> torch.Tensor:
+    """Flash-attention forward; returns (B, S, K, G, hd_v) in q's dtype."""
+    if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(
+            f"need q (B,S,K,G,hd), k (B,T,K,hd), v (B,T,K,hd_v); got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, _, kh, _, hd = q.shape
+    if k.shape[0] != b or k.shape[2] != kh or k.shape[3] != hd or v.shape[:3] != k.shape[:3]:
+        raise ValueError(
+            f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
+        )
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    if kv_len < 0:
+        raise ValueError(f"kv_len must be >= 0, got {kv_len}")
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+    raise ValueError(f"no flash_attention for device {q.device}")

@@ -20,7 +20,7 @@ import dataclasses
 import json
 import sys
 import time
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -39,6 +39,38 @@ def run(spec):
     return pipe.run()
 
 
+def profiled(fn) -> Tuple[Any, dict]:
+    """``fn()`` under the profiler: its result, and its wall seconds, the
+    device time summed over kernels, the device's busy and idle shares of
+    the wall, and the kernels that took the most device time."""
+    torch.cuda.synchronize()
+    # device activity only: tracing every CPU op would slow a host-bound
+    # run and understate the busy share
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side rows only: a CPU op's row also carries the device time of
+    # the kernels it launched, which have rows of their own
+    rows = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    device_s = sum(e.self_device_time_total for e in rows) / 1e6
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return result, {
+        "wall_s": wall,
+        "device_kernel_s": device_s,
+        "busy_share": device_s / wall,
+        "idle_share": 1.0 - device_s / wall,
+        "top_kernels": [
+            {"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3}
+            for e in rows[:TOP_KERNELS]
+        ],
+    }
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_combiner_option(ap)
@@ -52,35 +84,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     run(spec)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    # device activity only: tracing every CPU op would slow the host-bound
-    # run and understate the busy share
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        board = run(spec)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side rows only: a CPU op's row also carries the device time of
-    # the kernels it launched, which have rows of their own
-    rows = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    device_us = sum(e.self_device_time_total for e in rows)
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    board, window = profiled(lambda: run(spec))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "spec": spec.to_json(),
-        "wall_s": wall,
+        "wall_s": window["wall_s"],
         "unprofiled_wall_s": plain_wall,
-        "device_kernel_s": device_us / 1e6,
-        "busy_share": device_us / 1e6 / wall,
-        "idle_share": 1.0 - device_us / 1e6 / wall,
+        "device_kernel_s": window["device_kernel_s"],
+        "busy_share": window["busy_share"],
+        "idle_share": window["idle_share"],
         "timings_s": board.timings,
         "errors": board.errors,
-        "top_kernels": [
-            {"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3}
-            for e in rows[:TOP_KERNELS]
-        ],
+        "top_kernels": window["top_kernels"],
     }))
     return 0
 

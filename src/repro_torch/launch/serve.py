@@ -1,0 +1,115 @@
+"""Serving CLI of the LM sidecar: batched prefill + greedy decode against the KV caches.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --batch 2 \\
+        --prompt-len 4096 --gen 16
+
+The port of ``repro/launch/serve.py:25``, with its flags plus ``--device``
+(default ``cuda``; with no card visible it raises) and ``--dtype`` (the
+weights' and activations' dtype, default the config's: bfloat16 at full
+width, float32 under ``--reduced``). Weights are random, drawn from
+``--seed`` by a ``torch.Generator`` (other numbers than the reference's
+``jax.random`` draws), then the prompt from the same generator;
+``max_len = prompt_len + gen``. The dense family only (see
+:mod:`repro_torch.models.lm.model`). A prompt longer than the config's
+``attn_chunk`` (1,024) runs every layer's prefill attention through the
+flash kernel; decode attends over the cache with the einsum path. Each
+timed stage ends with ``torch.cuda.synchronize()`` on the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ALIASES, get_config
+from repro_torch.models.lm import model as mdl
+from repro_torch.models.lm import steps as lm_steps
+from repro_torch.models.lm.config import ModelConfig, reduced
+from repro_torch.models.lm.layers import DTYPES
+
+
+def parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--dtype", default=None, choices=sorted(DTYPES),
+                    help="weights and activations (default: the config's)")
+    return ap.parse_args(argv)
+
+
+def setup(args: argparse.Namespace) -> Tuple[ModelConfig, mdl.LM, torch.Tensor]:
+    """(config, model, prompt (B, prompt_len) int64), all from ``args.seed``."""
+    device = resolve_device(args.device)
+    cfg = get_config(ALIASES.get(args.arch, args.arch))
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype, param_dtype=args.dtype)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = mdl.init_params(cfg, generator=gen, device=device)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
+                           device=device)
+    return cfg, model, prompt
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(model: mdl.LM, prompt: torch.Tensor, gen: int) -> dict:
+    """Prefill, then ``gen - 1`` greedy decode steps: ``gen`` tokens a row.
+
+    Returns ``tokens`` (B, gen), ``logits`` (B, gen, V) float32 (row t chose
+    token t), ``prefill_s`` and ``decode_s_per_tok``.
+    """
+    device = prompt.device
+    max_len = prompt.shape[1] + gen
+    _sync(device)
+    t0 = time.perf_counter()
+    state = lm_steps.serve_prefill(model, {"tokens": prompt}, max_len)
+    _sync(device)
+    t1 = time.perf_counter()
+    tokens, logits = [state.last_token], [state.logits]
+    for _ in range(gen - 1):
+        state, step_logits = lm_steps.serve_decode_step(model, state)
+        tokens.append(state.last_token)
+        logits.append(step_logits)
+    _sync(device)
+    t2 = time.perf_counter()
+    return {
+        "tokens": torch.cat(tokens, dim=1),
+        "logits": torch.cat(logits, dim=1).float(),
+        "prefill_s": t1 - t0,
+        "decode_s_per_tok": (t2 - t1) / max(gen - 1, 1),
+    }
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the CLI; returns :func:`generate`'s dict plus the ``prompt``."""
+    args = parse(argv)
+    cfg, model, prompt = setup(args)
+    out = generate(model, prompt, args.gen)
+    tokens = out["tokens"]
+    print(f"{cfg.name} on {prompt.device} ({cfg.dtype}): prefill {args.batch}×{args.prompt_len}: "
+          f"{out['prefill_s']:.2f}s; decode {args.gen} tokens: "
+          f"{out['decode_s_per_tok'] * 1e3:.1f} ms/token")
+    print("generated token ids (first row):", tokens[0].tolist())
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("a generated token lies outside the vocabulary")
+    return dict(out, prompt=prompt)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,108 @@
+"""Primitive layers of the dense LM family, as plain functions on tensors.
+
+The counterpart of ``repro/models/lm/layers.py`` for what a dense model
+uses. Weights keep the reference's ``x @ w`` layout, ``(d_in, d_out)``, so
+they cross between the packages without a transpose. Matrix products run in
+the activations' dtype (``cfg.dtype``); RMSNorm statistics and the RoPE
+rotation are float32, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """A config's dtype name (``cfg.dtype``, ``cfg.param_dtype``) as a torch dtype."""
+    if name not in DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; the port runs {sorted(DTYPES)}")
+    return DTYPES[name]
+
+
+def init_linear(
+    d_in: int,
+    d_out: int,
+    *,
+    generator: torch.Generator,
+    device: torch.device,
+    dtype: torch.dtype = torch.bfloat16,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """(d_in, d_out) weight, N(0, 1) · d_in^-½ drawn in float32, then cast."""
+    scale = (1.0 / d_in) ** 0.5 if scale is None else scale
+    w = torch.randn((d_in, d_out), generator=generator, device=device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """A serving weight: a parameter without autograd (the training slice
+    turns gradients on)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def linear_param(
+    d_in: int, d_out: int, *, generator: Optional[torch.Generator], device, dtype: torch.dtype
+) -> nn.Parameter:
+    """A (d_in, d_out) weight drawn by :func:`init_linear`; zeros without a
+    generator (a model whose weights are loaded next)."""
+    if generator is None:
+        return frozen(torch.zeros((d_in, d_out), dtype=dtype, device=device))
+    return frozen(init_linear(d_in, d_out, generator=generator, device=device, dtype=dtype))
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
+    """Rotate even/odd pairs. x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., 0::2], x32[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: (silu(x·W_gate) ⊙ x·W_up)·W_down."""
+    gate = F.silu(x @ w_gate.to(x.dtype))
+    up = x @ w_up.to(x.dtype)
+    return (gate * up) @ w_down.to(x.dtype)
+
+
+def init_embed(
+    vocab: int, d: int, *, generator: torch.Generator, device: torch.device,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=generator, device=device, dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    return table[tokens].to(compute_dtype)

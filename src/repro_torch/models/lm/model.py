@@ -1,0 +1,251 @@
+"""Model assembly of the dense LM family: forward, prefill and decode.
+
+The counterpart of ``repro/models/lm/model.py`` for the dense family, whose
+every layer is ``attn + mlp``. The reference runs each layer group as a
+``lax.scan`` over stacked parameters; the port keeps ``layer_specs`` and
+``layer_groups`` as they are (pure data) and runs a Python loop over an
+``nn.ModuleList`` of :class:`Block`. The three execution paths share the
+block: ``forward`` (the whole sequence), ``prefill`` (forward plus each
+layer's KV cache, padded to ``max_len``) and ``decode_step`` (one token
+against the caches, which it updates in place).
+
+A config of another family (MoE, MLA, Mamba-2, hybrid, encoder–decoder,
+image tokens) raises ``NotImplementedError``: those come in later slices
+(ROADMAP Queue 1 item 11) and never run on a substitute.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.lm import attention as attn
+from repro_torch.models.lm.config import ModelConfig
+from repro_torch.models.lm.layers import (
+    dtype_of,
+    embed_lookup,
+    frozen,
+    init_embed,
+    linear_param,
+    mlp,
+    rmsnorm,
+)
+
+Caches = List[attn.Cache]
+
+
+class LayerSpec(NamedTuple):
+    mixer: str  # "attn" | "mla" | "mamba"
+    ffn: str  # "mlp" | "moe" | "none"
+    cross: bool = False
+    causal: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    specs: Tuple[LayerSpec, ...]  # one period
+    repeat: int
+
+
+DENSE = LayerSpec(mixer="attn", ffn="mlp")
+
+
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    moe_set = set(cfg.moe_layer_indices())
+    attn_set = set(cfg.attn_layer_indices())
+    specs = []
+    for i in range(cfg.num_layers):
+        if i in attn_set:
+            mixer = "mla" if cfg.mla is not None else "attn"
+        else:
+            mixer = "mamba"
+        if mixer == "mamba" and cfg.hybrid is None:
+            ffn = "none"  # pure Mamba blocks have no FFN
+        elif i in moe_set:
+            ffn = "moe"
+        else:
+            ffn = "mlp" if cfg.d_ff > 0 else "none"
+        specs.append(LayerSpec(mixer=mixer, ffn=ffn, cross=(cfg.num_encoder_layers > 0)))
+    return specs
+
+
+def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
+    specs = layer_specs(cfg)
+    n = len(specs)
+    if cfg.hybrid is not None:
+        p = cfg.hybrid.period
+        assert n % p == 0
+        return [GroupSpec(specs=tuple(specs[:p]), repeat=n // p)]
+    # leading irregular prefix (e.g. DeepSeek-V2 first dense layer)
+    prefix = 0
+    while prefix < n and specs[prefix] != specs[-1]:
+        prefix += 1
+    groups: List[GroupSpec] = []
+    if prefix:
+        groups.append(GroupSpec(specs=tuple(specs[:prefix]), repeat=1))
+    if n - prefix:
+        groups.append(GroupSpec(specs=(specs[-1],), repeat=n - prefix))
+    return groups
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise unless every layer of ``cfg`` is ``attn + mlp`` with nothing else."""
+    extras = [name for name, on in (
+        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
+        ("ssm", cfg.ssm is not None), ("hybrid", cfg.hybrid is not None),
+        ("encoder layers", cfg.num_encoder_layers > 0),
+        ("image tokens", cfg.num_image_tokens > 0),
+    ) if on]
+    odd = sorted({f"{s.mixer}+{s.ffn}" for s in layer_specs(cfg) if s != DENSE})
+    if extras or odd:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) needs {', '.join(extras + odd)}; the port runs the "
+            "dense family (attn+mlp) only so far, the rest is ROADMAP Queue 1 item 11"
+        )
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = frozen(torch.ones((d,), dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, self.scale, self.eps)
+
+
+class MLP(nn.Module):
+    """SwiGLU weights in ``x @ w`` layout: w_gate, w_up (d, d_ff), w_down (d_ff, d)."""
+
+    def __init__(self, d: int, d_ff: int, *, generator=None, dtype: torch.dtype, device=None):
+        super().__init__()
+        init = dict(generator=generator, device=device, dtype=dtype)
+        self.w_gate = linear_param(d, d_ff, **init)
+        self.w_up = linear_param(d, d_ff, **init)
+        self.w_down = linear_param(d_ff, d, **init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp(x, self.w_gate, self.w_up, self.w_down)
+
+
+class Block(nn.Module):
+    """One dense layer: x + attn(ln1(x)), then + mlp(ln2(·))."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        dtype = dtype_of(cfg.param_dtype)
+        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.attn = attn.GQA(cfg, generator=generator, device=device)
+        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, generator=generator, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), positions)
+        return x + self.mlp(self.ln2(x))
+
+    def prefill(
+        self, x: torch.Tensor, positions: torch.Tensor, max_len: int
+    ) -> Tuple[torch.Tensor, attn.Cache]:
+        """Forward + this layer's cache, zero beyond the prompt up to ``max_len``."""
+        b, s, _ = x.shape
+        q, k, v = attn._project_qkv(self.attn, self.ln1(x), positions)
+        out = attn.sdpa(self.attn.cfg, q, k, v, causal=True)
+        x = x + out.reshape(b, s, -1) @ self.attn.w_o.to(x.dtype)
+        cache = attn.init_gqa_cache(self.attn.cfg, b, max_len, k.dtype, device=k.device)
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+        return x + self.mlp(self.ln2(x)), cache
+
+    def decode(
+        self, x: torch.Tensor, cache: attn.Cache, position: int
+    ) -> Tuple[torch.Tensor, attn.Cache]:
+        h, cache = attn.gqa_decode(self.attn, self.ln1(x), cache, position)
+        x = x + h
+        return x + self.mlp(self.ln2(x)), cache
+
+
+class LM(nn.Module):
+    """The dense LM: ``embed`` (V, d), ``blocks``, ``final_norm``, and ``lm_head``
+    (d, V) unless ``cfg.tie_embeddings`` (then the head is ``embed.T``)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        check_dense(cfg)
+        self.cfg = cfg
+        dtype = dtype_of(cfg.param_dtype)
+        if generator is None:
+            embed = torch.zeros((cfg.vocab_size, cfg.d_model), dtype=dtype, device=device)
+        else:
+            embed = init_embed(cfg.vocab_size, cfg.d_model, generator=generator, device=device,
+                               dtype=dtype)
+        self.embed = frozen(embed)
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.lm_head = None if cfg.tie_embeddings else linear_param(
+            cfg.d_model, cfg.vocab_size, generator=generator, device=device, dtype=dtype)
+        self.blocks = nn.ModuleList(
+            Block(cfg, generator=generator, device=device) for _ in range(cfg.num_layers)
+        )
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        h = self.final_norm(h)
+        w = self.embed.T if self.lm_head is None else self.lm_head
+        return h @ w.to(h.dtype)
+
+
+def init_params(
+    cfg: ModelConfig, *, generator: Optional[torch.Generator] = None, device=None
+) -> LM:
+    """The model with weights drawn from ``generator`` (zeros without one, to be
+    loaded), as the reference's ``init_params`` draws them: N(0, 1)·d_in^-½
+    projections, N(0, 0.02²) embedding, unit norms, all cast to
+    ``cfg.param_dtype``. Other numbers than the reference's: another generator."""
+    return LM(cfg, generator=generator, device=device)
+
+
+def _inputs_to_h(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = embed_lookup(model.embed, tokens, dtype_of(model.cfg.dtype))
+    positions = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+    return h, positions
+
+
+def forward(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits (B, S, V), aux loss): the dense family's aux (MoE balance) is 0."""
+    h, positions = _inputs_to_h(model, tokens)
+    for block in model.blocks:
+        h = block(h, positions)
+    return model.head(h), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def init_caches(
+    cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype, device=None
+) -> Caches:
+    """One (B, max_len, K, hd) k/v pair per layer."""
+    check_dense(cfg)
+    return [attn.init_gqa_cache(cfg, batch, max_len, dtype, device) for _ in range(cfg.num_layers)]
+
+
+def prefill(model: LM, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Caches]:
+    """Run the prompt: (last-token logits (B, 1, V), caches). The reference also
+    returns the encoder memory, which the dense family has not."""
+    h, positions = _inputs_to_h(model, tokens)
+    caches = []
+    for block in model.blocks:
+        h, cache = block.prefill(h, positions, max_len)
+        caches.append(cache)
+    return model.head(h[:, -1:]), caches
+
+
+def decode_step(
+    model: LM,
+    token: torch.Tensor,  # (B, 1) the token generated at `position` - 1
+    caches: Caches,
+    position: int,  # write index into the caches
+) -> Tuple[torch.Tensor, Caches]:
+    """One decode step → (logits (B, 1, V), the caches, updated in place)."""
+    h = embed_lookup(model.embed, token, dtype_of(model.cfg.dtype))
+    for block, cache in zip(model.blocks, caches):
+        h, _ = block.decode(h, cache, position)
+    return model.head(h), caches

@@ -26,6 +26,7 @@ from repro_torch.kernels.logreg_loglik import (
     logreg_loglik_grad,
     logreg_loglik_grad_ref,
 )
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
 
 pytestmark = pytest.mark.cuda
@@ -332,3 +333,135 @@ def test_stream_combine_fused_and_subscriber_agree_on_card(cuda_device):
         assert torch.equal(sf.combined[name].samples, su.combined[name].samples), name
     torch.testing.assert_close(sf.combined["online"].moments.mean, su.combined["online"].moments.mean,
                                rtol=1e-4, atol=1e-4)
+
+
+# flash_attention: the kernel sums q·k and P·v in float32 in another order
+# than the plain version's matrix products. Against the plain version in
+# float64, on the same inputs: float32 within 2e-5 (+ 2e-5·|out|), bfloat16
+# within the output's own rounding, 2^-8 relative (atol 1e-2 on values of
+# size ~1, rtol 1e-2). Against the float32 plain version: float32 within
+# 1e-4 (the two roundings add), bfloat16 within 1e-2 as well (both round the
+# same float32 value to bfloat16; they differ by at most one spacing).
+FLASH_SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal, kv_len
+    (2, 4096, 4096, 8, 3, 128, 128, True, None),  # the serving path (llama3.2-3b prefill)
+    (1, 128, 128, 1, 1, 32, 32, True, None),  # tests/test_flash_kernel.py's four
+    (2, 128, 128, 2, 2, 32, 16, True, None),
+    (1, 100, 160, 1, 4, 16, 16, False, None),
+    (1, 256, 256, 2, 1, 64, 64, True, None),
+    (1, 300, 300, 4, 1, 192, 128, True, None),  # MLA's nope⊕rope qk with hd_v 128
+    (2, 70, 90, 2, 3, 36, 20, True, 17),  # kv_len inside the causal reach; hd % 8 != 0
+    (1, 65, 65, 1, 5, 8, 8, True, 0),  # every row fully masked: zeros, no NaN
+]
+
+
+def _flash_inputs(device, b, s, t, kh, g, hd, hd_v, dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, s, kh, g, hd), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, t, kh, hd), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, t, kh, hd_v), generator=gen, device=device).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,kh,g,hd,hd_v,causal,kv_len", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda_device, b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype):
+    q, k, v = _flash_inputs(cuda_device, b, s, t, kh, g, hd, hd_v, dtype)
+    before = kernels.KERNELS["flash_attention"].launches
+    out = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["flash_attention"].launches == before + 1
+    assert out.shape == (b, s, kh, g, hd_v) and out.dtype == dtype
+    assert bool(torch.isfinite(out).all())
+    want64 = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal, kv_len=kv_len)
+    want32 = flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out.double(), want64, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(out, want32, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(out.double(), want64, rtol=1e-2, atol=1e-2)
+        torch.testing.assert_close(out.float(), want32.float(), rtol=1e-2, atol=1e-2)
+    if kv_len == 0:
+        assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_flash_kernel_reads_strided_operands(cuda_device):
+    """q, k, v as views with padded rows and a permuted axis order: the kernel
+    reads them through their strides, with no copy, as the plain version."""
+    b, s, t, kh, g, hd = 2, 200, 230, 2, 3, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((b, s, kh, g, hd + 8), generator=gen, device=cuda_device)[..., :hd]
+    k = torch.randn((b, kh, t, hd), generator=gen, device=cuda_device).transpose(1, 2)
+    v = torch.randn((t, b, kh, hd), generator=gen, device=cuda_device).permute(1, 0, 2, 3)
+    out = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q.double(), k.double(), v.double(), causal=True)
+    torch.testing.assert_close(out.double(), want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(out, flash_attention(q.contiguous(), k.contiguous(), v.contiguous()),
+                               rtol=0, atol=0)
+
+
+def test_flash_kernel_is_deterministic(cuda_device):
+    q, k, v = _flash_inputs(cuda_device, 1, 1000, 1000, 2, 3, 128, 128, torch.bfloat16, seed=4)
+    first = flash_attention(q, k, v)
+    for _ in range(3):
+        assert torch.equal(first, flash_attention(q, k, v))
+
+
+def test_flash_wrapper_raises_instead_of_falling_back(cuda_device, monkeypatch):
+    """Bad dtypes, shapes and devices raise on the card, a failed launch
+    raises, and none of them counts a launch."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    q, k, v = _flash_inputs(cuda_device, 1, 64, 64, 2, 2, 32, 32, torch.float32)
+    before = kernels.KERNELS["flash_attention"].launches
+    for bad in ((q.half(), k.half(), v.half()), (q.double(), k.double(), v.double()),
+                (q, k.to(torch.bfloat16), v), (q, k, v.cpu())):
+        with pytest.raises(TypeError):
+            flash_attention(*bad)
+    with pytest.raises(ValueError):
+        flash_attention(q, k[..., :16], v)  # hd disagrees
+    big = torch.zeros((1, 8, 1, 1, 320), device=cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention(big, big[:, :, :, 0], big[:, :, :, 0])  # hd > 256
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v)
+    lib, _ = flash_ops._entry()
+    monkeypatch.setattr(flash_ops, "_entry", lambda: (lib, lambda *args: 9))
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        flash_attention(q, k, v)
+    assert kernels.KERNELS["flash_attention"].launches == before
+
+
+def test_lm_serving_path_on_card_matches_cpu(cuda_device):
+    """The reduced llama3.2-3b with attn_chunk=32: prefill launches the flash
+    kernel once per layer and decode never; logits match the CPU run of the
+    same weights (float32, 1e-4: matrix products in another order)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import model as mdl
+    from repro_torch.models.lm import steps
+    from repro_torch.models.lm.config import reduced
+
+    cfg = reduced(get_config("llama3_2_3b"), attn_chunk=32)
+    cpu = mdl.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = mdl.init_params(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    tok = torch.randint(0, cfg.vocab_size, (2, 80), generator=torch.Generator().manual_seed(1))
+    k = kernels.KERNELS["flash_attention"]
+    before = k.launches
+    state = steps.serve_prefill(card, {"tokens": tok.to(cuda_device)}, 84)
+    assert k.launches == before + cfg.num_layers
+    state_cpu = steps.serve_prefill(cpu, {"tokens": tok}, 84)
+    torch.testing.assert_close(state.logits.cpu(), state_cpu.logits, rtol=1e-4, atol=1e-4)
+    for _ in range(3):  # teacher forcing: the CPU step is fed the card's token
+        fed = state.last_token
+        state, logits = steps.serve_decode_step(card, state)
+        state_cpu, logits_cpu = steps.serve_decode_step(
+            cpu, state_cpu._replace(last_token=fed.cpu()))
+        torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-4, atol=1e-4)
+    assert k.launches == before + cfg.num_layers
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="bfloat16")
+    card16 = mdl.init_params(bf16, generator=torch.Generator(device=cuda_device).manual_seed(0),
+                             device=cuda_device)
+    state16 = steps.serve_prefill(card16, {"tokens": tok.to(cuda_device)}, 84)
+    assert state16.logits.dtype == torch.bfloat16 and bool(torch.isfinite(state16.logits).all())

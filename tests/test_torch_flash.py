@@ -1,0 +1,130 @@
+"""The port's flash-attention forward on the CPU against the reference's.
+
+The port's plain version (``repro_torch.kernels.flash_attention.ref``, what
+the wrapper runs for a CPU tensor) against the Pallas kernel run in
+interpret mode with 64-row blocks, as ``tests/test_flash_kernel.py`` runs
+it, at that file's four shapes, and against the LM sidecar's pure-JAX
+flash (``repro.models.lm.flash.flash_attention``). Inputs are drawn with
+numpy from a seed and handed to both. Tolerances: 2e-4 in float32 (two
+float32 softmax-attention paths summed in other orders, the reference
+tests' own figure); 3e-2 in bfloat16 (the output's rounding, 2^-8 relative,
+on values of size ~1). The hand-written CUDA kernel itself is held to this
+plain version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as ref_pallas_flash
+from repro.kernels.flash_attention import flash_attention_ref as ref_oracle
+from repro.models.lm.flash import flash_attention as ref_model_flash
+from repro_torch.kernels import KERNELS
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.models.lm.flash import flash_attention as model_flash
+
+SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal: tests/test_flash_kernel.py's four
+    (1, 128, 128, 1, 1, 32, 32, True),
+    (2, 128, 128, 2, 2, 32, 16, True),  # GQA + hd_v != hd
+    (1, 100, 160, 1, 4, 16, 16, False),  # ragged + cross lengths
+    (1, 256, 256, 2, 1, 64, 64, True),
+]
+
+
+def _inputs(b, s, t, kh, g, hd, hd_v, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, kh, g, hd)).astype(dtype)
+    k = rng.standard_normal((b, t, kh, hd)).astype(dtype)
+    v = rng.standard_normal((b, t, kh, hd_v)).astype(dtype)
+    return q, k, v
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a.copy()) for a in arrays]
+
+
+@pytest.mark.parametrize("b,s,t,kh,g,hd,hd_v,causal", SHAPES)
+def test_plain_version_matches_pallas_kernel(b, s, t, kh, g, hd, hd_v, causal):
+    q, k, v = _inputs(b, s, t, kh, g, hd, hd_v, seed=s + t)
+    want = np.asarray(ref_pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       causal=causal, block_q=64, block_k=64))
+    got = flash_attention(*_torch(q, k, v), causal=causal)
+    assert got.shape == (b, s, kh, g, hd_v) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(
+        flash_attention_ref(*_torch(q, k, v), causal=causal).numpy(),
+        np.asarray(ref_oracle(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)),
+        rtol=2e-4, atol=2e-4,
+    )
+
+
+@pytest.mark.parametrize("b,s,t,kh,g,hd,hd_v,causal", SHAPES)
+def test_plain_version_matches_model_flash(b, s, t, kh, g, hd, hd_v, causal):
+    q, k, v = _inputs(b, s, t, kh, g, hd, hd_v, seed=7)
+    want = np.asarray(ref_model_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      causal, 64, 64))
+    got = model_flash(*_torch(q, k, v), causal, 64, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_bf16_matches_pallas_kernel():
+    q, k, v = _inputs(1, 128, 128, 1, 2, 32, 32, seed=5, dtype=ml_dtypes.bfloat16)
+    want = ref_pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=True, block_q=64, block_k=64)
+    tq, tk, tv = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=3e-2, atol=3e-2)
+
+
+def test_kv_len_masks_the_tail_and_an_empty_row_is_zero():
+    """kv positions ≥ kv_len get weight 0: the same as cutting k and v there;
+    with kv_len = 0 every row is masked and gives zeros, not NaN."""
+    q, k, v = _torch(*_inputs(2, 50, 70, 2, 3, 16, 8, seed=3))
+    got = flash_attention(q, k, v, causal=False, kv_len=33)
+    want = flash_attention(q, k[:, :33], v[:, :33], causal=False)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    causal = flash_attention(q, k, v, causal=True, kv_len=10)
+    torch.testing.assert_close(
+        causal[:, 10:], flash_attention(q, k[:, :10], v[:, :10], causal=False)[:, 10:],
+        rtol=1e-6, atol=1e-6,
+    )
+    empty = flash_attention(q, k, v, causal=True, kv_len=0)
+    assert torch.equal(empty, torch.zeros_like(empty))
+
+
+def test_float64_input_is_computed_in_float64():
+    q, k, v = _inputs(1, 40, 40, 1, 2, 8, 8, seed=9, dtype=np.float64)
+    out = flash_attention_ref(*_torch(q, k, v))
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(
+        out.float().numpy(),
+        flash_attention_ref(*_torch(*(a.astype(np.float32) for a in (q, k, v)))).numpy(),
+        rtol=1e-5, atol=1e-6,
+    )
+
+
+def test_cpu_call_counts_no_launch_and_bad_shapes_raise():
+    q, k, v = _torch(*_inputs(1, 16, 16, 2, 2, 8, 8))
+    before = KERNELS["flash_attention"].launches
+    flash_attention(q, k, v)
+    assert KERNELS["flash_attention"].launches == before
+    with pytest.raises(ValueError):
+        flash_attention(q[..., 0, :], k, v)  # q without its G axis
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :, :1], v)  # K disagrees
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, kv_len=-1)
+    with pytest.raises(ValueError):
+        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_model_flash_refuses_a_gradient():
+    q, k, v = _torch(*_inputs(1, 16, 16, 1, 2, 8, 8))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        model_flash(q.requires_grad_(True), k, v)
+    with torch.no_grad():
+        model_flash(q, k, v)  # no gradient asked: fine

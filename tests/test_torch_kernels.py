@@ -21,6 +21,7 @@ from repro.kernels.logreg_loglik import logreg_loglik_grad as jax_logreg_ops
 from repro.kernels.logreg_loglik import logreg_loglik_grad_ref as jax_logreg_ref
 from repro_torch import kernels
 from repro_torch.core.combiners import log_weight_bruteforce
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.img_weights import img_log_weights, img_log_weights_ref
 from repro_torch.kernels.kde_density import (
     kde_log_density,
@@ -154,8 +155,10 @@ def test_cpu_tensors_take_the_plain_version_and_never_count_a_launch():
     state = (torch.zeros(4), torch.zeros(4, 9), torch.zeros(4, 9, 9))
     for a, b in zip(online_moments_update(*state, s), online_moments_update_ref(*state, s)):
         assert torch.equal(a, b)
+    fq, fk, fv = torch.randn(2, 40, 2, 3, 16), torch.randn(2, 50, 2, 16), torch.randn(2, 50, 2, 8)
+    assert torch.equal(flash_attention(fq, fk, fv), flash_attention_ref(fq, fk, fv))
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
-    assert len(kernels.KERNELS) == 5
+    assert len(kernels.KERNELS) == 6
 
 
 def test_wrappers_reject_mismatched_shapes():
