@@ -14,6 +14,10 @@ a non-zero exit:
               the main paths' shapes and at ragged ones, within the stated
               tolerances, plus the autograd gradient of the likelihood; the
               KDE kernel also against its plain version in float64;
+              ``flash_attention`` on both of its routes (tensor cores for
+              bf16 at hd, hd_v multiples of 64; FMAs otherwise), each case
+              checking which route's count rose, and three tensor-core runs
+              of one input giving the same bits;
 4. main     — the paper's §8.1 logistic-regression pipeline at full width
               through ``repro_torch.api.Pipeline(PAPER_SPEC).run()``: its
               kernels must have launched, and every logL2 must be finite and
@@ -33,13 +37,17 @@ a non-zero exit:
               repro_torch.launch.serve --arch llama3.2-3b --batch 2
               --prompt-len 4096 --gen 16`` at full width (random weights from
               the seed), first in float32, then in bfloat16: 28
-              ``flash_attention`` launches a prefill and no other kernel, 32
+              ``flash_attention`` launches a prefill and no other kernel (all
+              28 on the FMA route in float32, on the tensor-core route in
+              bfloat16), 32
               in-vocabulary tokens, and each stage's logits against the
               last-position logits of ``forward(prompt + generated[:-1])``;
 5. timing   — CUDA-event times of each kernel and its plain version at the
               paths' shapes, beside the least time the card could take, and
               of PyTorch's ``scaled_dot_product_attention`` beside the flash
-              kernel (a yardstick only: the port never calls it);
+              kernel (a yardstick only: the port never calls it): the
+              tensor-core route in bf16 at B=2 and B=1, the FMA route in
+              float32 at B=2 beside float32 SDPA and the float32 bound;
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -50,6 +58,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -143,6 +152,24 @@ def check_bands(board, bands):
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"logL2({name}) = {err} outside its band")
+
+
+def kernel_label(ptxas_line: str) -> str:
+    """``name<template args>`` of the kernel a ptxas 'Compiling entry
+    function' line names, from its mangled name (``flash_fwd_tc_kernel<128,
+    128>``, ``flash_fwd_kernel<bf16,2>``); the mangled name if none ends in
+    'kernel'."""
+    mangled = ptxas_line.split("'")[1] if "'" in ptxas_line else ptxas_line
+    for i, j in ((i, j) for i in range(len(mangled)) for j in (i + 1, i + 2, i + 3)):
+        if not mangled[i:j].isdigit():
+            continue
+        name = mangled[j:j + int(mangled[i:j])]
+        if name.endswith("kernel") and name.isidentifier():
+            rest = mangled[j + len(name):].split("EEv")[0]
+            args = (["float"] if rest.startswith("If") else []) + \
+                (["bf16"] if rest.startswith("I13__nv_bfloat16") else []) + re.findall(r"Li(\d+)E", rest)
+            return f"{name}<{','.join(args)}>"
+    return mangled
 
 
 def least_ms(nbytes, flops, peak=F32_FLOPS):
@@ -256,9 +283,13 @@ def main() -> int:
     seconds = kernels.build()
     print(f"  build: {seconds:.2f} s", flush=True)
     for source, k in {k.source.name: k for k in kernels.KERNELS.values()}.items():
+        entry = ""
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line or "built earlier" in line:
-                print(f"  {source}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = f"{kernel_label(line)}: "
+            if "registers" in line or "spill" in line or "built earlier" in line \
+                    or "warning" in line:
+                print(f"  {source}: {entry}{line.strip()}", flush=True)
 
     phase("3 kernel vs plain version on the card")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -439,44 +470,91 @@ def main() -> int:
                 raise AssertionError("online_update changed a machine whose chunk count is 0")
 
     # flash_attention sums q·k and P·v in float32 in another order than the
-    # plain version's matrix products. Against the plain version in float64
-    # on the same inputs: float32 within 2e-5 (+ 2e-5·|out|); bfloat16 within
-    # the output's own rounding, 2^-8 relative (1e-2 on values of size ~1).
-    # Against the float32 plain version: float32 1e-4 (the roundings add),
-    # bfloat16 1e-2 (both round one float32 value to bfloat16). Shapes: the
-    # serving path's prefill (llama3.2-3b: 8 KV heads of 3 query heads, hd
-    # 128, S = T = 4096, causal) in bf16 and float32, the reference tests'
-    # GQA / hd_v≠hd and ragged non-causal shapes, MLA's hd 192 with hd_v 128,
-    # a kv_len inside the causal reach, and every row masked (kv_len 0:
-    # zeros, no NaN).
-    flash_cases = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype)
-        "serving path": (2, 4096, 4096, 8, 3, 128, 128, True, None, torch.bfloat16),
-        "serving path float32": (2, 4096, 4096, 8, 3, 128, 128, True, None, torch.float32),
-        "GQA hd_v=16": (2, 128, 128, 2, 2, 32, 16, True, None, torch.float32),
-        "ragged non-causal S=100 T=160": (1, 100, 160, 1, 4, 16, 16, False, None, torch.float32),
-        "MLA hd=192 hd_v=128": (1, 300, 300, 4, 1, 192, 128, True, None, torch.bfloat16),
-        "kv_len=17 hd=36": (2, 70, 90, 2, 3, 36, 20, True, 17, torch.float32),
-        "every row masked": (1, 65, 65, 1, 5, 8, 8, True, 0, torch.float32),
+    # plain version's matrix products (the tensor-core route also rounds P to
+    # bfloat16 before P·v, as the bfloat16 plain version does). Against the
+    # plain version in float64 on the same inputs: float32 within 2e-5
+    # (+ 2e-5·|out|); bfloat16 within the output's own rounding, 2^-8
+    # relative (1e-2 on values of size ~1). Against the float32 plain
+    # version: float32 1e-4 (the roundings add), bfloat16 1e-2 (both round
+    # one float32 value to bfloat16). Shapes: the serving path's prefill
+    # (llama3.2-3b: 8 KV heads of 3 query heads, hd 128, S = T = 4096,
+    # causal) in bf16 and float32, the reference tests' GQA / hd_v≠hd and
+    # ragged non-causal shapes, MLA's hd 192 with hd_v 128, a kv_len inside
+    # the causal reach, and every row masked (kv_len 0: zeros, no NaN); then
+    # the tensor-core route's own cases (G = 1, 3, 7, 8; hd 64; ragged S = T;
+    # S ≪ T non-causal; kv_len < T non-causal; kv_len 0 at hd 128), q as the
+    # model's (B,S,H,hd) view into a fused projection, and bf16 operands the
+    # tensor maps cannot take (a base 2 bytes off 16, a row stride of 132),
+    # which go to the FMA route. Each case checks which route's count rose.
+    flash_kernel = kernels.KERNELS["flash_attention"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash_cases = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype[, layout])
+        "serving path": (2, 4096, 4096, 8, 3, 128, 128, True, None, bf16),
+        "serving path float32": (2, 4096, 4096, 8, 3, 128, 128, True, None, f32),
+        "GQA hd_v=16": (2, 128, 128, 2, 2, 32, 16, True, None, f32),
+        "ragged non-causal S=100 T=160": (1, 100, 160, 1, 4, 16, 16, False, None, f32),
+        "MLA hd=192 hd_v=128": (1, 300, 300, 4, 1, 192, 128, True, None, bf16),
+        "kv_len=17 hd=36": (2, 70, 90, 2, 3, 36, 20, True, 17, f32),
+        "every row masked": (1, 65, 65, 1, 5, 8, 8, True, 0, f32),
+        "G=1": (1, 300, 300, 2, 1, 128, 128, True, None, bf16),
+        "G=3": (1, 300, 300, 2, 3, 128, 128, True, None, bf16),
+        "G=7": (1, 300, 300, 1, 7, 128, 128, True, None, bf16),
+        "G=8": (1, 300, 300, 1, 8, 128, 128, True, None, bf16),
+        "hd=64": (2, 200, 200, 2, 3, 64, 64, True, None, bf16),
+        "ragged S=T=1000": (1, 1000, 1000, 2, 3, 128, 128, True, None, bf16),
+        "non-causal S=100 T=4096": (1, 100, 4096, 2, 3, 128, 128, False, None, bf16),
+        "non-causal kv_len=777 T=1000": (1, 200, 1000, 2, 3, 128, 128, False, 777, bf16),
+        "kv_len=0 hd=128": (1, 130, 130, 2, 3, 128, 128, True, 0, bf16),
+        "model's q view": (2, 500, 500, 2, 3, 128, 128, True, None, bf16, "view"),
+        "bf16 base 2 bytes off 16": (1, 200, 200, 2, 3, 128, 128, True, None, bf16, "offset"),
+        "bf16 row stride 132": (1, 200, 200, 2, 3, 128, 128, True, None, bf16, "row"),
     }
-    for label, (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype) in flash_cases.items():
-        q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev).to(dtype)
+
+    def flash_operands(b, s, t, kh, g, hd, hd_v, dtype, layout=None):
+        if layout == "view":  # q of (B,S,H,hd) inside a fused q|k|v projection, reshaped
+            h = kh * g
+            qkv = torch.randn((b, s, h + 2 * kh, hd), generator=gen, device=dev).to(dtype)
+            return qkv[:, :, :h].reshape(b, s, kh, g, hd), qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+        if layout == "offset":
+            flat = torch.randn((b * s * kh * g * hd + 1,), generator=gen, device=dev).to(dtype)
+            q = flat[1:].view(b, s, kh, g, hd)
+        elif layout == "row":
+            q = torch.randn((b, s, kh, g, hd + 4), generator=gen, device=dev).to(dtype)[..., :hd]
+        else:
+            q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, t, kh, hd), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, t, kh, hd_v), generator=gen, device=dev).to(dtype)
+        return q, k, v
+
+    for label, (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype, *layout) in flash_cases.items():
+        q, k, v = flash_operands(b, s, t, kh, g, hd, hd_v, dtype, *layout)
+        untileable = bool(set(layout) & {"offset", "row"})  # TMA takes neither
+        route = ("tensor_core" if dtype == bf16 and hd % 64 == 0 and hd_v % 64 == 0
+                 and not untileable else "fma")
+        routes = dict(flash_kernel.route_launches)
         out = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
         torch.cuda.synchronize()
-        f32 = dtype == torch.float32
-        tag = f"flash_attention {label} {(b, s, t, kh, g, hd, hd_v)} causal={causal} kv_len={kv_len} " \
-              f"{str(dtype).split('.')[-1]}"
+        if flash_kernel.route_launches != dict(routes, **{route: routes[route] + 1}):
+            raise AssertionError(f"flash_attention {label}: expected one {route} launch, route "
+                                 f"counts went {routes} -> {flash_kernel.route_launches}")
+        is32 = dtype == f32
+        tag = f"flash_attention [{route}] {label} {(b, s, t, kh, g, hd, hd_v)} causal={causal} " \
+              f"kv_len={kv_len} {str(dtype).split('.')[-1]}"
         e64 = check_close(f"{tag} vs float64 plain", out, flash_attention_ref(
             q.double(), k.double(), v.double(), causal=causal, kv_len=kv_len),
-            rtol=2e-5 if f32 else 1e-2, atol=2e-5 if f32 else 1e-2)
-        e32 = check_close(f"{tag} vs {'float32' if f32 else 'bfloat16'} plain", out,
+            rtol=2e-5 if is32 else 1e-2, atol=2e-5 if is32 else 1e-2)
+        e32 = check_close(f"{tag} vs {'float32' if is32 else 'bfloat16'} plain", out,
                           flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len),
-                          rtol=1e-4 if f32 else 1e-2, atol=1e-4 if f32 else 1e-2)
+                          rtol=1e-4 if is32 else 1e-2, atol=1e-4 if is32 else 1e-2)
         errs["flash_attention"] = max(errs.get("flash_attention", 0.0), e64)
         err32["flash_attention"] = max(err32.get("flash_attention", 0.0), e32)
         if kv_len == 0 and not bool((out == 0).all()):
             raise AssertionError("flash_attention: a fully masked row is not zero")
+        if label == "serving path":  # the tensor-core route is deterministic
+            if not all(torch.equal(out, flash_attention(q, k, v)) for _ in range(3)):
+                raise AssertionError("flash_attention: three runs of one input differ")
+            print("  flash_attention [tensor_core] serving path: three more runs, the same bits",
+                  flush=True)
         del q, k, v, out
     torch.cuda.empty_cache()
 
@@ -714,13 +792,20 @@ def main() -> int:
         n_layers = lm_config("llama3.2-3b").num_layers
         print(f"  {dtype}: prefill_s={out['prefill_s']:.4f} decode_ms_per_tok="
               f"{out['decode_s_per_tok'] * 1e3:.3f} launches={json.dumps(counts)}", flush=True)
+        routes = dict(kernels.KERNELS["flash_attention"].route_launches)
+        print(f"  {dtype}: flash_attention launches by route {json.dumps(routes)}", flush=True)
         want = {name: (n_layers if name == "flash_attention" else 0) for name in counts}
         if counts != want:
             raise AssertionError(f"serve ({dtype}) launched {counts}, expected {want}")
+        # bf16 prefill on the tensor cores, float32 on the FMA kernel
+        tc_route = dtype == "bfloat16"
+        want_routes = {"tensor_core": n_layers if tc_route else 0, "fma": 0 if tc_route else n_layers}
+        if routes != want_routes:
+            raise AssertionError(f"serve ({dtype}) flash routes {routes}, expected {want_routes}")
         tokens = out["tokens"]
         if tokens.shape != (2, 16) or not bool(((tokens >= 0) & (tokens < 128_256)).all()):
             raise AssertionError(f"serve ({dtype}): tokens {tuple(tokens.shape)} out of range")
-        return out, counts
+        return out, counts, routes
 
     def forward_tail(model, out):
         """forward(prompt + generated[:-1])'s logits at the 16 positions whose
@@ -752,7 +837,7 @@ def main() -> int:
     # float32: decode (einsum over the cache) against forward (flash) differs
     # only by summation order; 2e-3 is the reference's own consistency figure
     # (tests/test_model_consistency.py) on logits of size ~1
-    out32, _ = serve_run("float32")
+    out32, _, routes_serve32 = serve_run("float32")
     _, model32, prompt32 = serve.setup(serve.parse(serve_argv + ["--dtype", "float32"]))
     if not torch.equal(prompt32, out32["prompt"]):
         raise AssertionError("serve.setup drew another prompt from the same seed")
@@ -763,7 +848,7 @@ def main() -> int:
     # (bf16 weights are the float32 ones rounded): both the stages and
     # forward sit within about that of the float32 logits, so their gap
     # within twice it
-    out16, launches_serve = serve_run("bfloat16")
+    out16, launches_serve, routes_serve16 = serve_run("bfloat16")
     _, model16, _ = serve.setup(serve.parse(serve_argv + ["--dtype", "bfloat16"]))
     fwd16 = forward_tail(model16, out16)
     dev16 = float((fwd16 - forward_tail(model32, out16)).abs().max())
@@ -881,20 +966,21 @@ def main() -> int:
                  "shape": f"M={M} C={C} d={d}"})
 
     # flash_attention at the serving path's prefill shape (B=2) and the table's
-    # (B=1): 8 KV heads of 3 query heads, hd 128, S = T = 4096, causal, bf16.
-    # Work: 2·(hd + hd_v) flop per visible (query, kv) pair, S(S+1)/2 pairs per
-    # head; bytes: q, k, v read once, out written once. The bound is over the
-    # bf16 tensor-core rate (the inputs' type); the float32 form (the kernel's
-    # own FMA arithmetic) beside it. PyTorch's scaled_dot_product_attention
-    # on the same tensors (q and k/v as (B, heads, S, hd) views) is the
-    # library yardstick; the port never calls it.
+    # (B=1): 8 KV heads of 3 query heads, hd 128, S = T = 4096, causal. In
+    # bf16 (the tensor-core route, bound over the bf16 tensor-core rate) and,
+    # at B=2, in float32 (the FMA route, bound over the float32 rate of its
+    # own arithmetic). Work: 2·(hd + hd_v) flop per visible (query, kv) pair,
+    # S(S+1)/2 pairs per head; bytes: q, k, v read once, out written once.
+    # PyTorch's scaled_dot_product_attention on the same tensors (q and k/v
+    # as (B, heads, S, hd) views, in the same dtype) is the library
+    # yardstick; the port never calls it.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_rows = {}
-    for B in (2, 1):
+    for B, dtype in ((2, torch.bfloat16), (1, torch.bfloat16), (2, torch.float32)):
         K, G, hd, S = 8, 3, 128, 4096
-        q = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
         qh, kh_, vh = q.reshape(B, S, K * G, hd).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         try:
             sdpa(qh[:, :, :8], kh_[:, :, :8], vh[:, :, :8], is_causal=True, enable_gqa=True)
@@ -904,33 +990,45 @@ def main() -> int:
             k_rep, v_rep = kh_.repeat_interleave(G, dim=1), vh.repeat_interleave(G, dim=1)
             lib_run = lambda: sdpa(qh, k_rep, v_rep, is_causal=True)  # noqa: E731
             how = "KV heads repeated"
-        # a reading only: the library keeps P in bf16, the kernel in float32
+        # a reading only: in bf16 the library and the kernel round P alike
         lib_gap = float((flash_attention(q, k, v).float()
                          - lib_run().transpose(1, 2).reshape(B, S, K, G, hd).float()).abs().max())
-        nbytes = 2 * (2 * B * S * K * G * hd + 2 * B * S * K * hd)
+        is16 = dtype == torch.bfloat16
+        route = "tensor_core" if is16 else "fma"
+        nbytes = q.element_size() * (2 * B * S * K * G * hd + 2 * B * S * K * hd)
         flops = 2 * (hd + hd) * B * K * G * S * (S + 1) // 2
-        bound, bound_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
+        bound, bound_by = least_ms(nbytes, flops, peak=BF16_FLOPS if is16 else F32_FLOPS)
         bound32, _ = least_ms(nbytes, flops)
         run = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        routes = dict(flash_kernel.route_launches)
         ms, host = device_ms(run, iters=10)
         cold, _ = device_ms(run, iters=5, flush=flush)
+        moved = {r: n - routes[r] for r, n in flash_kernel.route_launches.items() if n != routes[r]}
+        if set(moved) != {route}:
+            raise AssertionError(f"flash_attention timing ({dtype}) launched {moved}, not {route}")
         lib_ms, lib_host = device_ms(lib_run, iters=20)
         # one plain call behind the sleep: it is ~10 launches over GBs of scores
         plain, plain_host = device_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=1)
-        print(f"  flash_attention B={B} K={K} G={G} S=T={S} hd={hd} causal bf16: kernel "
-              f"{ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} "
-              f"us/call), plain {plain * 1e3:.2f} us, scaled_dot_product_attention ({how}) "
-              f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {bound_by} at the bf16 "
-              f"tensor-core rate ({bound32 * 1e3:.2f} us at the float32 rate; {flops:.4e} flop, "
+        print(f"  flash_attention [{route}] B={B} K={K} G={G} S=T={S} hd={hd} causal "
+              f"{str(dtype).split('.')[-1]}: kernel {ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; "
+              f"host enqueue {host * 1e3:.2f} us/call), plain {plain * 1e3:.2f} us, "
+              f"scaled_dot_product_attention ({how}) {lib_ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.2f} us by {bound_by} at the {'bf16 tensor-core' if is16 else 'float32'} "
+              f"rate ({bound32 * 1e3:.2f} us at the float32 rate; {flops:.4e} flop, "
               f"{nbytes / 1e6:.1f} MB); max |kernel - library| {lib_gap:.3e}", flush=True)
-        flash_rows[B] = {"name": "flash_attention", "ms": ms, "cold_ms": cold, "host_ms": host,
-                         "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                         "bound_ms_float32": bound32, "library_ms": lib_ms,
-                         "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} causal bf16"}
+        flash_rows[B, is16] = {"name": "flash_attention", "ms": ms, "cold_ms": cold,
+                               "host_ms": host, "plain_ms": plain, "bound_ms": bound,
+                               "bound_by": bound_by, "bound_ms_float32": bound32,
+                               "library_ms": lib_ms, "route": route,
+                               "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} causal "
+                                        f"{str(dtype).split('.')[-1]}"}
         del q, k, v, qh, kh_, vh
         torch.cuda.empty_cache()
-    rows.append(dict(flash_rows[2], at_B1={key: flash_rows[1][key] for key in (
-        "ms", "cold_ms", "plain_ms", "bound_ms", "bound_ms_float32", "library_ms")}))
+    keys = ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_ms_float32", "library_ms")
+    flash_row = dict(flash_rows[2, True], at_B1={key: flash_rows[1, True][key] for key in keys},
+                     fma_route={key: flash_rows[2, False][key] for key in keys + ("shape",)})
+    del flash_row["route"]
+    rows.append(flash_row)
 
     phase("6 summary")
     print(f"  chip_smoke ran {time.perf_counter() - t_start:.1f} s, the build included", flush=True)
@@ -950,6 +1048,9 @@ def main() -> int:
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]
+        if name == "flash_attention":  # the serving runs' launches, by route
+            entry["launches_by_route"] = {"serve_bfloat16": routes_serve16,
+                                          "serve_float32": routes_serve32}
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

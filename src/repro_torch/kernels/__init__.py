@@ -19,7 +19,9 @@ library. A library already built from the same source and flags is loaded as
 it is.
 
 Each :class:`Kernel` keeps ``launches``, a plain count that its wrapper raises
-by one where it launches the kernel and nowhere else.
+by one where it launches the kernel and nowhere else. A kernel with more than
+one route (``flash_attention``: tensor cores or FMAs) also keeps
+``route_launches``, the same launches counted by route.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ class Kernel:
         self.source = CSRC / source
         self.replaces = replaces  # file:line of the TPU kernel it ports
         self.launches = 0
+        self.route_launches: Dict[str, int] = {}  # filled by a wrapper with routes
         self.build_log = ""  # nvcc's -Xptxas -v report of the last build
         self._lib: Optional[ctypes.CDLL] = None
 
@@ -152,6 +155,8 @@ def build() -> float:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        for route in k.route_launches:
+            k.route_launches[route] = 0
 
 
 def launch_counts() -> Dict[str, int]:

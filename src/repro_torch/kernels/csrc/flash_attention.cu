@@ -1,5 +1,11 @@
 // GQA flash-attention forward: softmax(q·kᵀ·hd^-½, masked)·v with an online
-// softmax over kv tiles, one launch per attention call.
+// softmax over kv tiles, one launch per attention call. Two routes, each a
+// kernel of its own, chosen by the wrapper before the launch
+// (kernels/flash_attention/ops.py, _route):
+//   flash_attention_fwd_tc — bf16 on Hopper's tensor cores (wgmma + TMA),
+//     for bf16 q, k, v with hd and hd_v multiples of 64 up to 256, 16-byte
+//     aligned bases and strides (TMA's rule);
+//   flash_attention_fwd    — float32 FMAs, for float32 and every other shape.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:113
 // (flash_attention_fwd_kernel, pallas_call at :135, body _flash_fwd_kernel
@@ -7,49 +13,73 @@
 //
 // Operands: q (B, S, K, G, hd), k (B, T, K, hd), v (B, T, K, hd_v), read in
 // place through their strides (the last axis contiguous; no transposes, no
-// padding copies), float32 or bfloat16; out (B, S, K, G, hd_v) contiguous in
-// the same type. hd, hd_v <= 256, G <= 64. Statistics and accumulators are
-// float32. Query position s sees kv position t when t < kv_len and, if
-// causal, s >= t (no offset). Masked scores are -1e30 and get weight exactly
-// 0, so a row with no visible position gives 0 (its denominator, 0, is
-// clamped at 1e-30) and no NaN.
+// padding copies); out (B, S, K, G, hd_v) contiguous in q's type. Statistics
+// and accumulators are float32. Query position s sees kv position t when
+// t < kv_len and, if causal, s >= t (no offset). Masked scores get weight
+// exactly 0, so a row with no visible position gives 0 (its denominator, 0,
+// is clamped at 1e-30) and no NaN. No float atomics on either route: a
+// fixed input gives the same bits on every run.
 //
-// Bound on an H100: at the serving path's shape (B=2, K=8, G=3,
-// S=T=4096, hd=hd_v=128, causal, bf16) the causal work is
-// 2·B·K·G·S·T·hd = 2.06e11 flop against 0.13 GB of operands, so it is
-// bound by operations: 0.21 ms on the bf16 tensor cores, 3.1 ms at the
-// 67 TFLOP/s float32 rate of this kernel, which does its arithmetic in
-// float32 FMAs outside the tensor cores (wgmma tiles are later work).
+// What bounds each route on an H100. At the serving path's shape (B=2, K=8,
+// G=3, S=T=4096, hd=hd_v=128, causal) the causal work is 2·B·K·G·S·T·hd =
+// 2.06e11 flop against 0.13 GB of operands: bound by operations, 0.21 ms on
+// the bf16 tensor cores, 3.1 ms at the 67 TFLOP/s float32 rate.
 //
-// Design. The TPU kernel runs one sequential grid step per (q tile, kv
-// tile) with its (m, l, acc) in VMEM scratch; here a loop inside the block
-// walks the kv tiles. A block owns one (b, kv head) pair and 64 rows, each
-// row a (query position, head) pair: floor(64 / G) query positions times
-// all G heads of the group, so every K/V tile staged in shared memory
-// serves G heads (the TPU kernel's GQA grouping). 256 threads as 16 x 16:
-// a thread owns 4 consecutive rows and the kv columns tx + 16j (j < 4) of
-// each tile for q·kᵀ, and the same 4 rows times columns c·64 + 4tx + j of
-// the output for P·v, so its rows' softmax statistics and accumulators
-// live in its registers (4·hd_v/16 accumulators; hd is never held in
-// registers: q stays in shared memory). Per kv tile of 64:
-//   1. stage K and V (float32, zero beyond the valid rows and columns);
-//   2. scores: float4 reads of q and k rows, 64 FMAs per 8 float4 reads;
-//   3. online softmax per row, row max and sum over the 16 lanes of the
-//      row (xor butterflies: every lane gets the same bits);
-//   4. P into the K tile's shared memory, then acc += P·V.
-// Causal tiles wholly above the block's last query position, and tiles at
-// or beyond kv_len, are never visited; blocks are scheduled longest first.
-// Shared memory: q (64 x hd), one K-or-P tile and a V tile, float32, row
-// strides padded so that float4 reads of 8 rows hit distinct banks: 100 KB
-// at hd = hd_v = 128 (two blocks per SM). Registers (ptxas, sm_90a): 128
-// at hd_v <= 128 (capped by the two-blocks launch bound), 150 and 164 at
-// hd_v <= 192 and 256; no spills. No float atomics: a fixed input gives the
-// same bits on every run. On an H100 SXM (700 W) the serving path's shape
-// takes 7.96 ms, 39 % of the float32 rate (chip_smoke.py phase 5).
+// Tensor-core route (FlashAttention-3's shape, kept simple). Its bound is the
+// tensor cores' rate; what keeps it from that rate is the softmax and the
+// waits between the two products. A block owns one (b, kv head) pair and NW
+// slabs of 64 query positions × one head (NW = 3 consumer warpgroups at
+// hd_v <= 128, 2 above). The slabs are consecutive in (position slab, head)
+// order, so at G = 3 a block is one position slab × the group's three heads
+// and each K/V tile in shared memory serves all of them (the TPU kernel's
+// GQA grouping); G = 1 gives a block three position slabs, G = 7 or 8
+// spreads a group's heads over blocks. A fourth warpgroup is the producer:
+// one thread loads the block's q slabs once, then keeps K and V tiles (64 kv
+// positions) in flight by TMA into a two-stage ring with full/empty
+// mbarriers; the warpgroup gives its registers to the consumers (setmaxnreg:
+// 24 a thread, the consumers 160 at NW = 3, 240 at NW = 2). Tensor maps
+// (128-byte swizzle, a 64-column box per 128 bytes) are encoded per call on
+// the host; TMA zero-fills rows past S and kv positions past kv_len (the kv
+// axis of the map ends at kv_len), so nothing past them is read, and takes q
+// through its strides (the model's reshaped view included). Each consumer
+// warpgroup computes S = q·kᵀ with wgmma m64n64k16 (both operands from
+// shared memory) and the online softmax on the accumulator fragment in base
+// 2, the scale folded into one FFMA a score (row max and sum over the 4
+// lanes of a row by xor shuffles; the mask only on edge and diagonal tiles).
+// It converts P to bf16 in registers and feeds it as the register A operand
+// of one m64n{hd_v}k16 per 16 kv rows for O += P·V (V kv-major, the
+// B-transpose bit set), then divides by l and stores O through its q slab's
+// shared memory with coalesced 16-byte writes. Tiles above the diagonal or
+// past kv_len are never loaded; blocks go longest causal reach first. Not
+// done yet: ping-pong between consumer warpgroups, overlap of the softmax
+// with the next wgmma, persistent blocks, fp8.
+//
+// FMA route. Its bound is the float32 rate of its FMAs; K/V staging does not
+// overlap the arithmetic. A loop inside the block walks the kv tiles (the TPU
+// kernel's sequential grid axis). A block owns one (b, kv head) pair and 64
+// rows, each row a (query position, head) pair: floor(64 / G) query
+// positions times all G heads of the group, so every K/V tile staged in
+// shared memory serves G heads. 256 threads as 16 x 16: a thread owns 4
+// consecutive rows and the kv columns tx + 16j (j < 4) of each tile for
+// q·kᵀ, and the same 4 rows times columns c·64 + 4tx + j of the output for
+// P·v, so its rows' softmax statistics and accumulators live in its
+// registers. Per kv tile of 64: stage K and V (float32, zero beyond the
+// valid rows and columns); scores by float4 reads of q and k rows; online
+// softmax per row over the 16 lanes of the row (xor butterflies); P into the
+// K tile's shared memory, then acc += P·V. Shared memory: q (64 x hd), one
+// K-or-P tile and a V tile, float32, row strides padded so that float4 reads
+// of 8 rows hit distinct banks: 100 KB at hd = hd_v = 128 (two blocks per
+// SM).
+//
+// On an H100 SXM (700 W) at the serving path's shape: 0.40 ms on the
+// tensor-core route in bf16 (PyTorch's scaled_dot_product_attention: 0.35
+// ms), 7.8 ms on the FMA route in float32 (chip_smoke.py phase 5).
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -342,6 +372,505 @@ extern "C" int flash_attention_fwd(int device, int dtype, const void* q, const v
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route (bf16): wgmma fed by TMA, see the note at the top.
+
+namespace tc {
+
+constexpr int kM = 64;                   // query positions per slab (wgmma's M)
+constexpr int kN = 64;                   // kv positions per tile
+constexpr int kStages = 2;               // K/V ring depth
+constexpr int kRowBytes = 128;           // a swizzled row: 64 bf16 values
+constexpr int kAtom = 8 * kRowBytes;     // 8 rows: the swizzle's repeat, wgmma's row group
+constexpr int kBlock = 64 * kRowBytes;   // a 64-column block of a 64-row tile (one TMA box)
+constexpr float kNegInf = -1e30f;
+constexpr int kTensorMapError = 100000;  // + the CUresult of a failed encode
+
+template <int HD, int HDV>
+struct Cfg {
+  // consumer warpgroups, one slab each: three while S (32 floats), O
+  // (HDV/2) and P (16) fit 160 registers a thread, else two at 240
+  static constexpr int NW = HDV <= 128 ? 3 : 2;
+  static constexpr int kThreads = (NW + 1) * 128;
+  // NW·128·consumer + 128·producer registers <= 65,536
+  static constexpr int kConsumerRegs = NW == 3 ? 160 : 240;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kSlab = (HD > HDV ? HD : HDV) / 64 * kBlock;  // q slab, later the O tile
+  static constexpr int kK = HD / 64 * kBlock;
+  static constexpr int kV = HDV / 64 * kBlock;
+  static constexpr int kBarOff = NW * kSlab + kStages * (kK + kV);
+  static constexpr int kSmem = kBarOff + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
+};
+
+struct Params {
+  int S, K, G, BK, kv_lim, causal, n_slabs, n_groups;
+  float scale_log2;  // the caller's hd^-1/2 times log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// that outlasts ~2^34 cycles (seconds) is a fault of the pipeline: trap, so
+// that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at shared address `addr`
+// (1024-byte aligned tiles). K-major (q, K): rows of 128 bytes, 8-row groups
+// 1024 bytes apart (the stride field); the leading field is unused. MN-major
+// (V, kv rows of hd_v values): 8-row groups along K 1024 bytes apart (the
+// stride field) and 64-column blocks kBlock bytes apart (the leading field),
+// read when N > 64.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kBlock >> 4) << 16) |
+         (static_cast<uint64_t>(kAtom >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Registers written by an asynchronous wgmma are read only after this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A·B, m64nNk16 (d holds N/2 floats), A (bf16 pairs) in registers, B
+// MN-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+// d (+)= A·Bᵀ, m64n64k16, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, "
+      "p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Accumulator fragment of m64nN (thread t of the warpgroup, warp w = t / 32,
+// lane l): d[4j + e] is row 16w + l/4 + 8·(e >= 2), column 8j + 2(l % 4) +
+// (e & 1). The same pairs, packed to bf16, are the register A fragment of the
+// next product, 16 columns (two j) per k step.
+template <int HD, int HDV>
+__global__ void __launch_bounds__(Cfg<HD, HDV>::kThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                    const Params p) {
+  using C = Cfg<HD, HDV>;
+  constexpr int NW = C::NW;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_s = smem_u32(smem);          // NW q slabs
+  const uint32_t k_s = q_s + NW * C::kSlab;     // kStages K tiles
+  const uint32_t v_s = k_s + kStages * C::kK;   // kStages V tiles
+  const uint32_t q_full = q_s + C::kBarOff;     // then k_full[], v_full[], empty[]
+  auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
+  auto v_full = [&](int st) { return q_full + 8 * (1 + kStages + st); };
+  auto empty = [&](int st) { return q_full + 8 * (1 + 2 * kStages + st); };
+
+  const int bk = blockIdx.x % p.BK;
+  const int grp = p.n_groups - 1 - blockIdx.x / p.BK;  // longest causal reach first
+  const int b = bk / p.K, kh = bk - b * p.K;
+  const int slab0 = grp * NW;  // slab = position slab · G + head
+  const int last = min(slab0 + NW, p.n_slabs) - 1;
+  auto tiles_of = [&](int ps) {  // kv tiles a position slab sees
+    int end = p.kv_lim;
+    if (p.causal) end = min(end, min((ps + 1) * kM, p.S));
+    return (end + kN - 1) / kN;
+  };
+  const int n_tiles = tiles_of(last / p.G);  // the block's last slab reaches furthest
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), NW * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NW) {  // producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(C::kProducerRegs));
+    if (threadIdx.x == NW * 128) {
+      mbar_expect_tx(q_full, (last - slab0 + 1) * (HD / 64) * kBlock);
+      for (int j = slab0; j <= last; ++j) {
+        const int ps = j / p.G, g = j - ps * p.G;
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load(q_s + (j - slab0) * C::kSlab + c * kBlock, &tq, q_full, c * 64, ps * kM, g, kh,
+                   b);
+      }
+      for (int jt = 0; jt < n_tiles; ++jt) {
+        const int st = jt % kStages;
+        if (jt >= kStages) mbar_wait(empty(st), ((jt / kStages) & 1) ^ 1);  // jt - kStages released
+        mbar_expect_tx(k_full(st), C::kK);
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load(k_s + st * C::kK + c * kBlock, &tk, k_full(st), c * 64, jt * kN, kh, b);
+        mbar_expect_tx(v_full(st), C::kV);
+        for (int c = 0; c < HDV / 64; ++c)
+          tma_load(v_s + st * C::kV + c * kBlock, &tv, v_full(st), c * 64, jt * kN, kh, b);
+      }
+    }
+  } else {  // consumer warpgroup wg: slab slab0 + wg
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::kConsumerRegs));
+    const int t = threadIdx.x & 127, lane = t & 31;
+    const int slab = slab0 + wg;
+    const bool valid = slab <= last;
+    const int ps = slab / p.G, g = slab - ps * p.G;
+    const int my_tiles = valid ? tiles_of(ps) : 0;
+    const int r0 = (t >> 5) * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+    const int pos0 = ps * kM + r0, pos1 = pos0 + 8;
+    const int c0 = 2 * (lane & 3);               // its first column in each group of 8
+    const uint32_t my_q = q_s + wg * C::kSlab;
+    const float sl = p.scale_log2;
+
+    float o[HDV / 2];
+#pragma unroll
+    for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // m in raw score units
+    if (valid) mbar_wait(q_full, 0);
+
+    for (int jt = 0; jt < n_tiles; ++jt) {
+      const int st = jt % kStages;
+      const uint32_t ph = (jt / kStages) & 1;
+      mbar_wait(k_full(st), ph);
+      if (jt < my_tiles) {
+        float s[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = 0.f;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)  // 16 columns = 32 bytes per k step
+          wgmma_ss(s, desc(my_q + (kk >> 2) * kBlock + (kk & 3) * 32),
+                   desc(k_s + st * C::kK + (kk >> 2) * kBlock + (kk & 3) * 32), kk > 0);
+        wg_commit();
+        wg_wait();
+        fence_regs(s);
+
+        const int kv0 = jt * kN;
+        float mx0 = kNegInf, mx1 = kNegInf;
+        if (kv0 + kN > p.kv_lim || (p.causal && kv0 + kN - 1 > ps * kM)) {  // edge or diagonal
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = kv0 + 8 * (i >> 2) + c0 + (i & 1);
+            if (col >= p.kv_lim || (p.causal && col > ((i & 2) ? pos1 : pos0))) s[i] = kNegInf;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (i & 2) mx1 = fmaxf(mx1, s[i]); else mx0 = fmaxf(mx0, s[i]);
+        }
+        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+        // weights are 2^(s·sl − m·sl); a row with nothing visible yet subtracts
+        // 0, so its masked scores (−1e30) still weigh exactly 0
+        const float ms0 = mn0 == kNegInf ? 0.f : mn0 * sl, ms1 = mn1 == kNegInf ? 0.f : mn1 * sl;
+        const float a0 = ex2(fmaf(m0, sl, -ms0)), a1 = ex2(fmaf(m1, sl, -ms1));
+        m0 = mn0;
+        m1 = mn1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[i] = ex2(fmaf(s[i], sl, (i & 2) ? -ms1 : -ms0));
+          if (i & 2) sum1 += s[i]; else sum0 += s[i];
+        }
+        l0 = fmaf(l0, a0, sum0);  // this thread's columns; the quad's are summed at the end
+        l1 = fmaf(l1, a1, sum1);
+#pragma unroll
+        for (int i = 0; i < HDV / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+        mbar_wait(v_full(st), ph);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // 16 kv rows of 128 bytes per k step
+          wgmma_rs<HDV>(o, pa[kk], desc(v_s + st * C::kV + kk * 16 * kRowBytes));
+        wg_commit();
+        wg_wait();
+        fence_regs(o);
+      }
+      mbar_arrive(empty(st));  // after k_full: the arrival belongs to tile jt
+    }
+
+    if (valid) {  // O / l as bf16 into this slab's shared memory, then rows < S out
+      const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+      const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+      constexpr int kRow = HDV * 2;  // bytes; 16-byte chunk c of row r sits at c ^ (r % 8)
+      uint8_t* const o_s = smem + wg * C::kSlab;
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < HDV / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          const float inv = h ? inv1 : inv0;
+          *reinterpret_cast<__nv_bfloat162*>(o_s + r * kRow + ((j ^ (r & 7)) * 16) + (lane & 3) * 4) =
+              __floats2bfloat162_rn(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+        }
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+      constexpr int kChunks = HDV / 8;
+      for (int e = t; e < kM * kChunks; e += 128) {
+        const int r = e / kChunks, c = e - r * kChunks;
+        const int pos = ps * kM + r;
+        if (pos < p.S)
+          *reinterpret_cast<uint4*>(out + ((((long long)b * p.S + pos) * p.K + kh) * p.G + g) * HDV +
+                                    c * 8) =
+              *reinterpret_cast<const uint4*>(o_s + r * kRow + ((c ^ (r & 7)) * 16));
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A bf16 tensor map: dims innermost first, strides (bytes) of dims 1.., a
+// box of 64 in dims 0 (128 bytes, the swizzle's width) and 1 (rows), 1 in
+// the others. Out-of-range rows read as zeros.
+CUresult encode(EncodeTiled enc, CUtensorMap* map, const void* base, int rank,
+                const cuuint64_t* dims, const cuuint64_t* strides) {
+  cuuint32_t box[5], unit[5];
+  for (int i = 0; i < rank; ++i) {
+    box[i] = i < 2 ? 64 : 1;
+    unit[i] = 1;
+  }
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int HD, int HDV>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* out,
+                   Params p, cudaStream_t stream) {
+  using C = Cfg<HD, HDV>;
+  p.n_groups = (p.n_slabs + C::NW - 1) / C::NW;
+  const long long blocks = (long long)p.n_groups * p.BK;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return e;
+  flash_fwd_tc_kernel<HD, HDV><<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), p);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t by_hd_v(int hd_v, const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                    void* out, const Params& p, cudaStream_t stream) {
+  switch (hd_v) {
+    case 64: return launch<HD, 64>(tq, tk, tv, out, p, stream);
+    case 128: return launch<HD, 128>(tq, tk, tv, out, p, stream);
+    case 192: return launch<HD, 192>(tq, tk, tv, out, p, stream);
+    case 256: return launch<HD, 256>(tq, tk, tv, out, p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
+// bf16 only. hd, hd_v in {64, 128, 192, 256}; every base 16-byte aligned and
+// every stride of an axis longer than 1 a multiple of 8 elements (the
+// wrapper's route rule). Strides are in elements. Returns a cudaError_t, or
+// 100000 + the CUresult of a tensor map that would not encode.
+extern "C" int flash_attention_fwd_tc(int device, const void* q, const void* k, const void* v,
+                                      void* out, int B, int S, int T, int K, int G, int hd,
+                                      int hd_v, int kv_len, int causal, float scale,
+                                      long long q_sb, long long q_ss, long long q_sk,
+                                      long long q_sg, long long k_sb, long long k_st,
+                                      long long k_sk, long long v_sb, long long v_st,
+                                      long long v_sk, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const bool dims_ok = hd % 64 == 0 && hd >= 64 && hd <= 256 && hd_v % 64 == 0 && hd_v >= 64 &&
+                       hd_v <= 256;
+  if (!dims_ok || G < 1 || K < 1 || B < 0 || S < 0 || T < 0) return cudaErrorInvalidValue;
+  if (B == 0 || S == 0) return cudaSuccess;
+  const tc::EncodeTiled enc = tc::encoder();
+  if (enc == nullptr) return tc::kTensorMapError + CUDA_ERROR_NOT_FOUND;
+  tc::Params p;
+  p.S = S; p.K = K; p.G = G; p.BK = B * K;
+  p.kv_lim = imax(0, imin(kv_len, T));
+  p.causal = causal;
+  p.n_slabs = (S + tc::kM - 1) / tc::kM * G;
+  p.n_groups = 0;  // set per instantiation
+  p.scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
+  // the kv axis ends at kv_len, so TMA reads zeros past it (at least one row
+  // for the encoder; with kv_len = 0 no kv tile is loaded)
+  const cuuint64_t tm = (cuuint64_t)imax(p.kv_lim, 1);
+  const cuuint64_t q_dims[5] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)G, (cuuint64_t)K,
+                                (cuuint64_t)B};
+  const cuuint64_t q_str[4] = {(cuuint64_t)q_ss * 2, (cuuint64_t)q_sg * 2, (cuuint64_t)q_sk * 2,
+                               (cuuint64_t)q_sb * 2};
+  const cuuint64_t k_dims[4] = {(cuuint64_t)hd, tm, (cuuint64_t)K, (cuuint64_t)B};
+  const cuuint64_t k_str[3] = {(cuuint64_t)k_st * 2, (cuuint64_t)k_sk * 2, (cuuint64_t)k_sb * 2};
+  const cuuint64_t v_dims[4] = {(cuuint64_t)hd_v, tm, (cuuint64_t)K, (cuuint64_t)B};
+  const cuuint64_t v_str[3] = {(cuuint64_t)v_st * 2, (cuuint64_t)v_sk * 2, (cuuint64_t)v_sb * 2};
+  CUtensorMap tq, tk, tv;
+  CUresult r = tc::encode(enc, &tq, q, 5, q_dims, q_str);
+  if (r == CUDA_SUCCESS) r = tc::encode(enc, &tk, k, 4, k_dims, k_str);
+  if (r == CUDA_SUCCESS) r = tc::encode(enc, &tv, v, 4, v_dims, v_str);
+  if (r != CUDA_SUCCESS) return tc::kTensorMapError + (int)r;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64: return tc::by_hd_v<64>(hd_v, tq, tk, tv, out, p, st);
+    case 128: return tc::by_hd_v<128>(hd_v, tq, tk, tv, out, p, st);
+    case 192: return tc::by_hd_v<192>(hd_v, tq, tk, tv, out, p, st);
+    case 256: return tc::by_hd_v<256>(hd_v, tq, tk, tv, out, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 extern "C" const char* flash_attention_error_string(int e) {
+  if (e >= tc::kTensorMapError) {
+    static char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+             e - tc::kTensorMapError);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }

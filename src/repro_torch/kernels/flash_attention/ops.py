@@ -1,7 +1,15 @@
 """Public wrapper of the GQA flash-attention forward: dispatch by the tensor's device.
 
-CUDA tensors launch the hand-written kernel (``csrc/flash_attention.cu``),
-one launch per call; CPU tensors take the plain version (``ref.py``). The
+CUDA tensors launch one of the two hand-written kernels of
+``csrc/flash_attention.cu``, one launch per call; CPU tensors take the plain
+version (``ref.py``). :func:`_route` picks the kernel from the tensors alone,
+before the launch: ``"tensor_core"`` (bf16 on wgmma, fed by TMA) when q, k
+and v are bfloat16, hd and hd_v are multiples of 64 up to 256, every base
+pointer is 16-byte aligned and every stride of an axis longer than 1 is a
+positive multiple of 16 bytes (TMA's rule); ``"fma"`` (float32 FMAs) for
+everything else. Either route raises when its launch fails; neither falls
+back to the other. ``KERNEL.launches`` counts the launches of both routes,
+``KERNEL.route_launches`` each route's. The
 reference wrapper's transposes to ``(B·K, S, G·hd)``, its padding of S and T
 to block multiples and its ``min_kernel_s=64`` fallback to its jnp version
 are not carried over: the kernel reads q, k and v in place through their
@@ -13,10 +21,13 @@ B·K ≤ 65,535; anything else raises. The output is a new contiguous tensor
 in q's dtype. Forward only: the result carries no gradient (the backward
 comes with the training slice).
 
-Tolerance: the kernel sums q·k and P·v in float32 in another order than the
-plain version's matrix products, so the two agree to float32 rounding (and,
-in bfloat16, to the output's rounding), never bitwise. A fixed input gives
-the same bits on every run (no float atomics).
+Tolerance: the FMA kernel sums q·k and P·v in float32 in another order than
+the plain version's matrix products, so the two agree to float32 rounding
+(and, in bfloat16, to the output's rounding), never bitwise. The tensor-core
+kernel sums in float32 too but rounds P to bfloat16 before P·v, as the
+bfloat16 plain version does; both stay within the output's own bfloat16
+rounding of the float64 result. A fixed input gives the same bits on every
+run on either route (no float atomics).
 """
 
 from __future__ import annotations
@@ -31,6 +42,8 @@ from repro_torch.kernels import KERNELS, check_error, device_index, stream_handl
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 KERNEL = KERNELS["flash_attention"]
+ROUTES = ("tensor_core", "fma")
+KERNEL.route_launches.update({route: 0 for route in ROUTES})
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,15 +53,42 @@ _L = ctypes.c_longlong
 
 
 @functools.cache
-def _entry():
-    """The loaded library and its entry point with C types set."""
+def _entry(route: str):
+    """The loaded library and the entry point of ``route`` with C types set."""
     lib = KERNEL.lib()
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [_I, _I, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, _I, *[_L] * 10, _P]
+    if route == "tensor_core":
+        fn = lib.flash_attention_fwd_tc
+        fn.argtypes = [_I, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, *[_L] * 10, _P]
+    else:
+        fn = lib.flash_attention_fwd
+        fn.argtypes = [_I, _I, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, _I, *[_L] * 10, _P]
     fn.restype = _I
     lib.flash_attention_error_string.argtypes = [_I]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib, fn
+
+
+def _tma_strides(t: torch.Tensor) -> list:
+    """Strides of every axis but the last, in elements, as a tensor map takes
+    them: an axis of length 1 is never stepped along, so its stride is set to
+    the row length (any multiple of 16 bytes would do)."""
+    return [st if n > 1 else t.shape[-1] for st, n in zip(t.stride()[:-1], t.shape[:-1])]
+
+
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"tensor_core"`` or ``"fma"``: which kernel takes the call, from the
+    tensors alone (dtypes, head dims, alignment and strides)."""
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        return "fma"
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    if not all(d % 64 == 0 and 64 <= d <= MAX_HEAD_DIM for d in (hd, hd_v)):
+        return "fma"
+    for x in (q, k, v):
+        if x.stride(-1) != 1 or x.data_ptr() % 16:
+            return "fma"
+        if not all(st > 0 and st % 8 == 0 for st in _tma_strides(x)):  # 8 bf16 = 16 bytes
+            return "fma"
+    return "tensor_core"
 
 
 def _vec4(t: torch.Tensor) -> bool:
@@ -76,16 +116,27 @@ def _launch(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
     out = torch.empty((b, s, kh, g, hd_v), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out  # nothing to compute: no launch
-    vec = int(_vec4(q)) | int(_vec4(k)) << 1 | int(_vec4(v)) << 2
-    lib, fn = _entry()
-    err = fn(
-        device_index(device), _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal), hd ** -0.5, vec,
-        *q.stride()[:4], k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), stream_handle(device),
-    )
+    route = _route(q, k, v)
+    lib, fn = _entry(route)
+    scale = hd ** -0.5
+    if route == "tensor_core":
+        qs, ks, vs = _tma_strides(q), _tma_strides(k), _tma_strides(v)
+        err = fn(
+            device_index(device), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale,
+            *qs, *ks, *vs, stream_handle(device),
+        )
+    else:
+        vec = int(_vec4(q)) | int(_vec4(k)) << 1 | int(_vec4(v)) << 2
+        err = fn(
+            device_index(device), _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale, vec,
+            *q.stride()[:4], k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), stream_handle(device),
+        )
     check_error(KERNEL, err, lib.flash_attention_error_string)
     KERNEL.launches += 1
+    KERNEL.route_launches[route] += 1
     return out
 
 

@@ -351,7 +351,24 @@ FLASH_SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal, kv_len
     (1, 300, 300, 4, 1, 192, 128, True, None),  # MLA's nope⊕rope qk with hd_v 128
     (2, 70, 90, 2, 3, 36, 20, True, 17),  # kv_len inside the causal reach; hd % 8 != 0
     (1, 65, 65, 1, 5, 8, 8, True, 0),  # every row fully masked: zeros, no NaN
+    # the tensor-core route's cases in bf16 (the FMA route's in float32)
+    (1, 300, 300, 2, 1, 128, 128, True, None),  # G = 1: three position slabs a block
+    (1, 300, 300, 2, 3, 128, 128, True, None),  # G = 3: one slab of each head a block
+    (1, 300, 300, 1, 7, 128, 128, True, None),  # G = 7: a group's heads over blocks
+    (1, 300, 300, 1, 8, 128, 128, True, None),  # G = 8 (jamba)
+    (2, 200, 200, 2, 3, 64, 64, True, None),  # hd 64
+    (1, 1000, 1000, 2, 3, 128, 128, True, None),  # ragged S = T
+    (1, 100, 4096, 2, 3, 128, 128, False, None),  # non-causal, S ≪ T
+    (1, 200, 1000, 2, 3, 128, 128, False, 777),  # non-causal kv_len < T
+    (1, 130, 130, 2, 3, 128, 128, True, 0),  # kv_len 0 at hd 128: every row exactly 0
 ]
+
+
+def _flash_route(dtype, hd, hd_v):
+    """The route a contiguous, aligned call must take (the route rule's
+    dtype and head-dim conditions)."""
+    tc = dtype == torch.bfloat16 and all(d % 64 == 0 and d <= 256 for d in (hd, hd_v))
+    return "tensor_core" if tc else "fma"
 
 
 def _flash_inputs(device, b, s, t, kh, g, hd, hd_v, dtype, seed=0):
@@ -366,10 +383,13 @@ def _flash_inputs(device, b, s, t, kh, g, hd, hd_v, dtype, seed=0):
 @pytest.mark.parametrize("b,s,t,kh,g,hd,hd_v,causal,kv_len", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda_device, b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype):
     q, k, v = _flash_inputs(cuda_device, b, s, t, kh, g, hd, hd_v, dtype)
-    before = kernels.KERNELS["flash_attention"].launches
+    kernel = kernels.KERNELS["flash_attention"]
+    before, routes = kernel.launches, dict(kernel.route_launches)
     out = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
     torch.cuda.synchronize()
-    assert kernels.KERNELS["flash_attention"].launches == before + 1
+    assert kernel.launches == before + 1
+    route = _flash_route(dtype, hd, hd_v)
+    assert kernel.route_launches == dict(routes, **{route: routes[route] + 1})
     assert out.shape == (b, s, kh, g, hd_v) and out.dtype == dtype
     assert bool(torch.isfinite(out).all())
     want64 = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal, kv_len=kv_len)
@@ -399,20 +419,64 @@ def test_flash_kernel_reads_strided_operands(cuda_device):
                                rtol=0, atol=0)
 
 
+def test_flash_kernel_reads_the_models_query_view(cuda_device):
+    """q as the model hands it to flash: (B, S, H, hd) reshaped to
+    (B, S, K, G, hd), here a view into a fused q|k|v projection (strides
+    (S·W, W, G·hd, hd, 1) with W the fused width): read as it is, no copy."""
+    b, s, kh, g, hd = 2, 500, 2, 3, 128
+    h = kh * g
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = torch.randn((b, s, h + 2 * kh, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    q = qkv[:, :, :h].reshape(b, s, kh, g, hd)
+    k, v = qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    assert q.data_ptr() == qkv.data_ptr() and not q.is_contiguous()
+    kernel = kernels.KERNELS["flash_attention"]
+    before = kernel.route_launches["tensor_core"]
+    out = flash_attention(q, k, v, causal=True)
+    assert kernel.route_launches["tensor_core"] == before + 1
+    want = flash_attention_ref(q.double(), k.double(), v.double(), causal=True)
+    torch.testing.assert_close(out.double(), want, rtol=1e-2, atol=1e-2)
+    assert torch.equal(out, flash_attention(q.contiguous(), k.contiguous(), v.contiguous()))
+
+
+def test_flash_misaligned_bf16_takes_the_fma_route(cuda_device):
+    """bf16 at hd 128 whose base sits 2 bytes off 16, or whose row stride is
+    not a multiple of 16 bytes: the FMA kernel, and the same numbers."""
+    b, s, kh, g, hd = 1, 200, 2, 3, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    flat = torch.randn((b * s * kh * g * hd + 1,), generator=gen, device=cuda_device)
+    q_off = flat.to(torch.bfloat16)[1:].view(b, s, kh, g, hd)  # base 2 bytes off 16
+    q_row = torch.randn((b, s, kh, g, hd + 4), generator=gen,
+                        device=cuda_device).to(torch.bfloat16)[..., :hd]  # row stride 132
+    k = torch.randn((b, s, kh, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    v = torch.randn((b, s, kh, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    kernel = kernels.KERNELS["flash_attention"]
+    for q in (q_off, q_row):
+        before = dict(kernel.route_launches)
+        out = flash_attention(q, k, v, causal=True)
+        assert kernel.route_launches == dict(before, fma=before["fma"] + 1)
+        want = flash_attention_ref(q.double(), k.double(), v.double(), causal=True)
+        torch.testing.assert_close(out.double(), want, rtol=1e-2, atol=1e-2)
+
+
 def test_flash_kernel_is_deterministic(cuda_device):
     q, k, v = _flash_inputs(cuda_device, 1, 1000, 1000, 2, 3, 128, 128, torch.bfloat16, seed=4)
+    kernel = kernels.KERNELS["flash_attention"]
+    before = kernel.route_launches["tensor_core"]
     first = flash_attention(q, k, v)
     for _ in range(3):
         assert torch.equal(first, flash_attention(q, k, v))
+    assert kernel.route_launches["tensor_core"] == before + 4
 
 
 def test_flash_wrapper_raises_instead_of_falling_back(cuda_device, monkeypatch):
     """Bad dtypes, shapes and devices raise on the card, a failed launch
-    raises, and none of them counts a launch."""
+    raises on either route, and none of them counts a launch."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
     q, k, v = _flash_inputs(cuda_device, 1, 64, 64, 2, 2, 32, 32, torch.float32)
-    before = kernels.KERNELS["flash_attention"].launches
+    kernel = kernels.KERNELS["flash_attention"]
+    before, routes = kernel.launches, dict(kernel.route_launches)
     for bad in ((q.half(), k.half(), v.half()), (q.double(), k.double(), v.double()),
                 (q, k.to(torch.bfloat16), v), (q, k, v.cpu())):
         with pytest.raises(TypeError):
@@ -424,11 +488,16 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda_device, monkeypatch):
         flash_attention(big, big[:, :, :, 0], big[:, :, :, 0])  # hd > 256
     with pytest.raises(ValueError):
         flash_attention(q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v)
-    lib, _ = flash_ops._entry()
-    monkeypatch.setattr(flash_ops, "_entry", lambda: (lib, lambda *args: 9))
-    with pytest.raises(RuntimeError, match="CUDA error 9"):
-        flash_attention(q, k, v)
-    assert kernels.KERNELS["flash_attention"].launches == before
+    q16, k16, v16 = _flash_inputs(cuda_device, 1, 64, 64, 2, 2, 64, 64, torch.bfloat16)
+    assert flash_ops._route(q16, k16, v16) == "tensor_core"
+    assert flash_ops._route(q, k, v) == "fma"
+    for route in flash_ops.ROUTES:
+        lib, _ = flash_ops._entry(route)
+    monkeypatch.setattr(flash_ops, "_entry", lambda route: (lib, lambda *args: 9))
+    for args in ((q, k, v), (q16, k16, v16)):
+        with pytest.raises(RuntimeError, match="CUDA error 9"):
+            flash_attention(*args)
+    assert kernel.launches == before and kernel.route_launches == routes
 
 
 def test_lm_serving_path_on_card_matches_cpu(cuda_device):

@@ -10,6 +10,8 @@ float32 softmax-attention paths summed in other orders, the reference
 tests' own figure); 3e-2 in bfloat16 (the output's rounding, 2^-8 relative,
 on values of size ~1). The hand-written CUDA kernel itself is held to this
 plain version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+The wrapper's route rule (which of the two kernels a card call would take)
+is a function of the tensors alone and is tested here on CPU tensors.
 """
 
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from repro.kernels.flash_attention import flash_attention_ref as ref_oracle
 from repro.models.lm.flash import flash_attention as ref_model_flash
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.lm.flash import flash_attention as model_flash
 
 SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal: tests/test_flash_kernel.py's four
@@ -128,3 +131,86 @@ def test_model_flash_refuses_a_gradient():
         model_flash(q.requires_grad_(True), k, v)
     with torch.no_grad():
         model_flash(q, k, v)  # no gradient asked: fine
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _route_case(name):
+    """(q, k, v) for one route-rule case, CPU tensors of the card's layouts."""
+    b, s, kh, g = 2, 8, 2, 3
+    k128, v128 = _bf16(b, s, kh, 128), _bf16(b, s, kh, 128)
+    if name == "serving view hd 128":  # the model's (B,S,H,hd) reshaped to (B,S,K,G,hd)
+        return _bf16(b, s, kh * g, 128).reshape(b, s, kh, g, 128), k128, v128
+    if name == "fused qkv view hd 128":  # a view into a q|k|v projection: strided rows
+        qkv = _bf16(b, s, kh * g + 2 * kh, 128)
+        return (qkv[:, :, :kh * g].reshape(b, s, kh, g, 128), qkv[:, :, kh * g:kh * g + kh],
+                qkv[:, :, kh * g + kh:])
+    if name == "MLA hd 192 hd_v 128":
+        return _bf16(b, s, kh, g, 192), _bf16(b, s, kh, 192), v128
+    if name == "hd 64":
+        return _bf16(b, s, kh, g, 64), _bf16(b, s, kh, 64), _bf16(b, s, kh, 64)
+    if name == "float32 hd 128":
+        return (torch.zeros((b, s, kh, g, 128)), torch.zeros((b, s, kh, 128)),
+                torch.zeros((b, s, kh, 128)))
+    if name == "float32 hd 64":
+        return torch.zeros((b, s, kh, g, 64)), torch.zeros((b, s, kh, 64)), torch.zeros((b, s, kh, 64))
+    if name == "hd 32":
+        return _bf16(b, s, kh, g, 32), _bf16(b, s, kh, 32), _bf16(b, s, kh, 32)
+    if name == "hd 36":
+        return _bf16(b, s, kh, g, 36), _bf16(b, s, kh, 36), _bf16(b, s, kh, 36)
+    if name == "hd_v 96":
+        return _bf16(b, s, kh, g, 128), k128, _bf16(b, s, kh, 96)
+    if name == "base 2 bytes off 16":
+        q = _bf16(b * s * kh * g * 128 + 1)[1:].view(b, s, kh, g, 128)
+        return q, k128, v128
+    if name == "row stride 132 elements":
+        return _bf16(b, s, kh, g, 132)[..., :128], k128, v128
+    if name == "k row stride 136 elements":  # a multiple of 8: stays on tensor cores
+        return _bf16(b, s, kh, g, 128), _bf16(b, s, kh, 136)[..., :128], v128
+    if name == "v expanded over batch":  # stride 0 on an axis longer than 1
+        return _bf16(b, s, kh, g, 128), k128, _bf16(1, s, kh, 128).expand(b, s, kh, 128)
+    raise KeyError(name)
+
+
+ROUTE_CASES = {
+    "serving view hd 128": "tensor_core",
+    "fused qkv view hd 128": "tensor_core",
+    "MLA hd 192 hd_v 128": "tensor_core",
+    "hd 64": "tensor_core",
+    "k row stride 136 elements": "tensor_core",
+    "float32 hd 128": "fma",
+    "float32 hd 64": "fma",
+    "hd 32": "fma",
+    "hd 36": "fma",
+    "hd_v 96": "fma",
+    "base 2 bytes off 16": "fma",
+    "row stride 132 elements": "fma",
+    "v expanded over batch": "fma",
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_CASES))
+def test_route_rule(name):
+    q, k, v = _route_case(name)
+    assert flash_ops._route(q, k, v) == ROUTE_CASES[name]
+
+
+def test_tensor_map_strides_of_a_length_one_axis_are_row_lengths():
+    """A length-1 axis may carry any stride in torch; the tensor map gets the
+    row length there, so only strides that are stepped along decide."""
+    q = _bf16(1, 1, 8, 3, 128 + 1)[..., :128]  # B = S = 1, strides (3096, 3096, 387, 129, 1)
+    assert flash_ops._tma_strides(q) == [128, 128, 387, 129]
+    k, v = _bf16(1, 1, 8, 128), _bf16(1, 1, 8, 128)
+    assert flash_ops._route(q, k, v) == "fma"  # K's 387 and G's 129 are stepped along
+    assert flash_ops._route(_bf16(1, 1, 8, 3, 136)[..., :128], k, v) == "tensor_core"
+
+
+def test_cpu_call_counts_no_route_launch():
+    kernel = KERNELS["flash_attention"]
+    assert set(kernel.route_launches) == {"tensor_core", "fma"}
+    before, routes = kernel.launches, dict(kernel.route_launches)
+    for name in ("serving view hd 128", "float32 hd 128"):
+        flash_attention(*_route_case(name))
+    assert kernel.launches == before and kernel.route_launches == routes
