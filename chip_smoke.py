@@ -12,7 +12,13 @@ a non-zero exit:
               with the build seconds and ptxas's register and spill report;
 3. check    — each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at ragged ones, within the stated
-              tolerances, plus the autograd gradient of the likelihood; the
+              tolerances, plus the autograd gradient of the likelihood;
+              ``logreg_loglik_grad`` (one launch, a ticket its last block
+              resets) giving the same bits in three runs and in three replays
+              of one captured CUDA graph at both path shapes; the MALA chain
+              loops (warmup, burn-in, collection: each one captured CUDA
+              graph replayed) giving the bits of the eager loop they replace,
+              with one likelihood launch counted per transition; the
               KDE kernel also against its plain version in float64;
               ``flash_attention`` on both of its routes (tensor cores for
               bf16 at hd, hd_v multiples of 64; FMAs otherwise), each case
@@ -20,8 +26,11 @@ a non-zero exit:
               of one input giving the same bits;
 4. main     — the paper's §8.1 logistic-regression pipeline at full width
               through ``repro_torch.api.Pipeline(PAPER_SPEC).run()``: its
-              kernels must have launched, and every logL2 must be finite and
-              inside the band taken from the port's own run on the CPU;
+              kernels must have launched, the likelihood exactly once per
+              transition and init of both stages' chains (6,470), and every
+              logL2 must be finite and inside the band taken from the port's
+              own run on the CPU; ``sample_s`` and ``groundtruth_s`` printed
+              (4b and 4c too);
 4b. all     — the same run scoring every registered combiner
               (``ALL_SPEC``): the KDE kernel must have launched, the eleven
               logL2 values must sit inside their CPU bands and the first
@@ -42,8 +51,11 @@ a non-zero exit:
               bfloat16), 32
               in-vocabulary tokens, and each stage's logits against the
               last-position logits of ``forward(prompt + generated[:-1])``;
-5. timing   — CUDA-event times of each kernel and its plain version at the
-              paths' shapes, beside the least time the card could take, and
+5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
+              and the host's enqueue time) and its plain version at the
+              paths' shapes (``logreg_loglik_grad`` at both the sampling and
+              the groundtruth shape), beside the least time the card could
+              take, and
               of PyTorch's ``scaled_dot_product_attention`` beside the flash
               kernel (a yardstick only: the port never calls it): the
               tensor-core route in bf16 at B=2 and B=1, the FMA route in
@@ -154,6 +166,13 @@ def check_bands(board, bands):
             raise AssertionError(f"logL2({name}) = {err} outside its band")
 
 
+def stage_line(label, timings, wall=None):
+    """The MCMC stages' seconds of one run, on a line of their own."""
+    extra = "" if wall is None else f" wall_s={wall:.4f}"
+    print(f"  stages {label}: sample_s={timings.get('sample_s', float('nan')):.4f} "
+          f"groundtruth_s={timings.get('groundtruth_s', float('nan')):.4f}{extra}", flush=True)
+
+
 def kernel_label(ptxas_line: str) -> str:
     """``name<template args>`` of the kernel a ptxas 'Compiling entry
     function' line names, from its mangled name (``flash_fwd_tc_kernel<128,
@@ -186,7 +205,8 @@ def device_ms(fn, *, iters=50, flush=None):
     kernels run, so timing back-to-back calls would time the host. A GPU
     sleep longer than the whole enqueue is queued first: every call is on the
     stream before the device reaches the start event, and the calls run back
-    to back. ``iters`` stays small enough that the stream's queue of pending
+    to back (a reading the host outran is taken again behind a longer
+    sleep). ``iters`` stays small enough that the stream's queue of pending
     launches never fills (a full queue would block the host until the sleep
     ends). With ``flush`` (a 256 MB write, > the 50 MB L2) between calls,
     each call is timed alone with its own events and starts from a cold L2.
@@ -210,28 +230,34 @@ def device_ms(fn, *, iters=50, flush=None):
     torch.cuda._sleep(10_000_000)
     probe[1].record()
     torch.cuda.synchronize()
-    cycles = int(10_000_000 / probe[0].elapsed_time(probe[1]) * 3.0 * max(host_ms, 1.0))
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(iters if flush is not None else 1)]
-    torch.cuda._sleep(cycles)  # three times the host's enqueue time
-    sleep_done = torch.cuda.Event()
-    sleep_done.record()
-    if flush is None:
-        events[0][0].record()
-        for _ in range(iters):
-            fn()
-        events[0][1].record()
-    else:
-        for start, end in events:
-            flush()
-            start.record()
-            fn()
-            end.record()
-    if sleep_done.query():
-        raise AssertionError("the GPU sleep ended before the host had enqueued every call")
-    torch.cuda.synchronize()
-    total = sum(start.elapsed_time(end) for start, end in events)
-    return total / iters, host_ms / iters
+    cycles_per_ms = 10_000_000 / probe[0].elapsed_time(probe[1])
+    # a sleep three times the host's enqueue time; a host busier now than when
+    # it was timed can still outrun it, and then the reading is taken again
+    # behind a sleep ten, then thirty times as long
+    for factor in (3.0, 10.0, 30.0):
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(iters if flush is not None else 1)]
+        torch.cuda._sleep(int(cycles_per_ms * factor * max(host_ms, 1.0)))
+        sleep_done = torch.cuda.Event()
+        sleep_done.record()
+        if flush is None:
+            events[0][0].record()
+            for _ in range(iters):
+                fn()
+            events[0][1].record()
+        else:
+            for start, end in events:
+                flush()
+                start.record()
+                fn()
+                end.record()
+        covered = not sleep_done.query()
+        torch.cuda.synchronize()
+        if covered:
+            total = sum(start.elapsed_time(end) for start, end in events)
+            return total / iters, host_ms / iters
+    raise AssertionError("the GPU sleep ended before the host had enqueued every call, "
+                         "three times")
 
 
 def main() -> int:
@@ -323,6 +349,82 @@ def main() -> int:
     e = check_close("autograd of logreg_loglik vs autograd of the plain ℓ", g_kernel, g_plain,
                     rtol=1e-4, atol=1e-2)
     errs["logreg_loglik_grad"] = max(errs["logreg_loglik_grad"], e)
+
+    # one launch, no float atomics: the same bits in three more runs and in
+    # three replays of one captured graph (the last block resets its ticket)
+    for label, shape in (("sample", shapes["sample"]), ("groundtruth", shapes["groundtruth"])):
+        X, y, beta = logreg_inputs(*shape)
+        first = logreg_loglik_grad(X, y, beta)
+        runs = [logreg_loglik_grad(X, y, beta) for _ in range(3)]
+        tally = kernels.LaunchTally()
+        graph = torch.cuda.CUDAGraph()
+        with tally.capturing(), torch.cuda.graph(graph):
+            static = logreg_loglik_grad(X, y, beta)
+        for _ in range(3):
+            graph.replay()
+            tally.replay()
+            runs.append(tuple(t.clone() for t in static))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for r in runs for a, b in zip(r, first)):
+            raise AssertionError(f"logreg_loglik_grad {label}: runs or graph replays differ")
+        if tally.launches["logreg_loglik_grad"] != 1:
+            raise AssertionError(f"the captured graph holds {tally.launches} launches, not one")
+        print(f"  logreg_loglik_grad {label} {shape}: three more runs and three graph replays, "
+              f"the same bits", flush=True)
+        del X, y, beta, first, runs, static, graph
+
+    # the chain loops: warmup, burn-in and collection each replay one captured
+    # CUDA graph; the eager loop they replace, written out here (a kernel
+    # rebuilt at exp(log ε) every warmup step, then kernel.step drawing its
+    # own noise), must give the same θ, accept flags and adapted ε bitwise
+    from repro_torch.core.subposterior import make_subposterior_logpdf, partition_data
+    from repro_torch.models.bayes import get_model
+    from repro_torch.samplers import chain_collect, chain_setup, da_init, da_update
+    from repro_torch.samplers.mala import mala_kernel
+
+    lr_model = get_model("logreg")
+    M_c, W_c, B_c, T_c = 10, 40, 30, 60
+    data_c, _ = lr_model.generate_data(torch.Generator(device=dev).manual_seed(5), 10_000)
+    shards_c, _ = partition_data(data_c, M_c, only=lr_model.shard_keys, pad=True)
+    lp_c = make_subposterior_logpdf(lr_model.log_prior, lr_model.log_lik,
+                                    lr_model.prepare_data(shards_c), M_c)
+    pos_c = torch.zeros(M_c, lr_model.d, device=dev)
+    k_lr = kernels.KERNELS["logreg_loglik_grad"]
+    n0 = k_lr.launches
+    g_c = torch.Generator(device=dev).manual_seed(6)
+    kern_c, state_c, eps_c = chain_setup(g_c, lambda e: mala_kernel(lp_c, e), pos_c,
+                                         burn_in=B_c, warmup=W_c, initial_step_size=0.1,
+                                         target_accept=0.55)
+    _, theta_c, info_c = chain_collect(g_c, kern_c, state_c, T_c)
+    torch.cuda.synchronize()
+    graphed_launches = k_lr.launches - n0
+    g_c = torch.Generator(device=dev).manual_seed(6)
+    da_c = da_init(0.1, (M_c,), dev)
+    s_c = mala_kernel(lp_c, torch.exp(da_c.log_eps)[:, None]).init(pos_c)
+    for _ in range(W_c):
+        s_c, i_c = mala_kernel(lp_c, torch.exp(da_c.log_eps)[:, None]).step(g_c, s_c)
+        da_c = da_update(da_c, i_c.accept_prob, 0.55)
+    step_c = torch.exp(da_c.log_eps_avg)[:, None]
+    eager_c = mala_kernel(lp_c, step_c)
+    s_c = eager_c.init(s_c.position)
+    for _ in range(B_c):
+        s_c, _ = eager_c.step(g_c, s_c)
+    rows_c, acc_c = [], []
+    for _ in range(T_c):
+        s_c, i_c = eager_c.step(g_c, s_c)
+        rows_c.append(s_c.position)
+        acc_c.append(i_c.is_accepted)
+    torch.cuda.synchronize()
+    if not (torch.equal(eps_c, step_c) and torch.equal(theta_c, torch.stack(rows_c, dim=1))
+            and torch.equal(info_c.is_accepted, torch.stack(acc_c, dim=-1))):
+        raise AssertionError("graphed chains differ from the eager loop")
+    if graphed_launches != 2 + W_c + B_c + T_c:
+        raise AssertionError(f"graphed chains counted {graphed_launches} likelihood launches, "
+                             f"expected {2 + W_c + B_c + T_c}")
+    print(f"  graphed chains (M={M_c}, warmup {W_c}, burn-in {B_c}, T={T_c}): θ, accept flags "
+          f"({int(info_c.is_accepted.sum())}/{info_c.is_accepted.numel()} accepted) and ε bitwise "
+          f"the eager loop's; {graphed_launches} likelihood launches counted", flush=True)
+    del data_c, shards_c, lp_c, theta_c, rows_c
 
     # log w ~ −SSE/(2h²) of size ~1e5 at h=0.05: float32 relative error ~1e-6
     for label, (P, M, d, h) in {"sweep": (160, 10, 50, 0.05), "P=161,d=37": (161, 10, 37, 0.3),
@@ -567,9 +669,18 @@ def main() -> int:
     print(board.table(), flush=True)
     print(f"  accept={board.accept:.4f} timings_s={json.dumps(board.timings)}", flush=True)
     print(f"  launches={json.dumps(launches_paper)}", flush=True)
+    stage_line("PAPER_SPEC", board.timings)
     for name in ("logreg_loglik_grad", "img_log_weights"):
         if launches_paper[name] <= 0:
             raise AssertionError(f"{name} was never launched on the main path")
+    # the likelihood once per init and transition of both stages' chains:
+    # init, warmup, init, burn-in, T (sampling), then the same for the
+    # groundtruth chain (burn-in groundtruth_T // 6)
+    want_lr = (2 + PAPER_SPEC.warmup + PAPER_SPEC.resolved_burn_in() + PAPER_SPEC.T
+               + 2 + PAPER_SPEC.warmup + PAPER_SPEC.groundtruth_T // 6 + PAPER_SPEC.groundtruth_T)
+    if launches_paper["logreg_loglik_grad"] != want_lr:
+        raise AssertionError(f"logreg_loglik_grad launched {launches_paper['logreg_loglik_grad']} "
+                             f"times on the main path, expected {want_lr}")
     if launches_paper["flash_attention"] != 0:
         raise AssertionError("flash_attention launched on the MCMC path")
     check_bands(board, CPU_LOGL2)
@@ -585,6 +696,7 @@ def main() -> int:
     print(board.table(), flush=True)
     print(f"  accept={board.accept:.4f} timings_s={json.dumps(board.timings)}", flush=True)
     print(f"  launches={json.dumps(launches)}", flush=True)
+    stage_line("ALL_SPEC", board.timings)
     # the same chains as phase 4 (6,470 likelihood launches); IMG weights
     # once per sweep of a third kernel-scored IMG combiner, semiparametric_w
     # (ceil(T / n_batch) = 75), and once for weierstrass's final states:
@@ -638,6 +750,7 @@ def main() -> int:
     print(f"  backend={fused.backend} wall_s={stream_wall:.3f} "
           f"timings_s={json.dumps(board.timings)}", flush=True)
     print(f"  launches={json.dumps(launches_stream)}", flush=True)
+    stage_line("STREAM_SPEC fused", board.timings, wall=stream_wall)
     for row in sr.trajectory:
         print(f"  t={row['t']:5d} {sr.metric}({row['combiner']:15s}) = {row['error']:.4f} "
               f"[{row['elapsed_s']:.3f}s]", flush=True)
@@ -876,7 +989,7 @@ def main() -> int:
     def flush():
         flush_buf.zero_()
 
-    rows = []
+    rows, lr_rows = [], {}
     for label, (G, N, d, C) in {"sample": (10, 5000, 50, 1), "groundtruth": (1, 50000, 50, 1)}.items():
         X, y, beta = logreg_inputs(G, N, d, C)
         nbytes = 4 * (G * N * d + G * N + G * d * C + G * C + G * d * C)
@@ -889,10 +1002,11 @@ def main() -> int:
               f"(cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} us/call), "
               f"plain {plain * 1e3:.2f} us (host {plain_host * 1e3:.2f} us/call), "
               f"HBM bound {bound * 1e3:.2f} us by {bound_by} (bounds the cold-L2 time)", flush=True)
-        if label == "sample":
-            rows.append({"name": "logreg_loglik_grad", "ms": ms, "cold_ms": cold, "host_ms": host,
-                         "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                         "shape": f"G={G} N={N} d={d} C={C}"})
+        lr_rows[label] = {"ms": ms, "cold_ms": cold, "host_ms": host, "plain_ms": plain,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "shape": f"G={G} N={N} d={d} C={C}"}
+    rows.append({"name": "logreg_loglik_grad", **lr_rows["sample"],
+                 "at_groundtruth": lr_rows["groundtruth"]})
     P, M, d = 160, 10, 50
     theta = torch.randn((P, M, d), generator=gen, device=dev)
     h_t = torch.tensor(0.05, device=dev)

@@ -12,7 +12,9 @@ chunks: ``setup`` (init, warmup, burn-in), ``next_chunk`` (the next n
 draws), ``localize`` (a no-op on one device) and ``run_fused`` (setup and
 one chunk of T, with no host synchronisation). Every method
 draws from the caller's generator in the order of the one-shot driver, so
-any chunking gives the same draws bitwise. The reference's
+any chunking gives the same draws bitwise. The backend keeps the collection
+loop (:class:`~repro_torch.samplers.base.TransitionLoop`) of its first chunk,
+so on the card every chunk replays one captured transition. The reference's
 ``MeshChunkBackend`` (chains split over devices) is not ported yet.
 """
 
@@ -23,7 +25,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.api.sampling import ShardKernel, setup_shard_chains, shard_chunk
-from repro_torch.samplers.base import MCMCKernel
+from repro_torch.samplers.base import TransitionLoop
 
 # execution modes a chunk backend can report (BackendId tags)
 CHUNKED = "chunked"
@@ -65,9 +67,11 @@ class BatchedChunkBackend:
         self.n_chains = int(counts.shape[0])
         self.device = counts.device
         self.burn_in, self.warmup, self.step_size = burn_in, warmup, step_size
-        # adapted kernels are rebuilt from the per-chain steps in the carry;
-        # fixed-step ones from the spec's float, as the one-shot driver does
+        # adapted kernels run at the per-chain steps in the carry; fixed-step
+        # ones at the spec's float, as the one-shot driver does
         self.adapts = sk.adaptive and warmup > 0
+        self._loop: Optional[TransitionLoop] = None  # built by the first chunk
+        self._eps: Optional[torch.Tensor] = None  # the loop kernel's step sizes
 
     def backend_id(self, mode: Optional[str] = None) -> str:
         return BackendId.batched(self.device.type, mode)
@@ -82,14 +86,22 @@ class BatchedChunkBackend:
             eps = torch.full((self.n_chains, 1), eps, dtype=torch.float32, device=self.device)
         return state, eps
 
-    def kernel(self, eps: torch.Tensor) -> MCMCKernel:
-        return self.sk.build(self.lp, eps if self.adapts else self.step_size)
+    def loop(self, eps: torch.Tensor, state: Any) -> TransitionLoop:
+        """The collection loop, built at the first chunk and kept: later
+        chunks copy ``eps`` into its kernel's step sizes."""
+        if self._loop is None:
+            self._eps = eps.clone() if self.adapts else None
+            kernel = self.sk.build(self.lp, self._eps if self.adapts else self.step_size)
+            self._loop = TransitionLoop(kernel, state)
+        elif self.adapts:
+            self._eps.copy_(eps)
+        return self._loop
 
     def next_chunk(
         self, gen: torch.Generator, eps: torch.Tensor, state: Any, n: int
     ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
         """``(state, theta (M, n, d), accepted count (M,) float32)``."""
-        state, theta, accepted = shard_chunk(self.kernel(eps), gen, state, n)
+        state, theta, accepted = shard_chunk(self.loop(eps, state), gen, state, n)
         return state, theta, accepted.to(torch.float32).sum(dim=-1)
 
     def localize(self, tree):

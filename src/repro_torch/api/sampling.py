@@ -27,7 +27,7 @@ from repro_torch.core.subposterior import (
 )
 from repro_torch.models.bayes import BayesModel
 from repro_torch.samplers import chain_collect, chain_setup, filter_options, sampler_spec
-from repro_torch.samplers.base import MCMCKernel
+from repro_torch.samplers.base import MCMCKernel, TransitionLoop
 
 Data = Dict[str, torch.Tensor]
 
@@ -126,10 +126,10 @@ def setup_shard_chains(
 
 
 def shard_chunk(
-    kernel: MCMCKernel, gen: torch.Generator, state: Any, n: int
+    kernel: "MCMCKernel | TransitionLoop", gen: torch.Generator, state: Any, n: int
 ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
     """The next ``n`` kept draws of every chain: ``(state, theta (M, n, d),
-    accepted (M, n) bool)``."""
+    accepted (M, n) bool)``; ``kernel`` may be a kept collection loop."""
     state, theta, info = chain_collect(gen, kernel, state, n)
     return state, theta, info.is_accepted
 

@@ -17,8 +17,9 @@ budget) the chains run the whole T in one go
 (:meth:`ShardChainStream.fused_sample`), with no host synchronisation, and
 :func:`fused_fold` then folds the requested combiners' scan faces chunk by
 chunk over the device-resident draws. The subscriber loop synchronises the device
-before it stamps each chunk's ``landed_s``. Capturing either loop in a CUDA
-graph is later work.
+before it stamps each chunk's ``landed_s``. On the card the chains' loop
+replays one captured CUDA graph of the transition (the backend keeps it
+across chunks); capturing the fold loop is later work.
 """
 
 from __future__ import annotations

@@ -21,11 +21,15 @@ it is.
 Each :class:`Kernel` keeps ``launches``, a plain count that its wrapper raises
 by one where it launches the kernel and nowhere else. A kernel with more than
 one route (``flash_attention``: tensor cores or FMAs) also keeps
-``route_launches``, the same launches counted by route.
+``route_launches``, the same launches counted by route. A wrapper called
+while a CUDA graph is captured raises its count, but nothing runs until the
+graph is replayed: :class:`LaunchTally` takes those counts back at the end of
+the capture and adds them again at every replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import shutil
@@ -161,6 +165,45 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+class LaunchTally:
+    """The kernel launches of one captured CUDA graph, for the counts.
+
+    ``with tally.capturing():`` around a capture keeps, per kernel, what the
+    wrappers counted inside it (launches and launches by route), and sets
+    every count back to its value before the capture: capture records
+    launches without running them. :meth:`replay` adds the kept counts, once
+    per replay of the graph. ``kernels`` defaults to :data:`KERNELS`.
+    """
+
+    def __init__(self, kernels: Optional[Dict[str, Kernel]] = None):
+        self.kernels = KERNELS if kernels is None else kernels
+        self.launches: Dict[str, int] = {}
+        self.route_launches: Dict[str, Dict[str, int]] = {}
+
+    @contextlib.contextmanager
+    def capturing(self):
+        before = {n: (k.launches, dict(k.route_launches)) for n, k in self.kernels.items()}
+        try:
+            yield self
+        finally:
+            for name, k in self.kernels.items():
+                launches, routes = before[name]
+                self.launches[name] = k.launches - launches
+                self.route_launches[name] = {
+                    r: n - routes.get(r, 0) for r, n in k.route_launches.items()
+                }
+                k.launches = launches
+                k.route_launches.clear()
+                k.route_launches.update(routes)
+
+    def replay(self) -> None:
+        for name, k in self.kernels.items():
+            k.launches += self.launches.get(name, 0)
+            for route, n in self.route_launches.get(name, {}).items():
+                if n:
+                    k.route_launches[route] = k.route_launches.get(route, 0) + n
 
 
 def check_error(kernel: Kernel, err: int, error_string) -> None:

@@ -5,13 +5,18 @@ hand-written CUDA kernel (``csrc/logreg_loglik.cu``) for CUDA tensors, the
 plain version (``ref.py``) for CPU tensors. :func:`logreg_loglik` is ℓ alone
 as a differentiable function of β: a :class:`torch.autograd.Function` whose
 forward keeps the fused ∇ℓ, so a value-and-gradient costs one launch.
+
+A launch allocates its partials and output with ``torch.empty`` (inside a
+captured CUDA graph, the graph's pool serves them), and passes the device's
+ticket buffer, which the kernel's last block resets, so replays of a graph
+that holds the launch need nothing between them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -31,16 +36,46 @@ _I = ctypes.c_int
 
 @functools.cache
 def _entry():
-    """The loaded library, its entry point with C types set, and the rows
-    each block of pass 1 takes (the kernel's own constant)."""
+    """The loaded library and its entry points, with C types set."""
     lib = KERNEL.lib()
     fn = lib.logreg_loglik_grad_f32
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]
     fn.restype = _I
-    lib.logreg_rows_per_block.restype = _I
+    lib.logreg_tile_rows.argtypes = [_I]
+    lib.logreg_tile_rows.restype = _I
+    lib.logreg_smem_bytes.argtypes = [_I, _I]
+    lib.logreg_smem_bytes.restype = ctypes.c_longlong
     lib.logreg_error_string.argtypes = [_I]
     lib.logreg_error_string.restype = ctypes.c_char_p
-    return lib, fn, lib.logreg_rows_per_block()
+    return lib, fn
+
+
+@functools.cache
+def _layout(N: int, d: int, C: int) -> Tuple[int, int]:
+    """``(blocks per problem, padded outputs)`` of the partials at these
+    widths; raises where the kernel's block cannot hold them."""
+    lib, _ = _entry()
+    if lib.logreg_smem_bytes(d, C) == 0:
+        raise ValueError(
+            f"logreg_loglik_grad takes d <= 1024 and (d, C) whose block fits in shared memory; "
+            f"got d={d}, C={C}"
+        )
+    return -(-N // lib.logreg_tile_rows(d)), -(-(C + d * C) // 4) * 4
+
+
+_TICKETS: Dict[int, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The device's per-problem tickets: zeros, made once outside any graph
+    capture; every launch leaves them zero."""
+    index = device_index(device)
+    if index not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("logreg_loglik_grad: call it once on the device before a "
+                               "graph captures it (its ticket buffer is made then)")
+        _TICKETS[index] = torch.zeros(65535, dtype=torch.int32, device=device)
+    return _TICKETS[index]
 
 
 def _launch(X, y, beta, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,15 +86,14 @@ def _launch(X, y, beta, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
         check_tensor(t, name, device=device, ndim=nd)
     if N < 1 or G > 65535:
         raise ValueError(f"need 1 <= N and G <= 65535, got N={N}, G={G}")
-    lib, fn, rpb = _entry()
-    nblk = -(-N // rpb)
-    R = C + d * C
-    part = torch.empty((G, R, nblk), dtype=torch.float32, device=device)
-    out = torch.empty((G, R), dtype=torch.float32, device=device)
+    lib, fn = _entry()
+    nblk, Rp = _layout(N, d, C)
+    part = torch.empty((G, nblk, Rp), dtype=torch.float32, device=device)
+    out = torch.empty((G, C + d * C), dtype=torch.float32, device=device)
     err = fn(
         device_index(device), X.data_ptr(), y.data_ptr(), beta.data_ptr(),
-        part.data_ptr(), out.data_ptr(), G, N, d, C, float(scale),
-        stream_handle(device),
+        part.data_ptr(), out.data_ptr(), _tickets(device).data_ptr(), G, N, d, C,
+        float(scale), stream_handle(device),
     )
     check_error(KERNEL, err, lib.logreg_error_string)
     KERNEL.launches += 1

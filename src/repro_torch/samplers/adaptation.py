@@ -2,9 +2,12 @@
 
 The port of ``repro/samplers/adaptation.py`` (Hoffman & Gelman 2011, Alg. 5
 constants). State fields are tensors with one entry per chain, so the
-adaptation of M chains runs as one batched update; :func:`warmup_chain`
-rebuilds the kernel at every step from the chains' current step sizes
-``(..., 1)``, as the reference does at its traced ε.
+adaptation of M chains runs as one batched update. The reference rebuilds
+the kernel inside its scan at the traced ε; :func:`warmup_chain` builds it
+once on a ``(..., 1)`` step-size tensor that each transition rewrites in
+place from the dual-averaging state, so the whole adaptation step (MALA
+transition, update, new ε) is one transition of a
+:class:`~repro_torch.samplers.base.TransitionLoop`: a CUDA graph on the card.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.samplers.base import MCMCKernel
+from repro_torch.samplers.base import MCMCKernel, StepInfo, TransitionLoop
 
 KernelFactory = Callable[[torch.Tensor], MCMCKernel]  # step_size -> kernel
 
@@ -67,11 +70,19 @@ def warmup_chain(
     chain's averaged ε, ``step_size`` shaped ``(..., 1)``.
     """
     batch = position.shape[:-1]
-    da = da_init(initial_step_size, batch, position.device)
-    state = factory(torch.exp(da.log_eps).unsqueeze(-1)).init(position)
+    # the loop updates these in place; da_init shares one zeros tensor
+    da = DualAveragingState(*(t.clone() for t in da_init(initial_step_size, batch,
+                                                          position.device)))
+    eps = torch.exp(da.log_eps).unsqueeze(-1)
+    kern = factory(eps)
+
+    def adapt(info: StepInfo) -> None:
+        for dst, src in zip(da, da_update(da, info.accept_prob, target_accept)):
+            dst.copy_(src)
+        eps.copy_(torch.exp(da.log_eps).unsqueeze(-1))  # the next transition's ε
+
+    loop = TransitionLoop(kern, kern.init(position), inner=adapt)
     for _ in range(num_steps):
-        kern = factory(torch.exp(da.log_eps).unsqueeze(-1))
-        state, info = kern.step(gen, state)
-        da = da_update(da, info.accept_prob, target_accept)
+        loop.step(gen)
     step_size = torch.exp(da.log_eps_avg).unsqueeze(-1)
-    return factory(step_size), state.position, step_size
+    return factory(step_size), loop.state.position.clone(), step_size

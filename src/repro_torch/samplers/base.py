@@ -1,21 +1,31 @@
 """Sampler protocol + chain drivers, batched over chains by construction.
 
-The port of ``repro/samplers/base.py``. A kernel is ``MCMCKernel(init, step)``:
+The port of ``repro/samplers/base.py``. A kernel is ``MCMCKernel(init, step, draw)``:
 
 - ``init(position) -> state``                 (``state.position`` exists)
-- ``step(gen, state) -> (state, StepInfo)``   (one transition)
+- ``step(gen, state, *inputs) -> (state, StepInfo)``   (one transition)
+- ``draw(gen, position, out=None) -> inputs`` (the step's random inputs)
 
 Positions are tensors ``(..., d)``; every leading axis is an independent
 chain (the reference ``vmap``\\ s :func:`run_chain`; here the batch axis is
-written out, and ``lax.scan`` is a Python loop). Randomness comes from an
-explicit :class:`torch.Generator`.
+written out). Randomness comes from an explicit :class:`torch.Generator`:
+``step(gen, state)`` draws its own inputs, and ``step(gen, state,
+*draw(gen, state.position))`` is the same transition, bit for bit.
+
+The reference runs each chain loop (warmup, burn-in, collection) as one
+``lax.scan`` inside ``jit``. Here a loop is a :class:`TransitionLoop`: on the
+CPU a Python loop of eager steps, on the card the replays of one captured
+CUDA graph of the transition, with the random inputs drawn outside the graph
+in the eager order, so both give the eager loop's draws.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import LaunchTally
 
 LogDensityFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -23,6 +33,9 @@ LogDensityFn = Callable[[torch.Tensor], torch.Tensor]
 class MCMCKernel(NamedTuple):
     init: Callable[[torch.Tensor], Any]
     step: Callable[..., Tuple[Any, "StepInfo"]]
+    # the step's random inputs, drawn apart from it; a kernel without one
+    # runs only on the CPU (its step would draw inside a captured graph)
+    draw: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None
 
 
 class StepInfo(NamedTuple):
@@ -31,6 +44,90 @@ class StepInfo(NamedTuple):
     accept_prob: torch.Tensor
     is_accepted: torch.Tensor
     log_density: torch.Tensor
+
+
+class TransitionLoop:
+    """Transitions of one kernel on tensors the loop owns: a chain loop.
+
+    The loop keeps its own copy of the chain state and the buffers of the
+    step's random inputs. :meth:`step` draws the inputs from the caller's
+    generator, outside any graph and in the order ``kernel.step`` would
+    draw them, then runs the transition, which writes the new state into the
+    loop's tensors. ``inner(info)``, if given, runs inside the transition
+    after the step (the warmup's step-size update).
+
+    On the CPU every transition runs eagerly. On the card the first one runs
+    eagerly on a side stream, as PyTorch asks before a capture: it is a real
+    step of the chain, and it warms the allocator and autograd. The second
+    is captured into one CUDA graph, and it and every later transition are
+    replays of that graph. A capture or replay error is raised; nothing
+    falls back to eager steps. :class:`~repro_torch.kernels.LaunchTally`
+    keeps the kernels' launch counts exact across capture and replays.
+    """
+
+    def __init__(
+        self,
+        kernel: MCMCKernel,
+        state: Any,
+        inner: Optional[Callable[[StepInfo], None]] = None,
+    ):
+        device = state.position.device
+        if device.type == "cuda" and kernel.draw is None:
+            raise TypeError("a kernel runs on the card only with a draw function: its "
+                            "random inputs are drawn outside the captured transition")
+        self.kernel, self.inner = kernel, inner
+        self.state = type(state)(*(t.clone() for t in state))
+        self.graphed = device.type == "cuda"
+        self.draws: Optional[Tuple[torch.Tensor, ...]] = None
+        self.info: Optional[StepInfo] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.tally = LaunchTally()
+
+    def load(self, state: Any) -> None:
+        """Continue from ``state``: copy it into the loop's tensors."""
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+
+    def snapshot(self) -> Any:
+        """A copy of the current state that later transitions leave alone."""
+        return type(self.state)(*(t.clone() for t in self.state))
+
+    def _transition(self, gen: torch.Generator) -> None:
+        # a kernel without draw (CPU only) draws inside its step
+        new, info = self.kernel.step(gen, self.state, *(self.draws or ()))
+        for dst, src in zip(self.state, new):
+            dst.copy_(src)
+        if self.inner is not None:
+            self.inner(info)
+        self.info = info
+
+    def step(self, gen: torch.Generator) -> StepInfo:
+        """One transition; returns its info (on the card the graph's own
+        tensors, which the next transition overwrites)."""
+        draw = self.kernel.draw
+        if draw is not None and self.draws is None:
+            self.draws = draw(gen, self.state.position)
+        elif draw is not None:
+            draw(gen, self.state.position, out=self.draws)
+        if not self.graphed:
+            self._transition(gen)
+        elif self.graph is not None:
+            self.graph.replay()
+            self.tally.replay()
+        elif self.info is None:  # the warm-up: a real step, eager, on a side stream
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._transition(gen)
+            torch.cuda.current_stream().wait_stream(side)
+        else:
+            graph = torch.cuda.CUDAGraph()
+            with self.tally.capturing(), torch.cuda.graph(graph):
+                self._transition(gen)
+            self.graph = graph
+            graph.replay()
+            self.tally.replay()
+        return self.info
 
 
 def chain_setup(
@@ -69,33 +166,50 @@ def chain_setup(
     elif not isinstance(kernel, MCMCKernel) and callable(kernel):
         kernel = kernel(initial_step_size)
     state = kernel.init(position)
-    for _ in range(burn_in):
-        state, _ = kernel.step(gen, state)
+    if burn_in > 0:
+        loop = TransitionLoop(kernel, state)
+        for _ in range(burn_in):
+            loop.step(gen)
+        state = loop.snapshot()
     return kernel, state, step_size
 
 
 def chain_collect(
     gen: torch.Generator,
-    kernel: MCMCKernel,
+    kernel: "MCMCKernel | TransitionLoop",
     state: Any,
     num_samples: int,
     *,
     thin: int = 1,
 ) -> Tuple[Any, torch.Tensor, StepInfo]:
     """``num_samples`` kept draws from a live state: ``(state, (..., T, d),
-    info (..., T))``; ``thin`` keeps every thin-th transition."""
-    position = state.position
-    batch = position.shape[:-1]
-    out = torch.empty((num_samples,) + tuple(position.shape), dtype=position.dtype,
-                      device=position.device)
-    infos = []
+    info (..., T))``; ``thin`` keeps every thin-th transition.
+
+    ``kernel`` may be a :class:`TransitionLoop` kept from an earlier call
+    (so a run in chunks captures its transition once); it continues from
+    ``state``. Each kept draw and its info are copied out of the loop's
+    tensors, and the state returned is a copy.
+    """
+    if isinstance(kernel, TransitionLoop):
+        loop = kernel
+        loop.load(state)
+    else:
+        loop = TransitionLoop(kernel, state)
+    position = loop.state.position
+    batch = tuple(position.shape[:-1])
+    like = dict(dtype=position.dtype, device=position.device)
+    out = torch.empty((num_samples,) + tuple(position.shape), **like)
+    fields = StepInfo(torch.empty((num_samples,) + batch, **like),
+                      torch.empty((num_samples,) + batch, dtype=torch.bool, device=position.device),
+                      torch.empty((num_samples,) + batch, **like))
     for t in range(num_samples):
         for _ in range(thin):
-            state, info = kernel.step(gen, state)
-        out[t] = state.position
-        infos.append(info)
-    stacked = StepInfo(*(torch.stack(f, dim=-1) for f in zip(*infos)))
-    return state, out.movedim(0, len(batch)).contiguous(), stacked
+            info = loop.step(gen)
+        out[t].copy_(position)
+        for buf, f in zip(fields, info):
+            buf[t].copy_(f)
+    stacked = StepInfo(*(f.movedim(0, -1).contiguous() for f in fields))
+    return loop.snapshot(), out.movedim(0, len(batch)).contiguous(), stacked
 
 
 def run_chain(

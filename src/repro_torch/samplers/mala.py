@@ -3,6 +3,12 @@
 The port of ``repro/samplers/mala.py``. The value and gradient of the
 log-density come from one autograd call over all chains at once; with the
 logistic model that is one launch of the fused likelihood kernel per step.
+
+The step reads its step size when it runs (ε² is formed inside the step), so
+a kernel built on a ``(..., 1)`` tensor follows in-place updates of it: the
+warmup adapts ε that way, and a captured CUDA graph of the step sees each
+new value. ``draw`` makes the step's random inputs apart from the step, so a
+chain driver can draw them outside a graph in the order the step would.
 """
 
 from __future__ import annotations
@@ -34,21 +40,33 @@ def mala_kernel(
 ) -> MCMCKernel:
     """θ' = θ + (ε²/2)∇log p(θ) + ε ξ with the exact MH correction.
 
-    ``step_size`` is a float or a per-chain ``(..., 1)`` tensor.
+    ``step_size`` is a float or a per-chain ``(..., 1)`` tensor, read at
+    every step.
     """
     eps = step_size
-    eps2 = eps**2
-    # per-chain ε² for the (...)-shaped proposal log-density
-    eps2_row = eps2[..., 0] if isinstance(eps2, torch.Tensor) and eps2.dim() > 0 else eps2
 
     def init(position: torch.Tensor) -> MALAState:
         ld, g = value_and_grad(logdensity, position)
         return MALAState(position, ld, g)
 
-    def forward_logq(x_from, g_from, x_to):
+    def forward_logq(x_from, g_from, x_to, eps2, eps2_row):
         # log q(x_to | x_from) up to a constant: −‖x_to − x_from − (ε²/2)g‖²/(2ε²)
         diff = x_to - (x_from + 0.5 * eps2 * g_from)
         return -(diff * diff).sum(dim=-1) / (2.0 * eps2_row)
+
+    def draw(gen: torch.Generator, position: torch.Tensor, out=None):
+        """The step's random inputs ``(noise (..., d), log_u (...))``, drawn
+        from ``gen`` in the step's own order (into ``out`` when given)."""
+        if out is None:
+            noise = torch.randn(position.shape, generator=gen, dtype=position.dtype,
+                                device=position.device)
+            log_u = torch.rand(position.shape[:-1], generator=gen, dtype=position.dtype,
+                               device=position.device)
+        else:
+            noise, log_u = out
+            torch.randn(noise.shape, generator=gen, out=noise)
+            torch.rand(log_u.shape, generator=gen, out=log_u)
+        return noise, log_u.log_()
 
     def step(
         gen: torch.Generator,
@@ -64,13 +82,16 @@ def mala_kernel(
             log_u = torch.log(
                 torch.rand(pos.shape[:-1], generator=gen, dtype=pos.dtype, device=pos.device)
             )
+        eps2 = eps**2
+        # per-chain ε² for the (...)-shaped proposal log-density
+        eps2_row = eps2[..., 0] if isinstance(eps2, torch.Tensor) and eps2.dim() > 0 else eps2
         proposal = (pos + 0.5 * eps2 * state.grad) + eps * noise
         ld_prop, g_prop = value_and_grad(logdensity, proposal)
         log_ratio = (
             ld_prop
             - state.log_density
-            + forward_logq(proposal, g_prop, pos)
-            - forward_logq(pos, state.grad, proposal)
+            + forward_logq(proposal, g_prop, pos, eps2, eps2_row)
+            - forward_logq(pos, state.grad, proposal, eps2, eps2_row)
         )
         accept_prob = torch.exp(log_ratio.clamp(max=0.0)).clamp(max=1.0)
         accepted = log_u < log_ratio
@@ -82,4 +103,4 @@ def mala_kernel(
         )
         return new_state, StepInfo(accept_prob, accepted, new_state.log_density)
 
-    return MCMCKernel(init=init, step=step)
+    return MCMCKernel(init=init, step=step, draw=draw)

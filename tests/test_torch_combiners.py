@@ -20,6 +20,9 @@ from repro.core.combiners import img as jimg
 from repro.core.combiners.api import resolve_schedule as jax_resolve_schedule
 from repro_torch.core.combiners import get_combiner, img as timg, log_weight_bruteforce
 from repro_torch.core.combiners.api import resolve_schedule
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 M, T, D, B = 4, 300, 5, 16
 

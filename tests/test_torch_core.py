@@ -30,6 +30,9 @@ from repro_torch.interop import from_reference_data
 from repro_torch.models.bayes import get_model
 from repro_torch.samplers import adaptation as tad
 from repro_torch.utils.options import filter_kwargs
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 
 def _t(a):

@@ -28,6 +28,9 @@ from repro_torch.kernels.logreg_loglik import (
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 pytestmark = pytest.mark.cuda
 
@@ -50,7 +53,8 @@ def _logreg_inputs(device, G, N, d, C, seed=0):
 # ℓ sums N float32 terms in another order than the plain version: relative
 # error ~1e-6 → rtol 1e-5; gradient entries can cancel → atol 1e-2 at N=50,000.
 @pytest.mark.parametrize("G,N,d,C", [(10, 5000, 50, 1), (1, 50000, 50, 1), (1, 1, 50, 1),
-                                     (3, 4999, 37, 2), (2, 65, 130, 3)])
+                                     (3, 4999, 37, 2), (2, 65, 130, 3), (4, 333, 1, 1),
+                                     (2, 777, 300, 2), (1, 300, 1024, 1)])
 def test_logreg_kernel_matches_plain(cuda_device, G, N, d, C):
     X, y, beta = _logreg_inputs(cuda_device, G, N, d, C)
     before = kernels.KERNELS["logreg_loglik_grad"].launches
@@ -68,6 +72,137 @@ def test_logreg_kernel_is_deterministic(cuda_device):
     for _ in range(3):
         for a, b in zip(first, logreg_loglik_grad(X, y, beta)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("G,N,d,C", [(10, 5000, 50, 1), (1, 300, 1024, 1)])
+def test_logreg_kernel_replays_in_a_graph_with_the_same_bits(cuda_device, G, N, d, C):
+    """One launch captured in a CUDA graph and replayed three times: the same
+    bits as the eager launch each time (the last block resets its ticket, so
+    a replay starts from zero), one launch counted per replay, none for the
+    capture; eager launches after the replays still agree. At d = 1024 the
+    block takes more than 48 KB of shared memory, so the entry point sets the
+    kernel's attribute while the graph is captured."""
+    X, y, beta = _logreg_inputs(cuda_device, G, N, d, C)
+    eager = logreg_loglik_grad(X, y, beta, scale=0.5)
+    k = kernels.KERNELS["logreg_loglik_grad"]
+    tally = kernels.LaunchTally()
+    graph = torch.cuda.CUDAGraph()
+    before = k.launches
+    with tally.capturing(), torch.cuda.graph(graph):
+        static = logreg_loglik_grad(X, y, beta, scale=0.5)
+    assert k.launches == before and tally.launches["logreg_loglik_grad"] == 1
+    for _ in range(3):
+        graph.replay()
+        tally.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(static, eager))
+    assert k.launches == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(logreg_loglik_grad(X, y, beta, scale=0.5), eager))
+
+
+def test_logreg_kernel_reads_a_misaligned_base(cuda_device):
+    """X starting 4, 8 or 12 bytes past a 16-byte boundary (the tile's ends
+    take 4-byte copies): the same result as an aligned copy, bit for bit."""
+    X, y, beta = _logreg_inputs(cuda_device, 2, 999, 50, 1)
+    want = logreg_loglik_grad(X, y, beta)
+    for shift in (1, 2, 3):
+        flat = torch.empty(X.numel() + shift, device=cuda_device)
+        Xs = flat[shift:].view(X.shape)
+        Xs.copy_(X)
+        assert Xs.data_ptr() % 16 == 4 * shift
+        assert all(torch.equal(a, b) for a, b in zip(logreg_loglik_grad(Xs, y, beta), want))
+
+
+def test_logreg_wrapper_raises_beyond_the_kernels_width(cuda_device):
+    X, y, beta = _logreg_inputs(cuda_device, 1, 10, 1025, 1)
+    with pytest.raises(ValueError, match="d <= 1024"):
+        logreg_loglik_grad(X, y, beta)
+
+
+def _logreg_subposterior(device, M=4, n=2000):
+    from repro_torch.core.subposterior import make_subposterior_logpdf, partition_data
+    from repro_torch.models.bayes import get_model
+
+    model = get_model("logreg")
+    data, _ = model.generate_data(torch.Generator(device=device).manual_seed(0), n)
+    shards, _ = partition_data(data, M, only=model.shard_keys, pad=True)
+    lp = make_subposterior_logpdf(model.log_prior, model.log_lik, model.prepare_data(shards), M)
+    return lp, torch.zeros(M, model.d, device=device)
+
+
+def test_graphed_chains_match_an_eager_loop_bitwise(cuda_device):
+    """Warmup, burn-in and collection on the card, each a loop of one captured
+    CUDA graph (chain_setup + chain_collect), against the eager loop they
+    replace, written out here: a kernel rebuilt at exp(log ε) every warmup
+    step, then ``kernel.step(gen, state)`` drawing its own noise from the same
+    generator. The same θ, accept flags and adapted ε, bit for bit, and one
+    likelihood launch counted per transition and per init."""
+    from repro_torch.samplers import chain_collect, chain_setup, da_init, da_update
+    from repro_torch.samplers.mala import mala_kernel
+
+    lp, pos0 = _logreg_subposterior(cuda_device)
+    W, B, T = 30, 20, 50
+    k = kernels.KERNELS["logreg_loglik_grad"]
+    before = k.launches
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    kern, state, eps = chain_setup(gen, lambda e: mala_kernel(lp, e), pos0, burn_in=B,
+                                   warmup=W, initial_step_size=0.1, target_accept=0.55)
+    _, theta, info = chain_collect(gen, kern, state, T)
+    torch.cuda.synchronize()
+    assert k.launches - before == 1 + W + 1 + B + T
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    da = da_init(0.1, (4,), cuda_device)
+    s = mala_kernel(lp, torch.exp(da.log_eps)[:, None]).init(pos0)
+    for _ in range(W):
+        s, i = mala_kernel(lp, torch.exp(da.log_eps)[:, None]).step(gen, s)
+        da = da_update(da, i.accept_prob, 0.55)
+    step = torch.exp(da.log_eps_avg)[:, None]
+    eager = mala_kernel(lp, step)
+    s = eager.init(s.position)
+    for _ in range(B):
+        s, _ = eager.step(gen, s)
+    rows, accs = [], []
+    for _ in range(T):
+        s, i = eager.step(gen, s)
+        rows.append(s.position)
+        accs.append(i.is_accepted)
+    assert torch.equal(eps, step)
+    assert torch.equal(theta, torch.stack(rows, dim=1))
+    assert torch.equal(info.is_accepted, torch.stack(accs, dim=-1))
+    assert 0 < int(info.is_accepted.sum()) < info.is_accepted.numel()
+
+
+def test_chunk_backend_replays_one_graph_across_chunks(cuda_device):
+    """Four chunks on the card run one collection loop (one capture) and give
+    the fused run's θ bitwise; launches: setup's, then one per draw."""
+    from repro_torch.api.backends import BatchedChunkBackend
+    from repro_torch.api.sampling import make_shard_kernel
+    from repro_torch.core.subposterior import partition_data
+    from repro_torch.models.bayes import get_model
+
+    model = get_model("logreg")
+    data, _ = model.generate_data(torch.Generator(device=cuda_device).manual_seed(0), 900)
+    shards, counts = partition_data(data, 3, only=model.shard_keys, pad=True)
+    sk = make_shard_kernel(model, 3, "mala", use_counts=False)  # 900 rows: no padding
+
+    def backend():
+        return BatchedChunkBackend(sk, shards, counts, burn_in=5, warmup=12, step_size=0.1)
+
+    k = kernels.KERNELS["logreg_loglik_grad"]
+    chunked = backend()
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    state, eps = chunked.setup(gen)
+    before, parts, loops = k.launches, [], []
+    for n in (10, 10, 10, 7):
+        state, theta, _ = chunked.next_chunk(gen, eps, state, n)
+        parts.append(theta)
+        loops.append(chunked._loop)
+    torch.cuda.synchronize()
+    assert k.launches - before == 37
+    assert len({id(x) for x in loops}) == 1 and loops[0].graph is not None
+    fused, _ = backend().run_fused(torch.Generator(device=cuda_device).manual_seed(9), 37)
+    assert torch.equal(torch.cat(parts, dim=1), fused)
 
 
 def test_logreg_autograd_on_card(cuda_device):

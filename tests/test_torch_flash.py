@@ -27,6 +27,9 @@ from repro_torch.kernels import KERNELS
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.lm.flash import flash_attention as model_flash
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal: tests/test_flash_kernel.py's four
     (1, 128, 128, 1, 1, 32, 32, True),

@@ -30,6 +30,9 @@ from repro_torch.kernels.kde_density import (
     machine_kde_log_density,
     machine_kde_log_density_ref,
 )
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 RTOL, ATOL = 1e-5, 5e-4
 SHAPES = [(5, 700, 7, 300), (3, 512, 50, 256), (8, 130, 2, 65), (2, 64, 1, 64)]

@@ -35,6 +35,9 @@ from repro_torch.kernels.logreg_loglik import (
     logreg_loglik_grad_ref,
 )
 from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -36,6 +36,9 @@ from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import layers, steps
 from repro_torch.models.lm import model as mdl
 from repro_torch.models.lm.config import reduced
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 ARCH = "llama3_2_3b"
 # every dense config: untied heads (minitron, qwen, deepseek-coder), QKV

@@ -23,6 +23,9 @@ from repro.kernels.online_update import online_moments_update as jax_update
 from repro.kernels.online_update import online_moments_update_ref as jax_update_ref
 from repro_torch import kernels
 from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 MEAN_TOL = dict(rtol=1e-5, atol=1e-5)
 M2_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -17,6 +17,9 @@ from repro.models.bayes import get_model as jax_get_model
 from repro_torch.api import Pipeline, RunSpec
 from repro_torch.interop import from_reference_data
 from repro_torch.launch.mcmc_run import ALL_SPEC, PAPER_SPEC, spec_for
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 FIELDS = dict(
     model="logreg", sampler="mala", M=4, T=120, warmup=30, n=1000, groundtruth_T=200, seed=0,

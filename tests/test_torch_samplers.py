@@ -21,6 +21,9 @@ from repro_torch.interop import from_reference_data
 from repro_torch.models.bayes import get_model
 from repro_torch.samplers import get_sampler, run_chain, run_chains, sampler_spec
 from repro_torch.samplers.mala import mala_kernel
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 MEAN = torch.tensor([1.0, -2.0])
 STD = torch.tensor([0.8, 1.4])

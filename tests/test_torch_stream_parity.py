@@ -22,6 +22,9 @@ from repro.api import RunSpec as JaxRunSpec
 from repro.models.bayes import get_model as jax_get_model
 from repro_torch.api import Pipeline, RunSpec
 from repro_torch.interop import from_reference_data
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 FIELDS = dict(
     model="logreg", sampler="mala", M=4, T=200, warmup=200, n=2000, groundtruth_T=1000, seed=0,

@@ -24,6 +24,9 @@ from repro_torch.api.sampling import sample_subposteriors
 from repro_torch.api.streaming import stream_sample
 from repro_torch.launch import mcmc_run
 from repro_torch.models.bayes import get_model
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 NAMES = ("parametric", "online", "pool", "nonparametric", "consensus")
 # 64 draws per chunk > d = 50, so the moment estimates have full rank from the

@@ -36,6 +36,9 @@ from repro_torch.core.combiners import (
     streaming_combiners,
     streaming_estimate,
 )
+from test_torch_threads import pin_torch_threads
+
+pin_torch_threads()  # this worker's share of the cores under a parallel run
 
 M, T, D = 4, 120, 3
 
