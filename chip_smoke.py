@@ -20,6 +20,12 @@ a non-zero exit:
               graph replayed) giving the bits of the eager loop they replace,
               with one likelihood launch counted per transition; the
               KDE kernel also against its plain version in float64;
+              ``img_log_weights``' sweep route (one launch a kernel-mode
+              IMG sweep) against its plain sweep for w_t and W_t at the
+              path's shape and at ragged ones (``sweep_agreement``: LW,
+              accept flags outside the rounding margin, the carry; the
+              count of sites inside the margin printed), and three more
+              launches giving the same bits;
               ``flash_attention`` on both of its routes (tensor cores for
               bf16 at hd, hd_v multiples of 64; FMAs otherwise), each case
               checking which route's count rose, and three tensor-core runs
@@ -30,7 +36,9 @@ a non-zero exit:
               transition and init of both stages' chains (6,470), and every
               logL2 must be finite and inside the band taken from the port's
               own run on the CPU; ``sample_s`` and ``groundtruth_s`` printed
-              (4b and 4c too);
+              (4b and 4c too); ``img_log_weights``' launches by route, exact
+              on every MCMC path (one sweep-route launch a kernel-mode IMG
+              sweep; the generic route only for weierstrass's final states);
 4b. all     — the same run scoring every registered combiner
               (``ALL_SPEC``): the KDE kernel must have launched, the eleven
               logL2 values must sit inside their CPU bands and the first
@@ -54,8 +62,10 @@ a non-zero exit:
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
-              the groundtruth shape), beside the least time the card could
-              take, and
+              the groundtruth shape; ``img_log_weights``' sweep route for
+              w_t and W_t on phase 4b's draws, with whole engine sweeps on
+              the host clock beside the eager sweep), beside the least time
+              the card could take, and
               of PyTorch's ``scaled_dot_product_attention`` beside the flash
               kernel (a yardstick only: the port never calls it): the
               tensor-core route in bf16 at B=2 and B=1, the FMA route in
@@ -191,6 +201,60 @@ def kernel_label(ptxas_line: str) -> str:
     return mangled
 
 
+IMG_COMBINERS = ("nonparametric", "semiparametric", "semiparametric_w")
+
+
+def img_sweeps(spec):
+    """The kernel-mode IMG sweeps of one run of ``spec``'s combiners:
+    ceil(T / n_batch) for each IMG combiner it scores."""
+    n_img = sum(name in IMG_COMBINERS for name in spec.combiner_names())
+    return n_img * -(-spec.T // int(dict(spec.combiner_options)["n_batch"]))
+
+
+def check_img_routes(label, routes, *, generic, sweep):
+    """``img_log_weights``' launches of one path, by route, exactly."""
+    want = {"generic": generic, "sweep": sweep}
+    ok = routes == want
+    print(f"  img_log_weights launches by route on {label}: {json.dumps(routes)} "
+          f"(expected {json.dumps(want)}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"img_log_weights routes on {label}: {routes}, expected {want}")
+
+
+def sweep_work(B, M, d, wt):
+    """(bytes, flop) one sweep-route launch needs: each input read once (the
+    state, the gathered candidates, the mean, three scalars, t_idx and c as
+    int64, u; for W_t the factor, μ̂_M, logdet and two aux gathers a site),
+    each output written once (the carry, LW, the log ratios, the flags);
+    Eq. 3.5 for B·M single-site states (4·M·d each), the candidates' norms
+    and b_m (6·d a site), the Gram's upper triangle (2·d an entry), the mean's
+    update (2·d a site), and for W_t M + 1 triangular solves (d² each) and
+    their Gram's upper triangle (2·d an entry)."""
+    f, i8 = 4, 8
+    read = f * (2 * B * M * d + B * d + 3 * B + B * M) + i8 * 2 * B * M + f
+    write = i8 * B * M + f * (B * M * d + B * d + 3 * B + 2 * B * M) + B * M
+    flop = B * M * (4 * M * d + 6 * d + 2 * d) + B * M * (M + 1) * d
+    if wt:
+        read += f * (d * d + d + 1 + 2 * B * M)
+        flop += B * (M + 1) * d * d + B * (M + 1) * (M + 2) * d
+    return read + write, flop
+
+
+def sweep_wall_ms(fn, n):
+    """Host milliseconds a call of ``fn``, over ``n`` calls after five warm
+    ones, ended by a synchronisation."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
 def least_ms(nbytes, flops, peak=F32_FLOPS):
     """(least ms, what bounds it): bytes over the HBM rate or flops over the
     ``peak`` rate (float32 by default), whichever is larger."""
@@ -284,7 +348,15 @@ def main() -> int:
     from repro_torch.api import Pipeline
     from repro_torch.api.pipeline import combine_spec_draws
     from repro_torch.core.combiners import masked_silverman
-    from repro_torch.kernels.img_weights import img_log_weights, img_log_weights_ref
+    from repro_torch.kernels.img_weights import (
+        img_log_weights,
+        img_log_weights_ref,
+        img_sweep,
+        img_sweep_ref,
+        sweep_agreement,
+    )
+    from repro_torch.core.combiners import img as img_engine
+    from repro_torch.core.combiners.api import resolve_schedule
     from repro_torch.kernels.kde_density import (
         kde_log_density,
         kde_log_density_ref,
@@ -436,6 +508,75 @@ def main() -> int:
         e = check_close(f"img_log_weights {label} {(P, M, d)} h={h}", out,
                         img_log_weights_ref(theta, h_t), rtol=1e-5, atol=1e-3)
         errs["img_log_weights"] = max(errs.get("img_log_weights", 0.0), e)
+
+    # the sweep route (one launch a kernel-mode IMG sweep) against its plain
+    # version on the same carry and draws, ops.sweep_agreement: LW within the
+    # generic route's rtol 1e-5 / atol 1e-3; accept flags equal wherever the
+    # plain margin |log u − log ratio| exceeds four times that tolerance (a
+    # chain whose flags part inside the margin leaves the carry check); the
+    # carry equal in every other chain (indices, rows, counts exactly; mean
+    # 1e-5, sumsq rtol 1e-5, extra rtol 1e-4). w_t and W_t at the path's
+    # shape, at the path's own scale (spread 0.03: nearly every site accepts)
+    # and at spread 0.3 (sites accept and reject), and at ragged shapes.
+    img_kernel = kernels.KERNELS["img_log_weights"]
+
+    def sweep_case(B, M, T, d, *, wt, ragged=False, spread=0.3, counts=None, samples=None):
+        """A sweep's inputs: draws around a centre (or ``samples``), ragged
+        counts NaN beyond them, the model, the engine's carry and draws (c,
+        then u), h from the engine's schedule at its tenth sweep."""
+        if samples is None:
+            centre = torch.randn((d,), generator=gen, device=dev)
+            samples = (centre + spread * torch.randn((M, 1, d), generator=gen, device=dev)
+                       + spread * torch.randn((M, T, d), generator=gen, device=dev))
+            counts = torch.full((M,), T, dtype=torch.int32, device=dev)
+            if ragged:
+                counts = torch.randint(T // 2, T, (M,), generator=gen, device=dev).to(torch.int32)
+                rows = torch.arange(T, device=dev)[None, :, None]
+                samples = torch.where(rows < counts[:, None, None], samples, float("nan"))
+        model = (img_engine.semiparametric_model(samples, counts) if wt
+                 else img_engine.nonparametric_model(samples))
+        carry = img_engine._init_img_carry(gen, samples, counts, model.aux, B)
+        c = img_engine._randint_below(gen, (B, M), counts)
+        u = torch.rand((B, M), generator=gen, device=dev)
+        h = resolve_schedule(samples, None, False)(10 * B)
+        return samples, counts, model, carry, c, u, h
+
+    sweep_cases = {"path scale": (16, 10, 1200, 50, False, 0.03),
+                   "path": (16, 10, 1200, 50, False, 0.3), "d=37": (16, 10, 1200, 37, False, 0.3),
+                   "B=1": (1, 10, 1200, 50, False, 0.3), "M=1": (16, 1, 1200, 50, False, 0.3),
+                   "ragged": (16, 10, 1200, 50, True, 0.3),
+                   "d=130": (4, 4, 600, 130, False, 0.3)}  # W_t: 87 KB of shared memory
+    for label, (B, M, T, d, ragged, spread) in sweep_cases.items():
+        for wt in (False, True):
+            samples, _, model, carry, c, u, h = sweep_case(B, M, T, d, wt=wt, ragged=ragged,
+                                                           spread=spread)
+            term = model.state_term(h) if wt else None
+            routes = dict(img_kernel.route_launches)
+            got = img_sweep(carry, samples, c, u, h, aux=model.aux, state_term=term)
+            torch.cuda.synchronize()
+            if img_kernel.route_launches != dict(routes, sweep=routes["sweep"] + 1):
+                raise AssertionError(f"img_sweep {label}: route counts went {routes} -> "
+                                     f"{img_kernel.route_launches}, not one sweep launch")
+            want = img_sweep_ref(carry, samples, c, u, h, model.aux,
+                                 model.extra_logweight(h.expand(B)) if wt else None)
+            rep = sweep_agreement(got, want, u)
+            print(f"  img_log_weights [sweep] {'W_t' if wt else 'w_t'} {label} B={B} M={M} T={T} "
+                  f"d={d} spread={spread}: LW max_abs_err={rep['lw_max_abs_err']:.3e} (rtol 1e-05, "
+                  f"atol 0.001); {rep['inside_margin']}/{rep['sites']} sites inside the margin, "
+                  f"{rep['accepted']} accepted, {rep['diverged_chains']} chains parted inside it, "
+                  f"{rep['flag_faults']} flag and {rep['carry_faults']} carry faults, mean "
+                  f"max_abs_err={rep['mean_max_abs_err']:.3e} {'ok' if rep['ok'] else 'FAIL'}",
+                  flush=True)
+            if not rep["ok"]:
+                raise AssertionError(f"img_sweep {label}: the sweep route disagrees with its "
+                                     f"plain version: {rep}")
+            errs["img_log_weights"] = max(errs["img_log_weights"], rep["lw_max_abs_err"])
+            if label == "path":  # one launch, no atomics: the same bits three more times
+                if not all(torch.equal(a, b) for _ in range(3) for a, b in zip(
+                        img_sweep(carry, samples, c, u, h, aux=model.aux, state_term=term), got)):
+                    raise AssertionError("img_sweep: three more launches of one input differ")
+                print(f"  img_log_weights [sweep] {'W_t' if wt else 'w_t'} path: three more "
+                      f"launches, the same bits", flush=True)
 
     # The KDE kernel forms Σ(q−s)² directly; its plain version mirrors the
     # reference's ‖q‖² + ‖s‖² − 2q·s, which cancels in float32 at the path's
@@ -683,6 +824,11 @@ def main() -> int:
                              f"times on the main path, expected {want_lr}")
     if launches_paper["flash_attention"] != 0:
         raise AssertionError("flash_attention launched on the MCMC path")
+    # img_log_weights by route: every kernel-mode IMG sweep is one sweep-route
+    # launch (ceil(T / n_batch) sweeps of each IMG combiner); the generic
+    # route serves weierstrass's final states only
+    img_routes = {"paper": dict(img_kernel.route_launches)}
+    check_img_routes("PAPER_SPEC", img_routes["paper"], generic=0, sweep=img_sweeps(PAPER_SPEC))
     check_bands(board, CPU_LOGL2)
     paper_errors = dict(board.errors)
 
@@ -714,6 +860,8 @@ def main() -> int:
             raise AssertionError(f"{name} launched {launches[name]} times on the path, expected {n}")
     if launches["flash_attention"] != 0:
         raise AssertionError("flash_attention launched on the ALL_SPEC path")
+    img_routes["all"] = dict(img_kernel.route_launches)
+    check_img_routes("ALL_SPEC", img_routes["all"], generic=1, sweep=img_sweeps(ALL_SPEC))
     check_bands(board, CPU_LOGL2_ALL)
     for name, err in paper_errors.items():
         if abs(board.errors[name] - err) > 1e-4:
@@ -776,6 +924,9 @@ def main() -> int:
         if launches_stream[name] != n:
             raise AssertionError(f"{name} launched {launches_stream[name]} times on the stream "
                                  f"path, expected {n}")
+    img_routes["stream"] = dict(img_kernel.route_launches)
+    check_img_routes("STREAM_SPEC", img_routes["stream"], generic=1,
+                     sweep=img_sweeps(ALL_SPEC) + n_chunks * -(-sr.n_estimate // n_batch))
     values = [row["error"] for row in sr.trajectory]
     if len(values) != n_chunks * len(estimating) or not all(math.isfinite(v) for v in values):
         raise AssertionError(f"trajectory: {len(values)} rows for {n_chunks} boundaries x "
@@ -1020,9 +1171,68 @@ def main() -> int:
           f"(cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} us/call), "
           f"plain {plain * 1e3:.2f} us (host {plain_host * 1e3:.2f} us/call), "
           f"HBM bound {bound * 1e3:.3f} us by {bound_by} (bounds the cold-L2 time)", flush=True)
-    rows.append({"name": "img_log_weights", "ms": ms, "cold_ms": cold, "host_ms": host,
-                 "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                 "shape": f"P={P} M={M} d={d}"})
+    generic_row = {"ms": ms, "cold_ms": cold, "host_ms": host, "plain_ms": plain,
+                   "bound_ms": bound, "bound_by": bound_by, "shape": f"P={P} M={M} d={d}"}
+
+    # the sweep route at the path's shape on the path's own draws (phase 4b's
+    # θ), w_t and W_t, beside its plain version and its bound; then whole
+    # kernel-mode sweeps of the engine on the host clock (the draws, the W_t
+    # factor, one launch) against the eager sweep the sweep route replaced
+    # (the draws, the batched W_t callable, the plain sweep body in PyTorch
+    # ops scoring through one generic-route launch)
+    import unittest.mock
+    from repro_torch.kernels.img_weights import ref as img_ref
+
+    M, T, d = all_theta.shape
+    B = int(dict(ALL_SPEC.combiner_options)["n_batch"])
+    counts_s = torch.full((M,), T, dtype=torch.int32, device=dev)
+    sweep_rows = {}
+    for wt in (False, True):
+        _, _, model, carry, c, u, h = sweep_case(B, M, T, d, wt=wt, samples=all_theta,
+                                                 counts=counts_s)
+        term = model.state_term(h) if wt else None
+        extra_lw = model.extra_logweight(h.expand(B)) if wt else None
+        nbytes, flops = sweep_work(B, M, d, wt)
+        bound, bound_by = least_ms(nbytes, flops)
+        run = lambda: img_sweep(carry, all_theta, c, u, h, aux=model.aux, state_term=term)  # noqa: E731
+        ms, host = device_ms(run)
+        cold, _ = device_ms(run, flush=flush)
+        # one call behind the sleep: the plain sweep is ~300-400 launches
+        plain, plain_host = device_ms(
+            lambda: img_sweep_ref(carry, all_theta, c, u, h, model.aux, extra_lw), iters=1)
+
+        def this_sweep():
+            st = model.state_term(h) if wt else None
+            return img_engine._img_kernel_sweep(carry, all_theta, counts_s, h, model.aux,
+                                                gen=gen, state_term=st)
+
+        def eager_sweep():
+            lw = model.extra_logweight(h.expand(B)) if wt else None
+            c_ = img_engine._randint_below(gen, (B, M), counts_s)
+            u_ = torch.rand((B, M), generator=gen, device=dev)
+            return img_sweep_ref(carry, all_theta, c_, u_, h, model.aux, lw)
+
+        walls = {}
+        for which, fn, route in (("this", this_sweep, "sweep"), ("eager", eager_sweep, "generic")):
+            with unittest.mock.patch.object(img_ref, "img_log_weights_ref", img_log_weights):
+                routes = dict(img_kernel.route_launches)
+                walls[which] = sweep_wall_ms(fn, 50)
+            moved = {r: n - routes[r] for r, n in img_kernel.route_launches.items()}
+            if moved != dict({r: 0 for r in routes}, **{route: 55}):
+                raise AssertionError(f"{which} sweeps launched {moved}, not 55 {route} launches")
+        form = "W_t" if wt else "w_t"
+        print(f"  img_log_weights [sweep] {form} B={B} M={M} T={T} d={d} (phase 4b's draws): kernel "
+              f"{ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} "
+              f"us/call), plain {plain * 1e3:.2f} us (host {plain_host * 1e3:.2f} us/call), bound "
+              f"{bound * 1e3:.4f} us by {bound_by} ({nbytes} bytes, {flops} flop); a whole "
+              f"engine sweep {walls['this']:.4f} ms of wall, the eager sweep's {walls['eager']:.4f} ms",
+              flush=True)
+        sweep_rows[form] = {"ms": ms, "cold_ms": cold, "host_ms": host, "plain_ms": plain,
+                            "bound_ms": bound, "bound_by": bound_by,
+                            "sweep_wall_ms": walls["this"], "eager_sweep_wall_ms": walls["eager"],
+                            "shape": f"sweep {form} B={B} M={M} T={T} d={d}"}
+    rows.append({"name": "img_log_weights", **sweep_rows["w_t"], "sweep_W_t": sweep_rows["W_t"],
+                 "generic_route": generic_row})
 
     # the KDE kernel at its two shapes on the ALL_SPEC path, and its
     # single-cloud form at one machine of that path (no path calls it)
@@ -1162,6 +1372,8 @@ def main() -> int:
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]
+        if name == "img_log_weights":  # the MCMC paths' launches, by route
+            entry["launches_by_route"] = img_routes
         if name == "flash_attention":  # the serving runs' launches, by route
             entry["launches_by_route"] = {"serve_bfloat16": routes_serve16,
                                           "serve_float32": routes_serve32}

@@ -17,10 +17,9 @@ sweep's proposals (``weight_eval``):
     i anneals at the global index i·B + b + 1, as the serial chain would.
 
 ``"kernel"``
-    All M single-site candidates of all B chains drawn up front and scored
-    in one launch of the ``img_log_weights`` kernel on ``(B·M, M, d)``
-    candidate states built here; the site recursion then runs on O(M)
-    scalars per chain through the exact rank-one correction
+    All M single-site candidates of all B chains drawn up front, every
+    single-site candidate state scored by Eq. 3.5, and the site recursion
+    run on O(M) scalars per chain through the exact rank-one correction
 
         log w(state_J ∪ {m}) = LW_m − (1/2h²)·[A − 2·s_B − (s_G + 2·g_m)/M]
 
@@ -28,7 +27,12 @@ sweep's proposals (``weight_eval``):
     s_G, g_m running sums over the accepted set J from the Gram matrix of
     the deltas; see the reference's module docstring). Full semiparametric
     ``W_t`` also carries the accepted delta sum S ``(B, d)`` and δaux sum.
-    All chains of a sweep share h at the block's most-annealed index.
+    All chains of a sweep share h at the block's most-annealed index. On the
+    card a sweep is its draws and one launch of the ``img_log_weights``
+    kernel's sweep route (:func:`~repro_torch.kernels.img_weights.img_sweep`,
+    which gathers the candidates, scores them and runs the recursion; W_t
+    takes one Cholesky factor a sweep, ``ImgWeightModel.state_term``); on
+    the CPU its plain version, the same function in PyTorch ops.
 
 Index proposals ``randint(0, counts[m])`` are drawn as ``floor(u·counts[m])``
 clamped to ``counts[m] − 1``: the per-machine bound torch's ``randint`` lacks.
@@ -55,7 +59,7 @@ from repro_torch.core.gaussian import (
     log_normal_pdf,
     product_moments,
 )
-from repro_torch.kernels.img_weights import img_log_weights
+from repro_torch.kernels.img_weights import StateTerm, img_sweep
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 _LOG2PI = math.log(2.0 * math.pi)
@@ -68,13 +72,17 @@ class ImgWeightModel(NamedTuple):
     −log N(θ^m_t | μ̂_m, Σ̂_m); None ⇒ 0). ``extra_logweight(h (B,))`` builds
     ``term(mean (B, d), extra_sum (B,)) -> (B,)``, the state-level additive
     log-weight (None ⇒ 0). ``draw(gen, mean (B, d), h (B,)) -> (B, d)``: one
-    draw from each chain's selected mixture component.
+    draw from each chain's selected mixture component. ``state_term(h)``
+    (scalar h): the same state-level term as one :class:`StateTerm`, the
+    form the kernel's sweep route takes on the card (set with
+    ``extra_logweight``).
     """
 
     aux: Optional[torch.Tensor]
     extra_logweight: Optional[Callable[[torch.Tensor], Callable]]
     draw: Callable[[torch.Generator, torch.Tensor, torch.Tensor], torch.Tensor]
     moments: Optional[GaussianMoments]
+    state_term: Optional[Callable[[torch.Tensor], StateTerm]] = None
 
 
 class _ImgCarry(NamedTuple):
@@ -168,83 +176,24 @@ def _img_kernel_sweep(
     gen: Optional[torch.Generator] = None,
     c: Optional[torch.Tensor] = None,
     u: Optional[torch.Tensor] = None,
+    state_term: Optional[StateTerm] = None,
 ) -> _ImgCarry:
-    """One sweep for B chains, all B·M candidate weights from one kernel launch.
+    """One sweep for B chains: the draws, then one :func:`img_sweep` (on the
+    card one launch of the kernel's sweep route, on the CPU its plain
+    version).
 
     ``c (B, M)`` index proposals and ``u (B, M)`` uniforms are drawn from
-    ``gen`` unless given (the tests feed the reference's draws).
+    ``gen`` unless given (the tests feed the reference's draws). The W_t
+    term comes as ``extra_lw`` on the CPU and as ``state_term`` on the card.
     """
-    M, T, d = samples.shape
+    M = samples.shape[0]
     B = carry.mean.shape[0]
-    dev, dtype = samples.device, samples.dtype
     if c is None:
         c = _randint_below(gen, (B, M), counts)
     if u is None:
-        u = torch.rand((B, M), generator=gen, device=dev)
-    rows = torch.arange(M, device=dev)[None, :]
-
-    cand = samples[rows, c]  # (B, M, d): cand[b, m] = samples[m, c[b, m]]
-    delta = cand - carry.theta_sel
-    nsq = (cand**2).sum(dim=-1) - (carry.theta_sel**2).sum(dim=-1)  # (B, M)
-    b_dot = torch.einsum("bd,bmd->bm", carry.mean, delta)  # θ̄₀·Δ_m
-    gram = torch.einsum("bmd,bnd->bmn", delta, delta)  # Δ_j·Δ_m
-    msq0 = (carry.mean**2).sum(dim=-1)
-
-    h32 = h.to(torch.float32)
-    inv2h2 = 0.5 / (h32 * h32)
-    log_norm = M * (d / 2.0) * torch.log(2.0 * math.pi * h32 * h32)
-
-    # every single-site candidate state of every chain, scored in one launch
-    eye = torch.eye(M, dtype=dtype, device=dev)[None, :, :, None]  # (1, prop, machine, 1)
-    theta_prop = (1.0 - eye) * carry.theta_sel[:, None, :, :] + eye * cand[:, :, None, :]
-    lw_base = img_log_weights(theta_prop.reshape(B * M, M, d), h32).reshape(B, M)
-
-    lw_cur = -(carry.sumsq - M * msq0) * inv2h2 - log_norm
-    semip = extra_lw is not None
-    if semip:
-        if aux is not None:
-            delta_aux = (aux[rows, c] - aux[rows, carry.t_idx]).to(torch.float32)
-        else:
-            delta_aux = torch.zeros((B, M), dtype=torch.float32, device=dev)
-        lw_cur = lw_cur + extra_lw(carry.mean, carry.extra)
-        s_vec = torch.zeros((B, d), dtype=dtype, device=dev)
-        acc_aux = torch.zeros((B,), dtype=torch.float32, device=dev)
-
-    zeros_b = torch.zeros((B,), dtype=torch.float32, device=dev)
-    acc_nsq, s_b, s_g, n_acc = zeros_b, zeros_b, zeros_b, zeros_b
-    g = torch.zeros((B, M), dtype=torch.float32, device=dev)
-    a_mask = torch.zeros((B, M), dtype=torch.bool, device=dev)
-    log_u = torch.log(u)
-    for m in range(M):
-        g_m = g[:, m]
-        corr = -(acc_nsq - 2.0 * s_b - (s_g + 2.0 * g_m) / M) * inv2h2
-        lw_prop = lw_base[:, m] + corr
-        if semip:
-            mean_m = carry.mean + (s_vec + delta[:, m]) / M  # candidate θ̄
-            extra_m = carry.extra + acc_aux + delta_aux[:, m]
-            lw_prop = lw_prop + extra_lw(mean_m, extra_m)
-        accept = log_u[:, m] < lw_prop - lw_cur
-        af = accept.to(torch.float32)
-        lw_cur = torch.where(accept, lw_prop, lw_cur)
-        acc_nsq = acc_nsq + af * nsq[:, m]
-        s_b = s_b + af * b_dot[:, m]
-        s_g = s_g + af * (2.0 * g_m + gram[:, m, m])
-        g = g + af[:, None] * gram[:, m, :]
-        if semip:
-            s_vec = s_vec + af[:, None] * delta[:, m]
-            acc_aux = acc_aux + af * delta_aux[:, m]
-        a_mask[:, m] = accept
-        n_acc = n_acc + af
-
-    af = a_mask.to(dtype)
-    return _ImgCarry(
-        t_idx=torch.where(a_mask, c, carry.t_idx),
-        theta_sel=torch.where(a_mask[:, :, None], cand, carry.theta_sel),
-        mean=carry.mean + torch.einsum("bm,bmd->bd", af, delta) / M,
-        sumsq=carry.sumsq + (af * nsq).sum(dim=-1),
-        extra=carry.extra + acc_aux if semip else carry.extra,
-        n_accept=carry.n_accept + n_acc,
-    )
+        u = torch.rand((B, M), generator=gen, device=samples.device)
+    out = img_sweep(carry, samples, c, u, h, aux=aux, extra_lw=extra_lw, state_term=state_term)
+    return _ImgCarry(*out[:len(_ImgCarry._fields)])
 
 
 def _run_chains(
@@ -269,10 +218,15 @@ def _run_chains(
             hb = h.expand(n_batch)
         else:
             hb = schedule(offsets + i * n_batch).to(dtype)  # chain b: i·B + b + 1
-        extra_lw = model.extra_logweight(hb) if model.extra_logweight is not None else None
+        extra_lw = state_term = None
+        if model.extra_logweight is not None:
+            if weight_eval == "kernel" and samples.device.type == "cuda":
+                state_term = model.state_term(h)  # one factor: the kernel takes it
+            else:
+                extra_lw = model.extra_logweight(hb)
         if weight_eval == "kernel":
             carry = _img_kernel_sweep(
-                carry, samples, counts, h, model.aux, extra_lw, gen=gen
+                carry, samples, counts, h, model.aux, extra_lw, gen=gen, state_term=state_term
             )
         else:
             carry = _img_gibbs_sweep(gen, carry, samples, counts, hb, model.aux, extra_lw)
@@ -349,7 +303,7 @@ def semiparametric_model(
 
     if nonparametric_weights:
         aux = None
-        extra_logweight = None
+        extra_logweight = state_term = None
     else:
         # term3: −Σ_m log N(θ^m_{t_m} | μ̂_m, Σ̂_m), gathered per index
         aux = -torch.stack([
@@ -369,6 +323,11 @@ def semiparametric_model(
 
             return term
 
+        def state_term(h):
+            chol = cholesky(prod.cov + (h**2 / M) * eye)
+            logdet = 2.0 * chol.diagonal().log().sum()
+            return StateTerm(chol, logdet, prod.mean)
+
     def draw(gen, mean, h):
         # precision form: P = M/h² I + Λ_M, θ = μ_t + chol(P)^{-T} ε
         s = M / h**2  # (B,)
@@ -381,7 +340,8 @@ def semiparametric_model(
         )[..., 0]
         return mu_t + noise
 
-    return ImgWeightModel(aux=aux, extra_logweight=extra_logweight, draw=draw, moments=prod)
+    return ImgWeightModel(aux=aux, extra_logweight=extra_logweight, draw=draw, moments=prod,
+                          state_term=state_term)
 
 
 @register("nonparametric", "nonparametric_img")

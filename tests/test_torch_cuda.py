@@ -14,7 +14,15 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import kde_density
-from repro_torch.kernels.img_weights import img_log_weights, img_log_weights_ref
+from repro_torch.kernels.img_weights import (
+    StateTerm,
+    img_log_weights,
+    img_log_weights_ref,
+    img_sweep,
+    img_sweep_ref,
+    sweep_agreement,
+    sweep_smem_bytes,
+)
 from repro_torch.kernels.kde_density import (
     kde_log_density,
     kde_log_density_ref,
@@ -223,6 +231,136 @@ def test_img_kernel_matches_plain(cuda_device, P, M, d, h):
     out = img_log_weights(theta, torch.tensor(h, device=cuda_device))
     torch.cuda.synchronize()
     torch.testing.assert_close(out, img_log_weights_ref(theta, h), rtol=1e-5, atol=1e-3)
+
+
+def _sweep_case(device, B, M, T, d, *, wt, ragged=False, spread=0.3, seed=0):
+    """One kernel-mode IMG sweep's inputs on the card: M machines' draws
+    around a shared centre (offsets and spread ``spread``; at 0.3 the sites
+    both accept and reject), with ragged counts NaN beyond them, the model,
+    the engine's carry and draws (c, then u, from one generator), and h from
+    the engine's schedule at its tenth sweep (a device scalar, as the engine
+    passes it)."""
+    from repro_torch.core.combiners import img
+    from repro_torch.core.combiners.api import resolve_schedule
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    centre = torch.randn((d,), generator=gen, device=device)
+    samples = (centre + spread * torch.randn((M, 1, d), generator=gen, device=device)
+               + spread * torch.randn((M, T, d), generator=gen, device=device))
+    counts = torch.full((M,), T, dtype=torch.int32, device=device)
+    if ragged:
+        counts = torch.randint(T // 2, T, (M,), generator=gen, device=device).to(torch.int32)
+        rows = torch.arange(T, device=device)[None, :, None]
+        samples = torch.where(rows < counts[:, None, None], samples, float("nan"))
+    model = img.semiparametric_model(samples, counts) if wt else img.nonparametric_model(samples)
+    carry = img._init_img_carry(gen, samples, counts, model.aux, B)
+    c = img._randint_below(gen, (B, M), counts)
+    u = torch.rand((B, M), generator=gen, device=device)
+    h = resolve_schedule(samples, None, False)(10 * B)
+    return samples, counts, model, carry, c, u, h
+
+
+def _both_sweeps(samples, model, carry, c, u, h):
+    """The sweep route's result and the plain version's on the same draws."""
+    wt = model.extra_logweight is not None
+    got = img_sweep(carry, samples, c, u, h, aux=model.aux,
+                    state_term=model.state_term(h) if wt else None)
+    torch.cuda.synchronize()
+    extra_lw = model.extra_logweight(h.expand(carry.mean.shape[0])) if wt else None
+    return got, img_sweep_ref(carry, samples, c, u, h, model.aux, extra_lw)
+
+
+# The sweep route against its plain version (ops.sweep_agreement): LW within
+# the generic route's rtol 1e-5, atol 1e-3; accept flags equal wherever the
+# plain margin |log u − log ratio| exceeds four times that tolerance (a chain
+# whose flags part inside the margin is left out of the carry check); the
+# carry equal in every other chain (indices, rows, counts exactly; mean 1e-5,
+# sumsq rtol 1e-5, extra rtol 1e-4).
+SWEEP_CASES = {"path": (16, 10, 1200, 50, False), "d=37": (16, 10, 1200, 37, False),
+               "B=1": (1, 10, 1200, 50, False), "M=1": (16, 1, 1200, 50, False),
+               "ragged": (16, 10, 1200, 50, True), "d=20": (8, 6, 400, 20, False),
+               "d=130": (4, 4, 600, 130, False)}  # one and five rows a lane in a solve
+
+
+@pytest.mark.parametrize("wt", [False, True], ids=["w_t", "W_t"])
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_img_sweep_route_matches_plain(cuda_device, case, wt):
+    B, M, T, d, ragged = SWEEP_CASES[case]
+    samples, _, model, carry, c, u, h = _sweep_case(cuda_device, B, M, T, d, wt=wt, ragged=ragged)
+    k = kernels.KERNELS["img_log_weights"]
+    before = dict(k.route_launches)
+    got, want = _both_sweeps(samples, model, carry, c, u, h)
+    assert k.route_launches == dict(before, sweep=before["sweep"] + 1)
+    report = sweep_agreement(got, want, u)
+    assert report["ok"], report
+    if case == "path":
+        assert 0 < report["accepted"] < report["sites"]  # both branches are exercised
+
+
+def test_img_sweep_route_is_deterministic_and_counted_by_route(cuda_device):
+    samples, _, model, carry, c, u, h = _sweep_case(cuda_device, 16, 10, 1200, 50, wt=True)
+    term = model.state_term(h)
+    k = kernels.KERNELS["img_log_weights"]
+    before = dict(k.route_launches)
+    first = img_sweep(carry, samples, c, u, h, aux=model.aux, state_term=term)
+    assert k.route_launches == dict(before, sweep=before["sweep"] + 1)
+    for _ in range(3):
+        again = img_sweep(carry, samples, c, u, h, aux=model.aux, state_term=term)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    before = dict(k.route_launches)
+    img_log_weights(torch.randn((160, 10, 50), device=cuda_device), h)
+    assert k.route_launches == dict(before, generic=before["generic"] + 1)
+
+
+def test_engine_sweep_is_one_sweep_launch_on_the_card(cuda_device):
+    """``_img_kernel_sweep`` on the card: its draws from the generator in the
+    engine's order, then one sweep-route launch and no generic one."""
+    from repro_torch.core.combiners import img
+
+    samples, counts, model, carry, _, _, h = _sweep_case(cuda_device, 16, 10, 1200, 50, wt=True)
+    term = model.state_term(h)
+    k = kernels.KERNELS["img_log_weights"]
+    before = dict(k.route_launches)
+    got = img._img_kernel_sweep(carry, samples, counts, h, model.aux,
+                                gen=torch.Generator(device=cuda_device).manual_seed(7),
+                                state_term=term)
+    torch.cuda.synchronize()
+    assert k.route_launches == dict(before, sweep=before["sweep"] + 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    c = img._randint_below(gen, (16, 10), counts)
+    u = torch.rand((16, 10), generator=gen, device=cuda_device)
+    want = img_sweep(carry, samples, c, u, h, aux=model.aux, state_term=term)
+    assert all(torch.equal(a, b) for a, b in zip(got, want[:6]))
+    with pytest.raises(ValueError, match="state_term"):
+        img_sweep(carry, samples, c, u, h, aux=model.aux,
+                  extra_lw=model.extra_logweight(h.expand(16)))
+
+
+def test_img_sweep_route_rejects_what_one_block_cannot_hold(cuda_device):
+    from repro_torch.kernels.img_weights.ops import _entry
+
+    lib = _entry()[0]
+    for M, d, wt in ((10, 50, 0), (10, 50, 1), (1, 1, 0), (10, 37, 1), (64, 200, 0)):
+        assert lib.img_sweep_smem_bytes(M, d, wt) == sweep_smem_bytes(M, d, bool(wt))
+    assert lib.img_sweep_smem_bytes(10, 300, 1) == 0
+    B, M, T, d = 2, 10, 20, 300
+    samples = torch.randn((M, T, d), device=cuda_device)
+    carry = (torch.zeros((B, M), dtype=torch.int64, device=cuda_device),
+             samples[:, 0].expand(B, M, d).contiguous(), samples[:, 0].mean(0).expand(B, d).contiguous(),
+             *(torch.zeros((B,), device=cuda_device) for _ in range(3)))
+    c = torch.ones((B, M), dtype=torch.int64, device=cuda_device)
+    u = torch.rand((B, M), device=cuda_device)
+    term = StateTerm(torch.eye(d, device=cuda_device), torch.zeros((), device=cuda_device),
+                     torch.zeros((d,), device=cuda_device))
+    k = kernels.KERNELS["img_log_weights"]
+    before = dict(k.route_launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        img_sweep(carry, samples, c, u, 0.5, aux=torch.zeros((M, T), device=cuda_device),
+                  state_term=term)
+    img_sweep(carry, samples, c, u, 0.5)  # w_t at d = 300 fits (24 KB)
+    assert k.route_launches == dict(before, sweep=before["sweep"] + 1)
+    with pytest.raises(TypeError):
+        img_sweep(carry, samples.double(), c, u, 0.5)
 
 
 def test_cuda_wrappers_check_operands(cuda_device):
