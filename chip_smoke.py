@@ -19,7 +19,11 @@ a non-zero exit:
               loops (warmup, burn-in, collection: each one captured CUDA
               graph replayed) giving the bits of the eager loop they replace,
               with one likelihood launch counted per transition; the
-              KDE kernel also against its plain version in float64;
+              KDE kernel first by one tile's tensor-core cross term against
+              float64 (``kde_probe.check_tile``), then against its plain
+              version in float64 too, each case's error printed beside the
+              FMA design's (within twice it at the path's shapes), and
+              three more launches of one input giving the same bits;
               ``img_log_weights``' sweep route (one launch a kernel-mode
               IMG sweep) against its plain sweep for w_t and W_t at the
               path's shape and at ragged ones (``sweep_agreement``: LW,
@@ -69,7 +73,9 @@ a non-zero exit:
               of PyTorch's ``scaled_dot_product_attention`` beside the flash
               kernel (a yardstick only: the port never calls it): the
               tensor-core route in bf16 at B=2 and B=1, the FMA route in
-              float32 at B=2 beside float32 SDPA and the float32 bound;
+              float32 at B=2 beside float32 SDPA and the float32 bound; the
+              KDE kernel's bound the largest of its bytes, its three TF32
+              passes on the tensor cores and its exps on the MUFU;
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -93,6 +99,21 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12  # dense, tensor cores
+TF32_FLOPS = 495e12  # dense, tensor cores
+# exp2 results a clock per SM on the special-function units (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0); times the SMs and the card's maximum SM clock, read in the run
+MUFU_PER_CLOCK_PER_SM = 16
+
+# The KDE kernel's previous design (sum (q - s)^2 on the float32 FMA pipe)
+# against its plain version in float64, max abs error over every reduce mode
+# and output of each case on phase 3's inputs: the largest max_abs_err of
+# each case's "vs float64 plain" lines printed by python3 chip_smoke.py at
+# commit 9ec7af9, the last with that design, on an NVIDIA H100 80GB HBM3,
+# 700.00 W. The figure each case of the tensor-core design is printed beside,
+# and held to within twice of on the path's two shapes.
+FMA_KDE_ERR64 = {"importance_pool Q=M*T": 1.556e-04, "init_pool Q=1000": 1.501e-04,
+                  "ragged T=1201 d=37": 4.588e-05, "Q=M=T=d=1": 1.108e-08}
 
 # logL2 band of the main path: the port's full-width run on the CPU
 # (python -m repro_torch.launch.mcmc_run --device cpu --seeds 0 1 2) gave,
@@ -385,6 +406,8 @@ def main() -> int:
         for line in k.build_log.splitlines():
             if "Compiling entry function" in line:
                 entry = f"{kernel_label(line)}: "
+            if "(C7519)" in line:  # ptxas's notes on the arrives it adds before wgmma
+                continue
             if "registers" in line or "spill" in line or "built earlier" in line \
                     or "warning" in line:
                 print(f"  {source}: {entry}{line.strip()}", flush=True)
@@ -578,17 +601,26 @@ def main() -> int:
                 print(f"  img_log_weights [sweep] {'W_t' if wt else 'w_t'} path: three more "
                       f"launches, the same bits", flush=True)
 
-    # The KDE kernel forms Σ(q−s)² directly; its plain version mirrors the
-    # reference's ‖q‖² + ‖s‖² − 2q·s, which cancels in float32 at the path's
-    # scale (draws ~√50 from the origin, spread 0.03, h ~0.025). Against the
-    # float32 plain version the tolerance is that cancellation: one log-kernel
-    # term is off by up to ~ε·(‖q‖² + ‖s‖²)/2h² per rounding, ε = 2^-23, and
-    # a float64 numpy check (d = 50, T = 1,200) found up to 0.072 at spread
-    # 0.02, i.e. ~0.2× this per-rounding figure; atol = 16× it (×M for the
-    # product over machines), rtol 1e-5. Against the plain version in float64
-    # the tolerance is the kernel's own: atol 1e-3 on log p̂ (×M for the
-    # product), rtol 1e-5. −inf (an empty machine) must match exactly.
+    # The KDE kernel forms ‖q_c‖² + ‖s_c‖² − 2q_c·s_c on centred operands with
+    # the cross term as 3×TF32 on the tensor cores; its plain version mirrors
+    # the reference's uncentred identity, which cancels in float32 at the
+    # path's scale (draws ~√50 from the origin, spread 0.03, h ~0.025).
+    # Against the float32 plain version the tolerance is that cancellation:
+    # one log-kernel term is off by up to ~ε·(‖q‖² + ‖s‖²)/2h² per rounding,
+    # ε = 2^-23, and a float64 numpy check (d = 50, T = 1,200) found up to
+    # 0.072 at spread 0.02, i.e. ~0.2× this per-rounding figure; atol = 16× it
+    # (×M for the product over machines), rtol 1e-5. Against the plain version
+    # in float64 the tolerance is the kernel's own: atol 1e-3 on log p̂ (×M for
+    # the product), rtol 1e-5. −inf (an empty machine) must match exactly.
+    # First the probe's check of one tile's product against float64: a
+    # wrong wgmma descriptor gives wrong numbers, not an error.
     eps32 = 2.0**-23
+    from repro_torch.launch.kde_probe import check_tile
+    # its own generator: gen's stream, and so the KDE inputs, stay those the
+    # FMA design's figures were taken on
+    tile_gen = torch.Generator(device=dev).manual_seed(0)
+    if not all(check_tile(tile_gen, d) for d in (50, 64, 8, 1)):
+        raise AssertionError("machine_kde_log_density: one tile's product disagrees with float64")
 
     def kde_inputs(Q, M, T, d, *, ragged=False):
         """Draws at the logreg path's scale: a centre ~N(0, I), machine
@@ -616,7 +648,7 @@ def main() -> int:
                       torch.randn((1, 1, 1), generator=gen, device=dev),
                       torch.ones((1,), device=dev), None),
     }
-    err32 = {}
+    err32, err64_case = {}, {}
     for label, (q, s, h, counts) in kde_cases.items():
         s_valid = torch.nan_to_num(s, nan=0.0)
         spread = (float((q * q).sum(-1).max()) + float((s_valid * s_valid).sum(-1).max()))
@@ -641,8 +673,26 @@ def main() -> int:
                     e64 = check_lp(f"{tag} vs float64 plain", g, p64, rtol=1e-5, atol=1e-3 * scale)
                     err32["machine_kde_log_density"] = max(err32.get("machine_kde_log_density", 0.0), e32)
                     errs["machine_kde_log_density"] = max(errs.get("machine_kde_log_density", 0.0), e64)
+                    err64_case[label] = max(err64_case.get(label, 0.0), e64)
+        if label == "importance_pool Q=M*T":  # one launch, no atomics: the same bits three more times
+            first = machine_kde_log_density(q, s, h, counts, reduce="product_mixture")
+            if not all(torch.equal(a, b) for _ in range(3)
+                       for a, b in zip(machine_kde_log_density(q, s, h, counts,
+                                                               reduce="product_mixture"), first)):
+                raise AssertionError("machine_kde_log_density: three more launches of one input differ")
+            print(f"  machine_kde_log_density {label}: three more launches, the same bits", flush=True)
+    for label, e64 in err64_case.items():
+        old = FMA_KDE_ERR64[label]
+        path = label.split()[0] in ("importance_pool", "init_pool")
+        ok = not path or e64 <= 2.0 * old
+        print(f"  machine_kde_log_density {label}: max abs err vs float64 {e64:.3e}, the FMA "
+              f"design's {old:.3e} ({e64 / old:.2f}x){'; within 2x' if path else ''} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"machine_kde_log_density {label}: {e64:.3e} is over twice the "
+                                 f"FMA design's {old:.3e}")
 
-    # single cloud: the plain version forms distances directly, like the kernel
+    # single cloud: the plain version forms distances directly, in float32
     for nq, ns, d in ((300, 700, 7), (1, 1, 1)):
         q = torch.randn((nq, d), generator=gen, device=dev)
         c = torch.randn((ns, d), generator=gen, device=dev)
@@ -1235,7 +1285,19 @@ def main() -> int:
                  "generic_route": generic_row})
 
     # the KDE kernel at its two shapes on the ALL_SPEC path, and its
-    # single-cloud form at one machine of that path (no path calls it)
+    # single-cloud form at one machine of that path (no path calls it). The
+    # least time for this work, whatever implements it: the inputs read and
+    # the outputs written once over the HBM rate; the three TF32 passes of
+    # the cross term (2·Q·Σcounts·d flop each) over the dense TF32
+    # tensor-core rate; one exp a query-sample pair over the special-function
+    # units' rate (16 a clock an SM, this card's SMs at its maximum SM clock).
+    # The direct form's float32 bound (2 flop a pair-dim at 67 TFLOP/s) is
+    # printed beside it.
+    max_sm_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]) * 1e6
+    mufu_per_s = MUFU_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * max_sm_hz
+    kde_rows = {}
     for name, label, Q, M, T, d, reduce in (
         ("machine_kde_log_density", "importance_pool", 12000, 10, 1200, 50, "product_mixture"),
         ("machine_kde_log_density", "weierstrass init_pool", 1000, 10, 1200, 50, "product"),
@@ -1244,8 +1306,13 @@ def main() -> int:
         q, s, h, _ = kde_inputs(Q, M, T, d)
         n_out = {"none": M, "product": 1, "product_mixture": 2}[reduce]
         nbytes = 4 * (Q * d + M * T * d + 2 * M) + 4 * M * (reduce == "product_mixture") + 4 * n_out * Q
-        flops = 2 * Q * M * T * d  # 2·Q·Σcounts·d
-        bound, bound_by = least_ms(nbytes, flops)
+        pairs = Q * M * T  # Q·Σcounts
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_mma = 3 * 2 * pairs * d / TF32_FLOPS * 1e3
+        by_exp = pairs / mufu_per_s * 1e3
+        bound = max(by_bytes, by_mma, by_exp)
+        bound_by = "bytes" if bound == by_bytes else "operations"
+        bound_fma, _ = least_ms(nbytes, 2 * pairs * d)
         if name == "kde_log_density":
             c, hc = s[0], h[0]
             run = lambda: kde_log_density(q, c, hc)  # noqa: E731
@@ -1263,11 +1330,19 @@ def main() -> int:
         print(f"  {name} {label} Q={Q} M={M} T={T} d={d} {reduce}: kernel {ms * 1e3:.2f} us "
               f"(cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} us/call), "
               f"plain {plain * 1e3:.2f} us (host {plain_host * 1e3:.2f} us/call), "
-              f"bound {bound * 1e3:.2f} us by {bound_by}", flush=True)
-        if label != "weierstrass init_pool":
-            rows.append({"name": name, "ms": ms, "cold_ms": cold, "host_ms": host,
-                         "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                         "shape": f"Q={Q} M={M} T={T} d={d} {reduce}"})
+              f"bound {bound * 1e3:.2f} us by {bound_by} (bytes {by_bytes * 1e3:.2f} us, three "
+              f"TF32 passes {by_mma * 1e3:.2f} us, exps {by_exp * 1e3:.2f} us at "
+              f"{mufu_per_s / 1e12:.3f}e12/s; the direct form's float32 bound "
+              f"{bound_fma * 1e3:.2f} us)", flush=True)
+        kde_rows[label] = {"ms": ms, "cold_ms": cold, "host_ms": host, "plain_ms": plain,
+                           "bound_ms": bound, "bound_by": bound_by,
+                           "bound_terms_ms": {"bytes": by_bytes, "tf32_passes": by_mma,
+                                              "exps": by_exp},
+                           "bound_ms_float32_fma": bound_fma,
+                           "shape": f"Q={Q} M={M} T={T} d={d} {reduce}"}
+    rows.append({"name": "machine_kde_log_density", **kde_rows["importance_pool"],
+                 "at_init_pool": kde_rows["weierstrass init_pool"]})
+    rows.append({"name": "kde_log_density", **kde_rows["one machine of the path"]})
 
     # online_update at the stream path's fold
     M, C, d = 10, 120, 50

@@ -13,10 +13,10 @@ after a failed launch.
 Build: at the first kernel call (or an explicit :func:`build`), every source
 is compiled by its own ``nvcc`` for ``sm_90a``, all started together, into a
 shared library under ``kernels/build/`` whose name carries a hash of the
-source and the flags, and is loaded with :mod:`ctypes`. Kernels that share a
-source (the machine KDE and its single-cloud form) share one build and one
-library. A library already built from the same source and flags is loaded as
-it is.
+source, the headers it includes from ``csrc/`` and the flags, and is loaded
+with :mod:`ctypes`. Kernels that share a source (the machine KDE and its
+single-cloud form) share one build and one library. A library already built
+from the same source, headers and flags is loaded as it is.
 
 Each :class:`Kernel` keeps ``launches``, a plain count that its wrapper raises
 by one where it launches the kernel and nowhere else. A kernel with more than
@@ -32,12 +32,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -47,6 +48,26 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_sources(source: Path) -> List[Path]:
+    """``source`` and every header it includes by a quoted ``#include``, found
+    beside it, recursively, in the order first met: what a build depends on
+    beyond the toolkit's headers."""
+    seen, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            header = path.parent / name
+            if header.exists():
+                todo.append(header)
+    return seen
 
 
 class Kernel:
@@ -62,7 +83,9 @@ class Kernel:
         self._lib: Optional[ctypes.CDLL] = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes())
+        digest = hashlib.sha256()
+        for path in local_sources(self.source):
+            digest.update(path.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:16]}.so"
 

@@ -81,6 +81,8 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "pipeline.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // 16 (tx: kv columns) x 16 (ty: rows)
@@ -377,6 +379,8 @@ extern "C" int flash_attention_fwd(int device, int dtype, const void* q, const v
 
 namespace tc {
 
+using namespace sm90;
+
 constexpr int kM = 64;                   // query positions per slab (wgmma's M)
 constexpr int kN = 64;                   // kv positions per tile
 constexpr int kStages = 2;               // K/V ring depth
@@ -407,61 +411,6 @@ struct Params {
   float scale_log2;  // the caller's hd^-1/2 times log2(e)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed. A wait
-// that outlasts ~2^34 cycles (seconds) is a fault of the pipeline: trap, so
-// that the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(c4)
-      : "memory");
-}
-
 // wgmma descriptor of a 128-byte-swizzled operand at shared address `addr`
 // (1024-byte aligned tiles). K-major (q, K): rows of 128 bytes, 8-row groups
 // 1024 bytes apart (the stride field); the leading field is unused. MN-major
@@ -472,21 +421,6 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(kBlock >> 4) << 16) |
          (static_cast<uint64_t>(kAtom >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Registers written by an asynchronous wgmma are read only after this point.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d += A·B, m64nNk16 (d holds N/2 floats), A (bf16 pairs) in registers, B
@@ -549,22 +483,6 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
       : "memory");
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
@@ -610,13 +528,13 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       mbar_init(v_full(st), 1);
       mbar_init(empty(st), NW * 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == NW) {  // producer: one thread issues every copy
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(C::kProducerRegs));
+    regs_dec<C::kProducerRegs>();
     if (threadIdx.x == NW * 128) {
       mbar_expect_tx(q_full, (last - slab0 + 1) * (HD / 64) * kBlock);
       for (int j = slab0; j <= last; ++j) {
@@ -637,7 +555,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       }
     }
   } else {  // consumer warpgroup wg: slab slab0 + wg
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::kConsumerRegs));
+    regs_inc<C::kConsumerRegs>();
     const int t = threadIdx.x & 127, lane = t & 31;
     const int slab = slab0 + wg;
     const bool valid = slab <= last;
@@ -725,7 +643,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
       constexpr int kRow = HDV * 2;  // bytes; 16-byte chunk c of row r sits at c ^ (r % 8)
       uint8_t* const o_s = smem + wg * C::kSlab;
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      fence_proxy();
 #pragma unroll
       for (int j = 0; j < HDV / 8; ++j)
 #pragma unroll
@@ -735,7 +653,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
           *reinterpret_cast<__nv_bfloat162*>(o_s + r * kRow + ((j ^ (r & 7)) * 16) + (lane & 3) * 4) =
               __floats2bfloat162_rn(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
         }
-      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+      bar_sync(1 + wg, 128);
       constexpr int kChunks = HDV / 8;
       for (int e = t; e < kM * kChunks; e += 128) {
         const int r = e / kChunks, c = e - r * kChunks;
@@ -747,26 +665,6 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
 }
 
 // A bf16 tensor map: dims innermost first, strides (bytes) of dims 1.., a
@@ -830,7 +728,7 @@ extern "C" int flash_attention_fwd_tc(int device, const void* q, const void* k, 
                        hd_v <= 256;
   if (!dims_ok || G < 1 || K < 1 || B < 0 || S < 0 || T < 0) return cudaErrorInvalidValue;
   if (B == 0 || S == 0) return cudaSuccess;
-  const tc::EncodeTiled enc = tc::encoder();
+  const sm90::EncodeTiled enc = sm90::encoder();
   if (enc == nullptr) return tc::kTensorMapError + CUDA_ERROR_NOT_FOUND;
   tc::Params p;
   p.S = S; p.K = K; p.G = G; p.BK = B * K;

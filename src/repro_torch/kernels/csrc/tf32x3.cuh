@@ -1,0 +1,79 @@
+// float32 products on Hopper's tensor cores: error-compensated 3xTF32 wgmma.
+//
+// A float32 value x is split into two TF32 values, hi = tf32(x) and
+// lo = tf32(x - hi), both rounded to nearest (cvt.rna: ties away from zero),
+// so x = hi + lo to about 2^-22 |x|. A product of two split operands is then
+// taken as hi_a.hi_b + hi_a.lo_b + lo_a.hi_b (lo_a.lo_b, ~2^-22 of it, is
+// dropped), each term one TF32 wgmma into the same float32 accumulator: three
+// tensor-core passes give about float32's accuracy at 495 TFLOP/s dense
+// instead of the 67 TFLOP/s of the float32 FMA pipe.
+//
+// Operands are K-major (TF32 wgmma takes no other), in 128-byte-swizzled
+// shared memory: a row of 128 bytes holds 32 TF32 values, 16-byte chunk c of
+// row r sits at chunk c ^ (r % 8), 8-row groups are 1,024 bytes apart and a
+// tile's blocks of rows are 1,024-byte aligned. One k step is 8 values, 32
+// bytes, so the descriptor of k step kk of a 32-value column block starts
+// (kk % 4) * 32 bytes into it, as the bf16 route of flash_attention.cu does
+// with its 16-value k steps. The fences, waits and row reductions around a
+// wgmma are pipeline.cuh's.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace tf32x3 {
+
+constexpr int kRowBytes = 128;  // a swizzled row: 32 TF32 values
+constexpr int kKStep = 8;       // values a wgmma k step takes (32 bytes)
+
+// x rounded to TF32 (10 stored mantissa bits), to nearest, ties away from
+// zero, as a float whose low 13 bits are zero.
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split(float x, float& hi, float& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - hi);
+}
+
+// Byte offset of value k (< 32) of row r in a swizzled column block.
+__device__ __forceinline__ int swizzled(int r, int k) {
+  return r * kRowBytes + ((((k >> 2) ^ r) & 7) << 4) + ((k & 3) << 2);
+}
+
+// wgmma descriptor of a K-major, 128-byte-swizzled operand at shared address
+// `addr`: 8-row groups 1,024 bytes apart (the stride field); the leading
+// field is not read for a K-major swizzled operand.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d += A.B^T (mma_m64n128k8) or d = A.B^T (mma_m64n128k8_set, d not read),
+// m64n128k8, TF32 A (64 rows) and B (128 rows) K-major in shared memory,
+// float32 accumulator. Fragment of thread t (warp w = t / 32, lane l):
+// d[4j + e] is row 16w + l/4 + 8(e >= 2), column 8j + 2(l % 4) + (e & 1).
+__device__ __forceinline__ void mma_m64n128k8(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, "
+      "p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_m64n128k8_set(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, "
+      "p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(a), "l"(b), "r"(0)
+      : "memory");
+}
+
+}  // namespace tf32x3

@@ -1,10 +1,11 @@
 """Public wrappers of the KDE log-density kernel: shapes, dispatch by device.
 
-CUDA tensors launch the hand-written kernel (``csrc/kde_density.cu``); CPU
-tensors take the plain versions (``ref.py``). The reference's
-``min_kernel_n`` size threshold and its ``impl``/``interpret`` switches are
-not carried over. ``h``, ``counts`` and the mixture's log weights stay on
-the device, so a wrapper call never waits for the card.
+CUDA tensors launch the hand-written kernel (``csrc/kde_density.cu``: the
+centred cross term as 3xTF32 on the tensor cores); CPU tensors take the
+plain versions (``ref.py``). The reference's ``min_kernel_n`` size threshold
+and its ``impl``/``interpret`` switches are not carried over. ``h``,
+``counts`` and the mixture's log weights stay on the device, so a wrapper
+call never waits for the card.
 """
 
 from __future__ import annotations
@@ -41,10 +42,12 @@ def _entry():
     """The loaded library (shared by both kernels) and its entry point."""
     lib = MACHINE_KERNEL.lib()
     fn = lib.kde_machine_log_density_f32
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     lib.kde_machine_splits.argtypes = [_I, _I, _I, _I]
     lib.kde_machine_splits.restype = _I
+    lib.kde_scratch_floats.argtypes = [_I, _I, _I]
+    lib.kde_scratch_floats.restype = ctypes.c_longlong
     lib.kde_error_string.argtypes = [_I]
     lib.kde_error_string.restype = ctypes.c_char_p
     return lib, fn
@@ -79,9 +82,13 @@ def _launch(
         raise ValueError(f"need Q, M, T, d >= 1 and M <= 65535; got Q={Q} M={M} T={T} d={d}")
     lib, fn = _entry()
     # the kernel splits each machine's rows S ways when Q alone would not
-    # fill the card; the partial logsumexps of the splits live here
+    # fill the card; one buffer holds the centred TF32 halves of the samples
+    # (first: the allocation's alignment is TMA's) and the splits' partial
+    # logsumexps
     S = lib.kde_machine_splits(Q, M, T, _num_sms(device_index(device)))
-    part = torch.empty((2, S, M, Q), dtype=torch.float32, device=device)
+    n_scratch = lib.kde_scratch_floats(M, T, d)
+    buf = torch.empty((n_scratch + 2 * S * M * Q,), dtype=torch.float32, device=device)
+    scratch, part = buf[:n_scratch], buf[n_scratch:].view(2, S, M, Q)
     lp = torch.empty((M, Q), dtype=torch.float32, device=device)
     prod = mix = None
     if reduce in ("product", "product_mixture"):
@@ -95,8 +102,8 @@ def _launch(
 
     err = fn(
         device_index(device), queries.data_ptr(), samples.data_ptr(), h.data_ptr(),
-        counts.data_ptr(), ptr(logw), part[0].data_ptr(), part[1].data_ptr(), lp.data_ptr(),
-        ptr(prod), ptr(mix), Q, M, T, d, S, stream_handle(device),
+        counts.data_ptr(), ptr(logw), scratch.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+        lp.data_ptr(), ptr(prod), ptr(mix), Q, M, T, d, S, stream_handle(device),
     )
     check_error(kernel, err, lib.kde_error_string)
     kernel.launches += 1

@@ -396,13 +396,16 @@ def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-# Against the plain version in float64: the kernel's direct Σ(q−s)² form in
-# float32 is off by ~1e-4 on log p̂ (sums over d and T in float32; values up
-# to ~1e3), so atol 1e-3 per machine (×M for the product over machines) and
-# rtol 1e-5; −inf (empty machines) in the same places.
+# Against the plain version in float64: the kernel's centred 3×TF32 distances
+# in float32 are off by ~1e-4 on log p̂ (sums over d and T in float32; values
+# up to ~1e3), so atol 1e-3 per machine (×M for the product over machines)
+# and rtol 1e-5; −inf (empty machines) in the same places. d = 300 and 264
+# run the loop over 64-dim chunks; Q = 333 and 65 leave a query block part
+# empty.
 @pytest.mark.parametrize("Q,M,T,d,ragged", [(12000, 10, 1200, 50, False), (1000, 10, 1200, 50, False),
                                             (500, 5, 1201, 37, True), (1, 1, 1, 1, False),
-                                            (300, 3, 200, 130, True), (129, 2, 33, 65, False)])
+                                            (300, 3, 200, 130, True), (129, 2, 33, 65, False),
+                                            (333, 3, 257, 300, True), (65, 2, 129, 264, False)])
 @pytest.mark.parametrize("reduce", ["none", "product", "mixture", "product_mixture"])
 @pytest.mark.parametrize("weights", ["counts", "uniform"])
 def test_machine_kde_kernel_matches_float64_plain(cuda_device, Q, M, T, d, ragged, reduce, weights):
@@ -417,6 +420,15 @@ def test_machine_kde_kernel_matches_float64_plain(cuda_device, Q, M, T, d, ragge
         fin = torch.isfinite(w)
         atol = 1e-3 * (M if reduce in ("product", "product_mixture") and i == 0 else 1)
         torch.testing.assert_close(g.double()[fin], w[fin], rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("d", [50, 64, 8, 1])
+def test_kde_tile_cross_term_matches_float64(cuda_device, d):
+    """One tile of the tensor-core cross term, raw, against float64
+    (``kde_probe.check_tile``: within 2^-18 of Σ|q_c||s_c| per entry)."""
+    from repro_torch.launch.kde_probe import check_tile
+
+    assert check_tile(torch.Generator(device=cuda_device).manual_seed(d), d)
 
 
 def test_kde_cloud_kernel_matches_float64_plain(cuda_device):
