@@ -20,11 +20,11 @@ from the same source, headers and flags is loaded as it is.
 
 Each :class:`Kernel` keeps ``launches``, a plain count that its wrapper raises
 by one where it launches the kernel and nowhere else. A kernel with more than
-one route (``flash_attention``: tensor cores or FMAs) also keeps
-``route_launches``, the same launches counted by route. A wrapper called
-while a CUDA graph is captured raises its count, but nothing runs until the
-graph is replayed: :class:`LaunchTally` takes those counts back at the end of
-the capture and adds them again at every replay.
+one route (``flash_attention``: bf16 tensor cores, float32 tensor cores or
+FMAs) also keeps ``route_launches``, the same launches counted by route. A
+wrapper called while a CUDA graph is captured raises its count, but nothing
+runs until the graph is replayed: :class:`LaunchTally` takes those counts
+back at the end of the capture and adds them again at every replay.
 """
 
 from __future__ import annotations

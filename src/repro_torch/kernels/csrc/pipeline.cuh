@@ -1,8 +1,8 @@
 // Hopper helpers shared by the tensor-core kernels (kde_density.cu and the
-// bf16 route of flash_attention.cu): the copy pipeline (mbarriers, TMA tile
-// loads, named barriers, the tensor-map encoder), the producer/consumer
-// register split, wgmma's fences and the row reductions of a wgmma
-// accumulator.
+// bf16 and float32 tensor-core routes of flash_attention.cu): the copy
+// pipeline (mbarriers, TMA tile loads, named barriers, the tensor-map
+// encoder), the producer/consumer register split, wgmma's fences and the
+// row reductions of a wgmma accumulator.
 //
 // Waits trap instead of hanging the card: a wait that outlasts ~2^34 cycles
 // (seconds) is a fault of the pipeline, and the launch then fails.

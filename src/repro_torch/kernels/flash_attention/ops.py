@@ -1,19 +1,24 @@
 """Public wrapper of the GQA flash-attention forward: dispatch by the tensor's device.
 
-CUDA tensors launch one of the two hand-written kernels of
+CUDA tensors launch one of the three hand-written kernels of
 ``csrc/flash_attention.cu``, one launch per call; CPU tensors take the plain
 version (``ref.py``). :func:`_route` picks the kernel from the tensors alone,
-before the launch: ``"tensor_core"`` (bf16 on wgmma, fed by TMA) when q, k
-and v are bfloat16, hd and hd_v are multiples of 64 up to 256, every base
-pointer is 16-byte aligned and every stride of an axis longer than 1 is a
-positive multiple of 16 bytes (TMA's rule); ``"fma"`` (float32 FMAs) for
-everything else. Either route raises when its launch fails; neither falls
-back to the other. ``KERNEL.launches`` counts the launches of both routes,
-``KERNEL.route_launches`` each route's. The
+before the launch. Both tensor-core routes need what TMA takes: every base
+pointer 16-byte aligned, a contiguous last axis and every other stride of an
+axis longer than 1 a positive multiple of 16 bytes. Then
+``"tensor_core"`` (bf16 ``wgmma``) takes bfloat16 q, k and v with hd and hd_v
+multiples of 64 up to 256, and ``"tf32x3"`` (float32 as error-compensated
+3×TF32 ``wgmma``, after a pre-pass that splits k and vᵀ into TF32 halves in
+a scratch buffer the wrapper allocates) takes float32 q, k and v with hd and
+hd_v in {64, 128}; ``"fma"`` (float32 FMAs) takes everything else. Each
+route raises when its launch fails; none falls back to another.
+``KERNEL.launches`` counts the launches of all routes,
+``KERNEL.route_launches`` each route's (a launch of ``"tf32x3"`` is its
+pre-pass and main kernel, counted once). The
 reference wrapper's transposes to ``(B·K, S, G·hd)``, its padding of S and T
 to block multiples and its ``min_kernel_s=64`` fallback to its jnp version
-are not carried over: the kernel reads q, k and v in place through their
-strides and masks the ragged S and T tails itself.
+are not carried over: the kernels read q, k and v in place through their
+strides and mask the ragged S and T tails themselves.
 
 On the card q, k and v must share a device and a dtype (float32 or
 bfloat16), have a contiguous last axis, hd and hd_v ≤ 256, G ≤ 64 and
@@ -21,13 +26,18 @@ B·K ≤ 65,535; anything else raises. The output is a new contiguous tensor
 in q's dtype. Forward only: the result carries no gradient (the backward
 comes with the training slice).
 
-Tolerance: the FMA kernel sums q·k and P·v in float32 in another order than
-the plain version's matrix products, so the two agree to float32 rounding
-(and, in bfloat16, to the output's rounding), never bitwise. The tensor-core
-kernel sums in float32 too but rounds P to bfloat16 before P·v, as the
-bfloat16 plain version does; both stay within the output's own bfloat16
+Tolerance: every route sums q·k and P·v in float32 in another order than
+the plain version's matrix products, so they agree to float32 rounding
+(and, in bfloat16, to the output's rounding), never bitwise. The FMA kernel
+multiplies in float32. The ``"tf32x3"`` kernel multiplies TF32 halves (hi =
+tf32(x), lo = tf32(x − hi), rounded to nearest) as hi·lo + lo·hi + hi·hi
+and drops lo·lo, ~2^-22 of each product, so it stays within the same
+float32 tolerance of the float64 result as the FMA kernel
+(``ref.flash_attention_ref_split`` models it; one TF32 pass would not).
+The bf16 tensor-core kernel rounds P to bfloat16 before P·v, as the
+bfloat16 plain version does; it stays within the output's own bfloat16
 rounding of the float64 result. A fixed input gives the same bits on every
-run on either route (no float atomics).
+run on every route (no float atomics).
 """
 
 from __future__ import annotations
@@ -42,10 +52,11 @@ from repro_torch.kernels import KERNELS, check_error, device_index, stream_handl
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 KERNEL = KERNELS["flash_attention"]
-ROUTES = ("tensor_core", "fma")
+ROUTES = ("tensor_core", "tf32x3", "fma")
 KERNEL.route_launches.update({route: 0 for route in ROUTES})
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64
+TF32X3_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +70,11 @@ def _entry(route: str):
     if route == "tensor_core":
         fn = lib.flash_attention_fwd_tc
         fn.argtypes = [_I, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, *[_L] * 10, _P]
+    elif route == "tf32x3":
+        fn = lib.flash_attention_fwd_tf32x3
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, *[_L] * 10, _P]
+        lib.flash_tf32x3_scratch_floats.argtypes = [_I] * 6
+        lib.flash_tf32x3_scratch_floats.restype = _L
     else:
         fn = lib.flash_attention_fwd
         fn.argtypes = [_I, _I, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, _I, *[_L] * 10, _P]
@@ -75,20 +91,28 @@ def _tma_strides(t: torch.Tensor) -> list:
     return [st if n > 1 else t.shape[-1] for st, n in zip(t.stride()[:-1], t.shape[:-1])]
 
 
+def _tma_ok(t: torch.Tensor) -> bool:
+    """A tensor map can take ``t``: a 16-byte aligned base, a contiguous last
+    axis and every stride it steps along a positive multiple of 16 bytes."""
+    per16 = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st > 0 and st % per16 == 0 for st in _tma_strides(t)))
+
+
 def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """``"tensor_core"`` or ``"fma"``: which kernel takes the call, from the
-    tensors alone (dtypes, head dims, alignment and strides)."""
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        return "fma"
+    """``"tensor_core"``, ``"tf32x3"`` or ``"fma"``: which kernel takes the
+    call, from the tensors alone (dtypes, head dims, alignment and strides)."""
+    dtypes = {x.dtype for x in (q, k, v)}
     hd, hd_v = q.shape[-1], v.shape[-1]
-    if not all(d % 64 == 0 and 64 <= d <= MAX_HEAD_DIM for d in (hd, hd_v)):
+    if dtypes == {torch.bfloat16}:
+        route = "tensor_core"
+        dims_ok = all(d % 64 == 0 and 64 <= d <= MAX_HEAD_DIM for d in (hd, hd_v))
+    elif dtypes == {torch.float32}:
+        route = "tf32x3"
+        dims_ok = hd in TF32X3_HEAD_DIMS and hd_v in TF32X3_HEAD_DIMS
+    else:
         return "fma"
-    for x in (q, k, v):
-        if x.stride(-1) != 1 or x.data_ptr() % 16:
-            return "fma"
-        if not all(st > 0 and st % 8 == 0 for st in _tma_strides(x)):  # 8 bf16 = 16 bytes
-            return "fma"
-    return "tensor_core"
+    return route if dims_ok and all(_tma_ok(x) for x in (q, k, v)) else "fma"
 
 
 def _vec4(t: torch.Tensor) -> bool:
@@ -125,6 +149,14 @@ def _launch(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
             device_index(device), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale,
             *qs, *ks, *vs, stream_handle(device),
+        )
+    elif route == "tf32x3":  # k and v go through the pre-pass by their strides
+        scratch = torch.empty((lib.flash_tf32x3_scratch_floats(b, t, kh, hd, hd_v, kv_len),),
+                              dtype=torch.float32, device=device)
+        err = fn(
+            device_index(device), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale,
+            *_tma_strides(q), *k.stride()[:3], *v.stride()[:3], stream_handle(device),
         )
     else:
         vec = int(_vec4(q)) | int(_vec4(k)) << 1 | int(_vec4(v)) << 2

@@ -22,6 +22,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels.tf32 import tf32_split
+
 _LOG2PI = math.log(2.0 * math.pi)
 
 
@@ -96,20 +98,6 @@ def _reduce(lse, counts, h, d, reduce, mixture_weights):
     if want_prod and want_mix:
         return prod, mix
     return prod if want_prod else mix
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``x`` rounded to TF32 (10 stored mantissa bits), to nearest with
-    ties away from zero, as the card's ``cvt.rna.tf32.f32``: on the int32 view,
-    add half of the 13 dropped bits' range and clear them (finite values)."""
-    bits = x.to(torch.float32).contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(hi, lo)``, both TF32, with hi + lo = x to about 2^-22 |x|."""
-    hi = tf32_round(x)
-    return hi, tf32_round(x.to(torch.float32) - hi)
 
 
 _CENTRE_ROWS = 256  # the card kernel's kCentreRows

@@ -37,7 +37,7 @@ from repro_torch.core.combiners import masked_silverman
 from repro_torch.kernels import device_index, stream_handle
 from repro_torch.kernels.kde_density import machine_kde_log_density, machine_kde_log_density_ref
 from repro_torch.kernels.kde_density import ops
-from repro_torch.kernels.kde_density.ref import tf32_split
+from repro_torch.kernels.tf32 import tf32_split
 
 M, T, D = 10, 1200, 50
 SHAPES = {"importance_pool": 12000, "init_pool": 1000}  # Q on the ALL_SPEC path

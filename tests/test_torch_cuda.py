@@ -620,13 +620,16 @@ def test_stream_combine_fused_and_subscriber_agree_on_card(cuda_device):
                                rtol=1e-4, atol=1e-4)
 
 
-# flash_attention: the kernel sums q·k and P·v in float32 in another order
-# than the plain version's matrix products. Against the plain version in
-# float64, on the same inputs: float32 within 2e-5 (+ 2e-5·|out|), bfloat16
-# within the output's own rounding, 2^-8 relative (atol 1e-2 on values of
-# size ~1, rtol 1e-2). Against the float32 plain version: float32 within
-# 1e-4 (the two roundings add), bfloat16 within 1e-2 as well (both round the
-# same float32 value to bfloat16; they differ by at most one spacing).
+# flash_attention: each route sums q·k and P·v in float32 in another order
+# than the plain version's matrix products (the float32 tensor-core route
+# from 3×TF32 products, ``ref.flash_attention_ref_split``'s arithmetic).
+# Against the plain version in float64, on the same inputs: float32 within
+# 2e-5 (+ 2e-5·|out|) on either float32 route, bfloat16 within the output's
+# own rounding, 2^-8 relative (atol 1e-2 on values of size ~1, rtol 1e-2).
+# Against the float32 plain version: float32 within 1e-4 (the two roundings
+# add), bfloat16 within 1e-2 as well (both round the same float32 value to
+# bfloat16; they differ by at most one spacing). In float32 the shapes with
+# hd, hd_v in {64, 128} take the "tf32x3" route, the others the FMA route.
 FLASH_SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal, kv_len
     (2, 4096, 4096, 8, 3, 128, 128, True, None),  # the serving path (llama3.2-3b prefill)
     (1, 128, 128, 1, 1, 32, 32, True, None),  # tests/test_flash_kernel.py's four
@@ -636,7 +639,7 @@ FLASH_SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal, kv_len
     (1, 300, 300, 4, 1, 192, 128, True, None),  # MLA's nope⊕rope qk with hd_v 128
     (2, 70, 90, 2, 3, 36, 20, True, 17),  # kv_len inside the causal reach; hd % 8 != 0
     (1, 65, 65, 1, 5, 8, 8, True, 0),  # every row fully masked: zeros, no NaN
-    # the tensor-core route's cases in bf16 (the FMA route's in float32)
+    # the tensor-core routes' cases (bf16: "tensor_core"; float32: "tf32x3")
     (1, 300, 300, 2, 1, 128, 128, True, None),  # G = 1: three position slabs a block
     (1, 300, 300, 2, 3, 128, 128, True, None),  # G = 3: one slab of each head a block
     (1, 300, 300, 1, 7, 128, 128, True, None),  # G = 7: a group's heads over blocks
@@ -652,8 +655,27 @@ FLASH_SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal, kv_len
 def _flash_route(dtype, hd, hd_v):
     """The route a contiguous, aligned call must take (the route rule's
     dtype and head-dim conditions)."""
-    tc = dtype == torch.bfloat16 and all(d % 64 == 0 and d <= 256 for d in (hd, hd_v))
-    return "tensor_core" if tc else "fma"
+    if dtype == torch.bfloat16 and all(d % 64 == 0 and d <= 256 for d in (hd, hd_v)):
+        return "tensor_core"
+    if dtype == torch.float32 and hd in (64, 128) and hd_v in (64, 128):
+        return "tf32x3"
+    return "fma"
+
+
+def test_flash_shapes_take_every_route(cuda_device):
+    """FLASH_SHAPES hold each route to the tolerances: both float32 routes
+    among the float32 cases, by the wrapper's own rule on card tensors."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    seen = {}
+    for b, s, t, kh, g, hd, hd_v, causal, kv_len in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(cuda_device, 1, 1, 1, 1, g, hd, hd_v, dtype)
+            route = flash_ops._route(q, k, v)
+            assert route == _flash_route(dtype, hd, hd_v)
+            seen.setdefault(dtype, set()).add(route)
+    assert seen[torch.float32] == {"tf32x3", "fma"}
+    assert seen[torch.bfloat16] == {"tensor_core", "fma"}
 
 
 def _flash_inputs(device, b, s, t, kh, g, hd, hd_v, dtype, seed=0):
@@ -691,13 +713,18 @@ def test_flash_kernel_matches_plain(cuda_device, b, s, t, kh, g, hd, hd_v, causa
 
 def test_flash_kernel_reads_strided_operands(cuda_device):
     """q, k, v as views with padded rows and a permuted axis order: the kernel
-    reads them through their strides, with no copy, as the plain version."""
+    reads them through their strides, with no copy, as the plain version.
+    Every stride is a multiple of 16 bytes, so the strided call and the
+    contiguous one both take the "tf32x3" route: the same bits."""
     b, s, t, kh, g, hd = 2, 200, 230, 2, 3, 64
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     q = torch.randn((b, s, kh, g, hd + 8), generator=gen, device=cuda_device)[..., :hd]
     k = torch.randn((b, kh, t, hd), generator=gen, device=cuda_device).transpose(1, 2)
     v = torch.randn((t, b, kh, hd), generator=gen, device=cuda_device).permute(1, 0, 2, 3)
+    kernel = kernels.KERNELS["flash_attention"]
+    before = kernel.route_launches["tf32x3"]
     out = flash_attention(q, k, v, causal=True)
+    assert kernel.route_launches["tf32x3"] == before + 1
     want = flash_attention_ref(q.double(), k.double(), v.double(), causal=True)
     torch.testing.assert_close(out.double(), want, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(out, flash_attention(q.contiguous(), k.contiguous(), v.contiguous()),
@@ -754,6 +781,31 @@ def test_flash_kernel_is_deterministic(cuda_device):
     assert kernel.route_launches["tensor_core"] == before + 4
 
 
+def test_flash_tf32x3_route_is_deterministic_and_masks_to_zero(cuda_device):
+    """The float32 tensor-core route: three runs of one input give the same
+    bits, a fully masked call (kv_len = 0) exact zeros, and a float32 q that
+    no tensor map takes (a base 4 bytes off 16) the FMA route, within the
+    same float32 tolerance."""
+    q, k, v = _flash_inputs(cuda_device, 1, 1000, 1000, 2, 3, 128, 128, torch.float32, seed=4)
+    kernel = kernels.KERNELS["flash_attention"]
+    before = dict(kernel.route_launches)
+    first = flash_attention(q, k, v)
+    for _ in range(3):
+        assert torch.equal(first, flash_attention(q, k, v))
+    empty = flash_attention(q, k, v, kv_len=0)
+    assert torch.equal(empty, torch.zeros_like(empty))
+    assert kernel.route_launches == dict(before, tf32x3=before["tf32x3"] + 5)
+    flat = torch.empty((q.numel() + 1,), device=cuda_device)
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    out = flash_attention(q_off, k, v)
+    assert kernel.route_launches == dict(before, tf32x3=before["tf32x3"] + 5, fma=before["fma"] + 1)
+    torch.testing.assert_close(out, first, rtol=1e-4, atol=1e-4)
+    want = flash_attention_ref(q.double(), k.double(), v.double())
+    torch.testing.assert_close(out.double(), want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(first.double(), want, rtol=2e-5, atol=2e-5)
+
+
 def test_flash_wrapper_raises_instead_of_falling_back(cuda_device, monkeypatch):
     """Bad dtypes, shapes and devices raise on the card, a failed launch
     raises on either route, and none of them counts a launch."""
@@ -774,12 +826,14 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda_device, monkeypatch):
     with pytest.raises(ValueError):
         flash_attention(q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v)
     q16, k16, v16 = _flash_inputs(cuda_device, 1, 64, 64, 2, 2, 64, 64, torch.bfloat16)
+    q32, k32, v32 = _flash_inputs(cuda_device, 1, 64, 64, 2, 2, 64, 64, torch.float32)
     assert flash_ops._route(q16, k16, v16) == "tensor_core"
+    assert flash_ops._route(q32, k32, v32) == "tf32x3"
     assert flash_ops._route(q, k, v) == "fma"
     for route in flash_ops.ROUTES:
         lib, _ = flash_ops._entry(route)
     monkeypatch.setattr(flash_ops, "_entry", lambda route: (lib, lambda *args: 9))
-    for args in ((q, k, v), (q16, k16, v16)):
+    for args in ((q, k, v), (q16, k16, v16), (q32, k32, v32)):
         with pytest.raises(RuntimeError, match="CUDA error 9"):
             flash_attention(*args)
     assert kernel.launches == before and kernel.route_launches == routes

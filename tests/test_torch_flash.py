@@ -10,8 +10,9 @@ float32 softmax-attention paths summed in other orders, the reference
 tests' own figure); 3e-2 in bfloat16 (the output's rounding, 2^-8 relative,
 on values of size ~1). The hand-written CUDA kernel itself is held to this
 plain version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
-The wrapper's route rule (which of the two kernels a card call would take)
-is a function of the tensors alone and is tested here on CPU tensors.
+The wrapper's route rule (which of the three kernels a card call would
+take: bf16 or float32 on the tensor cores, or FMAs) is a function of the
+tensors alone and is tested here on CPU tensors.
 """
 
 import jax.numpy as jnp
@@ -159,6 +160,23 @@ def _route_case(name):
                 torch.zeros((b, s, kh, 128)))
     if name == "float32 hd 64":
         return torch.zeros((b, s, kh, g, 64)), torch.zeros((b, s, kh, 64)), torch.zeros((b, s, kh, 64))
+    f128 = torch.zeros((b, s, kh, 128))
+    if name == "float32 hd 128 hd_v 64":
+        return torch.zeros((b, s, kh, g, 128)), f128, torch.zeros((b, s, kh, 64))
+    if name == "float32 serving view hd 128":
+        return torch.zeros((b, s, kh * g, 128)).reshape(b, s, kh, g, 128), f128, f128
+    if name == "float32 hd 32":
+        return torch.zeros((b, s, kh, g, 32)), torch.zeros((b, s, kh, 32)), torch.zeros((b, s, kh, 32))
+    if name == "float32 MLA hd 192 hd_v 128":
+        return torch.zeros((b, s, kh, g, 192)), torch.zeros((b, s, kh, 192)), f128
+    if name == "float32 base 4 bytes off 16":
+        return torch.zeros(b * s * kh * g * 128 + 1)[1:].view(b, s, kh, g, 128), f128, f128
+    if name == "float32 row stride 132 elements":  # 528 bytes: a multiple of 16
+        return torch.zeros((b, s, kh, g, 132))[..., :128], f128, f128
+    if name == "float32 k row stride 130 elements":  # 520 bytes: not
+        return torch.zeros((b, s, kh, g, 128)), torch.zeros((b, s, kh, 130))[..., :128], f128
+    if name == "float32 q, bf16 k and v":
+        return torch.zeros((b, s, kh, g, 128)), k128, v128
     if name == "hd 32":
         return _bf16(b, s, kh, g, 32), _bf16(b, s, kh, 32), _bf16(b, s, kh, 32)
     if name == "hd 36":
@@ -183,8 +201,16 @@ ROUTE_CASES = {
     "MLA hd 192 hd_v 128": "tensor_core",
     "hd 64": "tensor_core",
     "k row stride 136 elements": "tensor_core",
-    "float32 hd 128": "fma",
-    "float32 hd 64": "fma",
+    "float32 hd 128": "tf32x3",
+    "float32 hd 64": "tf32x3",
+    "float32 hd 128 hd_v 64": "tf32x3",
+    "float32 serving view hd 128": "tf32x3",
+    "float32 row stride 132 elements": "tf32x3",
+    "float32 hd 32": "fma",
+    "float32 MLA hd 192 hd_v 128": "fma",
+    "float32 base 4 bytes off 16": "fma",
+    "float32 k row stride 130 elements": "fma",
+    "float32 q, bf16 k and v": "fma",
     "hd 32": "fma",
     "hd 36": "fma",
     "hd_v 96": "fma",
@@ -212,7 +238,7 @@ def test_tensor_map_strides_of_a_length_one_axis_are_row_lengths():
 
 def test_cpu_call_counts_no_route_launch():
     kernel = KERNELS["flash_attention"]
-    assert set(kernel.route_launches) == {"tensor_core", "fma"}
+    assert set(kernel.route_launches) == {"tensor_core", "tf32x3", "fma"}
     before, routes = kernel.launches, dict(kernel.route_launches)
     for name in ("serving view hd 128", "float32 hd 128"):
         flash_attention(*_route_case(name))

@@ -29,12 +29,8 @@ from repro.kernels.kde_density import machine_kde_log_density_ref as jax_machine
 from repro_torch import kernels
 from repro_torch.core.combiners import masked_silverman
 from repro_torch.kernels.kde_density import machine_kde_log_density_ref
-from repro_torch.kernels.kde_density.ref import (
-    kde_centres,
-    machine_kde_log_density_split,
-    tf32_round,
-    tf32_split,
-)
+from repro_torch.kernels.kde_density.ref import kde_centres, machine_kde_log_density_split
+from repro_torch.kernels.tf32 import tf32_round, tf32_split
 from test_torch_threads import pin_torch_threads
 
 pin_torch_threads()  # this worker's share of the cores under a parallel run
