@@ -30,6 +30,13 @@ a non-zero exit:
               accept flags outside the rounding margin, the carry; the
               count of sites inside the margin printed), and three more
               launches giving the same bits;
+              ``online_update`` on ``online_probe.CASES`` (the stream
+              path's fold, ragged counts, the slab route's two shapes, an
+              unaligned slice of a draw buffer) against float64 and float32
+              plain, each case checking which route's count rose and
+              printing the first design's float64 error beside its own, m2
+              exactly symmetric, three more launches and the slab route
+              giving the same bits;
               ``flash_attention`` on its three routes (bf16 tensor cores at
               hd, hd_v multiples of 64; float32 as 3×TF32 on the tensor
               cores at hd, hd_v in {64, 128}, first by one tile's products
@@ -53,7 +60,8 @@ a non-zero exit:
 4c. stream  — combine-while-sampling, ``Pipeline(STREAM_SPEC)
               .stream_combine()`` (ALL_SPEC folded every 120 draws, fused):
               launch counts derived from the spec (``online_update`` once per
-              fold chunk), 50 finite trajectory values, finals equal to 4b's;
+              fold chunk, all on its whole route), 50 finite trajectory
+              values, finals equal to 4b's;
               then the subscriber path (bitwise the same finals for the
               buffered combiners, no ``online_update`` launch) and an
               interrupted-then-resumed checkpointed run (bitwise the same θ);
@@ -71,8 +79,10 @@ a non-zero exit:
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
               the groundtruth shape; ``img_log_weights``' sweep route for
               w_t and W_t on phase 4b's draws, with whole engine sweeps on
-              the host clock beside the eager sweep), beside the least time
-              the card could take, and
+              the host clock beside the eager sweep; ``online_update`` at
+              the stream path's fold and at the slab route's shape, each
+              beside its launch floor, an empty body on the same grid),
+              beside the least time the card could take, and
               of PyTorch's ``scaled_dot_product_attention`` beside the flash
               kernel (a yardstick only: the port never calls it): the bf16
               tensor-core route at B=2 and B=1, and at B=2 in float32 the
@@ -119,6 +129,19 @@ MUFU_PER_CLOCK_PER_SM = 16
 # and held to within twice of on the path's two shapes.
 FMA_KDE_ERR64 = {"importance_pool Q=M*T": 1.556e-04, "init_pool Q=1000": 1.501e-04,
                   "ragged T=1201 d=37": 4.588e-05, "Q=M=T=d=1": 1.108e-08}
+
+# The online_update kernel's first design (a block per 32x32 tile of m2,
+# sums straight from L2) against its plain version in float64 on
+# online_probe.CASES' inputs: the max_abs_err of each case printed by
+# PYTHONPATH=<a checkout of 308cec3>/src python src/repro_torch/launch/online_probe.py --errors
+# on an NVIDIA H100 80GB HBM3, 700.00 W (commit 308cec3, the last with that
+# design). Printed beside each case's error of the present design.
+ONLINE_ERR64_FIRST_DESIGN = {
+    "path fold": 6.089e-05, "path fold ragged": 5.536e-05, "C=1": 4.720e-06,
+    "C=31 d=65 ragged": 1.523e-05, "M=d=1": 8.593e-07,
+    "slab: the draw buffer as one chunk": 2.073e-03, "slab: d=300 ragged": 9.364e-05,
+    "unaligned: d=37 slice from row 121": 7.101e-05,
+}
 
 # logL2 band of the main path: the port's full-width run on the CPU
 # (python -m repro_torch.launch.mcmc_run --device cpu --seeds 0 1 2) gave,
@@ -717,21 +740,17 @@ def main() -> int:
     # tolerance is the kernel's own float32 rounding: count exact, mean within
     # 1e-5·(1 + |mean|), m2 within 1e-5·max|m2| of each machine. Against the
     # float32 plain version, whose rounding adds as much again, 1e-4 (the
-    # reference tests' figure). Shapes: the path's fold (M=10, C=120, d=50),
-    # ragged counts with NaN beyond them and an empty machine, C = 1, C < 32
-    # with d = 65, and M = d = 1.
-    def online_inputs(M, C, d, *, ragged=False):
-        count = torch.full((M,), 240.0, device=dev)
-        mean = torch.randn((M, d), generator=gen, device=dev)
-        a = torch.randn((M, 2 * d, d), generator=gen, device=dev)
-        chunk = mean[:, None, :] + 0.3 + torch.randn((M, C, d), generator=gen, device=dev)
-        counts = None
-        if ragged:
-            counts = torch.randint(1, C + 1, (M,), generator=gen, device=dev).to(torch.int32)
-            counts[0] = 0
-            rows = torch.arange(C, device=dev)[None, :, None]
-            chunk = torch.where(rows < counts[:, None, None], chunk, float("nan"))
-        return count, mean, a.transpose(1, 2) @ a, chunk.contiguous(), counts
+    # reference tests' figure). The cases and their inputs are
+    # online_probe.CASES: the path's fold, ragged counts with NaN beyond them
+    # and an empty machine, C = 1, C < 32 with d = 65, M = d = 1, and the
+    # slab route's two shapes (the whole draw buffer as one chunk; d = 300)
+    # and a machine span off every 16-byte boundary (d = 37, a slice of a
+    # draw buffer from row 121); each checks which route's count rose, each
+    # error is printed beside the first design's (ONLINE_ERR64_FIRST_DESIGN); the
+    # ragged cases give the same bits in three more launches, and on the
+    # slab route too.
+    from repro_torch.kernels.online_update import ops as online_ops
+    from repro_torch.launch.online_probe import CASES as ONLINE_CASES, case_inputs
 
     def online_err(label, got, want, rel):
         """Max abs error of the state; raises outside the stated tolerance."""
@@ -750,23 +769,43 @@ def main() -> int:
             raise AssertionError(f"{label}: kernel disagrees with its plain version")
         return max_err
 
-    for label, (M, C, d, ragged) in {"path fold": (10, 120, 50, False),
-                                     "path fold ragged": (10, 120, 50, True),
-                                     "C=1": (3, 1, 50, False), "C=31 d=65 ragged": (4, 31, 65, True),
-                                     "M=d=1": (1, 7, 1, False)}.items():
-        count, mean, m2, chunk, counts = online_inputs(M, C, d, ragged=ragged)
+    online_kernel = kernels.KERNELS["online_update"]
+    online_routes_checked = set()
+    for label in ONLINE_CASES:
+        count, mean, m2, chunk, counts = case_inputs(label, dev)
+        plan = online_ops._plan(*chunk.shape)
+        before = dict(online_kernel.route_launches)
         got = online_moments_update(count, mean, m2, chunk, counts)
         torch.cuda.synchronize()
+        rose = {r for r, n in online_kernel.route_launches.items() if n != before[r]}
+        if rose != {plan.route}:
+            raise AssertionError(f"online_update {label}: routes {rose} rose, planned {plan.route}")
+        online_routes_checked.add(plan.route)
+        shape = tuple(chunk.shape)
         want64 = online_moments_update_ref(count.double(), mean.double(), m2.double(),
                                            chunk.double(), counts)
-        e64 = online_err(f"online_update {label} {(M, C, d)} vs float64 plain", got, want64, 1e-5)
-        e32 = online_err(f"online_update {label} {(M, C, d)} vs float32 plain", got,
+        e64 = online_err(f"online_update [{plan.route}] {label} {shape} vs float64 plain", got,
+                         want64, 1e-5)
+        print(f"    the first design's float64 error on these inputs: "
+              f"{ONLINE_ERR64_FIRST_DESIGN[label]:.3e}", flush=True)
+        e32 = online_err(f"online_update [{plan.route}] {label} {shape} vs float32 plain", got,
                          online_moments_update_ref(count, mean, m2, chunk, counts), 1e-4)
         errs["online_update"] = max(errs.get("online_update", 0.0), e64)
         err32["online_update"] = max(err32.get("online_update", 0.0), e32)
-        if ragged:  # the empty machine comes back as it went in, bit for bit
+        if not torch.equal(got[2], got[2].transpose(1, 2)):
+            raise AssertionError(f"online_update {label}: m2 is not exactly symmetric")
+        if counts is not None:  # the empty machine comes back as it went in, bit for bit
             if not all(torch.equal(x[0], y[0]) for x, y in zip(got, (count, mean, m2))):
                 raise AssertionError("online_update changed a machine whose chunk count is 0")
+            again = [online_moments_update(count, mean, m2, chunk, counts) for _ in range(3)]
+            again.append(online_ops._launch(count, mean, m2, chunk, counts, route="slab"))
+            if not all(torch.equal(a, b) for r in again for a, b in zip(r, got)):
+                raise AssertionError(f"online_update {label}: another launch or the slab route "
+                                     f"gave other bits")
+            print(f"  online_update {label}: three more launches and the slab route the same "
+                  f"bits", flush=True)
+    if online_routes_checked != set(online_ops.ROUTES):
+        raise AssertionError(f"online_update: only {online_routes_checked} were checked")
 
     # flash_attention sums q·k and P·v in float32 in another order than the
     # plain version's matrix products on every route (the "tf32x3" route from
@@ -1015,6 +1054,10 @@ def main() -> int:
             raise AssertionError(f"{name} launched {launches_stream[name]} times on the stream "
                                  f"path, expected {n}")
     img_routes["stream"] = dict(img_kernel.route_launches)
+    # every fold chunk of the path is C = 120 rows of d = 50: the whole route
+    online_routes_stream = dict(online_kernel.route_launches)
+    if online_routes_stream != {"whole": n_chunks, "slab": 0}:
+        raise AssertionError(f"online_update on the stream path by route: {online_routes_stream}")
     check_img_routes("STREAM_SPEC", img_routes["stream"], generic=1,
                      sweep=img_sweeps(ALL_SPEC) + n_chunks * -(-sr.n_estimate // n_batch))
     values = [row["error"] for row in sr.trajectory]
@@ -1389,25 +1432,46 @@ def main() -> int:
                  "at_init_pool": kde_rows["weierstrass init_pool"]})
     rows.append({"name": "kde_log_density", **kde_rows["one machine of the path"]})
 
-    # online_update at the stream path's fold
-    M, C, d = 10, 120, 50
-    count, mean, m2, chunk, _ = online_inputs(M, C, d)
-    nbytes = 4 * (M * C * d + 2 * (M + M * d + M * d * d))
-    flops = 2 * M * C * d * d + 2 * M * C * d + 4 * M * d * d  # Gram, mean + centring, merge
-    bound, bound_by = least_ms(nbytes, flops)
-    ms, host = device_ms(lambda: online_moments_update(count, mean, m2, chunk))
-    cold, _ = device_ms(lambda: online_moments_update(count, mean, m2, chunk), flush=flush)
-    # ten calls behind the sleep: the plain version is ~30 launches a call,
-    # and more would fill the stream's queue
-    plain, plain_host = device_ms(lambda: online_moments_update_ref(count, mean, m2, chunk),
-                                  iters=10)
-    print(f"  online_update M={M} C={C} d={d}: kernel {ms * 1e3:.2f} us "
-          f"(cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} us/call), "
-          f"plain {plain * 1e3:.2f} us (host {plain_host * 1e3:.2f} us/call), "
-          f"bound {bound * 1e3:.3f} us by {bound_by}", flush=True)
-    rows.append({"name": "online_update", "ms": ms, "cold_ms": cold, "host_ms": host,
-                 "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                 "shape": f"M={M} C={C} d={d}"})
+    # online_update at the stream path's fold (the whole route) and at the
+    # slab route's shape (the whole draw buffer as one chunk, as
+    # --stream-every 1200 folds it); beside it the launch floor, the kernel's
+    # empty body on the same grid and shared memory (online_update_probe cut
+    # 0), timed the same way
+    from repro_torch.launch.online_probe import probe_entry, probe_launch
+
+    online_rows = {}
+    for label in ("path fold", "slab: the draw buffer as one chunk"):
+        count, mean, m2, chunk, _ = case_inputs(label, dev)
+        M, C, d = chunk.shape
+        plan = online_ops._plan(M, C, d)
+        nbytes = 4 * (M * C * d + 2 * (M + M * d + M * d * d))
+        # the Gram's upper triangle (all the kernel computes, the rest
+        # mirrored), the mean and the centring, the merge
+        flops = M * C * d * (d + 1) + 2 * M * C * d + 4 * M * d * d
+        bound, bound_by = least_ms(nbytes, flops)
+        routes = dict(online_kernel.route_launches)
+        ms, host = device_ms(lambda: online_moments_update(count, mean, m2, chunk))
+        cold, _ = device_ms(lambda: online_moments_update(count, mean, m2, chunk), flush=flush)
+        moved = {r for r, n in online_kernel.route_launches.items() if n != routes[r]}
+        if moved != {plan.route}:
+            raise AssertionError(f"online_update timing ({label}) took {moved}, not {plan.route}")
+        floor, _ = device_ms(probe_launch(probe_entry(), 0, plan.route, count, mean, m2, chunk))
+        # ten calls behind the sleep: the plain version is ~30 launches a call,
+        # and more would fill the stream's queue
+        plain, plain_host = device_ms(lambda: online_moments_update_ref(count, mean, m2, chunk),
+                                      iters=10)
+        print(f"  online_update [{plan.route}] M={M} C={C} d={d} ({plan.blocks * M} blocks of "
+              f"{plan.smem} B): kernel {ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host "
+              f"enqueue {host * 1e3:.2f} us/call), launch floor {floor * 1e3:.2f} us, plain "
+              f"{plain * 1e3:.2f} us (host {plain_host * 1e3:.2f} us/call), bound "
+              f"{bound * 1e3:.3f} us by {bound_by} ({nbytes / 1e3:.1f} KB, {flops / 1e6:.2f} MFLOP)",
+              flush=True)
+        online_rows[label] = {"ms": ms, "cold_ms": cold, "host_ms": host,
+                              "launch_floor_ms": floor, "plain_ms": plain, "bound_ms": bound,
+                              "bound_by": bound_by, "plan": plan._asdict(),
+                              "shape": f"M={M} C={C} d={d}"}
+    rows.append({"name": "online_update", **online_rows["path fold"],
+                 "slab_route": online_rows["slab: the draw buffer as one chunk"]})
 
     # flash_attention at the serving path's prefill shape (B=2) and the table's
     # (B=1): 8 KV heads of 3 query heads, hd 128, S = T = 4096, causal. In
@@ -1515,6 +1579,8 @@ def main() -> int:
             entry["max_abs_err_float32_plain"] = err32[name]
         if name == "img_log_weights":  # the MCMC paths' launches, by route
             entry["launches_by_route"] = img_routes
+        if name == "online_update":  # the stream path's launches, by route
+            entry["launches_by_route"] = {"stream": online_routes_stream}
         if name == "flash_attention":  # the serving runs' launches, by route
             entry["launches_by_route"] = {"serve_bfloat16": routes_serve16,
                                           "serve_float32": routes_serve32}

@@ -8,6 +8,13 @@ kernel takes any C ≥ 0 and d ≥ 1 and masks its own edges. The chunk may be a
 ``(M, C, d)`` slice of a longer ``(M, T, d)`` draw buffer (rows contiguous,
 any machine stride), which the fused stream folds without a copy.
 
+The kernel has two routes, chosen by :func:`_plan` before the launch and
+counted apart in ``KERNEL.route_launches`` (``KERNEL.launches`` counts both):
+``"whole"`` copies a machine's C rows into shared memory at once when they
+fit :data:`WHOLE_BUDGET` bytes with the rest of the block's state, and
+``"slab"`` streams them through a ring of slabs otherwise. Both add the same
+numbers in the same order, so they give the same bits.
+
 Tolerance (the ``online`` combiner's merge-rounding contract, as in
 ``repro/kernels/online_update/ops.py``): the kernel sums the chunk mean and
 the centred Gram in another order than the plain version, so the two agree
@@ -20,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,8 +41,62 @@ from repro_torch.kernels import (
 from repro_torch.kernels.online_update.ref import online_moments_update_ref
 
 KERNEL = KERNELS["online_update"]
+ROUTES = ("whole", "slab")
+KERNEL.route_launches.update({route: 0 for route in ROUTES})
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# The kernel's shared-memory layout (csrc/online_update.cu, smem_floats),
+# which decides the route; the kernel derives its bytes itself
+# (online_update_smem_bytes, held equal to smem_bytes by the card tests)
+THREADS = 512  # a block
+TILE = 16  # m2 tile edge
+GROUPS = 8  # row groups of a tile's Gram
+PARTS = 8  # partial sums a column of the chunk mean
+SLAB_ROWS = 256  # rows a slab of the slab route
+SLOTS = 2 * TILE  # a tile's columns: its row set and its column set
+WHOLE_BUDGET = 96 * 1024  # the whole route's bytes at most: two blocks an SM
+
+
+class Plan(NamedTuple):
+    """A launch: the route, blocks a machine (one per upper-triangle tile of
+    m2; the grid is ``(blocks, M)``), and a block's dynamic shared memory in
+    bytes. Only the route crosses to the kernel, which derives the grid and
+    the bytes itself."""
+
+    route: str
+    blocks: int
+    smem: int
+
+
+def _up4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(route: str, C: int, d: int) -> int:
+    """Dynamic shared memory a block of ``route`` needs at C rows of d."""
+    if route == "whole":
+        lead = _up4(C * d + 3 + TILE)  # the span, shifted to its alignment, + pad
+    else:
+        lead = 2 * SLAB_ROWS * SLOTS  # the two-stage ring
+    return 4 * (lead + (2 + PARTS) * SLOTS + 2 * TILE * TILE + GROUPS * TILE * (TILE + 1))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(M: int, C: int, d: int) -> Plan:
+    """The launch for ``M`` machines of ``C`` rows of ``d``: the whole route
+    when C rows fit :data:`WHOLE_BUDGET` (chunk counts only shorten a
+    machine's span), the slab route otherwise; one block per upper-triangle
+    16×16 tile of m2 per machine on either. Where a machine's span starts
+    (its alignment, hence its copy width) is the kernel's to see, not the
+    plan's."""
+    del M  # the grid is (blocks, M) whatever M is
+    tiles = -(-d // TILE)
+    blocks = tiles * (tiles + 1) // 2
+    whole = smem_bytes("whole", C, d)
+    if whole <= WHOLE_BUDGET:
+        return Plan("whole", blocks, whole)
+    return Plan("slab", blocks, smem_bytes("slab", C, d))
 
 
 @functools.cache
@@ -43,18 +104,23 @@ def _entry():
     """The loaded library and its entry point with C types set."""
     lib = KERNEL.lib()
     fn = lib.online_update_f32
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P]
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong,
+                   _I, _P]
     fn.restype = _I
+    lib.online_update_smem_bytes.argtypes = [_I, _I, _I]
+    lib.online_update_smem_bytes.restype = ctypes.c_longlong
     lib.online_update_error_string.argtypes = [_I]
     lib.online_update_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
-def _launch(count, mean, m2, chunk, chunk_counts):
+def _launch(count, mean, m2, chunk, chunk_counts, route: Optional[str] = None):
+    """Check, launch and count. ``route`` overrides the plan's, for the card
+    tests' check that both routes give the same bits."""
     M, C, d = chunk.shape
     device = chunk.device
-    if chunk.device != device or chunk.dtype != torch.float32:
-        raise TypeError(f"chunk must be float32 on {device}, got {chunk.dtype} on {chunk.device}")
+    if chunk.dtype != torch.float32:
+        raise TypeError(f"chunk must be float32 on {device}, got {chunk.dtype}")
     if C > 1 and chunk.stride(1) != d or d > 1 and chunk.stride(2) != 1:
         raise ValueError(f"chunk rows must be contiguous, got strides {chunk.stride()}")
     check_tensor(count, "count", device=device, ndim=1)
@@ -69,10 +135,15 @@ def _launch(count, mean, m2, chunk, chunk_counts):
         raise ValueError(f"need 1 <= M <= 65535 and d >= 1; got M={M} d={d}")
     cc_ptr = None
     if chunk_counts is not None:
-        cc = torch.as_tensor(chunk_counts, device=device).to(torch.int32).contiguous()
+        cc = chunk_counts
+        if not (isinstance(cc, torch.Tensor) and cc.dtype == torch.int32
+                and cc.device == device and cc.is_contiguous()):
+            cc = torch.as_tensor(chunk_counts, device=device).to(torch.int32).contiguous()
         if cc.shape != (M,):
             raise ValueError(f"chunk_counts must be ({M},), got {tuple(cc.shape)}")
         cc_ptr = cc.data_ptr()
+    if route is None:
+        route = _plan(M, C, d).route
     lib, fn = _entry()
     count_out = torch.empty_like(count)
     mean_out = torch.empty_like(mean)
@@ -80,10 +151,11 @@ def _launch(count, mean, m2, chunk, chunk_counts):
     err = fn(
         device_index(device), chunk.data_ptr(), cc_ptr, count.data_ptr(), mean.data_ptr(),
         m2.data_ptr(), count_out.data_ptr(), mean_out.data_ptr(), m2_out.data_ptr(),
-        M, C, d, chunk.stride(0), stream_handle(device),
+        M, C, d, chunk.stride(0), ROUTES.index(route), stream_handle(device),
     )
     check_error(KERNEL, err, lib.online_update_error_string)
     KERNEL.launches += 1
+    KERNEL.route_launches[route] += 1
     return count_out, mean_out, m2_out
 
 

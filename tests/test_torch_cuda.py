@@ -591,6 +591,71 @@ def test_online_update_wrapper_raises_when_the_launch_fails(cuda_device, monkeyp
         online_moments_update(count, mean, m2, chunk.transpose(1, 2).contiguous().transpose(1, 2))
 
 
+# the kernel's two routes (``ops._plan``): "whole" copies a machine's rows
+# into shared memory at once, "slab" streams them; the cases of
+# ``launch/online_probe.py`` (chip_smoke.py phase 3's inputs) that take each,
+# at the tolerances above, and the route each took
+@pytest.mark.parametrize("label,route", [("path fold", "whole"),
+                                         ("slab: the draw buffer as one chunk", "slab"),
+                                         ("slab: d=300 ragged", "slab"),
+                                         ("unaligned: d=37 slice from row 121", "whole")])
+def test_online_update_routes_match_float64_plain(cuda_device, label, route):
+    from repro_torch.launch.online_probe import case_inputs
+
+    count, mean, m2, chunk, counts = case_inputs(label, cuda_device)
+    k = kernels.KERNELS["online_update"]
+    before = dict(k.route_launches)
+    got = online_moments_update(count, mean, m2, chunk, counts)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in k.route_launches.items()} == \
+        {r: int(r == route) for r in k.route_launches}
+    want64 = online_moments_update_ref(count.double(), mean.double(), m2.double(),
+                                       chunk.double(), counts)
+    _assert_online_close(got, want64, rel=1e-5)
+    _assert_online_close(got, online_moments_update_ref(count, mean, m2, chunk, counts), rel=1e-4)
+
+
+@pytest.mark.parametrize("label", ["path fold ragged", "slab: d=300 ragged"])
+def test_online_update_both_routes_deterministic_and_alike(cuda_device, label):
+    """Three more launches give the same bits on the planned route, and the
+    slab route the same bits too: both add the same numbers in the same
+    order."""
+    from repro_torch.kernels.online_update import ops
+    from repro_torch.launch.online_probe import case_inputs
+
+    count, mean, m2, chunk, counts = case_inputs(label, cuda_device)
+    first = online_moments_update(count, mean, m2, chunk, counts)
+    for _ in range(3):
+        for a, b in zip(first, online_moments_update(count, mean, m2, chunk, counts)):
+            assert torch.equal(a, b)
+    for a, b in zip(first, ops._launch(count, mean, m2, chunk, counts, route="slab")):
+        assert torch.equal(a, b)
+
+
+def test_online_update_refuses_a_plan_it_would_not_carve(cuda_device):
+    """The source's shared memory is the plan's (ops.smem_bytes mirrors it to
+    choose the route), and a whole route past its budget is refused: at d =
+    50, 430 rows fit and 431 do not."""
+    from repro_torch.kernels.online_update import ops
+
+    lib = ops._entry()[0]
+    for route in ops.ROUTES:
+        for C, d in ((120, 50), (1200, 50), (120, 300), (120, 37), (0, 50), (1, 50), (7, 1),
+                     (31, 65), (256, 3), (257, 3), (430, 50), (431, 50)):
+            want = ops.smem_bytes(route, C, d)
+            if route == "whole" and want > ops.WHOLE_BUDGET:
+                want = 0  # the source's answer for a span it will not take whole
+            assert lib.online_update_smem_bytes(ops.ROUTES.index(route), C, d) == want
+    assert lib.online_update_smem_bytes(0, 431, 50) == 0
+    for C, ok in ((430, True), (431, False)):
+        count, mean, m2, chunk, _ = _online_inputs(cuda_device, 1, C, 50)
+        if ok:
+            ops._launch(count, mean, m2, chunk, None, route="whole")
+        else:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                ops._launch(count, mean, m2, chunk, None, route="whole")
+
+
 def test_stream_combine_fused_and_subscriber_agree_on_card(cuda_device):
     """A small logreg stream on the card: the same θ in both modes, bitwise
     finals for the buffered combiners, online's to merge rounding, and one
