@@ -37,6 +37,12 @@ a non-zero exit:
               printing the first design's float64 error beside its own, m2
               exactly symmetric, three more launches and the slab route
               giving the same bits;
+              the new transitions (rwmh, with the GMM's permutation
+              proposal too, hmc, sgld, linear Gibbs, Poisson Gibbs with its
+              fixed-round gamma draws and no unresolved lane), each under
+              the chunk backend's captured CUDA graphs, giving the bits of
+              the eager loop at M = 10 and the specs' shard sizes;
+              ``img_log_weights``' both routes at d = 2, 10 and 20 too;
               ``flash_attention`` on its three routes (bf16 tensor cores at
               hd, hd_v multiples of 64; float32 as 3×TF32 on the tensor
               cores at hd, hd_v in {64, 128}, first by one tile's products
@@ -74,12 +80,21 @@ a non-zero exit:
               route in bfloat16; each precision's warm prefill too), 32
               in-vocabulary tokens, and each stage's logits against the
               last-position logits of ``forward(prompt + generated[:-1])``;
+4e. other   — the paper's other experiments at repro's model defaults,
+              ``Pipeline(spec).run()`` for ``LINEAR_SPEC`` under mala and
+              gibbs, ``POISSON_SPEC`` (gibbs) and ``GMM_SPEC`` (rwmh): stage
+              seconds, acceptance, launches by kernel and route (one
+              sweep-route launch a kernel-mode IMG sweep, nothing else),
+              each L2 (logL2 for the GMM) inside its band from the port's CPU
+              runs, MMD² beside it (as in 4b), and for ``linear`` the
+              parametric mean against the closed-form posterior mean;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
               the groundtruth shape; ``img_log_weights``' sweep route for
               w_t and W_t on phase 4b's draws, with whole engine sweeps on
-              the host clock beside the eager sweep; ``online_update`` at
+              the host clock beside the eager sweep, and at d = 2, 10 and 20
+              on phase 4e's draws; ``online_update`` at
               the stream path's fold and at the slab route's shape, each
               beside its launch floor, an empty body on the same grid),
               beside the least time the card could take, and
@@ -98,6 +113,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -170,6 +186,45 @@ CPU_LOGL2_ALL = {
 }
 
 
+# the same rule for phase 4e's specs (L2, and logL2 for GMM_SPEC), from
+# python -m repro_torch.launch.mcmc_run --device cpu --seeds 0 1 2 3 4 5 --model linear
+# (and --model linear --sampler gibbs, --model poisson, --model gmm): six
+# seeds, not three, since these cells are noise-dominated (the Poisson Gibbs
+# chains' ESS is ~1 % of their draws; the card's seeds 0-5 span 2-3x)
+CPU_L2_OTHER = {
+    "linear mala": {
+        "parametric": (16870210.0, 16161657.0, 16797388.0, 17213744.0, 16216311.0, 17318732.0),
+        "nonparametric": (15339099.0, 15046058.0, 15592487.0, 16119727.0, 15093283.0,
+                          16620038.0),
+        "semiparametric": (24780698.0, 21875190.0, 21462358.0, 20785332.0, 22251270.0,
+                           25910626.0)},
+    "linear gibbs": {
+        "parametric": (13039670.0, 12333637.0, 13225980.0, 13243903.0, 13011819.0, 12640048.0),
+        "nonparametric": (11844730.0, 11830663.0, 11646135.0, 12372750.0, 11877465.0,
+                          11727429.0),
+        "semiparametric": (19401056.0, 20355374.0, 23416874.0, 19310900.0, 19674278.0,
+                           18570792.0)},
+    "poisson gibbs": {
+        "parametric": (34.94477081298828, 21.929105758666992, 18.88249969482422,
+                       12.859539985656738, 9.794782638549805, 11.130476951599121),
+        "nonparametric": (21.323741912841797, 20.248645782470703, 16.663976669311523,
+                          7.872171878814697, 22.022451400756836, 25.808683395385742),
+        "semiparametric": (26.162822723388672, 21.31393814086914, 20.867267608642578,
+                           7.437817573547363, 31.190990447998047, 41.622398376464844)},
+    "gmm rwmh": {"nonparametric": (13.160148620605469, 23.088851928710938, 16.339683532714844,
+                                   18.19670295715332, 11.92257022857666, 19.629165649414062)},
+}
+# The GMM's parametric and semiparametric products are degenerate: its random
+# walk accepts 2-9 % of its moves at GMM_SPEC (repro 2.7 % at seed 0), so
+# some chains' 1,200 draws hold fewer than d + 1 = 21 distinct points and
+# their sample covariance (1e-8 added to its diagonal) has no float32
+# Cholesky factor. repro's factor is then NaN, and so is the port's
+# (core/gaussian.cholesky), so the Gaussian product and both combiners
+# built on it are NaN. Held to that rule: NaN exactly when some chain's
+# covariance has no factor (read with torch.linalg.cholesky_ex), else finite.
+DEGENERATE = {"gmm rwmh": ("parametric", "semiparametric")}
+
+
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
@@ -209,20 +264,123 @@ def check_lp(label, got, want, *, rtol, atol):
     return max_err
 
 
-def check_bands(board, bands):
-    """Every logL2 of ``board`` finite and inside [min − r, max + r] of its
-    CPU seeds, r their range."""
-    if set(board.errors) != set(bands):
-        raise AssertionError(f"scoreboard keys {sorted(board.errors)} != {sorted(bands)}")
-    for name, err in sorted(board.errors.items()):
-        seeds = bands[name]
+def check_bands(board, bands, degenerate=(), pipe=None):
+    """Every error (L2 or logL2) of ``board`` finite and inside [min − r,
+    max + r] of its CPU seeds, r their range; each ``degenerate`` name (a
+    Gaussian product, see DEGENERATE) NaN exactly when some chain of
+    ``pipe``'s draws has a covariance with no Cholesky factor, else finite."""
+    if set(board.errors) != set(bands) | set(degenerate):
+        raise AssertionError(f"scoreboard keys {sorted(board.errors)} != "
+                             f"{sorted(set(bands) | set(degenerate))}")
+    if degenerate:
+        import torch
+        from repro_torch.core.combiners.api import counts_or_full, valid_masks
+        from repro_torch.core.gaussian import fit_moments
+
+        theta = pipe.sample().theta  # the moments as the parametric combiner fits them
+        mask = valid_masks(theta, counts_or_full(theta, None))
+        info = torch.linalg.cholesky_ex(fit_moments(theta, mask).cov).info
+        distinct = ((theta[:, 1:] != theta[:, :-1]).any(dim=-1).sum(dim=1) + 1).tolist()
+        no_factor = [m for m, i in enumerate(info.tolist()) if i != 0]
+        print(f"  distinct draws a chain {distinct} (d = {theta.shape[-1]}); chains whose "
+              f"covariance has no Cholesky factor: {no_factor}", flush=True)
+        for name in degenerate:
+            err = board.errors[name]
+            ok = math.isnan(err) if no_factor else math.isfinite(err)
+            print(f"  {board.metric}({name}) = {err:.4f}, expected "
+                  f"{'NaN' if no_factor else 'finite'} (DEGENERATE) {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{board.metric}({name}) = {err}: not the reference's rule")
+    for name, seeds in sorted(bands.items()):
+        err = board.errors[name]
         margin = max(seeds) - min(seeds)
         lo, hi = min(seeds) - margin, max(seeds) + margin
         ok = math.isfinite(err) and lo <= err <= hi
-        print(f"  logL2({name}) = {err:.4f}, band [{lo:.4f}, {hi:.4f}] "
+        print(f"  {board.metric}({name}) = {err:.4f}, band [{lo:.4f}, {hi:.4f}] "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"logL2({name}) = {err} outside its band")
+            raise AssertionError(f"{board.metric}({name}) = {err} outside its band")
+
+
+def check_gibbs_moments(label, pipe, spec, dev):
+    """The Poisson Gibbs sampler on the card against the exact moments of its
+    target: 256 independent chains on shard 0 of ``spec``'s data, tempered
+    by its M and stepped by its step size as the pipeline's are, 2,000
+    sweeps then 1,000 kept, each pooled mean and second moment
+    of θ within 4 Monte Carlo errors of ``gibbs_subposterior_moments``
+    (quadrature in float64, no sampling), the rule of
+    tests/test_torch_slice_poisson.py. The L2 bands cannot tell a wrong
+    sampler from noise at this ESS; this can. The chains start at θ = 0 and
+    creep along the (log a, log b) ridge, so the pooled mean of the burn-in
+    sweeps is printed by window (in the target's standard deviations), and
+    beside it the pipeline's own chain on that shard, which keeps its draws
+    from sweep ``spec.warmup`` on."""
+    import torch
+    from repro_torch.api.sampling import sample_subposteriors
+    from repro_torch.core.metrics import moment_z_scores
+    from repro_torch.models.bayes import get_model
+    from repro_torch.models.bayes.poisson_gamma import gibbs_subposterior_moments
+
+    chains, burn, draws = 256, 2000, 1000
+    sharded = pipe.partition()
+    rows = int(sharded.counts[0])
+    shard = {k: v[0, :rows] for k, v in sharded.shards.items()}
+    mean, std = gibbs_subposterior_moments(shard, spec.M)
+    many = {k: v.unsqueeze(0).expand((chains,) + v.shape).contiguous() for k, v in shard.items()}
+    t0 = time.perf_counter()
+    every = sample_subposteriors(
+        torch.Generator(device=dev).manual_seed(spec.seed + 1), get_model(spec.model), many,
+        spec.M, burn + draws, sampler="gibbs", warmup=0, step_size=spec.step_size, shards=many,
+        counts=torch.full((chains,), rows, dtype=torch.int32, device=dev)).theta.double()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    edges = [0] + [e for e in (200, 500, 1000, 2000) if e < burn] + [burn]
+    transient = {f"{lo}-{hi}": ((every[:, lo:hi].mean(dim=(0, 1)) - mean) / std).tolist()
+                 for lo, hi in zip(edges[:-1], edges[1:])}
+    theta = every[:, burn:]
+    z_mean, z_var = moment_z_scores(theta, mean, std)
+    own = (pipe.sample().theta[0].double().mean(dim=0) - mean) / std
+    ok = bool((z_mean.abs() <= 4.0).all() and (z_var.abs() <= 4.0).all())
+    out = {"exact_mean": mean.tolist(), "exact_std": std.tolist(),
+           "chains_mean": theta.mean(dim=(0, 1)).tolist(),
+           "chains_std": ((theta - mean) ** 2).mean(dim=(0, 1)).sqrt().tolist(),
+           "z_mean": z_mean.tolist(), "z_second_moment": z_var.tolist(),
+           "pipeline_chain0_mean_in_std": own.tolist(), "burn_in_mean_in_std": transient,
+           "seconds": secs,
+           "chains": chains, "burn": burn, "draws": draws, "rows": rows}
+    print(f"  {label}: Gibbs on shard 0 ({chains} chains, {burn} + {draws} sweeps, {secs:.2f} s) "
+          f"against quadrature: mean {out['chains_mean']} vs {out['exact_mean']}, z "
+          f"{[round(z, 3) for z in out['z_mean']]}; std {out['chains_std']} vs "
+          f"{out['exact_std']}, z {[round(z, 3) for z in out['z_second_moment']]} (limit 4); "
+          f"the pipeline's chain 0 at {[round(z, 3) for z in own.tolist()]} std; burn-in "
+          f"by sweeps {json.dumps({k: [round(z, 3) for z in v] for k, v in transient.items()})} "
+          f"std {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: Gibbs moments off their target: {out}")
+    return out
+
+
+def mmd2_lines(label, pipe, board):
+    """``mmd2_rbf`` (biased, RBF) of each combiner's draws against the
+    groundtruth, printed beside the scoreboard's metric; the lengthscale is
+    the median of the nonzero pairwise distances of 1,000 groundtruth draws
+    spread over the chain (the median heuristic; a random walk that rarely
+    moves repeats its draws, and their zero distances would make it 0). Not
+    a key of ``Scoreboard.errors``."""
+    import torch
+    from repro_torch.core.metrics import mmd2_rbf
+
+    gt = pipe.groundtruth()
+    sub = gt[torch.linspace(0, gt.shape[0] - 1, 1000, device=gt.device).long()]
+    dist = torch.cdist(sub, sub).flatten()
+    ell = dist[dist > 0].median()
+    out = {}
+    for name, res in sorted(pipe.combine().items()):
+        out[name] = float(mmd2_rbf(gt, res.samples, ell))
+        print(f"  {label}: {board.metric}({name}) = {board.errors[name]:.4f}, "
+              f"mmd2_rbf = {out[name]:.6e} (lengthscale {float(ell):.4g})", flush=True)
+    return out
 
 
 def stage_line(label, timings, wall=None):
@@ -373,6 +531,100 @@ def device_ms(fn, *, iters=50, flush=None):
                          "three times")
 
 
+def eager_shard_chains(sk, shards, counts, gen, *, burn_in, warmup, step_size, T):
+    """The chains of ``sk`` written out as the eager loop: init, warmup (the
+    kernel rebuilt at exp(log ε) every step, as the reference's scan does),
+    burn-in, T kept draws. ``(eps, theta (M, T, d), accepted (M, T), state)``."""
+    import torch
+    from repro_torch.samplers import da_init, da_update
+
+    M = counts.shape[0]
+    pos = sk.init_position(gen, shards)
+    eps = step_size
+    if sk.adaptive and warmup > 0:
+        da = da_init(step_size, (M,), counts.device)
+        s = sk.build(shards, counts, torch.exp(da.log_eps)[:, None]).init(pos)
+        for _ in range(warmup):
+            s, i = sk.build(shards, counts, torch.exp(da.log_eps)[:, None]).step(gen, s)
+            da = da_update(da, i.accept_prob, sk.target_accept)
+        eps = torch.exp(da.log_eps_avg)[:, None]
+        n_burn, pos = burn_in, s.position
+    else:
+        n_burn = burn_in + warmup
+    kern = sk.build(shards, counts, eps)
+    s = kern.init(pos)
+    for _ in range(n_burn):
+        s, _ = kern.step(gen, s)
+    rows, acc = [], []
+    for _ in range(T):
+        s, i = kern.step(gen, s)
+        rows.append(sk.extract(s.position))
+        acc.append(i.is_accepted)
+    return eps, torch.stack(rows, dim=1), torch.stack(acc, dim=-1), s
+
+
+def check_new_transitions(dev):
+    """Phase 3's graph-against-eager check of rwmh (and with the GMM's
+    permutation proposal), hmc, sgld, linear Gibbs and Poisson Gibbs."""
+    import torch
+    from repro_torch.api.backends import BatchedChunkBackend
+    from repro_torch.api.sampling import ShardKernel, make_shard_kernel
+    from repro_torch.core.subposterior import make_subposterior_logpdf, partition_data
+    from repro_torch.models.bayes import get_model
+    from repro_torch.models.bayes.gmm import permutation_rw_proposal
+    from repro_torch.samplers import get_sampler, randgamma
+
+    def shard_kernel(model, sampler, **kw):
+        return make_shard_kernel(get_model(model), 10, sampler, use_counts=False, **kw)
+
+    gmm = get_model("gmm")
+    perm_rwmh = ShardKernel(  # rwmh with the §8.2 label-permutation proposal, fixed step
+        init_position=lambda g, sh: gmm.initial_position(g, (10,)),
+        build=lambda sh, c, eps: get_sampler("rwmh")(
+            make_subposterior_logpdf(gmm.log_prior, gmm.log_lik, sh, 10, per_datum=gmm.shard_keys),
+            proposal_fn=permutation_rw_proposal(10, step_size=0.05)),
+        extract=lambda pos: pos, adaptive=False, target_accept=0.35)
+    cases = {  # label: (model, n, shard kernel, step size, warmup, burn-in, T)
+        "rwmh gmm": ("gmm", 50_000, shard_kernel("gmm", "rwmh"), 0.1, 40, 30, 60),
+        "rwmh gmm permutation proposal": ("gmm", 50_000, perm_rwmh, 0.1, 0, 30, 60),
+        "hmc linear L=10": ("linear", 10_000, shard_kernel("linear", "hmc"), 0.1, 30, 20, 40),
+        "sgld linear batch 256": ("linear", 10_000, shard_kernel("linear", "sgld"), 1e-4, 0, 30,
+                                  60),
+        "gibbs linear": ("linear", 10_000, shard_kernel("linear", "gibbs"), 0.1, 0, 30, 60),
+        "gibbs poisson": ("poisson", 50_000, shard_kernel("poisson", "gibbs"), 0.1, 10, 20, 60),
+    }
+    for label, (model, n, sk, step, warmup, burn_in, T) in cases.items():
+        tm = get_model(model)
+        data, _ = tm.generate_data(torch.Generator(device=dev).manual_seed(7), n)
+        shards, counts = partition_data(data, 10, only=tm.shard_keys, pad=True)
+        backend = BatchedChunkBackend(sk, shards, counts, burn_in=burn_in, warmup=warmup,
+                                      step_size=step)
+        g = torch.Generator(device=dev).manual_seed(8)
+        state, eps = backend.setup(g)
+        state, theta, acc_sum = backend.next_chunk(g, eps, state, T)
+        torch.cuda.synchronize()
+        g = torch.Generator(device=dev).manual_seed(8)
+        eps_e, theta_e, acc_e, state_e = eager_shard_chains(
+            sk, shards, counts, g, burn_in=burn_in, warmup=warmup, step_size=step, T=T)
+        torch.cuda.synchronize()
+        same_eps = (not backend.adapts) or torch.equal(eps, eps_e)
+        if not (backend._loop.graph is not None and same_eps and torch.equal(theta, theta_e)
+                and torch.equal(acc_sum, acc_e.to(torch.float32).sum(dim=-1))):
+            raise AssertionError(f"graphed {label} chains differ from the eager loop")
+        extra = ""
+        if model == "poisson":
+            unresolved = (int(state.unresolved), int(state_e.unresolved))
+            if unresolved != (0, 0):
+                raise AssertionError(f"gibbs poisson: {unresolved} gamma lanes unresolved")
+            extra = (f"; gamma draws in {randgamma.ROUNDS} rounds, 0 unresolved lanes "
+                     f"({10 * shards['x'].shape[1]} latents a sweep)")
+        print(f"  graphed {label} (M=10, n={n}, warmup {warmup}, burn-in {burn_in}, T={T}): θ "
+              f"{tuple(theta.shape)}, accept flags ({int(acc_sum.sum())}/{10 * T} accepted)"
+              f"{' and ε' if backend.adapts else ''} bitwise the eager loop's{extra}", flush=True)
+        del data, shards, backend, state, theta, state_e, theta_e
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -421,7 +673,9 @@ def main() -> int:
     from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
     from repro_torch.configs import get_config as lm_config
     from repro_torch.launch import serve
-    from repro_torch.launch.mcmc_run import ALL_SPEC, PAPER_SPEC, STREAM_SPEC
+    from repro_torch.launch.mcmc_run import (
+        ALL_SPEC, GMM_SPEC, LINEAR_SPEC, PAPER_SPEC, POISSON_SPEC, STREAM_SPEC)
+    from repro_torch.samplers import randgamma
     from repro_torch.models.lm import model as lm_model
 
     dev = torch.device("cuda", 0)
@@ -550,9 +804,19 @@ def main() -> int:
           f"the eager loop's; {graphed_launches} likelihood launches counted", flush=True)
     del data_c, shards_c, lp_c, theta_c, rows_c
 
+    # the new transitions, each under BatchedChunkBackend (warmup, burn-in
+    # and collection replaying captured CUDA graphs) against the eager loop
+    # written out (the kernel's own step drawing its inputs, the warmup's
+    # kernel rebuilt at exp(log ε) every step): θ, accept flags and adapted ε
+    # bitwise, at the new specs' shard shapes (M = 10). Poisson Gibbs draws
+    # its gamma variates in randgamma.ROUNDS fixed rounds and counts the lanes
+    # no round resolved: the count must be 0 on both sides.
+    check_new_transitions(dev)
+
     # log w ~ −SSE/(2h²) of size ~1e5 at h=0.05: float32 relative error ~1e-6
     for label, (P, M, d, h) in {"sweep": (160, 10, 50, 0.05), "P=161,d=37": (161, 10, 37, 0.3),
-                                "P=1,M=1,d=1": (1, 1, 1, 1.0)}.items():
+                                "P=1,M=1,d=1": (1, 1, 1, 1.0), "d=2": (160, 10, 2, 0.05),
+                                "d=10": (160, 10, 10, 0.05), "d=20": (160, 10, 20, 0.05)}.items():
         theta = torch.randn((P, M, d), generator=gen, device=dev)
         h_t = torch.tensor(h, device=dev)
         out = img_log_weights(theta, h_t)
@@ -597,7 +861,13 @@ def main() -> int:
                    "path": (16, 10, 1200, 50, False, 0.3), "d=37": (16, 10, 1200, 37, False, 0.3),
                    "B=1": (1, 10, 1200, 50, False, 0.3), "M=1": (16, 1, 1200, 50, False, 0.3),
                    "ragged": (16, 10, 1200, 50, True, 0.3),
-                   "d=130": (4, 4, 600, 130, False, 0.3)}  # W_t: 87 KB of shared memory
+                   "d=130": (4, 4, 600, 130, False, 0.3),  # W_t: 87 KB of shared memory
+                   # phase 4e's widths (poisson, linear, gmm) at their path's B, M, T
+                   "d=2": (16, 10, 1200, 2, False, 0.3), "d=2 path scale": (16, 10, 1200, 2, False, 0.03),
+                   "d=10": (16, 10, 1200, 10, False, 0.3),
+                   "d=10 path scale": (16, 10, 1200, 10, False, 0.03),
+                   "d=20": (16, 10, 1200, 20, False, 0.3),
+                   "d=20 path scale": (16, 10, 1200, 20, False, 0.03)}
     for label, (B, M, T, d, ragged, spread) in sweep_cases.items():
         for wt in (False, True):
             samples, _, model, carry, c, u, h = sweep_case(B, M, T, d, wt=wt, ragged=ragged,
@@ -992,6 +1262,9 @@ def main() -> int:
     img_routes["all"] = dict(img_kernel.route_launches)
     check_img_routes("ALL_SPEC", img_routes["all"], generic=1, sweep=img_sweeps(ALL_SPEC))
     check_bands(board, CPU_LOGL2_ALL)
+    # the second metric beside logL2: logL2 ties nonparametric, pool, rpt and
+    # subpost_average (PERF.md §7); does MMD² tell them apart?
+    mmd2_all = mmd2_lines("ALL_SPEC", pipe, board)
     for name, err in paper_errors.items():
         if abs(board.errors[name] - err) > 1e-4:
             raise AssertionError(f"logL2({name}) = {board.errors[name]} under ALL_SPEC, "
@@ -1272,6 +1545,68 @@ def main() -> int:
     del model16, warm, out16, fwd16
     torch.cuda.empty_cache()
 
+    phase("4e other experiments: Pipeline(spec).run() for LINEAR_SPEC (mala, gibbs), "
+          "POISSON_SPEC, GMM_SPEC")
+    from repro_torch.core.metrics import effective_sample_size
+    from repro_torch.models.bayes.linear_gaussian import posterior_moments
+
+    other_specs = {"linear mala": LINEAR_SPEC,
+                   "linear gibbs": dataclasses.replace(LINEAR_SPEC, sampler="gibbs"),
+                   "poisson gibbs": POISSON_SPEC, "gmm rwmh": GMM_SPEC}
+    other = {}
+    for label, spec in other_specs.items():
+        print(f"  spec {label} {spec.to_json()}", flush=True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        pipe = Pipeline(spec)
+        board = pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_o = kernels.launch_counts()
+        routes_o = dict(img_kernel.route_launches)
+        print(board.table(), flush=True)
+        print(f"  {label}: accept={board.accept:.4f} timings_s={json.dumps(board.timings)}",
+              flush=True)
+        stage_line(label, board.timings, wall=wall)
+        print(f"  {label}: launches={json.dumps(launches_o)}", flush=True)
+        # every kernel-mode IMG sweep of the two IMG combiners is one launch
+        # of the sweep route; no other kernel lies on these paths
+        check_img_routes(label, routes_o, generic=0, sweep=img_sweeps(spec))
+        idle = {k: n for k, n in launches_o.items() if k != "img_log_weights" and n}
+        if idle:
+            raise AssertionError(f"{label}: kernels off this path launched: {idle}")
+        check_bands(board, CPU_L2_OTHER[label], DEGENERATE.get(label, ()), pipe)
+        mmd = mmd2_lines(label, pipe, board)
+        theta = pipe.sample().theta
+        if label.startswith("linear"):
+            # the parametric combined mean against the closed-form posterior
+            # mean, within 5× its Monte Carlo error (each chain's ESS per
+            # coordinate), as tests/test_torch_slice_linear.py holds it
+            exact = posterior_moments(pipe.partition().data)
+            M, T, d = theta.shape
+            ess = torch.stack([torch.stack([effective_sample_size(theta[m, :, j])
+                                            for j in range(d)]) for m in range(M)])
+            sd = (exact.cov.diagonal() * ((1.0 / ess).mean(dim=0) + 1.0 / T)).sqrt()
+            z = ((pipe.combine()["parametric"].samples.mean(dim=0) - exact.mean).abs() / sd)
+            ok = bool((z <= 5.0).all())
+            print(f"  {label}: parametric mean vs the closed form: max |err|/MC error "
+                  f"{float(z.max()):.3f} (limit 5; ESS {float(ess.min()):.1f}–"
+                  f"{float(ess.max()):.1f} a chain) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{label}: parametric mean off the closed form: {z.tolist()}")
+        if label.startswith("poisson"):
+            # the Gibbs kernel's check reads the unresolved-lane count after
+            # every chunk and raises on any: reaching here means none
+            print(f"  {label}: no gamma lane left unresolved after {randgamma.ROUNDS} rounds "
+                  f"(sampling and groundtruth chains)", flush=True)
+            gibbs_moments = check_gibbs_moments(label, pipe, spec, dev)
+        img_routes[label] = routes_o
+        other[label] = {"theta": theta, "board": board, "launches": launches_o,
+                        "routes": routes_o, "mmd2": mmd, "wall_s": wall}
+        del pipe
+    print(f"  poisson gibbs moments {json.dumps(gibbs_moments)}", flush=True)
+    torch.cuda.empty_cache()
+
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
 
@@ -1369,7 +1704,32 @@ def main() -> int:
                             "bound_ms": bound, "bound_by": bound_by,
                             "sweep_wall_ms": walls["this"], "eager_sweep_wall_ms": walls["eager"],
                             "shape": f"sweep {form} B={B} M={M} T={T} d={d}"}
+    # the sweep route at phase 4e's widths on its own draws (poisson d=2,
+    # linear d=10, gmm d=20), w_t and W_t, beside the plain sweep and the bound
+    other_d_rows = {}
+    for label in ("poisson gibbs", "linear mala", "gmm rwmh"):
+        th = other[label]["theta"]
+        M, T, d = th.shape
+        counts_o = torch.full((M,), T, dtype=torch.int32, device=dev)
+        for wt in (False, True):
+            _, _, model, carry, c, u, h = sweep_case(B, M, T, d, wt=wt, samples=th,
+                                                     counts=counts_o)
+            term = model.state_term(h) if wt else None
+            extra_lw = model.extra_logweight(h.expand(B)) if wt else None
+            nbytes, flops = sweep_work(B, M, d, wt)
+            bound, bound_by = least_ms(nbytes, flops)
+            run = lambda: img_sweep(carry, th, c, u, h, aux=model.aux, state_term=term)  # noqa: E731
+            ms, host = device_ms(run)
+            plain, _ = device_ms(lambda: img_sweep_ref(carry, th, c, u, h, model.aux, extra_lw),
+                                 iters=1)
+            form = "W_t" if wt else "w_t"
+            print(f"  img_log_weights [sweep] {form} B={B} M={M} T={T} d={d} ({label}'s draws): "
+                  f"kernel {ms * 1e3:.2f} us (host enqueue {host * 1e3:.2f} us/call), plain "
+                  f"{plain * 1e3:.2f} us, bound {bound * 1e3:.4f} us by {bound_by}", flush=True)
+            other_d_rows[f"{form} d={d}"] = {"ms": ms, "host_ms": host, "plain_ms": plain,
+                                             "bound_ms": bound, "bound_by": bound_by}
     rows.append({"name": "img_log_weights", **sweep_rows["w_t"], "sweep_W_t": sweep_rows["W_t"],
+                 "sweep_at_other_d": other_d_rows,
                  "generic_route": generic_row})
 
     # the KDE kernel at its two shapes on the ALL_SPEC path, and its
@@ -1573,7 +1933,8 @@ def main() -> int:
             "replaces": k.replaces, "launches": main_launches[name],
             "max_abs_err": errs[name], "library_ms": None, **r,
             "launches_by_path": {"paper": launches_paper[name], "all": launches[name],
-                                 "stream": launches_stream[name], "serve": launches_serve[name]},
+                                 "stream": launches_stream[name], "serve": launches_serve[name],
+                                 **{label: o["launches"][name] for label, o in other.items()}},
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]

@@ -14,7 +14,9 @@ one chunk of T, with no host synchronisation). Every method
 draws from the caller's generator in the order of the one-shot driver, so
 any chunking gives the same draws bitwise. The backend keeps the collection
 loop (:class:`~repro_torch.samplers.base.TransitionLoop`) of its first chunk,
-so on the card every chunk replays one captured transition. The reference's
+so on the card every chunk replays one captured transition. A kept draw is
+the shared θ (``ShardKernel.extract``: a Gibbs state's latents stay in the
+chain state, out of the draws). The reference's
 ``MeshChunkBackend`` (chains split over devices) is not ported yet.
 """
 
@@ -62,8 +64,7 @@ class BatchedChunkBackend:
         warmup: int,
         step_size: float,
     ):
-        self.sk = sk
-        self.lp = sk.logpdf(shards, counts)
+        self.sk, self.shards, self.counts = sk, shards, counts
         self.n_chains = int(counts.shape[0])
         self.device = counts.device
         self.burn_in, self.warmup, self.step_size = burn_in, warmup, step_size
@@ -79,7 +80,7 @@ class BatchedChunkBackend:
     def setup(self, gen: torch.Generator) -> Tuple[Any, torch.Tensor]:
         """Init, warmup and burn-in: ``(state, eps (M, 1))``."""
         state, eps = setup_shard_chains(
-            self.sk, self.lp, gen, self.n_chains,
+            self.sk, self.shards, self.counts, gen,
             burn_in=self.burn_in, warmup=self.warmup, step_size=self.step_size,
         )
         if not isinstance(eps, torch.Tensor):
@@ -91,7 +92,8 @@ class BatchedChunkBackend:
         chunks copy ``eps`` into its kernel's step sizes."""
         if self._loop is None:
             self._eps = eps.clone() if self.adapts else None
-            kernel = self.sk.build(self.lp, self._eps if self.adapts else self.step_size)
+            kernel = self.sk.build(self.shards, self.counts,
+                                   self._eps if self.adapts else self.step_size)
             self._loop = TransitionLoop(kernel, state)
         elif self.adapts:
             self._eps.copy_(eps)
@@ -101,7 +103,8 @@ class BatchedChunkBackend:
         self, gen: torch.Generator, eps: torch.Tensor, state: Any, n: int
     ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
         """``(state, theta (M, n, d), accepted count (M,) float32)``."""
-        state, theta, accepted = shard_chunk(self.loop(eps, state), gen, state, n)
+        state, theta, accepted = shard_chunk(self.loop(eps, state), gen, state, n,
+                                             self.sk.extract)
         return state, theta, accepted.to(torch.float32).sum(dim=-1)
 
     def localize(self, tree):

@@ -86,9 +86,13 @@ def estimate_generator(
 
 
 def groundtruth_step_size(spec: RunSpec) -> float:
-    """Full-chain step compensation: warmup absorbs it for adaptive kernels;
-    fixed-step ones take ε/√M."""
+    """Full-chain step compensation. The full posterior is ~√M narrower than
+    a subposterior and its gradient M× larger: warmup absorbs that for
+    adaptive kernels; fixed-step ones take ε/M for Langevin time steps
+    (``sgld``) and ε/√M for proposal scales."""
     sp = sampler_spec(spec.resolved_sampler())
+    if sp.name == "sgld":
+        return spec.step_size / spec.M
     if not (sp.adaptive and spec.warmup > 0):
         return spec.step_size / math.sqrt(spec.M)
     return spec.step_size
@@ -257,8 +261,9 @@ class Pipeline:
             raise ValueError(
                 f"data has {leaves[keys[0]].shape[0]} rows, the spec asks for n={n}"
             )
-        if theta_true.shape[-1] != self._model.d:
-            raise ValueError(f"theta_true has d={theta_true.shape[-1]}, model d={self._model.d}")
+        if theta_true.numel() != self._model.d:  # gmm's is the (K, 2) means
+            raise ValueError(
+                f"theta_true has {theta_true.numel()} entries, model d={self._model.d}")
 
     def _stream(self, stage: str) -> torch.Generator:
         return stream_generator(self.spec.seed, stage, self.device)
@@ -308,8 +313,8 @@ class Pipeline:
         t0 = time.perf_counter()
         common = dict(
             sampler=spec.sampler, warmup=spec.warmup, burn_in=spec.resolved_burn_in(),
-            step_size=spec.step_size, sampler_options=spec.sampler_options,
-            shards=sharded.shards, counts=sharded.counts,
+            step_size=spec.step_size, sgld_batch=spec.sgld_batch,
+            sampler_options=spec.sampler_options, shards=sharded.shards, counts=sharded.counts,
         )
         if spec.stream_every > 0 or self.checkpoint_dir is not None or on_chunk:
             ss = stream_sample(
@@ -340,7 +345,7 @@ class Pipeline:
                 self._stream("groundtruth"), self._model, data, spec.groundtruth_T,
                 sampler=spec.sampler, warmup=spec.warmup,
                 burn_in=spec.groundtruth_T // 6, step_size=groundtruth_step_size(spec),
-                sampler_options=spec.sampler_options,
+                sgld_batch=spec.sgld_batch, sampler_options=spec.sampler_options,
             )
             self._timed("groundtruth_s", t0)
         return self._groundtruth

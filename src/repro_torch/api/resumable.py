@@ -55,6 +55,7 @@ def sample_subposteriors_resumable(
     warmup: int = 200,
     burn_in: int = 0,
     step_size: float = 0.1,
+    sgld_batch: int = 256,
     sampler_options=(),
     checkpoint_dir: str,
     checkpoint_every: int = 0,
@@ -77,7 +78,7 @@ def sample_subposteriors_resumable(
     ss = stream_sample(
         gen, model, data, num_shards, num_samples,
         sampler=sampler, warmup=warmup, burn_in=burn_in, step_size=step_size,
-        sampler_options=sampler_options, shards=shards, counts=counts,
+        sgld_batch=sgld_batch, sampler_options=sampler_options, shards=shards, counts=counts,
         chunk_size=chunk_size, max_steps=max_steps, checkpoint_dir=checkpoint_dir,
         checkpoint_every=checkpoint_every, spec_id=spec_id, on_chunk=on_chunk,
     )

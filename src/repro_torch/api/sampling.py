@@ -1,10 +1,14 @@
 """The embarrassingly parallel sampling stage behind ``repro_torch.api``.
 
-The port of ``repro/api/sampling.py`` for MH-style samplers. The reference
-``vmap``\\ s one chain function over the shards; here the M chains are one
-batch from the start: positions ``(M, d)``, per-chain step sizes ``(M, 1)``,
-and a subposterior log-density ``(M, d) -> (M,)`` over the stacked shards.
-No chain reads another chain's state.
+The port of ``repro/api/sampling.py``. The reference ``vmap``\\ s one chain
+function over the shards; here the M chains are one batch from the start:
+positions ``(M, d)`` (or a Gibbs position whose tensors lead with M),
+per-chain step sizes ``(M, 1)``, and a kernel built on the stacked shards.
+No chain reads another chain's state. :func:`make_shard_kernel` packages a
+(model, sampler) pair as a :class:`ShardKernel`: the MH-style samplers on
+the subposterior log-density, ``gibbs`` on the model's blocks, ``sgld`` on
+minibatch gradients whose rows each chain draws from its own shard's real
+rows.
 
 The chain driver comes in two parts, after the reference's chunk backend
 (``repro/api/backends.py``, ``_setup_one`` / ``_chunk_one``):
@@ -20,14 +24,11 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.subposterior import (
-    LogDensityFn,
-    make_subposterior_logpdf,
-    partition_data,
-)
+from repro_torch.core.subposterior import make_subposterior_logpdf, partition_data
 from repro_torch.models.bayes import BayesModel
 from repro_torch.samplers import chain_collect, chain_setup, filter_options, sampler_spec
 from repro_torch.samplers.base import MCMCKernel, TransitionLoop
+from repro_torch.samplers.mala import value_and_grad
 
 Data = Dict[str, torch.Tensor]
 
@@ -42,17 +43,29 @@ class SampleResult(NamedTuple):
 
 
 class ShardKernel(NamedTuple):
-    """One (model, sampler) pairing, ready for a batch of shards.
+    """One (model, sampler) pairing, ready for a batch of shards, in
+    ``repro``'s form.
 
-    ``logpdf(shards, counts)`` is the batched subposterior log-density;
-    ``build(logpdf, step_size)`` the kernel at a (per-chain) step size.
+    ``init_position(gen, shards)`` gives the M chains' starting positions;
+    ``build(shards, counts, step_size)`` the kernel on those concrete shards
+    at a (per-chain) step size; ``extract(positions)`` projects positions to
+    the shared θ ``(..., d)`` (a Gibbs state's latents left out).
     """
 
-    init_position: Callable[[torch.Generator, Tuple[int, ...]], torch.Tensor]
-    logpdf: Callable[[Data, torch.Tensor], LogDensityFn]
-    build: Callable[[LogDensityFn, torch.Tensor], MCMCKernel]
+    init_position: Callable[[torch.Generator, Data], Any]
+    build: Callable[[Data, torch.Tensor, Any], MCMCKernel]
+    extract: Callable[[Any], torch.Tensor]
     adaptive: bool
     target_accept: float
+
+
+def _identity(x):
+    return x
+
+
+def _chains(model: BayesModel, shards: Data) -> int:
+    keys = model.shard_keys or tuple(shards)
+    return int(shards[keys[0]].shape[0])
 
 
 def make_shard_kernel(
@@ -60,33 +73,106 @@ def make_shard_kernel(
     num_shards: int,
     sampler: str,
     *,
+    sgld_batch: int = 256,
     use_counts: bool = True,
     sampler_options=(),
 ) -> ShardKernel:
-    """Package one registry sampler for one model (MH-style samplers).
+    """Package one registry sampler for one model as a :class:`ShardKernel`.
 
     ``use_counts=False`` drops the padded-row correction (every row is
     real). ``sampler_options`` is filtered per factory signature; the keys
-    this layer owns are dropped.
+    this layer owns (the log-density wiring, step size, Gibbs blocks, SGLD
+    closures) are dropped.
     """
     spec = sampler_spec(sampler)
-    reserved = ("step_size", "block_updates", "grad_logpdf", "batch_fn")
+    reserved = ("step_size", "block_updates", "grad_logpdf", "batch_fn", "batch_size")
     extra = {
         k: v
         for k, v in filter_options(spec.factory, dict(sampler_options)).items()
         if k not in reserved
     }
 
-    def logpdf(shards, counts):
+    if spec.name == "gibbs":  # alias-safe: spec.name is canonical
+        if not model.has_gibbs:
+            raise ValueError(
+                f"model {model.name!r} supplies no Gibbs blocks (BayesModel.gibbs_blocks)"
+            )
+        # models declaring gibbs_counts mask the edge-padded rows out of
+        # their conditionals; the others see the raw shard
+        pass_count = model.gibbs_counts and use_counts
+
+        def build_gibbs(shards, counts, step_size):
+            kwargs = {"count": counts} if pass_count else {}
+            blocks = model.gibbs_blocks(shards, num_shards, step_size=step_size, **kwargs)
+            return spec.factory(None, step_size=step_size, block_updates=blocks, **extra)
+
+        return ShardKernel(
+            init_position=model.gibbs_init,
+            build=build_gibbs,
+            extract=model.gibbs_extract,
+            adaptive=False,
+            target_accept=spec.target_accept,
+        )
+
+    def make_logpdf(shards, counts):
         return make_subposterior_logpdf(
             model.log_prior, model.log_lik, model.prepare_data(shards), num_shards,
             count=counts if use_counts else None, per_datum=model.shard_keys,
         )
 
+    def init_position(gen, shards):
+        return model.initial_position(gen, (_chains(model, shards),))
+
+    if spec.name == "sgld":
+
+        def build_sgld(shards, counts, step_size):
+            # minibatch subposterior gradients (paper §7), scaled by each
+            # shard's real row count so padded rows never bias the estimate
+            prepared = model.prepare_data(shards)
+            keys = model.shard_keys or tuple(prepared)
+            per_datum = {k: prepared[k] for k in keys}
+            rest = {k: v for k, v in prepared.items() if k not in keys}
+            shard_size = per_datum[keys[0]].shape[1]
+            batch_size = min(sgld_batch or shard_size, shard_size)
+            n_real = counts if use_counts else torch.full_like(counts, shard_size)
+            scale = n_real.to(torch.float32) / float(batch_size)
+            inv_m = 1.0 / float(num_shards)
+            n_idx = n_real.clamp(min=1).to(torch.float32).unsqueeze(-1)
+
+            def mb_logpdf(theta, batch):
+                return inv_m * model.log_prior(theta) + scale * model.log_lik(theta, batch)
+
+            def grad_logpdf(theta, batch):
+                return value_and_grad(lambda th: mb_logpdf(th, batch), theta)[1]
+
+            def batch_fn(u, _t):
+                # each chain's rows uniform over its own real rows: floor(u·count)
+                idx = (u * n_idx).to(torch.int64).clamp(max=shard_size - 1)  # (M, B)
+                batch = {}
+                for k, v in per_datum.items():
+                    j = idx.reshape(idx.shape + (1,) * (v.dim() - 2)).expand(
+                        idx.shape + v.shape[2:])
+                    batch[k] = torch.gather(v, 1, j)
+                return {**rest, **batch}
+
+            return spec.factory(
+                make_logpdf(shards, counts), step_size=step_size, grad_logpdf=grad_logpdf,
+                batch_fn=batch_fn, batch_size=batch_size, **extra,
+            )
+
+        return ShardKernel(
+            init_position=init_position,
+            build=build_sgld,
+            extract=_identity,
+            adaptive=False,
+            target_accept=spec.target_accept,
+        )
+
     return ShardKernel(
-        init_position=model.initial_position,
-        logpdf=logpdf,
-        build=lambda lp, step_size: spec.factory(lp, step_size=step_size, **extra),
+        init_position=init_position,
+        build=lambda shards, counts, step_size: spec.factory(
+            make_logpdf(shards, counts), step_size=step_size, **extra),
+        extract=_identity,
         adaptive=spec.adaptive,
         target_accept=spec.target_accept,
     )
@@ -94,43 +180,47 @@ def make_shard_kernel(
 
 def setup_shard_chains(
     sk: ShardKernel,
-    lp: LogDensityFn,
+    shards: Data,
+    counts: torch.Tensor,
     gen: torch.Generator,
-    n_chains: int,
     *,
     burn_in: int,
     warmup: int,
     step_size: float,
 ) -> Tuple[Any, "torch.Tensor | float"]:
-    """Init, warmup and burn-in of ``n_chains`` chains on the batched
-    log-density ``lp``: ``(kernel state, step size)``.
+    """Init, warmup and burn-in of the chains of ``shards``: ``(kernel
+    state, step size)``.
 
     Adaptive kernels spend ``warmup`` dual-averaging transitions per chain
     and return their adapted ``(M, 1)`` steps; non-adaptive ones treat the
-    warmup as extra burn-in and return ``step_size``. ``sk.build(lp, step)``
-    rebuilds the kernel the setup ended with.
+    warmup as extra burn-in and return ``step_size``.
+    ``sk.build(shards, counts, step)`` rebuilds the kernel the setup ended with.
     """
-    pos0 = sk.init_position(gen, (n_chains,))
+    pos0 = sk.init_position(gen, shards)
     if sk.adaptive and warmup > 0:
         _, state, eps = chain_setup(
-            gen, lambda e: sk.build(lp, e), pos0,
+            gen, lambda e: sk.build(shards, counts, e), pos0,
             burn_in=burn_in, warmup=warmup,
             initial_step_size=step_size, target_accept=sk.target_accept,
         )
     else:
         _, state, eps = chain_setup(
-            gen, sk.build(lp, step_size), pos0,
+            gen, sk.build(shards, counts, step_size), pos0,
             burn_in=burn_in + (0 if sk.adaptive else warmup), initial_step_size=step_size,
         )
     return state, eps
 
 
 def shard_chunk(
-    kernel: "MCMCKernel | TransitionLoop", gen: torch.Generator, state: Any, n: int
+    kernel: "MCMCKernel | TransitionLoop",
+    gen: torch.Generator,
+    state: Any,
+    n: int,
+    extract: Callable[[Any], torch.Tensor] = _identity,
 ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
     """The next ``n`` kept draws of every chain: ``(state, theta (M, n, d),
     accepted (M, n) bool)``; ``kernel`` may be a kept collection loop."""
-    state, theta, info = chain_collect(gen, kernel, state, n)
+    state, theta, info = chain_collect(gen, kernel, state, n, extract=extract)
     return state, theta, info.is_accepted
 
 
@@ -147,19 +237,28 @@ def run_shard_chain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chains of all shards in one go: ``(theta (M, T, d), mean_accept (M,))``,
     :func:`setup_shard_chains` then one :func:`shard_chunk` of T."""
-    lp = sk.logpdf(shards, counts)
     state, eps = setup_shard_chains(
-        sk, lp, gen, counts.shape[0], burn_in=burn_in, warmup=warmup, step_size=step_size
+        sk, shards, counts, gen, burn_in=burn_in, warmup=warmup, step_size=step_size
     )
-    _, theta, accepted = shard_chunk(sk.build(lp, eps), gen, state, num_samples)
+    _, theta, accepted = shard_chunk(sk.build(shards, counts, eps), gen, state, num_samples,
+                                     sk.extract)
     return theta, accepted.to(torch.float32).mean(dim=-1)
 
 
-def is_padded(model: BayesModel, shards: Data, counts: torch.Tensor) -> bool:
+def is_padded(model: BayesModel, shards: Data, counts: torch.Tensor, sampler: str) -> bool:
     """Whether some shard holds edge-padded rows (then the counts correct the
-    log-likelihood)."""
+    log-likelihood), and the Gibbs guard: a model whose blocks cannot mask
+    padded rows refuses them."""
     keys = model.shard_keys or tuple(shards)
-    return bool((counts != shards[keys[0]].shape[1]).any())
+    shard_rows = shards[keys[0]].shape[1]
+    padded = bool((counts != shard_rows).any())
+    if padded and sampler_spec(sampler).name == "gibbs" and not model.gibbs_counts:
+        raise ValueError(
+            f"model {model.name!r}'s gibbs block updates operate on the raw shard and "
+            "cannot mask padded rows (BayesModel.gibbs_counts is False); choose M "
+            f"dividing N (counts={counts.tolist()})"
+        )
+    return padded
 
 
 def sample_subposteriors(
@@ -173,6 +272,7 @@ def sample_subposteriors(
     warmup: int = 200,
     burn_in: int = 0,
     step_size: float = 0.1,
+    sgld_batch: int = 256,
     sampler_options=(),
     shards: Optional[Data] = None,
     counts: Optional[torch.Tensor] = None,
@@ -185,9 +285,10 @@ def sample_subposteriors(
 
     if shards is None or counts is None:
         shards, counts = partition_data(data, num_shards, only=model.shard_keys, pad=True)
+    sampler = sampler or model.default_sampler
     sk = make_shard_kernel(
-        model, num_shards, sampler or model.default_sampler,
-        use_counts=is_padded(model, shards, counts), sampler_options=sampler_options,
+        model, num_shards, sampler, sgld_batch=sgld_batch,
+        use_counts=is_padded(model, shards, counts, sampler), sampler_options=sampler_options,
     )
     theta, acc = run_shard_chain(
         sk, shards, counts, gen,
@@ -206,12 +307,13 @@ def groundtruth_chain(
     warmup: int = 200,
     burn_in: int = 0,
     step_size: float = 0.1,
+    sgld_batch: int = 256,
     sampler_options=(),
 ) -> torch.Tensor:
     """Single full-data chain (num_shards=1) → ``(T, d)``."""
     sk = make_shard_kernel(
         model, 1, sampler or model.default_sampler,
-        use_counts=False, sampler_options=sampler_options,
+        sgld_batch=sgld_batch, use_counts=False, sampler_options=sampler_options,
     )
     keys = model.shard_keys or tuple(data)
     one = {k: (v.unsqueeze(0) if k in keys else v) for k, v in data.items()}

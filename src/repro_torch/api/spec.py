@@ -36,8 +36,9 @@ class RunSpec:
     model's ``default_n``). ``combiner`` may be ``"all"``, one name, or a
     tuple of names. ``stream_every > 0`` samples in chunks of that many draws
     and lets ``Pipeline.stream_combine`` fold each chunk as it lands (0: one
-    chunk); a negative value is refused. ``mesh_shape`` and ``sgld_batch`` are
-    kept for the shared ``spec_id``; the port does not run those paths yet.
+    chunk); a negative value is refused. ``sgld_batch`` is the SGLD minibatch
+    (0: the whole shard). ``mesh_shape`` is kept for the shared ``spec_id``;
+    the port does not run that path yet.
     """
 
     model: str
@@ -109,8 +110,12 @@ class RunSpec:
         from repro_torch.core.combiners import get_combiner
         from repro_torch.models.bayes import get_model
 
-        get_model(self.model)
-        self.resolved_sampler()
+        model = get_model(self.model)
+        if self.resolved_sampler() == "gibbs" and not model.has_gibbs:
+            raise ValueError(
+                f"spec {self.spec_id}: model {self.model!r} supplies no Gibbs blocks "
+                "(BayesModel.gibbs_blocks) but sampler resolves to 'gibbs'"
+            )
         for name in self.combiner_names():
             get_combiner(name)
         return self

@@ -105,6 +105,7 @@ class ShardChainStream:
         warmup: int = 200,
         burn_in: int = 0,
         step_size: float = 0.1,
+        sgld_batch: int = 256,
         sampler_options=(),
         shards,
         counts: torch.Tensor,
@@ -115,7 +116,7 @@ class ShardChainStream:
         self.num_shards = num_shards
         self.num_samples = num_samples
         sk = make_shard_kernel(
-            model, num_shards, sampler or model.default_sampler,
+            model, num_shards, sampler or model.default_sampler, sgld_batch=sgld_batch,
             use_counts=use_counts, sampler_options=sampler_options,
         )
         self.backend = BatchedChunkBackend(
@@ -186,22 +187,33 @@ class StreamedSample(NamedTuple):
         return self.t_done >= self.total
 
 
-def _state_type(state) -> str:
+def _state_type(state):
+    """The NamedTuple classes of a chain state, nested as the state is:
+    ``{"type": "module:Class", "fields": {field: <the same> | None}}``."""
     cls = type(state)
-    return f"{cls.__module__}:{cls.__qualname__}"
+    return {"type": f"{cls.__module__}:{cls.__qualname__}",
+            "fields": {f: (_state_type(v) if hasattr(v, "_fields") else None)
+                       for f, v in zip(cls._fields, state)}}
+
+
+def _rebuild_state(spec, leaves, path: str, put):
+    """The chain state saved under ``path``, rebuilt from its classes' spec."""
+    module, name = spec["type"].split(":")
+    cls = getattr(importlib.import_module(module), name)
+    return cls(*(put(leaves[f"{path}/{f}"]) if sub is None
+                 else _rebuild_state(sub, leaves, f"{path}/{f}", put)
+                 for f, sub in spec["fields"].items()))
 
 
 def _restore_carry(checkpoint_dir, step: int, device: torch.device):
     """The carry of a checkpoint, on ``device``, and its metadata."""
     leaves, meta = restore(checkpoint_dir, step=step)
-    module, name = meta["state_type"].split(":")
-    cls = getattr(importlib.import_module(module), name)
 
     def put(a):
         return torch.from_numpy(a).to(device)
 
     carry = {
-        "state": cls(*(put(leaves[f"state/{f}"]) for f in cls._fields)),
+        "state": _rebuild_state(meta["state_type"], leaves, "state", put),
         "eps": put(leaves["eps"]),
         "theta": put(leaves["theta"]),
         "accept_sum": put(leaves["accept_sum"]),
@@ -221,6 +233,7 @@ def stream_sample(
     warmup: int = 200,
     burn_in: int = 0,
     step_size: float = 0.1,
+    sgld_batch: int = 256,
     sampler_options=(),
     shards=None,
     counts: Optional[torch.Tensor] = None,
@@ -260,11 +273,12 @@ def stream_sample(
         )
     if shards is None or counts is None:
         shards, counts = partition_data(data, num_shards, only=model.shard_keys, pad=True)
+    sampler = sampler or model.default_sampler
     stream = ShardChainStream(
         gen, model, num_shards, num_samples,
         sampler=sampler, warmup=warmup, burn_in=burn_in, step_size=step_size,
-        sampler_options=sampler_options, shards=shards, counts=counts,
-        use_counts=is_padded(model, shards, counts),
+        sgld_batch=sgld_batch, sampler_options=sampler_options, shards=shards, counts=counts,
+        use_counts=is_padded(model, shards, counts, sampler),
     )
     backend = stream.backend
 

@@ -1,9 +1,10 @@
 """Bandwidth schedules for the (semi)nonparametric combiners.
 
 The port of ``repro/core/bandwidth.py``: Algorithm 1's anneal
-``h_i = i^{-1/(4+d)}``, Silverman's rule, and the pooled scale that rescales
-the anneal. The reference's ``jnp.std`` is the population std (ddof=0), so
-every ``torch.std`` here passes ``correction=0``.
+``h_i = i^{-1/(4+d)}``, a fixed bandwidth, Silverman's rule, and the pooled
+scale that rescales the anneal. The reference's ``jnp.std`` is the
+population std (ddof=0), so every ``torch.std`` here passes
+``correction=0``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,16 @@ def annealed(
             return scale * i.to(torch.float32) ** exponent
         # a host index never becomes a device tensor: no copy, no wait
         return torch.as_tensor(scale * float(i) ** exponent, dtype=torch.float32)
+
+    return schedule
+
+
+def fixed(h: float) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Constant bandwidth."""
+
+    def schedule(i: torch.Tensor | int) -> torch.Tensor:
+        del i
+        return torch.as_tensor(h, dtype=torch.float32)
 
     return schedule
 

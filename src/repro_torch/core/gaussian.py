@@ -29,8 +29,14 @@ def _eye(d: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky(a: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor; a failure shows as NaN downstream, no host sync."""
-    return torch.linalg.cholesky_ex(a).L
+    """Lower Cholesky factor, no host sync. A matrix that is not positive
+    definite gets NaN in its lower triangle, as the reference's factor does
+    (``cholesky_ex`` leaves a partial, finite factor there on the CPU).
+    Filled in place, the factor keeps ``cholesky_ex``'s column-major
+    strides, so what reads it runs as it would on that output."""
+    L, info = torch.linalg.cholesky_ex(a)
+    lower = torch.ones(L.shape[-2:], dtype=torch.bool, device=L.device).tril()
+    return L.masked_fill_((info != 0).reshape(info.shape + (1, 1)) & lower, float("nan"))
 
 
 def fit_moments(
@@ -120,3 +126,13 @@ def log_normal_pdf(
         quad = (sol**2).sum(dim=0).reshape(diff.shape[:-1])
         logdet = 2.0 * chol.diagonal().log().sum()
     return -0.5 * (quad + logdet + d * _LOG2PI)
+
+
+def log_isotropic_normal_pdf(
+    x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor | float
+) -> torch.Tensor:
+    """log N(x | mean, var·I). ``var`` is a scalar; broadcasts over leading dims."""
+    d = x.shape[-1]
+    var = torch.as_tensor(var, dtype=x.dtype, device=x.device)
+    sq = ((x - mean) ** 2).sum(dim=-1)
+    return -0.5 * (sq / var + d * (torch.log(var) + _LOG2PI))

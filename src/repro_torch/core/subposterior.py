@@ -7,7 +7,8 @@ The port of ``repro/core/subposterior.py``. For machine m,
 Data is a dict of tensors. Stacked shards carry a leading ``(M, ...)`` axis,
 and the log-density built here is batched the same way: θ ``(M, d)`` →
 ``(M,)``, one value per machine, which is how the chains run all M machines
-at once.
+at once. :func:`make_minibatch_logpdf` is SGLD's stochastic estimate of it,
+and :func:`mh_correction_ratio` the paper's §2 MH ratio on a subposterior.
 """
 
 from __future__ import annotations
@@ -101,3 +102,45 @@ def make_subposterior_logpdf(
         return inv_m * log_prior(theta) + full - n_pad * pad_ll
 
     return logpdf
+
+
+def make_minibatch_logpdf(
+    log_prior: LogDensityFn,
+    log_lik: Callable[[torch.Tensor, Data], torch.Tensor],
+    num_shards: int,
+    shard_size: int | torch.Tensor,
+) -> Callable[[torch.Tensor, Data], torch.Tensor]:
+    """Unbiased minibatch estimator of the subposterior log-density:
+    ``(1/M)·log p(θ) + (N_m/B)·log p(batch|θ)``, B the batch's row count.
+
+    ``batch`` holds rows ``(..., B, ...)`` after θ's leading axes; B is read
+    from the first key in sorted order (the reference's first leaf), at axis
+    ``θ.dim() - 1``. ``shard_size`` is a number or a
+    per-chain tensor ``(...)`` (the real rows of each shard).
+    """
+    inv_m = 1.0 / float(num_shards)
+
+    def logpdf(theta: torch.Tensor, batch: Data) -> torch.Tensor:
+        batch_size = batch[sorted(batch)[0]].shape[theta.dim() - 1]
+        scale = shard_size / float(batch_size)
+        return inv_m * log_prior(theta) + scale * log_lik(theta, batch)
+
+    return logpdf
+
+
+def mh_correction_ratio(
+    log_prior: LogDensityFn,
+    log_lik: Callable[[torch.Tensor, Data], torch.Tensor],
+    data_shard: Data,
+    num_shards: int,
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """The paper §2 footnote form of the MH ratio on a subposterior:
+
+    log [ p(θ*)^{1/M} p(x^{n_m}|θ*) ] − log [ p(θ)^{1/M} p(x^{n_m}|θ) ].
+    """
+    logpdf = make_subposterior_logpdf(log_prior, log_lik, data_shard, num_shards)
+
+    def ratio(theta_new: torch.Tensor, theta_old: torch.Tensor) -> torch.Tensor:
+        return logpdf(theta_new) - logpdf(theta_old)
+
+    return ratio

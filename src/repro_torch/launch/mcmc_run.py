@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --seeds 0 1 2
     PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --seeds 0 1 2 --combiner all
     PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --combiner all --stream-every 120
+    PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --model poisson --sampler gibbs
 
 The default spec is the paper's §8.1 logistic-regression experiment at full
 width (:data:`PAPER_SPEC`: n=50,000, d=50, M=10, T=1200, MALA, the
@@ -15,6 +16,13 @@ ALL_SPEC's options. ``--stream-every N`` combines while sampling
 T/10) and prints the trajectory first; ``--checkpoint-dir`` /
 ``--checkpoint-every`` persist the sampling stage and resume it. Each seed
 prints its scoreboard as one JSON line.
+
+``--model`` runs the paper's other experiments at ``repro``'s own model
+defaults, M=10, T=1200 and the same three combiners: :data:`LINEAR_SPEC`
+(the closed-form oracle, n=10,000, d=10, MALA), :data:`POISSON_SPEC` (§8.3,
+n=50,000, d=2, Gibbs over the latents) and :data:`GMM_SPEC` (§8.2, n=50,000,
+K=10 means in 2-d, d=20, random-walk MH, scored in logL2). ``--sampler`` and ``--n`` override
+the spec's sampler and dataset size, as in ``repro``'s CLI.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from typing import Optional, Sequence
 
 from repro_torch.api import Pipeline, RunSpec
 from repro_torch.core.combiners import available_combiners
+from repro_torch.models.bayes import available_models, get_model
+from repro_torch.samplers import available_samplers
 
 PAPER_SPEC = RunSpec(
     model="logreg", sampler="mala", M=10, T=1200, seed=0,
@@ -39,16 +49,33 @@ ALL_SPEC = RunSpec(
     combiner_options={"weight_eval": "kernel", "n_batch": 16, "init_pool": 1000},
 )
 STREAM_SPEC = dataclasses.replace(ALL_SPEC, stream_every=120)
+# the paper's other experiments, at repro's model defaults (n, d, sampler)
+LINEAR_SPEC = dataclasses.replace(PAPER_SPEC, model="linear", sampler=None)
+POISSON_SPEC = dataclasses.replace(PAPER_SPEC, model="poisson", sampler="gibbs")
+# scored in logL2: the GMM's subposteriors are so concentrated (n=50,000,
+# 500 points a mean) that the raw L2's KDE normalizer overflows float32 at
+# d=20 (L2 inf or NaN in both packages' runs)
+GMM_SPEC = dataclasses.replace(PAPER_SPEC, model="gmm", sampler=None, score_metric="logl2")
+MODEL_SPECS = {"logreg": PAPER_SPEC, "linear": LINEAR_SPEC, "poisson": POISSON_SPEC,
+               "gmm": GMM_SPEC}
 
 
-def spec_for(combiner: Optional[Sequence[str]]) -> RunSpec:
+def spec_for(combiner: Optional[Sequence[str]], model: Optional[str] = None) -> RunSpec:
     """PAPER_SPEC without ``--combiner``; ALL_SPEC for ``all``; else the named
-    combiners under ALL_SPEC's options."""
+    combiners under ALL_SPEC's options. ``model``: that model's spec
+    (:data:`MODEL_SPECS`, else PAPER_SPEC's fields on it) in place of logreg's."""
     if not combiner:
-        return PAPER_SPEC
-    if list(combiner) == ["all"]:
-        return ALL_SPEC
-    return dataclasses.replace(ALL_SPEC, combiner=tuple(combiner))
+        base = PAPER_SPEC
+    elif list(combiner) == ["all"]:
+        base = ALL_SPEC
+    else:
+        base = dataclasses.replace(ALL_SPEC, combiner=tuple(combiner))
+    if model is None:
+        return base
+    name = get_model(model).name
+    own = MODEL_SPECS.get(name, dataclasses.replace(PAPER_SPEC, model=name, sampler=None))
+    return dataclasses.replace(base, model=own.model, sampler=own.sampler,
+                               score_metric=own.score_metric)
 
 
 def add_combiner_option(ap: argparse.ArgumentParser) -> None:
@@ -78,6 +105,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seeds", type=int, nargs="+", default=[PAPER_SPEC.seed])
+    ap.add_argument("--model", default=None, choices=available_models(),
+                    help="model registry name (default: logreg, the paper's §8.1)")
+    ap.add_argument("--sampler", default=None, choices=available_samplers(),
+                    help="sampler registry name (default: the spec's, else the model's)")
+    ap.add_argument("--n", type=int, default=None, help="dataset size (default: the model's)")
     add_combiner_option(ap)
     ap.add_argument(
         "--stream-every", type=int, default=0,
@@ -92,7 +124,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.checkpoint_dir is not None and len(args.seeds) > 1:
         # a checkpoint belongs to one spec, and the seed is part of it
         ap.error("--checkpoint-dir takes one seed (each seed is its own run to resume)")
-    base = dataclasses.replace(spec_for(args.combiner), stream_every=args.stream_every)
+    base = dataclasses.replace(spec_for(args.combiner, args.model),
+                               stream_every=args.stream_every)
+    if args.sampler is not None:
+        base = dataclasses.replace(base, sampler=args.sampler)
+    if args.n is not None:
+        base = dataclasses.replace(base, n=args.n)
     for seed in args.seeds:
         spec = dataclasses.replace(base, seed=seed)
         pipe = Pipeline(spec, device=args.device, checkpoint_dir=args.checkpoint_dir,

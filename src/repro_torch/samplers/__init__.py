@@ -18,6 +18,8 @@ from repro_torch.samplers.base import (  # noqa: F401
     run_chain,
     run_chains,
 )
+from repro_torch.samplers.gibbs import gibbs_kernel, mh_within_gibbs_update  # noqa: F401
+from repro_torch.samplers.hmc import hmc_kernel, window_adaptation  # noqa: F401
 from repro_torch.samplers.mala import mala_kernel  # noqa: F401
 from repro_torch.samplers.registry import (  # noqa: F401
     SamplerSpec,
@@ -28,3 +30,5 @@ from repro_torch.samplers.registry import (  # noqa: F401
     register_sampler,
     sampler_spec,
 )
+from repro_torch.samplers.rwmh import rwmh_kernel  # noqa: F401
+from repro_torch.samplers.sgld import sgld_kernel  # noqa: F401

@@ -1,14 +1,18 @@
 """Sampler protocol + chain drivers, batched over chains by construction.
 
-The port of ``repro/samplers/base.py``. A kernel is ``MCMCKernel(init, step, draw)``:
+The port of ``repro/samplers/base.py``. A kernel is ``MCMCKernel(init, step, draw, check)``:
 
 - ``init(position) -> state``                 (``state.position`` exists)
 - ``step(gen, state, *inputs) -> (state, StepInfo)``   (one transition)
 - ``draw(gen, position, out=None) -> inputs`` (the step's random inputs)
+- ``check(state)``                            (reads the state on the host
+  after a run of transitions and raises on a fault the step could only count)
 
-Positions are tensors ``(..., d)``; every leading axis is an independent
-chain (the reference ``vmap``\\ s :func:`run_chain`; here the batch axis is
-written out). Randomness comes from an explicit :class:`torch.Generator`:
+Positions are tensors ``(..., d)``, or a NamedTuple of tensors that share
+those leading axes (a Gibbs state with shard-local latents); every leading
+axis is an independent chain (the reference ``vmap``\\ s :func:`run_chain`;
+here the batch axis is written out). States are NamedTuples of tensors and
+such positions. Randomness comes from an explicit :class:`torch.Generator`:
 ``step(gen, state)`` draws its own inputs, and ``step(gen, state,
 *draw(gen, state.position))`` is the same transition, bit for bit.
 
@@ -31,11 +35,44 @@ LogDensityFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 class MCMCKernel(NamedTuple):
-    init: Callable[[torch.Tensor], Any]
+    init: Callable[[Any], Any]
     step: Callable[..., Tuple[Any, "StepInfo"]]
     # the step's random inputs, drawn apart from it; a kernel without one
     # runs only on the CPU (its step would draw inside a captured graph)
-    draw: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None
+    draw: Optional[Callable[..., Tuple[Any, ...]]] = None
+    # run on the host after a run of transitions (it may wait for the device)
+    check: Optional[Callable[[Any], None]] = None
+
+
+def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the tensors of a tensor, tuple or NamedTuple tree (and the
+    matching leaves of ``rest``), keeping the tree's structure."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    parts = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The tensors of a tree, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for x in tree for leaf in tree_leaves(x)]
+
+
+def tree_copy_(dst: Any, src: Any) -> None:
+    """Copy every tensor of ``src`` into the matching tensor of ``dst``."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
+
+
+def tree_where(pred: torch.Tensor, x: Any, y: Any) -> Any:
+    """``x`` where ``pred`` (one flag per chain), else ``y``, leaf by leaf:
+    ``pred`` gains trailing axes to each leaf's rank."""
+    def where(a, b):
+        return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim())), a, b)
+
+    return tree_map(where, x, y)
 
 
 class StepInfo(NamedTuple):
@@ -71,12 +108,12 @@ class TransitionLoop:
         state: Any,
         inner: Optional[Callable[[StepInfo], None]] = None,
     ):
-        device = state.position.device
+        device = tree_leaves(state.position)[0].device
         if device.type == "cuda" and kernel.draw is None:
             raise TypeError("a kernel runs on the card only with a draw function: its "
                             "random inputs are drawn outside the captured transition")
         self.kernel, self.inner = kernel, inner
-        self.state = type(state)(*(t.clone() for t in state))
+        self.state = tree_map(torch.clone, state)
         self.graphed = device.type == "cuda"
         self.draws: Optional[Tuple[torch.Tensor, ...]] = None
         self.info: Optional[StepInfo] = None
@@ -85,18 +122,16 @@ class TransitionLoop:
 
     def load(self, state: Any) -> None:
         """Continue from ``state``: copy it into the loop's tensors."""
-        for dst, src in zip(self.state, state):
-            dst.copy_(src)
+        tree_copy_(self.state, state)
 
     def snapshot(self) -> Any:
         """A copy of the current state that later transitions leave alone."""
-        return type(self.state)(*(t.clone() for t in self.state))
+        return tree_map(torch.clone, self.state)
 
     def _transition(self, gen: torch.Generator) -> None:
         # a kernel without draw (CPU only) draws inside its step
         new, info = self.kernel.step(gen, self.state, *(self.draws or ()))
-        for dst, src in zip(self.state, new):
-            dst.copy_(src)
+        tree_copy_(self.state, new)
         if self.inner is not None:
             self.inner(info)
         self.info = info
@@ -171,6 +206,8 @@ def chain_setup(
         for _ in range(burn_in):
             loop.step(gen)
         state = loop.snapshot()
+    if kernel.check is not None:
+        kernel.check(state)
     return kernel, state, step_size
 
 
@@ -181,35 +218,47 @@ def chain_collect(
     num_samples: int,
     *,
     thin: int = 1,
+    extract: Optional[Callable[[Any], torch.Tensor]] = None,
 ) -> Tuple[Any, torch.Tensor, StepInfo]:
     """``num_samples`` kept draws from a live state: ``(state, (..., T, d),
     info (..., T))``; ``thin`` keeps every thin-th transition.
 
     ``kernel`` may be a :class:`TransitionLoop` kept from an earlier call
     (so a run in chunks captures its transition once); it continues from
-    ``state``. Each kept draw and its info are copied out of the loop's
-    tensors, and the state returned is a copy.
+    ``state``. ``extract(position) -> (..., d)`` is what a kept draw records
+    (the position itself by default; a Gibbs state's shared θ, its latents
+    left out). Each kept draw and its info are copied out of the loop's
+    tensors, and the state returned is a copy. The kernel's ``check`` reads
+    the state once the draws are made.
     """
     if isinstance(kernel, TransitionLoop):
         loop = kernel
         loop.load(state)
     else:
         loop = TransitionLoop(kernel, state)
-    position = loop.state.position
-    batch = tuple(position.shape[:-1])
-    like = dict(dtype=position.dtype, device=position.device)
-    out = torch.empty((num_samples,) + tuple(position.shape), **like)
+    if extract is None:
+        extract = _identity
+    theta = extract(loop.state.position)
+    batch = tuple(theta.shape[:-1])
+    like = dict(dtype=theta.dtype, device=theta.device)
+    out = torch.empty((num_samples,) + tuple(theta.shape), **like)
     fields = StepInfo(torch.empty((num_samples,) + batch, **like),
-                      torch.empty((num_samples,) + batch, dtype=torch.bool, device=position.device),
+                      torch.empty((num_samples,) + batch, dtype=torch.bool, device=theta.device),
                       torch.empty((num_samples,) + batch, **like))
     for t in range(num_samples):
         for _ in range(thin):
             info = loop.step(gen)
-        out[t].copy_(position)
+        out[t].copy_(extract(loop.state.position))
         for buf, f in zip(fields, info):
             buf[t].copy_(f)
     stacked = StepInfo(*(f.movedim(0, -1).contiguous() for f in fields))
+    if loop.kernel.check is not None:
+        loop.kernel.check(loop.state)
     return loop.snapshot(), out.movedim(0, len(batch)).contiguous(), stacked
+
+
+def _identity(x):
+    return x
 
 
 def run_chain(

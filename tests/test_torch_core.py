@@ -263,7 +263,11 @@ def test_spec_validates_against_the_ports_registries():
     with pytest.raises(KeyError):
         RunSpec(model="logreg", combiner="no_such_combiner").validate()
     with pytest.raises(KeyError):
-        RunSpec(model="logreg", sampler="hmc").validate()
+        RunSpec(model="logreg", sampler="no_such_sampler").validate()
+    # every sampler of repro is registered now; gibbs needs the model's blocks
+    RunSpec(model="logreg", sampler="hmc").validate()
+    with pytest.raises(ValueError, match="Gibbs"):
+        RunSpec(model="logreg", sampler="gibbs").validate()
     with pytest.raises(ValueError):
         RunSpec(model="logreg", M=0)
 
