@@ -361,6 +361,16 @@ def check_gibbs_moments(label, pipe, spec, dev):
     return out
 
 
+def mmd_lengthscale(gt):
+    """The median of the nonzero pairwise distances of 1,000 groundtruth
+    draws spread over the chain (the median heuristic)."""
+    import torch
+
+    sub = gt[torch.linspace(0, gt.shape[0] - 1, 1000, device=gt.device).long()]
+    dist = torch.cdist(sub, sub).flatten()
+    return dist[dist > 0].median()
+
+
 def mmd2_lines(label, pipe, board):
     """``mmd2_rbf`` (biased, RBF) of each combiner's draws against the
     groundtruth, printed beside the scoreboard's metric; the lengthscale is
@@ -372,9 +382,7 @@ def mmd2_lines(label, pipe, board):
     from repro_torch.core.metrics import mmd2_rbf
 
     gt = pipe.groundtruth()
-    sub = gt[torch.linspace(0, gt.shape[0] - 1, 1000, device=gt.device).long()]
-    dist = torch.cdist(sub, sub).flatten()
-    ell = dist[dist > 0].median()
+    ell = mmd_lengthscale(gt)
     out = {}
     for name, res in sorted(pipe.combine().items()):
         out[name] = float(mmd2_rbf(gt, res.samples, ell))
@@ -529,6 +537,51 @@ def device_ms(fn, *, iters=50, flush=None):
             return total / iters, host_ms / iters
     raise AssertionError("the GPU sleep ended before the host had enqueued every call, "
                          "three times")
+
+
+def posterior_session(label, server, readers, *, transitions, sweeps_per_refresh):
+    """One session of the posterior server (``serve_session``: ``readers``
+    TCP probe readers cycling ``PROBE_OPS`` and a one-point logpdf) with the
+    counts reset; every kernel's launches checked exactly: the likelihood
+    once per init and transition of the sampler (``transitions``), the IMG
+    sweep route ``sweeps_per_refresh`` times a refresh (the nonparametric
+    estimate), the KDE kernel once per logpdf answered, nothing else.
+    Returns the summary, the counts and the session's seconds."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve import serve_session
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = serve_session(server, probe_readers=readers,
+                            log=lambda m: print(f"  {label}: {m}", flush=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    routes = {n: dict(k.route_launches) for n, k in kernels.KERNELS.items() if k.route_launches}
+    state = server.state
+    want = {"logreg_loglik_grad": transitions,
+            "img_log_weights": sweeps_per_refresh * state.refreshes,
+            "machine_kde_log_density": state.logpdf_answered, "kde_log_density": 0,
+            "online_update": 0, "flash_attention": 0}
+    ok = launches == want and routes["img_log_weights"] == {
+        "generic": 0, "sweep": want["img_log_weights"]}
+    st = summary["staleness"]
+    fold = sorted(server.fold_s)
+    print(f"  {label}: launches {json.dumps(launches)}, img_log_weights by route "
+          f"{json.dumps(routes['img_log_weights'])} (expected {json.dumps(want)}: "
+          f"{state.refreshes} refreshes, {state.logpdf_answered} logpdf answers) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: launch counts {launches} {routes}, expected {want}")
+    print(f"  {label}: {summary['queries']} queries in {wall:.3f} s "
+          f"({summary['queries'] / wall:.1f} a second), reader p50 "
+          f"{summary['reader_p50_s'] * 1e3:.3f} ms p99 {summary['reader_p99_s'] * 1e3:.3f} ms, "
+          f"sample_s {summary['sample_s']:.4f}, fold {len(fold)} chunks: median "
+          f"{fold[len(fold) // 2] * 1e3:.3f} ms max {fold[-1] * 1e3:.3f} ms a chunk, "
+          f"{len(server.refresh_s)} refreshes {sum(server.refresh_s):.4f} s in all, "
+          f"staleness {json.dumps(st)}", flush=True)
+    return summary, launches, wall
 
 
 def eager_shard_chains(sk, shards, counts, gen, *, burn_in, warmup, step_size, T):
@@ -991,6 +1044,39 @@ def main() -> int:
             raise AssertionError(f"machine_kde_log_density {label}: {e64:.3e} is over twice the "
                                  f"FMA design's {old:.3e}")
 
+    # the serving path's shapes: a reader's logpdf scores Q points (1 for a
+    # probe, any batch otherwise) against the draw buffer as it grows (T =
+    # 120·k up to 1,200), M = 10, d = 50, reduce product or mixture with
+    # uniform weights; dense counts (the buffer's) and ragged ones. Points
+    # are buffer rows plus noise. Tolerances as above.
+    serve_kde_cases = 0
+    for Q in (1, 7, 1000):
+        for T_s in (120, 600, 1200):
+            for ragged in (False, True):
+                q, s, h, counts = kde_inputs(Q, 10, T_s, 50, ragged=ragged)
+                q = (q + 0.01 * torch.randn(q.shape, generator=gen, device=dev)).contiguous()
+                s_valid = torch.nan_to_num(s, nan=0.0)
+                spread = (float((q * q).sum(-1).max()) + float((s_valid * s_valid).sum(-1).max()))
+                term = eps32 * spread / (2.0 * float(h.min()) ** 2)
+                for reduce in ("product", "mixture"):
+                    got = machine_kde_log_density(q, s, h, counts, reduce=reduce,
+                                                  mixture_weights="uniform")
+                    torch.cuda.synchronize()
+                    scale = 10 if reduce == "product" else 1
+                    tag = (f"machine_kde_log_density serving Q={Q} T={T_s} "
+                           f"{'ragged' if ragged else 'dense'} {reduce}/uniform")
+                    e32 = check_lp(f"{tag} vs float32 plain", got, machine_kde_log_density_ref(
+                        q, s, h, counts, reduce=reduce, mixture_weights="uniform"),
+                        rtol=1e-5, atol=16.0 * term * scale)
+                    e64 = check_lp(f"{tag} vs float64 plain", got, machine_kde_log_density_ref(
+                        q.double(), s.double(), h.double(), counts, reduce=reduce,
+                        mixture_weights="uniform"), rtol=1e-5, atol=1e-3 * scale)
+                    err32["machine_kde_log_density"] = max(err32["machine_kde_log_density"], e32)
+                    errs["machine_kde_log_density"] = max(errs["machine_kde_log_density"], e64)
+                    serve_kde_cases += 1
+    print(f"  machine_kde_log_density: {serve_kde_cases} serving-shape cases within their "
+          f"tolerances", flush=True)
+
     # single cloud: the plain version forms distances directly, in float32
     for nq, ns, d in ((300, 700, 7), (1, 1, 1)):
         q = torch.randn((nq, d), generator=gen, device=dev)
@@ -1284,7 +1370,7 @@ def main() -> int:
             print(f"  importance_pool ess={float(res.extras['ess']):.2f} of "
                   f"{theta.shape[0] * theta.shape[1]} pooled draws", flush=True)
     print(f"  combine_s_by_combiner={json.dumps(combine_s)}", flush=True)
-    all_errors, all_theta = dict(board.errors), theta
+    all_errors, all_theta, all_pipe = dict(board.errors), theta, pipe
 
     phase("4c stream: Pipeline(STREAM_SPEC).stream_combine() on the card (fused)")
     print(f"  spec {STREAM_SPEC.to_json()}", flush=True)
@@ -1607,6 +1693,189 @@ def main() -> int:
     print(f"  poisson gibbs moments {json.dumps(gibbs_moments)}", flush=True)
     torch.cuda.empty_cache()
 
+    phase("4f serve: the posterior server on SERVE_SPEC (PosteriorServer, 4 TCP probe readers)")
+    import tempfile
+
+    import numpy as np
+    from repro_torch.api.pipeline import resolve_metric
+    from repro_torch.core.combiners import counts_or_full, machine_kde_scores
+    from repro_torch.launch.mcmc_run import SERVE_SPEC
+    from repro_torch.serve import PosteriorServer, answer
+
+    print(f"  spec {SERVE_SPEC.to_json()}", flush=True)
+    fresh_transitions = 2 + SERVE_SPEC.warmup + SERVE_SPEC.resolved_burn_in() + SERVE_SPEC.T
+    per_refresh = -(-128 // n_batch)  # the nonparametric estimate's sweeps (n_estimate 128)
+    serve_kw = dict(sweeps_per_refresh=per_refresh)
+
+    # fresh, refresh="every": each snapshot scores exactly as the subscriber
+    # stream_combine's trajectory row at its boundary
+    server = PosteriorServer(Pipeline(SERVE_SPEC), n_estimate=128, queue_depth=8,
+                             refresh="every")
+    server.state.track_history = True
+    posterior_session("every", server, 0, transitions=fresh_transitions, **serve_kw)
+    every_state = server.state
+    ref_pipe = Pipeline(SERVE_SPEC)
+    ref_sr = ref_pipe.stream_combine(fused=False)
+    dist, _ = resolve_metric(SERVE_SPEC, all_theta.shape[-1])
+    gt_serve = ref_pipe.groundtruth()
+    by_row = {(t, name): snap for t, name, snap in every_state.history}
+    if len(by_row) != len(ref_sr.trajectory):
+        raise AssertionError(f"{len(by_row)} refreshed estimates, {len(ref_sr.trajectory)} rows")
+    for row in ref_sr.trajectory:
+        got = float(dist(gt_serve, torch.from_numpy(by_row[(row["t"], row["combiner"])]).to(dev)))
+        if got != row["error"]:
+            raise AssertionError(f"snapshot {row['combiner']}@{row['t']} scores {got}, the "
+                                 f"stream_combine row {row['error']}")
+    print(f"  every: {len(ref_sr.trajectory)} snapshots ({len(every_state.history)} refreshes "
+          f"of a combiner) score exactly as stream_combine(fused=False)'s trajectory rows",
+          flush=True)
+
+    # fresh, coalesced refreshes, four TCP probe readers (serve_pipeline's
+    # session), then the scoreboard over the served draws as mcmc_run --serve
+    server = PosteriorServer(Pipeline(SERVE_SPEC), n_estimate=128, queue_depth=8)
+    summary, launches_post, post_wall = posterior_session("coalesce", server, 4,
+                                                  transitions=fresh_transitions, **serve_kw)
+    st = summary["staleness"]
+    if not (st["complete"] and st["chunks_folded"] == SERVE_SPEC.T // SERVE_SPEC.stream_every
+            and st["draws_seen"] == SERVE_SPEC.T and st["chunks_replayed"] == 0):
+        raise AssertionError(f"coalesce session: staleness {st}")
+    post_state = server.state
+    board = server.pipeline.run()
+    torch.cuda.synchronize()
+    for name, err in sorted(board.errors.items()):
+        if abs(err - all_errors[name]) > 1e-4:
+            raise AssertionError(f"served scoreboard {name} = {err}, 4b {all_errors[name]}")
+    print(f"  coalesce: no probe error, staleness monotone, no chunk dropped, complete; the "
+          f"scoreboard over the served draws ({board.backend}) equals 4b's within 1e-4 for all "
+          f"{len(board.errors)} combiners", flush=True)
+    posterior_serve = {"summary": {k: v for k, v in summary.items() if k != "final"},
+                       "wall_s": post_wall, "fold_s": server.fold_s,
+                       "refresh_s": server.refresh_s, "launches": launches_post}
+    print(f"  posterior serving {json.dumps(posterior_serve)}", flush=True)
+
+    # logpdf answers at Q = 1 and 1,000 on the completed buffer: buffer rows
+    # plus noise from the seed, both reduce values, against the plain
+    # version on a CPU copy of the same buffer (phase 3's KDE tolerance)
+    theta_buf, counts_buf = post_state.logpdf_inputs()
+    pts_gen = torch.Generator(device=dev).manual_seed(SERVE_SPEC.seed)
+    rows_buf = theta_buf.reshape(-1, theta_buf.shape[-1])
+    for Q in (1, 1000):
+        pts = rows_buf[torch.randint(0, rows_buf.shape[0], (Q,), generator=pts_gen, device=dev)]
+        pts = pts + 0.01 * torch.randn(pts.shape, generator=pts_gen, device=dev)
+        theta_cpu = theta_buf.cpu()
+        h_cpu = masked_silverman(theta_cpu, counts_or_full(theta_cpu, None))
+        spread = float((pts * pts).sum(-1).max()) + float((theta_cpu * theta_cpu).sum(-1).max())
+        term = eps32 * spread / (2.0 * float(h_cpu.min()) ** 2)
+        for reduce in ("product", "mixture"):
+            before = kernels.KERNELS["machine_kde_log_density"].launches
+            resp = answer(post_state, {"op": "logpdf", "points": pts.tolist(), "reduce": reduce})
+            if not resp["ok"] or kernels.KERNELS["machine_kde_log_density"].launches != before + 1:
+                raise AssertionError(f"logpdf Q={Q} {reduce}: {resp.get('error')}, or not one launch")
+            want = machine_kde_scores(pts.cpu(), theta_cpu, None, h_cpu, reduce=reduce)
+            scale = theta_buf.shape[0] if reduce == "product" else 1
+            check_lp(f"logpdf answer Q={Q} {reduce} (one kernel launch) vs the plain version on "
+                     f"a CPU copy of the buffer", torch.tensor(resp["result"]["log_density"]),
+                     want, rtol=1e-5, atol=16.0 * term * scale)
+
+    # restart: sample to 480 draws with checkpoints every 240, stop; a second
+    # server on the same directory replays the 4 restored chunks into its
+    # folder while its sampler builds and captures the collection loop, with
+    # four readers querying (logpdf included) the whole time
+    with tempfile.TemporaryDirectory() as ckpt:
+        def ckpt_pipe():
+            return Pipeline(SERVE_SPEC, checkpoint_dir=ckpt, checkpoint_every=240)
+
+        first = PosteriorServer(ckpt_pipe(), n_estimate=128, queue_depth=8, max_steps=480)
+        posterior_session("restart, first session", first, 0,
+                  transitions=2 + SERVE_SPEC.warmup + SERVE_SPEC.resolved_burn_in() + 480,
+                  **serve_kw)
+        if first.state.staleness()["draws_seen"] != 480:
+            raise AssertionError(f"first session stopped at {first.state.staleness()}")
+        second = PosteriorServer(ckpt_pipe(), n_estimate=128, queue_depth=8)
+        summary_r, _, _ = posterior_session("restart, second session", second, 4,
+                                    transitions=SERVE_SPEC.T - 480, **serve_kw)
+    st = summary_r["staleness"]
+    if not (st["complete"] and st["chunks_replayed"] == 4 and st["chunks_folded"] == 10):
+        raise AssertionError(f"restart: staleness {st}")
+    for name in SERVE_SPEC.combiner_names():
+        if get_streaming_combiner(name).estimate is None:
+            continue
+        if not np.array_equal(second.state.snapshot(name).samples,
+                              every_state.snapshot(name).samples):
+            raise AssertionError(f"restarted final snapshot of {name} differs")
+    print(f"  restart: chunks_replayed 4, chunks_folded 10, complete; every final snapshot "
+          f"bitwise the uninterrupted run's", flush=True)
+    del server, first, second, ref_pipe, every_state, post_state
+    torch.cuda.empty_cache()
+
+    phase("4g tree and matrix: tree_combine on 4b's draws; run_matrix over 8 cells")
+    from repro_torch.api import run_matrix
+    from repro_torch.core.metrics import mmd2_rbf
+    from repro_torch.core.tree_combine import tree_combine
+
+    gt_all = all_pipe.groundtruth()
+    ell = mmd_lengthscale(gt_all)
+    dist_all, label_all = resolve_metric(ALL_SPEC, all_theta.shape[-1])
+    tree_out = {}
+    for method in ("parametric", "nonparametric"):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = tree_combine(torch.Generator(device=dev).manual_seed(0), all_theta, ALL_SPEC.T,
+                           method=method)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches_t, routes_t = kernels.launch_counts(), dict(img_kernel.route_launches)
+        err = float(dist_all(gt_all, res.samples))
+        mmd = float(mmd2_rbf(gt_all, res.samples, ell))
+        if not (math.isfinite(err) and bool(torch.isfinite(res.samples).all())
+                and res.samples.shape == (ALL_SPEC.T, all_theta.shape[-1])):
+            raise AssertionError(f"tree_combine {method}: {err}, {tuple(res.samples.shape)}")
+        print(f"  tree_combine {method} (M={ALL_SPEC.M}: {ALL_SPEC.M - 1} pairs in 4 rounds, "
+              f"{secs:.3f} s): {label_all} {err:.4f} (flat {all_errors[method]:.4f}), mmd2_rbf "
+              f"{mmd:.6e} (flat {mmd2_all[method]:.6e}); launches {json.dumps(launches_t)}, "
+              f"img_log_weights by route {json.dumps(routes_t)}", flush=True)
+        tree_out[method] = {"error": err, "mmd2": mmd, "seconds": secs, "launches": launches_t,
+                            "routes": routes_t}
+
+    # two models x two seeds x two step sizes, at LINEAR_SPEC's and
+    # POISSON_SPEC's widths under mala (tests/test_api.py's grid): 2 sets of
+    # chain loops, each cell a standalone Pipeline's scoreboard
+    bases = {"linear": dataclasses.replace(LINEAR_SPEC, sampler="mala"),
+             "poisson": dataclasses.replace(POISSON_SPEC, sampler="mala")}
+    cells = [dataclasses.replace(base, seed=seed, step_size=step)
+             for base in bases.values() for seed in (0, 1) for step in (0.1, 0.2)]
+    t0 = time.perf_counter()
+    mres = run_matrix(cells)
+    torch.cuda.synchronize()
+    matrix_s = time.perf_counter() - t0
+    print(mres.table(), flush=True)
+    if (mres.n_specs, mres.n_executables, mres.n_groundtruth_executables, mres.n_graphs) != \
+            (8, 2, 2, 8):
+        raise AssertionError(f"run_matrix: {mres.n_specs} cells, {mres.n_executables} sampling "
+                             f"and {mres.n_groundtruth_executables} groundtruth executables, "
+                             f"{mres.n_graphs} graphs; expected 8, 2, 2, 8")
+    t0 = time.perf_counter()
+    worst, bitwise = 0.0, True
+    for spec in cells:
+        board = Pipeline(spec).run()
+        rows_m = {r["combiner"]: r["error"] for r in mres.rows if r["spec_id"] == spec.spec_id}
+        for name, err in board.errors.items():
+            got = rows_m[name]
+            same = got == err or (math.isnan(got) and math.isnan(err))
+            bitwise &= same
+            if not same:
+                rel = abs(got - err) / max(abs(err), 1e-30)
+                worst = max(worst, rel)
+                if not rel <= 1e-4:
+                    raise AssertionError(f"matrix cell {spec.spec_id} {name} = {got}, its "
+                                         f"Pipeline {err}")
+    print(f"  run_matrix: 8 cells in {matrix_s:.3f} s (the 8 standalone Pipelines "
+          f"{time.perf_counter() - t0:.3f} s), 2 sampling and 2 groundtruth loop sets, "
+          f"{mres.n_graphs} graphs captured; every cell's scoreboard equals its standalone "
+          f"Pipeline's {'bit for bit' if bitwise else f'within {worst:.3e} relative'}", flush=True)
+    del gt_all, all_pipe
+    torch.cuda.empty_cache()
+
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
 
@@ -1749,11 +2018,16 @@ def main() -> int:
     for name, label, Q, M, T, d, reduce in (
         ("machine_kde_log_density", "importance_pool", 12000, 10, 1200, 50, "product_mixture"),
         ("machine_kde_log_density", "weierstrass init_pool", 1000, 10, 1200, 50, "product"),
+        # the posterior server's logpdf on the full draw buffer: a probe
+        # reader's one point, and a batch of 1,000 under the mixture reduce
+        ("machine_kde_log_density", "serve logpdf Q=1", 1, 10, 1200, 50, "product"),
+        ("machine_kde_log_density", "serve logpdf Q=1000 mixture", 1000, 10, 1200, 50, "mixture"),
         ("kde_log_density", "one machine of the path", 12000, 1, 1200, 50, "none"),
     ):
         q, s, h, _ = kde_inputs(Q, M, T, d)
-        n_out = {"none": M, "product": 1, "product_mixture": 2}[reduce]
-        nbytes = 4 * (Q * d + M * T * d + 2 * M) + 4 * M * (reduce == "product_mixture") + 4 * n_out * Q
+        n_out = {"none": M, "product": 1, "mixture": 1, "product_mixture": 2}[reduce]
+        nbytes = (4 * (Q * d + M * T * d + 2 * M) + 4 * M * (reduce in ("mixture", "product_mixture"))
+                  + 4 * n_out * Q)
         pairs = Q * M * T  # Q·Σcounts
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_mma = 3 * 2 * pairs * d / TF32_FLOPS * 1e3
@@ -1788,8 +2062,26 @@ def main() -> int:
                                               "exps": by_exp},
                            "bound_ms_float32_fma": bound_fma,
                            "shape": f"Q={Q} M={M} T={T} d={d} {reduce}"}
+    # at Q = 1 the kernel centres and splits the whole buffer every call: the
+    # share of that pre-pass, from kde_probe's build with everything after it
+    # cut out (KDE_CUT=1), both graph-timed through the C entry point
+    from repro_torch.kernels.kde_density import ops as kde_ops
+    from repro_torch.launch import kde_probe
+
+    kde_density_entry = kde_ops._entry()[1]
+    q1, s1, h1, _ = kde_inputs(1, 10, 1200, 50)
+    run1 = kde_probe.launcher(q1, s1, h1, "product")
+    cut1 = kde_probe.build_cuts((1,))[1]
+    prepass_us = kde_probe.graph_us(lambda: run1(cut1))
+    whole_us = kde_probe.graph_us(lambda: run1(kde_density_entry))
+    print(f"  machine_kde_log_density serve logpdf Q=1 (graph-timed, C entry point): whole "
+          f"{whole_us:.2f} us, the centring pre-pass alone (KDE_CUT=1) {prepass_us:.2f} us = "
+          f"{100.0 * prepass_us / whole_us:.1f} % of it", flush=True)
+    kde_rows["serve logpdf Q=1"]["graph_us"] = {"whole": whole_us, "prepass": prepass_us}
     rows.append({"name": "machine_kde_log_density", **kde_rows["importance_pool"],
-                 "at_init_pool": kde_rows["weierstrass init_pool"]})
+                 "at_init_pool": kde_rows["weierstrass init_pool"],
+                 "at_serve_logpdf_q1": kde_rows["serve logpdf Q=1"],
+                 "at_serve_logpdf_q1000_mixture": kde_rows["serve logpdf Q=1000 mixture"]})
     rows.append({"name": "kde_log_density", **kde_rows["one machine of the path"]})
 
     # online_update at the stream path's fold (the whole route) and at the
@@ -1934,6 +2226,7 @@ def main() -> int:
             "max_abs_err": errs[name], "library_ms": None, **r,
             "launches_by_path": {"paper": launches_paper[name], "all": launches[name],
                                  "stream": launches_stream[name], "serve": launches_serve[name],
+                                 "posterior_serve": launches_post[name],
                                  **{label: o["launches"][name] for label, o in other.items()}},
         }
         if name in err32:

@@ -16,6 +16,11 @@ Combine while sampling (``RunSpec.stream_every > 0``)::
     sr = Pipeline(dataclasses.replace(spec, stream_every=120)).stream_combine()
     sr.trajectory   # one row per (chunk boundary, combiner with an estimate)
     sr.combined     # the finals, bitwise the batch combine's for buffered combiners
+
+A sweep of specs (:func:`run_matrix`, one set of chain loops a signature)::
+
+    res = run_matrix(spec.sweep(seed=range(4)), device="cpu")
+    print(res.table())
 """
 
 from repro_torch.api.pipeline import (  # noqa: F401
@@ -41,3 +46,13 @@ from repro_torch.api.streaming import (  # noqa: F401
     stream_sample,
 )
 from repro_torch.api.spec import RunSpec  # noqa: F401
+
+
+def __getattr__(name):
+    # lazy: `python -m repro_torch.api.matrix` first imports this package, and
+    # an eager import of the submodule here would run matrix.py twice
+    if name in ("MatrixResult", "run_matrix", "ExecutableCache"):
+        from repro_torch.api import matrix
+
+        return getattr(matrix, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

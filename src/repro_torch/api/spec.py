@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
-from typing import Any, Dict, Iterable, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple, Union
 
 Options = Union[Mapping[str, Any], Iterable[Tuple[str, Any]]]
 
@@ -149,3 +150,59 @@ class RunSpec:
     def spec_id(self) -> str:
         """Canonical content hash, equal to ``repro``'s for the same fields."""
         return hashlib.sha256(self.to_json().encode()).hexdigest()[:12]
+
+    # -- loop grouping ---------------------------------------------------------
+
+    def executable_signature(self) -> Tuple[Any, ...]:
+        """The statics that shape the sampling stage's chain loops, as
+        ``repro``'s tuple (equal to it for the same fields).
+
+        ``seed`` and ``step_size`` are runtime inputs (the generator and the
+        warmup's initial step), and the combiner list never enters the
+        sampling stage, so specs differing only there share one set of chain
+        loops: :func:`repro_torch.api.run_matrix` keys its cache on this tuple.
+        """
+        return (
+            "sample", self.model, self.resolved_sampler(), self.M, self.T,
+            self.warmup, self.resolved_burn_in(), self.resolved_n(),
+            self.sgld_batch, self.mesh_shape, self.sampler_options,
+            self.stream_every,
+        )
+
+    def sweep(self, **axes: Iterable[Any]) -> List["RunSpec"]:
+        """Cartesian sweep over field values → a validated spec list, as
+        ``repro``'s: each keyword names a field and gives an iterable of
+        values (a bare string is refused); axes combine as an outer product
+        in keyword order, the last varying fastest."""
+        if not axes:
+            return [self]
+        known = {f.name for f in dataclasses.fields(self)}
+        lists = []
+        for name, values in axes.items():
+            if name not in known:
+                raise ValueError(
+                    f"sweep axis {name!r} is not a RunSpec field "
+                    f"(choices: {', '.join(sorted(known))})"
+                )
+            if isinstance(values, (str, bytes)) or not isinstance(values, Iterable):
+                raise TypeError(
+                    f"sweep axis {name!r} needs an iterable of field values "
+                    f"(got {values!r}); a single value still goes in a list"
+                )
+            values = list(values)
+            if not values:
+                raise ValueError(f"sweep axis {name!r} is empty")
+            lists.append(values)
+        names = list(axes)
+        return [
+            dataclasses.replace(self, **dict(zip(names, combo))).validate()
+            for combo in itertools.product(*lists)
+        ]
+
+    def groundtruth_signature(self) -> Tuple[Any, ...]:
+        """The statics of the single full-data groundtruth chain's loops."""
+        return (
+            "groundtruth", self.model, self.resolved_sampler(),
+            self.groundtruth_T, self.warmup, self.resolved_n(),
+            self.sgld_batch, self.sampler_options,
+        )

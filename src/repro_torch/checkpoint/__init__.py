@@ -1,5 +1,12 @@
-"""Atomic step checkpoints of tensor trees (numpy files, no JAX)."""
+"""Atomic step checkpoints of tensor trees (numpy files, no JAX): sync and
+double-buffered async writes, and the elastic chain-count restore."""
 
-from repro_torch.checkpoint.checkpointer import latest_step, restore, save
+from repro_torch.checkpoint.checkpointer import (
+    Checkpointer,
+    latest_step,
+    restore,
+    restore_elastic_chains,
+    save,
+)
 
-__all__ = ["save", "restore", "latest_step"]
+__all__ = ["Checkpointer", "save", "restore", "restore_elastic_chains", "latest_step"]

@@ -15,7 +15,21 @@ directory makes the commit atomic on POSIX. A tree is a nested ``dict``
 (keys in sorted order), ``tuple``/``list``/``NamedTuple`` of leaves; a leaf
 is a tensor (any device), a numpy array or a Python scalar. ``restore``
 gives the leaves back as numpy arrays keyed by their ``/``-joined path.
-``Checkpointer(async_io=)`` and ``restore_elastic_chains`` are not ported.
+
+Async: ``Checkpointer(async_io=True)`` moves serialization and IO to a
+worker thread; the caller blocks on the previous write only when it starts a
+new one (double buffering). The host copy of every leaf is taken before the
+write is submitted, by a blocking copy: the sampler goes on mutating its
+tensors while the write runs.
+
+Elastic EP-MCMC restore (:func:`restore_elastic_chains`): chain-stacked
+state ``(C_old, ...)`` re-partitioned to ``C_new`` chains. Shrink keeps the
+first ``C_new`` chains; grow tiles existing chains. As in the reference, a
+tiled leaf whose name contains ``key`` (a per-chain RNG key) is bumped by a
+multiple of ``rng_bump`` per tile, so a checkpoint written by ``repro``
+restores to the same arrays. A carry of the port's chunk driver keeps one
+generator state (``rng``) for all chains, not one a chain, so the rule never
+fires on it.
 """
 
 from __future__ import annotations
@@ -25,6 +39,8 @@ import os
 import pathlib
 import re
 import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -128,3 +144,102 @@ def restore(
     manifest = json.loads((d / "MANIFEST.json").read_text())
     leaves = {leaf["path"]: np.load(d / leaf["file"]) for leaf in manifest["leaves"]}
     return leaves, manifest["metadata"]
+
+
+def _tree_map(fn, tree: Tree, path: Tuple[str, ...] = ()) -> Tree:
+    """``fn(path, leaf)`` over the leaves of a tree, keeping its structure;
+    ``path`` is the leaf's ``/``-joined path, as :func:`_flatten` gives it."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v, path + (f,)) for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v, path + (str(i),)) for i, v in enumerate(tree))
+    return fn("/".join(path), tree)
+
+
+def _host_copy(leaf) -> np.ndarray:
+    """A numpy copy of a leaf that later writes to the leaf leave alone: a
+    blocking device-to-host copy for a card tensor, a copy otherwise."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        return t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
+    return np.array(leaf, copy=True)
+
+
+def restore_elastic_chains(
+    root: str | os.PathLike,
+    template: Tree,
+    new_num_chains: int,
+    *,
+    step: Optional[int] = None,
+    chain_axis: int = 0,
+    rng_bump: int = 104729,
+) -> Tuple[Tree, Dict[str, Any]]:
+    """Restore chain-stacked EP-MCMC state onto a different chain count.
+
+    Every leaf whose dim ``chain_axis`` equals the checkpointed chain count
+    (metadata ``num_chains``) is re-partitioned: shrink → slice, grow →
+    wrap-around tile. Other leaves pass through. Leaves take the template
+    leaf's dtype (and device, for a tensor). The caller owns re-partitioning
+    the data and using the new 1/M in the step function.
+    """
+    by_path, meta = restore(root, step=step)
+    old_c = meta.get("num_chains")
+    if old_c is None:
+        raise ValueError("checkpoint metadata lacks 'num_chains'")
+    def one(key, t_leaf):
+        if key not in by_path:
+            raise KeyError(f"leaf {key!r} missing from checkpoint")
+        arr = by_path[key]
+        if arr.ndim > chain_axis and arr.shape[chain_axis] == old_c != new_num_chains:
+            if new_num_chains < old_c:
+                arr = np.take(arr, np.arange(new_num_chains), axis=chain_axis)
+            else:
+                arr = np.take(arr, np.arange(new_num_chains) % old_c, axis=chain_axis)
+                if "key" in key.split("/")[-1]:  # de-duplicate RNG streams
+                    bump = (np.arange(new_num_chains) // old_c).astype(arr.dtype)
+                    arr = arr + (bump * rng_bump)[(...,) + (None,) * (arr.ndim - 1)].swapaxes(
+                        0, chain_axis)
+        if isinstance(t_leaf, torch.Tensor):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(device=t_leaf.device,
+                                                                  dtype=t_leaf.dtype)
+        return np.asarray(arr, dtype=getattr(t_leaf, "dtype", None))
+
+    out = _tree_map(one, template)
+    return out, dict(meta, num_chains=new_num_chains, elastic_from=old_c)
+
+
+class Checkpointer:
+    """Double-buffered async wrapper around :func:`save`."""
+
+    def __init__(self, root: str | os.PathLike, *, keep: int = 3, async_io: bool = True):
+        self.root = pathlib.Path(root)
+        self.keep = keep
+        self._pool = ThreadPoolExecutor(max_workers=1) if async_io else None
+        self._pending: Optional[Future] = None
+        self._lock = threading.Lock()
+
+    def save(self, step: int, tree: Tree, *, metadata: Optional[Dict[str, Any]] = None) -> None:
+        # the host copy NOW: the caller's tensors change after this returns
+        host_tree = _tree_map(lambda _, leaf: _host_copy(leaf), tree)
+        if self._pool is None:
+            save(self.root, step, host_tree, metadata=metadata, keep=self.keep)
+            return
+        with self._lock:
+            if self._pending is not None:
+                self._pending.result()  # block on the previous write only
+            self._pending = self._pool.submit(
+                save, self.root, step, host_tree, metadata=metadata, keep=self.keep
+            )
+
+    def wait(self) -> None:
+        with self._lock:
+            if self._pending is not None:
+                self._pending.result()
+                self._pending = None
+
+    def close(self) -> None:
+        self.wait()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)

@@ -19,12 +19,16 @@ single-cloud form) share one build and one library. A library already built
 from the same source, headers and flags is loaded as it is.
 
 Each :class:`Kernel` keeps ``launches``, a plain count that its wrapper raises
-by one where it launches the kernel and nowhere else. A kernel with more than
-one route (``flash_attention``: bf16 tensor cores, float32 tensor cores or
-FMAs) also keeps ``route_launches``, the same launches counted by route. A
-wrapper called while a CUDA graph is captured raises its count, but nothing
-runs until the graph is replayed: :class:`LaunchTally` takes those counts
-back at the end of the capture and adds them again at every replay.
+by one (:meth:`Kernel.count_launch`) where it launches the kernel and nowhere
+else. A kernel with more than one route (``flash_attention``: bf16 tensor
+cores, float32 tensor cores or FMAs) also keeps ``route_launches``, the same
+launches counted by route. The counts are shared by every thread (the
+posterior server launches kernels from its sampler, folder and reader
+threads at once), so a count is raised under one lock. A wrapper called while
+its thread captures a CUDA graph launches nothing until the graph is
+replayed: :class:`LaunchTally` keeps that thread's counts apart during the
+capture and adds them at every replay, while other threads' launches count
+as they happen.
 """
 
 from __future__ import annotations
@@ -94,6 +98,18 @@ class Kernel:
             build()
         return self._lib
 
+    def count_launch(self, route: Optional[str] = None) -> None:
+        """One launch (of ``route``): into the capture tally of this thread
+        while it captures a graph, else into the shared counts."""
+        tally = getattr(_CAPTURING, "tally", None)
+        if tally is not None:
+            tally.add(self.name, route)
+            return
+        with _COUNT_LOCK:
+            self.launches += 1
+            if route is not None:
+                self.route_launches[route] = self.route_launches.get(route, 0) + 1
+
 
 KERNELS: Dict[str, Kernel] = {
     "logreg_loglik_grad": Kernel(
@@ -123,6 +139,8 @@ KERNELS: Dict[str, Kernel] = {
 }
 
 _BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()  # guards every kernel's counts
+_CAPTURING = threading.local()  # .tally: the LaunchTally of this thread's capture
 
 
 def _nvcc() -> str:
@@ -180,24 +198,27 @@ def build() -> float:
 
 
 def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
-        for route in k.route_launches:
-            k.route_launches[route] = 0
+    with _COUNT_LOCK:
+        for k in KERNELS.values():
+            k.launches = 0
+            for route in k.route_launches:
+                k.route_launches[route] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    with _COUNT_LOCK:
+        return {name: k.launches for name, k in KERNELS.items()}
 
 
 class LaunchTally:
     """The kernel launches of one captured CUDA graph, for the counts.
 
-    ``with tally.capturing():`` around a capture keeps, per kernel, what the
-    wrappers counted inside it (launches and launches by route), and sets
-    every count back to its value before the capture: capture records
-    launches without running them. :meth:`replay` adds the kept counts, once
-    per replay of the graph. ``kernels`` defaults to :data:`KERNELS`.
+    ``with tally.capturing():`` around a capture routes the launches that
+    wrappers count on this thread into the tally (launches and launches by
+    route) instead of the shared counts: capture records launches without
+    running them. Launches on other threads meanwhile count as usual.
+    :meth:`replay` adds the tally's counts, once per replay of the graph.
+    ``kernels`` (by name) are the counts it adds to, :data:`KERNELS` by default.
     """
 
     def __init__(self, kernels: Optional[Dict[str, Kernel]] = None):
@@ -205,28 +226,29 @@ class LaunchTally:
         self.launches: Dict[str, int] = {}
         self.route_launches: Dict[str, Dict[str, int]] = {}
 
+    def add(self, name: str, route: Optional[str]) -> None:
+        self.launches[name] = self.launches.get(name, 0) + 1
+        routes = self.route_launches.setdefault(name, {})
+        if route is not None:
+            routes[route] = routes.get(route, 0) + 1
+
     @contextlib.contextmanager
     def capturing(self):
-        before = {n: (k.launches, dict(k.route_launches)) for n, k in self.kernels.items()}
+        if getattr(_CAPTURING, "tally", None) is not None:
+            raise RuntimeError("a capture is already being tallied on this thread")
+        _CAPTURING.tally = self
         try:
             yield self
         finally:
-            for name, k in self.kernels.items():
-                launches, routes = before[name]
-                self.launches[name] = k.launches - launches
-                self.route_launches[name] = {
-                    r: n - routes.get(r, 0) for r, n in k.route_launches.items()
-                }
-                k.launches = launches
-                k.route_launches.clear()
-                k.route_launches.update(routes)
+            _CAPTURING.tally = None
 
     def replay(self) -> None:
-        for name, k in self.kernels.items():
-            k.launches += self.launches.get(name, 0)
-            for route, n in self.route_launches.get(name, {}).items():
-                if n:
-                    k.route_launches[route] = k.route_launches.get(route, 0) + n
+        with _COUNT_LOCK:
+            for name, n in self.launches.items():
+                k = self.kernels[name]
+                k.launches += n
+                for route, r in self.route_launches.get(name, {}).items():
+                    k.route_launches[route] = k.route_launches.get(route, 0) + r
 
 
 def check_error(kernel: Kernel, err: int, error_string) -> None:

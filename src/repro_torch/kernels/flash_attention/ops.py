@@ -167,8 +167,7 @@ def _launch(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
             v.stride(0), v.stride(1), v.stride(2), stream_handle(device),
         )
     check_error(KERNEL, err, lib.flash_attention_error_string)
-    KERNEL.launches += 1
-    KERNEL.route_launches[route] += 1
+    KERNEL.count_launch(route)
     return out
 
 

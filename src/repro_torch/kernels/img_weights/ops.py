@@ -122,8 +122,7 @@ def _launch(theta: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         P, M, d, stream_handle(device),
     )
     check_error(KERNEL, err, lib.img_error_string)
-    KERNEL.launches += 1
-    KERNEL.route_launches["generic"] += 1
+    KERNEL.count_launch("generic")
     return out
 
 
@@ -222,8 +221,7 @@ def _launch_sweep(carry, samples, c, u, h, aux, state_term: Optional[StateTerm])
         *(x.data_ptr() for x in out), B, M, d, stream_handle(device),
     )
     check_error(KERNEL, err, lib.img_error_string)
-    KERNEL.launches += 1
-    KERNEL.route_launches["sweep"] += 1
+    KERNEL.count_launch("sweep")
     return out
 
 

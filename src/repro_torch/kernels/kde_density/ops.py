@@ -106,7 +106,7 @@ def _launch(
         lp.data_ptr(), ptr(prod), ptr(mix), Q, M, T, d, S, stream_handle(device),
     )
     check_error(kernel, err, lib.kde_error_string)
-    kernel.launches += 1
+    kernel.count_launch()
     if reduce == "none":
         return lp
     if reduce == "product_mixture":

@@ -96,7 +96,7 @@ def _launch(X, y, beta, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
         float(scale), stream_handle(device),
     )
     check_error(KERNEL, err, lib.logreg_error_string)
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     return out[:, :C], out[:, C:].view(G, d, C)
 
 

@@ -154,8 +154,7 @@ def _launch(count, mean, m2, chunk, chunk_counts, route: Optional[str] = None):
         M, C, d, chunk.stride(0), ROUTES.index(route), stream_handle(device),
     )
     check_error(KERNEL, err, lib.online_update_error_string)
-    KERNEL.launches += 1
-    KERNEL.route_launches[route] += 1
+    KERNEL.count_launch(route)
     return count_out, mean_out, m2_out
 
 

@@ -16,7 +16,8 @@ log p̂, ×M for the product), checks that three launches give the same bits,
 and times the kernel and copies of it built with phases cut out
 (``KDE_CUT``: the centring pre-pass alone, then the copies, query staging
 and turns, the three product passes, the epilogue's scores and max, its
-exps; the full kernel adds the merge) as
+exps; the full kernel adds the merge), at the path's two shapes and at the
+posterior server's one-point logpdf, as
 the mean of 20 launches captured in one CUDA graph, through the C entry
 point with its buffers made beforehand: device time with no host in it.
 Exits 1 if a check fails, 2 without a card.
@@ -40,7 +41,8 @@ from repro_torch.kernels.kde_density import ops
 from repro_torch.kernels.tf32 import tf32_split
 
 M, T, D = 10, 1200, 50
-SHAPES = {"importance_pool": 12000, "init_pool": 1000}  # Q on the ALL_SPEC path
+SHAPES = {"importance_pool": 12000, "init_pool": 1000,  # Q on the ALL_SPEC path
+          "serve logpdf": 1}  # a probe reader's logpdf on the full draw buffer
 CUTS = {1: "the centring pre-pass", 2: "+ copies, query staging and turns",
         3: "+ the three product passes", 4: "+ the epilogue's scores and max",
         5: "+ the exps: all but the merge"}
@@ -102,10 +104,10 @@ def check_tile(gen, d) -> bool:
     return ok
 
 
-def build_cuts():
+def build_cuts(cuts=tuple(CUTS)):
     """The kernel's entry point from libraries built with ``-DKDE_CUT=cut``,
     one ``nvcc`` a cut, all started together."""
-    out = {cut: kernels.BUILD_DIR / "probe" / f"kde_cut{cut}.so" for cut in CUTS}
+    out = {cut: kernels.BUILD_DIR / "probe" / f"kde_cut{cut}.so" for cut in cuts}
     kernels.BUILD_DIR.joinpath("probe").mkdir(parents=True, exist_ok=True)
     procs = {cut: subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DKDE_CUT={cut}",
                                     "-o", str(path), str(ops.MACHINE_KERNEL.source)],
@@ -121,6 +123,33 @@ def build_cuts():
         fn.argtypes, fn.restype = port.argtypes, port.restype
         fns[cut] = fn
     return fns
+
+
+def launcher(q, s, h, reduce):
+    """``run(fn)``: one launch of entry point ``fn`` (the wrapper's, or a
+    cut's) on ``q, s, h`` with dense counts, its buffers made beforehand."""
+    lib, _ = ops._entry()
+    dev = q.device
+    (Q, d), (M_, T_, _) = q.shape, s.shape
+    counts = torch.full((M_,), T_, dtype=torch.int32, device=dev)
+    logw = torch.full((M_,), -math.log(M_), dtype=torch.float32, device=dev)
+    S = lib.kde_machine_splits(Q, M_, T_, ops._num_sms(device_index(dev)))
+    part = torch.empty((2, S, M_, Q), dtype=torch.float32, device=dev)
+    scratch = torch.empty((lib.kde_scratch_floats(M_, T_, d),), dtype=torch.float32, device=dev)
+    lp = torch.empty((M_, Q), dtype=torch.float32, device=dev)
+    prod = torch.empty((Q,), dtype=torch.float32, device=dev)
+    mix = torch.empty((Q,), dtype=torch.float32, device=dev) if reduce == "product_mixture" else None
+
+    def run(fn):
+        err = fn(device_index(dev), q.data_ptr(), s.data_ptr(), h.data_ptr(), counts.data_ptr(),
+                 logw.data_ptr(), scratch.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+                 lp.data_ptr(), prod.data_ptr(), None if mix is None else mix.data_ptr(),
+                 Q, M_, T_, d, S, stream_handle(dev))
+        if err:
+            raise RuntimeError(f"kde launch: CUDA error {err}")
+
+    run.splits = S
+    return run
 
 
 def graph_us(launch) -> float:
@@ -162,7 +191,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("kde_probe: the tile's product is wrong; nothing else is run", flush=True)
         return 1
 
-    lib, _ = ops._entry()
     fns = build_cuts()
     fns[0] = ops._entry()[1]
     for label, Q in SHAPES.items():
@@ -184,23 +212,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         failed += not same
         print(f"  {label}: three launches the same bits: {same}", flush=True)
 
-        counts = torch.full((M,), T, dtype=torch.int32, device=dev)
-        logw = torch.full((M,), -math.log(M), dtype=torch.float32, device=dev)
-        S = lib.kde_machine_splits(Q, M, T, ops._num_sms(0))
-        part = torch.empty((2, S, M, Q), dtype=torch.float32, device=dev)
-        scratch = torch.empty((lib.kde_scratch_floats(M, T, D),), dtype=torch.float32, device=dev)
-        lp = torch.empty((M, Q), dtype=torch.float32, device=dev)
-        prod = torch.empty((Q,), dtype=torch.float32, device=dev)
-        mix = torch.empty((Q,), dtype=torch.float32, device=dev) if reduce == "product_mixture" else None
-
-        def run(fn):
-            err = fn(0, q.data_ptr(), s.data_ptr(), h.data_ptr(), counts.data_ptr(),
-                     logw.data_ptr(), scratch.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-                     lp.data_ptr(), prod.data_ptr(), None if mix is None else mix.data_ptr(),
-                     Q, M, T, D, S, stream_handle(dev))
-            if err:
-                raise RuntimeError(f"kde launch: CUDA error {err}")
-
+        run = launcher(q, s, h, reduce)
+        S = run.splits
         print(f"  {label} Q={Q} M={M} T={T} d={D} {reduce}: S={S} row splits, grid "
               f"{-(-Q // TILE)} x {M} x {S}", flush=True)
         for cut, what in CUTS.items():

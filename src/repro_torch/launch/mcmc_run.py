@@ -4,6 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --seeds 0 1 2 --combiner all
     PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --combiner all --stream-every 120
     PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --model poisson --sampler gibbs
+    PYTHONPATH=src python -m repro_torch.launch.mcmc_run --device cpu --combiner all --stream-every 120 --serve
 
 The default spec is the paper's §8.1 logistic-regression experiment at full
 width (:data:`PAPER_SPEC`: n=50,000, d=50, M=10, T=1200, MALA, the
@@ -23,6 +24,14 @@ defaults, M=10, T=1200 and the same three combiners: :data:`LINEAR_SPEC`
 n=50,000, d=2, Gibbs over the latents) and :data:`GMM_SPEC` (§8.2, n=50,000,
 K=10 means in 2-d, d=20, random-walk MH, scored in logL2). ``--sampler`` and ``--n`` override
 the spec's sampler and dataset size, as in ``repro``'s CLI.
+
+``--serve`` runs the same Pipeline behind the :mod:`repro_torch.serve`
+posterior server (it needs ``--stream-every``): sampling streams chunks into
+the folder while ``--serve-readers`` concurrent TCP readers (and any external
+``repro_torch.serve.ServeClient`` on ``--serve-port``) query mean/cov,
+quantiles, predictive draws and the machine-KDE log density, with staleness
+metadata on every response; then the ordinary scoreboard is scored over the
+served draws. :data:`SERVE_SPEC` is the serving cell: ``STREAM_SPEC`` served.
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ ALL_SPEC = RunSpec(
     combiner_options={"weight_eval": "kernel", "n_batch": 16, "init_pool": 1000},
 )
 STREAM_SPEC = dataclasses.replace(ALL_SPEC, stream_every=120)
+# the posterior server's cell: STREAM_SPEC's fields, nothing cut
+SERVE_SPEC = STREAM_SPEC
 # the paper's other experiments, at repro's model defaults (n, d, sampler)
 LINEAR_SPEC = dataclasses.replace(PAPER_SPEC, model="linear", sampler=None)
 POISSON_SPEC = dataclasses.replace(PAPER_SPEC, model="poisson", sampler="gibbs")
@@ -101,6 +112,18 @@ def print_trajectory(sr) -> None:
               f"  [{row['elapsed_s']:.1f}s]")
 
 
+def build_spec(args: argparse.Namespace) -> RunSpec:
+    """The adapter: argparse namespace → the declarative RunSpec of the first
+    seed (:func:`spec_for` the combiners and model, then the overrides)."""
+    spec = dataclasses.replace(spec_for(args.combiner, args.model),
+                               stream_every=args.stream_every, seed=args.seeds[0])
+    if args.sampler is not None:
+        spec = dataclasses.replace(spec, sampler=args.sampler)
+    if args.n is not None:
+        spec = dataclasses.replace(spec, n=args.n)
+    return spec
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -120,21 +143,37 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="persist/resume the sampling stage here (chunked kernel state)")
     ap.add_argument("--checkpoint-every", type=int, default=0,
                     help="draws per sampling checkpoint (with --checkpoint-dir; 0 = at end)")
+    ap.add_argument(
+        "--serve", action="store_true",
+        help="posterior-as-a-service: run sampling behind a repro_torch.serve asyncio "
+        "server (needs --stream-every) and answer posterior queries while the chains "
+        "extend; composes with --checkpoint-dir (restart resumes from the last checkpoint)",
+    )
+    ap.add_argument("--serve-port", type=int, default=0,
+                    help="TCP port for --serve (0 = ephemeral, printed at startup)")
+    ap.add_argument(
+        "--serve-readers", type=int, default=4,
+        help="concurrent self-probe readers cycling posterior queries during --serve "
+        "(each asserts staleness counters monotone); 0 = serve without probing",
+    )
     args = ap.parse_args(argv)
     if args.checkpoint_dir is not None and len(args.seeds) > 1:
         # a checkpoint belongs to one spec, and the seed is part of it
         ap.error("--checkpoint-dir takes one seed (each seed is its own run to resume)")
-    base = dataclasses.replace(spec_for(args.combiner, args.model),
-                               stream_every=args.stream_every)
-    if args.sampler is not None:
-        base = dataclasses.replace(base, sampler=args.sampler)
-    if args.n is not None:
-        base = dataclasses.replace(base, n=args.n)
+    if args.serve and args.stream_every <= 0:
+        ap.error("--serve needs --stream-every > 0 (the serving cadence)")
+    base = build_spec(args)
     for seed in args.seeds:
         spec = dataclasses.replace(base, seed=seed)
         pipe = Pipeline(spec, device=args.device, checkpoint_dir=args.checkpoint_dir,
                         checkpoint_every=args.checkpoint_every)
-        if args.stream_every > 0:
+        if args.serve:
+            from repro_torch.serve import serve_pipeline
+
+            serve_pipeline(pipe, port=args.serve_port, probe_readers=args.serve_readers)
+            # sampling is complete (and cached on the Pipeline): fall through
+            # to the ordinary combine+score scoreboard over the served draws
+        elif args.stream_every > 0:
             print_trajectory(pipe.stream_combine())
         board = pipe.run()
         print(json.dumps({"seed": seed, "device": args.device or "cuda", **board.to_dict()}))

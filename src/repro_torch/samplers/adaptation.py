@@ -13,7 +13,7 @@ transition, update, new ε) is one transition of a
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,6 +55,50 @@ def da_update(
     return DualAveragingState(log_eps, log_eps_avg, h_avg, step, state.mu)
 
 
+class WarmupLoop:
+    """The dual-averaging warmup as a kept chain loop: one kernel built on a
+    ``(..., 1)`` step-size tensor the loop rewrites each transition, and the
+    :class:`~repro_torch.samplers.base.TransitionLoop` that runs it.
+
+    :meth:`run` resets the adaptation state and continues from the given
+    position, so one loop (on the card, one captured graph) serves every
+    warmup of chains of the same shape whose kernel reads the same tensors.
+    """
+
+    def __init__(self, factory: KernelFactory, batch: Tuple[int, ...],
+                 device: torch.device, *, target_accept: float = 0.8):
+        # the loop updates these in place
+        self.da = DualAveragingState(*(torch.zeros(batch, dtype=torch.float32, device=device)
+                                       for _ in DualAveragingState._fields))
+        self.eps = torch.empty(batch + (1,), dtype=torch.float32, device=device)
+        self.kernel = factory(self.eps)
+        self.target_accept = target_accept
+        self.loop: Optional[TransitionLoop] = None
+
+    def _adapt(self, info: StepInfo) -> None:
+        for dst, src in zip(self.da, da_update(self.da, info.accept_prob, self.target_accept)):
+            dst.copy_(src)
+        self.eps.copy_(torch.exp(self.da.log_eps).unsqueeze(-1))  # the next transition's ε
+
+    def run(self, gen: torch.Generator, position: torch.Tensor, num_steps: int,
+            initial_step_size: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``num_steps`` adapting transitions from ``position``:
+        ``(position, step_size (..., 1))``, the step each chain's average."""
+        for dst, src in zip(self.da, da_init(initial_step_size, tuple(self.eps.shape[:-1]),
+                                             self.eps.device)):
+            dst.copy_(src)
+        self.eps.copy_(torch.exp(self.da.log_eps).unsqueeze(-1))
+        state = self.kernel.init(position)
+        if self.loop is None:
+            self.loop = TransitionLoop(self.kernel, state, inner=self._adapt)
+        else:
+            self.loop.load(state)
+        for _ in range(num_steps):
+            self.loop.step(gen)
+        return (self.loop.state.position.clone(),
+                torch.exp(self.da.log_eps_avg).unsqueeze(-1))
+
+
 def warmup_chain(
     gen: torch.Generator,
     factory: KernelFactory,
@@ -69,20 +113,7 @@ def warmup_chain(
     Returns ``(kernel, position, step_size)`` with the kernel frozen at each
     chain's averaged ε, ``step_size`` shaped ``(..., 1)``.
     """
-    batch = position.shape[:-1]
-    # the loop updates these in place; da_init shares one zeros tensor
-    da = DualAveragingState(*(t.clone() for t in da_init(initial_step_size, batch,
-                                                          position.device)))
-    eps = torch.exp(da.log_eps).unsqueeze(-1)
-    kern = factory(eps)
-
-    def adapt(info: StepInfo) -> None:
-        for dst, src in zip(da, da_update(da, info.accept_prob, target_accept)):
-            dst.copy_(src)
-        eps.copy_(torch.exp(da.log_eps).unsqueeze(-1))  # the next transition's ε
-
-    loop = TransitionLoop(kern, kern.init(position), inner=adapt)
-    for _ in range(num_steps):
-        loop.step(gen)
-    step_size = torch.exp(da.log_eps_avg).unsqueeze(-1)
-    return factory(step_size), loop.state.position.clone(), step_size
+    warm = WarmupLoop(factory, tuple(position.shape[:-1]), position.device,
+                      target_accept=target_accept)
+    position, step_size = warm.run(gen, position, num_steps, initial_step_size)
+    return factory(step_size), position, step_size

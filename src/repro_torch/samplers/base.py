@@ -25,6 +25,7 @@ in the eager order, so both give the eager loop's draws.
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -32,6 +33,13 @@ import torch
 from repro_torch.kernels import LaunchTally
 
 LogDensityFn = Callable[[torch.Tensor], torch.Tensor]
+
+# Held by every capture of a transition. A CUDA graph capture fails, or
+# breaks another thread's launch, if another thread issues device work on
+# the default stream meanwhile; a thread that launches while another may be
+# capturing (the posterior server's folder and readers, beside its sampler
+# thread) holds this lock around its device work.
+CAPTURE_LOCK = threading.RLock()
 
 
 class MCMCKernel(NamedTuple):
@@ -99,7 +107,8 @@ class TransitionLoop:
     is captured into one CUDA graph, and it and every later transition are
     replays of that graph. A capture or replay error is raised; nothing
     falls back to eager steps. :class:`~repro_torch.kernels.LaunchTally`
-    keeps the kernels' launch counts exact across capture and replays.
+    keeps the kernels' launch counts exact across capture and replays, and
+    the capture holds :data:`CAPTURE_LOCK`.
     """
 
     def __init__(
@@ -157,7 +166,7 @@ class TransitionLoop:
             torch.cuda.current_stream().wait_stream(side)
         else:
             graph = torch.cuda.CUDAGraph()
-            with self.tally.capturing(), torch.cuda.graph(graph):
+            with CAPTURE_LOCK, self.tally.capturing(), torch.cuda.graph(graph):
                 self._transition(gen)
             self.graph = graph
             graph.replay()

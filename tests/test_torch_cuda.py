@@ -938,3 +938,87 @@ def test_lm_serving_path_on_card_matches_cpu(cuda_device):
                              device=cuda_device)
     state16 = steps.serve_prefill(card16, {"tokens": tok.to(cuda_device)}, 84)
     assert state16.logits.dtype == torch.bfloat16 and bool(torch.isfinite(state16.logits).all())
+
+
+def _logreg_backend(device, *, seed=0):
+    """A fresh chunk backend on logreg shards (M = 10, n = 10,000): its first
+    setup captures the warmup loop and its first chunk the collection loop."""
+    from repro_torch.api.backends import BatchedChunkBackend
+    from repro_torch.api.sampling import make_shard_kernel
+    from repro_torch.core.subposterior import partition_data
+    from repro_torch.models.bayes import get_model
+
+    model = get_model("logreg")
+    data, _ = model.generate_data(torch.Generator(device=device).manual_seed(seed), 10_000)
+    shards, counts = partition_data(data, 10, only=model.shard_keys, pad=True)
+    sk = make_shard_kernel(model, 10, "mala", use_counts=False)
+    return BatchedChunkBackend(sk, shards, counts, burn_in=20, warmup=30, step_size=0.1)
+
+
+def test_reader_launches_during_captures_keep_counts_exact(cuda_device):
+    """A reader thread launches the KDE kernel (under CAPTURE_LOCK, as the
+    posterior server's handlers do) in a loop while the sampler thread
+    builds and captures its warmup and collection loops and replays them:
+    no error on either thread, both loops captured, and every count exact:
+    the reader's launches all counted, none moved into the graphs' replays,
+    the likelihood once per init and transition."""
+    import threading
+
+    from repro_torch.samplers.base import CAPTURE_LOCK
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((1, 50), generator=gen, device=cuda_device)
+    s = 0.1 * torch.randn((10, 240, 50), generator=gen, device=cuda_device)
+    h = torch.full((10,), 0.05, device=cuda_device)
+    want = machine_kde_log_density(q, s, h, reduce="product", mixture_weights="uniform")
+    machine, lr = (kernels.KERNELS[n] for n in ("machine_kde_log_density",
+                                                   "logreg_loglik_grad"))
+    backend = _logreg_backend(cuda_device)
+    before = (machine.launches, lr.launches)
+    done, errors, reads = threading.Event(), [], []
+
+    def reader():
+        try:
+            while not done.is_set() or len(reads) < 50:
+                with CAPTURE_LOCK:
+                    out = machine_kde_log_density(q, s, h, reduce="product",
+                                                  mixture_weights="uniform")
+                    reads.append(bool(torch.equal(out, want)))
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    thread = threading.Thread(target=reader)
+    thread.start()
+    try:
+        theta, _ = backend.run_fused(torch.Generator(device=cuda_device).manual_seed(4), 60)
+        torch.cuda.synchronize()
+    finally:
+        done.set()
+        thread.join(timeout=120)
+    assert not thread.is_alive() and not errors, errors
+    assert all(reads) and len(reads) >= 50
+    assert all(loop.graph is not None for loop in backend.loops()) and len(backend.loops()) == 2
+    assert machine.launches - before[0] == len(reads)
+    assert lr.launches - before[1] == 2 + 30 + 20 + 60
+    assert bool(torch.isfinite(theta).all())
+
+
+def test_a_queued_chunk_is_not_overwritten_by_later_chunks(cuda_device):
+    """A chunk can wait in the server's queue while the chains run on: its
+    θ must not view a tensor that a later replay or the loop's state
+    overwrites. Each chunk kept (not copied) as it landed equals its rows of
+    the final draws, and does not share storage with the loop."""
+    from repro_torch.api import Pipeline, RunSpec
+
+    spec = RunSpec(model="logreg", sampler="mala", M=4, T=200, warmup=30, n=2000,
+                   groundtruth_T=100, seed=0, stream_every=40, combiner="parametric")
+    pipe = Pipeline(spec, device=cuda_device)
+    landed = []
+    draws = pipe.sample(on_chunk=(landed.append,))
+    torch.cuda.synchronize()
+    assert [(ev.t0, ev.t1) for ev in landed] == [(t, t + 40) for t in range(0, 200, 40)]
+    for ev in landed:
+        assert torch.equal(ev.theta, draws.theta[:, ev.t0:ev.t1]), (ev.t0, ev.t1)
+    ptrs = {ev.theta.untyped_storage().data_ptr() for ev in landed}
+    assert len(ptrs) == len(landed)  # one fresh tensor a chunk
+    assert draws.theta.untyped_storage().data_ptr() not in ptrs

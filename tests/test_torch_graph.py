@@ -8,6 +8,9 @@ inflate and each replay raises. The graphed chains themselves are held
 against an eager loop on the card (``tests/test_torch_cuda.py``).
 """
 
+import sys
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +22,7 @@ from repro.samplers.mala import mala_kernel as jax_mala
 from repro_torch.api.backends import BatchedChunkBackend
 from repro_torch.api.sampling import make_shard_kernel
 from repro_torch.core.subposterior import partition_data
-from repro_torch.kernels import KERNELS, LaunchTally
+from repro_torch.kernels import KERNELS, Kernel, LaunchTally
 from repro_torch.models.bayes import get_model
 from repro_torch.samplers import (
     chain_collect,
@@ -198,22 +201,24 @@ def test_a_kernel_without_draw_runs_on_the_cpu_and_draws_in_its_step():
     assert torch.equal(a, b)
 
 
-class _FakeKernel:
-    def __init__(self, routes=()):
-        self.launches = 0
-        self.route_launches = {r: 0 for r in routes}
+def _kernels(**routes):
+    """Stand-in kernels (never built), by name, with their routes."""
+    ks = {name: Kernel(name, f"{name}.cu", replaces="") for name in routes}
+    for name, rs in routes.items():
+        ks[name].route_launches.update({r: 0 for r in rs})
+    return ks
 
 
 def test_launch_tally_discards_capture_and_adds_per_replay():
-    """What wrappers count during a capture is taken back and kept as the
-    graph's; each replay adds it, launches and launches by route alike."""
-    ks = {"a": _FakeKernel(), "b": _FakeKernel(("tc", "fma"))}
+    """What wrappers count during a capture is kept apart as the graph's;
+    each replay adds it, launches and launches by route alike."""
+    ks = _kernels(a=(), b=("tc", "fma"))
     ks["a"].launches, ks["b"].launches, ks["b"].route_launches["fma"] = 7, 3, 3
     tally = LaunchTally(ks)
     with tally.capturing():
-        ks["a"].launches += 2  # two launches of a in the captured transition
-        ks["b"].launches += 1
-        ks["b"].route_launches["tc"] += 1
+        ks["a"].count_launch()  # two launches of a in the captured transition
+        ks["a"].count_launch()
+        ks["b"].count_launch("tc")
     assert ks["a"].launches == 7 and ks["b"].launches == 3
     assert ks["b"].route_launches == {"tc": 0, "fma": 3}
     for _ in range(3):
@@ -223,13 +228,15 @@ def test_launch_tally_discards_capture_and_adds_per_replay():
 
 
 def test_launch_tally_takes_back_a_failed_capture():
-    ks = {"a": _FakeKernel()}
+    ks = _kernels(a=())
     tally = LaunchTally(ks)
     with pytest.raises(RuntimeError):
         with tally.capturing():
-            ks["a"].launches += 1
+            ks["a"].count_launch()
             raise RuntimeError("capture failed")
     assert ks["a"].launches == 0
+    ks["a"].count_launch()  # the thread counts as usual after the capture
+    assert ks["a"].launches == 1
 
 
 def test_launch_tally_defaults_to_the_ports_kernels():
@@ -237,11 +244,41 @@ def test_launch_tally_defaults_to_the_ports_kernels():
     assert tally.kernels is KERNELS
     before = {n: k.launches for n, k in KERNELS.items()}
     with tally.capturing():
-        KERNELS["logreg_loglik_grad"].launches += 1
+        KERNELS["logreg_loglik_grad"].count_launch()
     assert {n: k.launches for n, k in KERNELS.items()} == before
     tally.replay()
     assert KERNELS["logreg_loglik_grad"].launches == before["logreg_loglik_grad"] + 1
     KERNELS["logreg_loglik_grad"].launches -= 1
+
+
+def test_other_threads_count_during_a_capture():
+    """A capture tallies its own thread's launches only: launches that other
+    threads count meanwhile (a server's readers beside its sampler) land in
+    the shared counts, none lost, none moved into the graph's replays. Many
+    threads at a short switch interval raise one kernel's count at once."""
+    ks = _kernels(a=("r",), b=())
+    tally = LaunchTally(ks)
+    n_threads, n_each = 16, 2000
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with tally.capturing():
+            ks["b"].count_launch()  # the capturing thread's own launch
+            threads = [threading.Thread(target=lambda: [ks["a"].count_launch("r")
+                                                        for _ in range(n_each)])
+                       for _ in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    assert ks["a"].launches == n_threads * n_each
+    assert ks["a"].route_launches == {"r": n_threads * n_each}
+    assert ks["b"].launches == 0 and tally.launches == {"b": 1}
+    tally.replay()
+    assert ks["b"].launches == 1 and ks["a"].launches == n_threads * n_each
 
 
 def test_chunk_backend_keeps_one_collection_loop_across_chunks():

@@ -15,6 +15,7 @@
 """
 
 import dataclasses
+import math
 
 import jax
 import numpy as np
@@ -211,3 +212,17 @@ def test_cli_model_sampler_and_n_resolve_to_the_specs(monkeypatch):
     monkeypatch.setattr(mcmc_run, "Pipeline", Recorder)
     mcmc_run.main(["--device", "cpu", "--model", "poisson", "--sampler", "rwmh", "--n", "2000"])
     assert seen[-1] == dataclasses.replace(mcmc_run.POISSON_SPEC, sampler="rwmh", n=2000)
+
+
+def test_quickstart_on_cpu(capsys):
+    """``python -m repro_torch.launch.quickstart --device cpu`` at a small T:
+    the four combiners graded against the closed-form posterior mean (each
+    within 0.2 of it; 0.01–0.05 at this seed), then the scoreboard."""
+    from repro_torch.launch import quickstart
+
+    out = quickstart.main(["--device", "cpu", "--T", "200"])
+    assert set(out["mean_errors"]) == set(quickstart.SPEC.combiner_names())
+    assert all(err < 0.2 for err in out["mean_errors"].values()), out
+    assert all(math.isfinite(err) for err in out["errors"].values()), out
+    text = capsys.readouterr().out
+    assert "true posterior mean" in text and "logL2(parametric" in text
