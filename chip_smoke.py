@@ -88,6 +88,21 @@ a non-zero exit:
               each L2 (logL2 for the GMM) inside its band from the port's CPU
               runs, MMD² beside it (as in 4b), and for ``linear`` the
               parametric mean against the closed-form posterior mean;
+4h. mesh    — multi-device EP-MCMC on one card, two chain groups on two
+              streams of cuda:0 (an explicit device list naming it twice):
+              (a) ``Pipeline(PAPER_SPEC, mesh_shape=(2, 1))``: θ bitwise
+              phase 4's, its errors exactly, the likelihood 2 x 1,602 (a
+              group's G = 5 chains) + 4,868 (the groundtruth) + the
+              chain-group check's eager transitions; (b) ``STREAM_SPEC``
+              on the groups, fused (finals, trajectory and combine-stage
+              launches 4c's), then chunked with a checkpoint every 120
+              draws, interrupted and resumed bitwise; (c) 4g's eight cells
+              through ``run_matrix(backend="mesh_fanout")``, every row 4g's;
+              (d) ``python -m repro_torch.api.launch`` in 1 and 2 processes
+              on cuda:0 (a ``TCPStore`` on a free local port), logreg/MALA
+              and Poisson/Gibbs: the 2-process ``online`` samples bitwise the
+              1-process ones, each rank's bytes through the store exactly
+              its moments and acceptance rates; the walls of every part;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
@@ -676,6 +691,258 @@ def check_new_transitions(dev):
               f"{' and ε' if backend.adapts else ''} bitwise the eager loop's{extra}", flush=True)
         del data, shards, backend, state, theta, state_e, theta_e
     torch.cuda.empty_cache()
+
+
+# each launch process's time limit; the store waits half of it for a rank
+LAUNCH_TIMEOUT_S = 300
+
+
+def launch_ranks(root: str, args, nproc: int, out_dir: str):
+    """``python -m repro_torch.api.launch`` as ``nproc`` processes on cuda:0
+    (their store on a free local port): the records, one a rank."""
+    import socket
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.api.launch", "--device", "cuda:0", *args,
+           "--timeout", str(LAUNCH_TIMEOUT_S // 2)]
+    if nproc > 1:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        cmd += ["--coordinator", f"localhost:{port}", "--num-processes", str(nproc)]
+    files = [os.path.join(out_dir, f"{nproc}-rank{r}.json") for r in range(nproc)]
+    logs = [open(os.path.join(out_dir, f"{nproc}-rank{r}.err"), "w") for r in range(nproc)]
+    procs = [subprocess.Popen(cmd + ["--process-id", str(r), "--json", files[r]],
+                              stdout=subprocess.DEVNULL, stderr=logs[r], env=env)
+             for r in range(nproc)]
+    try:
+        for r, proc in enumerate(procs):
+            proc.wait(timeout=LAUNCH_TIMEOUT_S)
+            if proc.returncode != 0:
+                logs[r].flush()
+                with open(logs[r].name) as f:
+                    raise AssertionError(f"launch rank {r} of {nproc} exited {proc.returncode}:"
+                                         f"\n{f.read()[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    records = []
+    for f in files:
+        with open(f) as fh:
+            records.append(json.load(fh))
+    return records
+
+
+def npz_bytes(*shapes) -> int:
+    """The size of ``numpy.savez`` of float32 zeros of these shapes, leaves
+    named as the launch names them: a rank's payload in the store."""
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, **{f"a{i:03d}": np.zeros(s, np.float32) for i, s in enumerate(shapes)})
+    return len(buf.getvalue())
+
+
+def multi_device_phase(dev, kernels, img_kernel, online_kernel, *, paper_theta, paper_errors,
+                       paper_timings, paper_lr, sample_lr, paper_img, stream_sr, stream_theta,
+                       stream_sub, launches_stream, stream_img, n_chunks, cells, mres):
+    """Phase 4h: multi-device EP-MCMC on one card. Two chain groups on two
+    streams of cuda:0 (the counterpart of a forced host device count): (a)
+    the paper's pipeline, (b) the fused stream and an interrupted,
+    checkpointed chunked run, (c) the 8-cell sweep fanned out, (d) the launch
+    in 1 and 2 processes. Returns the launches of (a) and (b) and the walls."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.api import Pipeline, run_matrix
+    from repro_torch.api.backends import CHECK_TRANSITIONS
+    from repro_torch.launch.mcmc_run import PAPER_SPEC, POISSON_SPEC, STREAM_SPEC
+
+    phase("4h multi-device on one card: two chain groups on two streams of cuda:0, "
+          "mesh_fanout, the launch over a TCPStore")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"  {smi}", flush=True)
+    two, walls = (dev, dev), {}
+    gt_lr = paper_lr - sample_lr
+
+    # (a) the paper's pipeline on two groups of five chains
+    spec_a = dataclasses.replace(PAPER_SPEC, mesh_shape=(2, 1))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pipe = Pipeline(spec_a, devices=two)
+    board = pipe.run()
+    torch.cuda.synchronize()
+    walls["a"] = time.perf_counter() - t0
+    launches_a, routes_a = kernels.launch_counts(), dict(img_kernel.route_launches)
+    draws = pipe.sample()
+    print(board.table(), flush=True)
+    print(f"  (a) backend={board.backend} collectives_checked={board.collectives_checked} "
+          f"wall_s={walls['a']:.3f} timings_s={json.dumps(board.timings)}", flush=True)
+    print(f"  (a) launches={json.dumps(launches_a)}", flush=True)
+    print(f"  (a) sample_s on two groups {board.timings['sample_s']:.4f} s against phase 4's "
+          f"one group {paper_timings['sample_s']:.4f} s (two groups on one card: no speed-up "
+          "expected)", flush=True)
+    if draws.backend != "mesh[cuda](2 devices)" or not board.collectives_checked:
+        raise AssertionError(f"(a) backend {draws.backend}, checked {board.collectives_checked}")
+    if not torch.equal(draws.theta, paper_theta):
+        raise AssertionError("(a) the mesh's θ differs from phase 4's: max |diff| "
+                             f"{float((draws.theta - paper_theta).abs().max())}")
+    if board.errors != paper_errors:
+        raise AssertionError(f"(a) errors {board.errors}, phase 4 {paper_errors}")
+    want_lr = 2 * sample_lr + gt_lr + 2 * CHECK_TRANSITIONS
+    if launches_a["logreg_loglik_grad"] != want_lr:
+        raise AssertionError(f"(a) logreg_loglik_grad launched "
+                             f"{launches_a['logreg_loglik_grad']} times, expected {want_lr}")
+    if routes_a != paper_img or launches_a["flash_attention"] != 0:
+        raise AssertionError(f"(a) img_log_weights by route {routes_a}, phase 4 {paper_img}")
+    print(f"  (a) θ bitwise phase 4's, every error equal; logreg_loglik_grad {want_lr} = 2 x "
+          f"{sample_lr} (each group's chains, G = 5) + {gt_lr} (the groundtruth chain, one "
+          f"device) + 2 x {CHECK_TRANSITIONS} (the chain-group check's eager transitions)",
+          flush=True)
+    del pipe, draws
+
+    # (b) the fused stream on the groups, then chunked with checkpoints
+    spec_b = dataclasses.replace(STREAM_SPEC, mesh_shape=(2, 1))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pipe = Pipeline(spec_b, devices=two)
+    srm = pipe.stream_combine()
+    board = pipe.run()
+    torch.cuda.synchronize()
+    walls["b_fused"] = time.perf_counter() - t0
+    launches_b = kernels.launch_counts()
+    routes_b, online_b = dict(img_kernel.route_launches), dict(online_kernel.route_launches)
+    theta_b = pipe.sample()
+    print(f"  (b) fused: backend={theta_b.backend} wall_s={walls['b_fused']:.3f} "
+          f"timings_s={json.dumps(board.timings)}", flush=True)
+    print(f"  (b) fused: launches={json.dumps(launches_b)}", flush=True)
+    if theta_b.backend != "mesh[cuda,fused](2 devices)":
+        raise AssertionError(f"(b) backend {theta_b.backend}")
+    if not torch.equal(theta_b.theta, stream_theta):
+        raise AssertionError("(b) the fused mesh stream's θ differs from 4c's")
+    for name in STREAM_SPEC.combiner_names():
+        if not torch.equal(srm.combined[name].samples, stream_sr.combined[name].samples):
+            raise AssertionError(f"(b) final {name} differs from 4c's")
+    if [(r["t"], r["combiner"], r["error"]) for r in srm.trajectory] != \
+            [(r["t"], r["combiner"], r["error"]) for r in stream_sr.trajectory]:
+        raise AssertionError("(b) trajectory differs from 4c's")
+    for name in ("img_log_weights", "machine_kde_log_density", "kde_log_density",
+                 "online_update", "flash_attention"):
+        if launches_b[name] != launches_stream[name]:
+            raise AssertionError(f"(b) {name} launched {launches_b[name]} times, 4c "
+                                 f"{launches_stream[name]}")
+    if routes_b != stream_img or online_b != {"whole": n_chunks, "slab": 0}:
+        raise AssertionError(f"(b) routes {routes_b} / {online_b}, 4c {stream_img}")
+    want_lr_b = launches_stream["logreg_loglik_grad"] + sample_lr + 2 * CHECK_TRANSITIONS
+    if launches_b["logreg_loglik_grad"] != want_lr_b:
+        raise AssertionError(f"(b) logreg_loglik_grad {launches_b['logreg_loglik_grad']}, "
+                             f"expected {want_lr_b}")
+    print(f"  (b) fused: θ, the {len(srm.combined)} finals and the {len(srm.trajectory)} "
+          f"trajectory rows equal 4c's; combine-stage launches as 4c's (img_log_weights "
+          f"{json.dumps(routes_b)}, machine_kde_log_density "
+          f"{launches_b['machine_kde_log_density']}, online_update {json.dumps(online_b)})",
+          flush=True)
+    del pipe, srm
+    every = STREAM_SPEC.stream_every
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        part = Pipeline(spec_b, devices=two, checkpoint_dir=ckpt,
+                        checkpoint_every=every).stream_combine(max_steps=STREAM_SPEC.T // 2,
+                                                               score=False)
+        pipe = Pipeline(spec_b, devices=two, checkpoint_dir=ckpt, checkpoint_every=every)
+        full = pipe.stream_combine(score=False)
+        torch.cuda.synchronize()
+        walls["b_resume"] = time.perf_counter() - t0
+        resumed = pipe.sample()
+    print(f"  (b) chunked: first session {part.t_done}/{part.total} complete={part.complete}, "
+          f"second {full.t_done}/{full.total} complete={full.complete} "
+          f"backend={resumed.backend} wall_s={walls['b_resume']:.3f}", flush=True)
+    if part.complete or part.t_done != STREAM_SPEC.T // 2 or not full.complete or \
+            resumed.backend != "mesh[cuda,resumable](2 devices)":
+        raise AssertionError("(b) the interrupted mesh run did not stop at max_steps and finish")
+    if not torch.equal(resumed.theta, stream_theta):
+        raise AssertionError("(b) the resumed mesh run's θ differs from the run without a break")
+    for name in STREAM_SPEC.combiner_names():
+        if not torch.equal(full.combined[name].samples, stream_sub.combined[name].samples):
+            raise AssertionError(f"(b) resumed final {name} differs from 4c's subscriber run")
+    print("  (b) chunked: resumed θ bitwise the run without a break (4c's); finals bitwise "
+          "4c's subscriber run", flush=True)
+    del pipe, resumed, full, part
+
+    # (c) the 8-cell sweep dealt out over the two streams
+    t0 = time.perf_counter()
+    mres_f = run_matrix(cells, backend="mesh_fanout", devices=two)
+    torch.cuda.synchronize()
+    walls["c"] = time.perf_counter() - t0
+    print(mres_f.table(), flush=True)
+    same = [(a["spec_id"], a["combiner"], a["accept"]) == (b["spec_id"], b["combiner"],
+                                                            b["accept"])
+            and (a["error"] == b["error"] or (math.isnan(a["error"])
+                                              and math.isnan(b["error"])))
+            for a, b in zip(mres.rows, mres_f.rows)]
+    if len(mres_f.rows) != len(mres.rows) or not all(same):
+        raise AssertionError(f"(c) fan-out rows differ from 4g's: {same}")
+    if mres_f.backend != "mesh_fanout[cuda](2 devices)" or mres_f.n_executables != 2 or \
+            not mres_f.collectives_checked:
+        raise AssertionError(f"(c) {mres_f.backend}, {mres_f.n_executables} fans, checked "
+                             f"{mres_f.collectives_checked}")
+    print(f"  (c) {len(mres_f.rows)} rows equal 4g's (error and acceptance); "
+          f"{mres_f.n_executables} fans, {mres_f.n_graphs} graphs, collectives_checked="
+          f"{mres_f.collectives_checked}; wall_s={walls['c']:.3f} (4g's batched sweep beside "
+          "it in that phase)", flush=True)
+
+    # (d) the launch: 1 and then 2 processes on cuda:0
+    root = os.path.dirname(os.path.realpath(__file__))
+    for label, spec in (("PAPER_SPEC", PAPER_SPEC), ("POISSON_SPEC", POISSON_SPEC)):
+        args = ["--model", spec.model, "--sampler", spec.resolved_sampler(), "--combiner",
+                "online", "--M", str(spec.M), "--T", str(spec.T), "--warmup", str(spec.warmup),
+                "--step", str(spec.step_size), "--n", str(spec.n), "--seed", str(spec.seed),
+                "--stream-every", "120"]
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            (one,) = launch_ranks(root, args, 1, out)
+            walls[f"d_{label}_1"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ranks = launch_ranks(root, args, 2, out)
+            walls[f"d_{label}_2"] = time.perf_counter() - t0
+        d = len(one["combined"]["online"]["mean"])
+        per = spec.M // 2
+        want_bytes = npz_bytes((per,), (per, d), (per, d, d)) + npz_bytes((per,))
+        for r, rec in enumerate(ranks):
+            print(f"  (d) {label} {spec.model}/{spec.resolved_sampler()} rank {r} of 2: "
+                  f"wall_s={rec['wall_s']:.3f} store_bytes={rec['store_bytes']} (its draws "
+                  f"{4 * per * spec.T * d} bytes)", flush=True)
+        print(f"  (d) {label} 1 process: wall_s={one['wall_s']:.3f}; processes' walls "
+              f"{walls[f'd_{label}_1']:.3f} s and {walls[f'd_{label}_2']:.3f} s", flush=True)
+        if one["backend"] != "torch.distributed(1 processes)" or \
+                {r["backend"] for r in ranks} != {"torch.distributed(2 processes)"}:
+            raise AssertionError(f"(d) {label} backends {one['backend']}, "
+                                 f"{[r['backend'] for r in ranks]}")
+        if {r["spec_id"] for r in ranks} != {one["spec_id"]}:
+            raise AssertionError(f"(d) {label} spec ids differ")
+        for r, rec in enumerate(ranks):
+            if rec["combined"]["online"]["samples"] != one["combined"]["online"]["samples"] or \
+                    rec["combined"]["online"]["mean"] != one["combined"]["online"]["mean"]:
+                raise AssertionError(f"(d) {label} rank {r}'s online samples differ from the "
+                                     "1-process run's")
+            if rec["store_bytes"] != want_bytes:
+                raise AssertionError(f"(d) {label} rank {r} put {rec['store_bytes']} bytes, "
+                                     f"its moments and acceptance rates are {want_bytes}")
+        print(f"  (d) {label}: both ranks' online samples bitwise the 1-process run's; each "
+              f"rank put {want_bytes} bytes (count, mean, m2 of {per} chains at d = {d} and "
+              "their acceptance rates; no shape holds T)", flush=True)
+    print(f"  4h walls: {json.dumps(walls)}", flush=True)
+    return launches_a, launches_b, walls
 
 
 def main() -> int:
@@ -1289,9 +1556,12 @@ def main() -> int:
     phase("4 main path: Pipeline(PAPER_SPEC).run() on the card")
     print(f"  spec {PAPER_SPEC.to_json()}", flush=True)
     kernels.reset_launches()
-    board = Pipeline(PAPER_SPEC).run()
+    pipe_paper = Pipeline(PAPER_SPEC)
+    board = pipe_paper.run()
     torch.cuda.synchronize()
     launches_paper = kernels.launch_counts()
+    paper_theta, paper_timings = pipe_paper.sample().theta, dict(board.timings)
+    del pipe_paper
     print(board.table(), flush=True)
     print(f"  accept={board.accept:.4f} timings_s={json.dumps(board.timings)}", flush=True)
     print(f"  launches={json.dumps(launches_paper)}", flush=True)
@@ -1314,6 +1584,7 @@ def main() -> int:
     # route serves weierstrass's final states only
     img_routes = {"paper": dict(img_kernel.route_launches)}
     check_img_routes("PAPER_SPEC", img_routes["paper"], generic=0, sweep=img_sweeps(PAPER_SPEC))
+    sample_lr = 2 + PAPER_SPEC.warmup + PAPER_SPEC.resolved_burn_in() + PAPER_SPEC.T
     check_bands(board, CPU_LOGL2)
     paper_errors = dict(board.errors)
 
@@ -1876,6 +2147,14 @@ def main() -> int:
     del gt_all, all_pipe
     torch.cuda.empty_cache()
 
+    launches_mesh, launches_mesh_stream, mesh_walls = multi_device_phase(
+        dev, kernels, img_kernel, online_kernel, paper_theta=paper_theta,
+        paper_errors=paper_errors, paper_timings=paper_timings, paper_lr=want_lr,
+        sample_lr=sample_lr, paper_img=img_routes["paper"], stream_sr=sr,
+        stream_theta=fused.theta, stream_sub=sub, launches_stream=launches_stream,
+        stream_img=img_routes["stream"], n_chunks=n_chunks, cells=cells, mres=mres)
+    torch.cuda.empty_cache()
+
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
 
@@ -2227,6 +2506,8 @@ def main() -> int:
             "launches_by_path": {"paper": launches_paper[name], "all": launches[name],
                                  "stream": launches_stream[name], "serve": launches_serve[name],
                                  "posterior_serve": launches_post[name],
+                                 "mesh_paper": launches_mesh[name],
+                                 "mesh_stream": launches_mesh_stream[name],
                                  **{label: o["launches"][name] for label, o in other.items()}},
         }
         if name in err32:

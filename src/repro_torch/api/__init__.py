@@ -21,8 +21,21 @@ A sweep of specs (:func:`run_matrix`, one set of chain loops a signature)::
 
     res = run_matrix(spec.sweep(seed=range(4)), device="cpu")
     print(res.table())
+
+Chains split over devices (``mesh_shape``; one CUDA device a group unless
+``devices`` names them, a device may repeat), the same draws bit for bit::
+
+    Pipeline(dataclasses.replace(spec, mesh_shape=(2, 1)), devices=("cuda:0", "cuda:1")).run()
+
+and over processes, ``python -m repro_torch.api.launch`` (:func:`run_launch`).
 """
 
+from repro_torch.api.backends import (  # noqa: F401
+    BackendId,
+    MeshChunkBackend,
+    get_chunk_backend,
+    resolve_mesh_devices,
+)
 from repro_torch.api.pipeline import (  # noqa: F401
     LOG_L2_DIM,
     Pipeline,
@@ -31,6 +44,7 @@ from repro_torch.api.pipeline import (  # noqa: F401
     StreamResult,
     StreamSetup,
     SubposteriorDraws,
+    combine_draws,
     combine_spec_draws,
 )
 from repro_torch.api.resumable import (  # noqa: F401
@@ -55,4 +69,8 @@ def __getattr__(name):
         from repro_torch.api import matrix
 
         return getattr(matrix, name)
+    if name in ("run_launch", "LAUNCHABLE_COMBINERS"):
+        from repro_torch.api import launch
+
+        return getattr(launch, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

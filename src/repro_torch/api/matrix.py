@@ -21,9 +21,17 @@ port's counterpart is **one set of chain loops a signature**:
 
 RNG discipline as :class:`~repro_torch.api.Pipeline`'s (data, sampling,
 groundtruth and per-combiner streams from the seed), so a cell's scoreboard
-is a standalone Pipeline's for the same spec. ``backend="mesh_fanout"``
-(cells fanned out over devices) is ROADMAP Queue 1 item 9, and a spec with a
-``mesh_shape`` is refused, as in the reference.
+is a standalone Pipeline's for the same spec. A spec with a ``mesh_shape``
+is refused, as in the reference.
+
+``backend="mesh_fanout"`` deals the sampling stage of independent cells out
+over devices (:func:`_fanout_sample`): the cells of one signature are
+stacked in order, padded to a multiple of the device count by repeating the
+last, and device k runs its contiguous share through one set of chain loops
+of that signature, on a stream of its own; each fan is held to the
+chain-group check. The cells draw from their own generators at their own
+width, so the rows are the batched sweep's, bit for bit. Groundtruth chains,
+combine and score stay on the sweep's device.
 
 CLI::
 
@@ -44,7 +52,12 @@ from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.api.backends import BackendId, BatchedChunkBackend
+from repro_torch.api.backends import (
+    BackendId,
+    BatchedChunkBackend,
+    GroupStreams,
+    resolve_mesh_devices,
+)
 from repro_torch.api.pipeline import (
     combine_spec_draws,
     groundtruth_step_size,
@@ -71,6 +84,8 @@ class MatrixResult(NamedTuple):
     signatures: Dict[str, int]  # repr(signature) -> specs served
     backend: str = "batched"  # BackendId string of the sampling executor
     n_graphs: int = 0  # CUDA graphs captured by those loops (0 off the card)
+    # operators the fans' chain-group checks watched (None: no fan)
+    collectives_checked: Optional[int] = None
 
     def table(self) -> str:
         head = f"{'spec_id':12s} {'model':8s} {'sampler':8s} {'combiner':16s} " \
@@ -103,6 +118,7 @@ class ExecutableCache:
     def __init__(self):
         self.sample: Dict[Signature, BatchedChunkBackend] = {}
         self.groundtruth: Dict[Signature, BatchedChunkBackend] = {}
+        self.fan: Dict[Tuple[Signature, int], BatchedChunkBackend] = {}  # (sig, slot)
 
     @staticmethod
     def _backend(cache, sig, model, num_shards, spec, use_counts, shards, counts, *,
@@ -139,9 +155,18 @@ class ExecutableCache:
                              False, one, counts, burn_in=spec.groundtruth_T // 6,
                              step_size=groundtruth_step_size(spec))
 
+    def fan_backend(self, sig: Signature, slot: int, device: torch.device, spec: RunSpec,
+                    model, padded: bool, shards, counts: torch.Tensor) -> BatchedChunkBackend:
+        """Fan slot ``slot``'s backend of ``spec``'s sampling signature, on
+        ``device``, loaded with ``shards`` (moved there)."""
+        rows = {k: v.to(device) for k, v in shards.items()}
+        return self._backend(self.fan, (sig, slot), model, spec.M, spec, padded, rows,
+                             counts.to(device), burn_in=spec.resolved_burn_in(),
+                             step_size=spec.step_size)
+
     def n_graphs(self) -> int:
         return sum(loop.graph is not None
-                   for cache in (self.sample, self.groundtruth)
+                   for cache in (self.sample, self.groundtruth, self.fan)
                    for backend in cache.values() for loop in backend.loops())
 
 
@@ -157,6 +182,91 @@ def _partitioned(spec: RunSpec, model, device, part_cache: Dict[Tuple, Tuple]):
     return part_cache[part_key]
 
 
+def _fanout_devices(devices, device: torch.device) -> Tuple[torch.device, ...]:
+    """The fan's devices: ``devices`` as given (a device may repeat), else
+    every visible CUDA device; fewer than 2 raises."""
+    if devices is None:
+        count = torch.cuda.device_count() if device.type == "cuda" else 0
+        if count < 2:
+            raise ValueError(
+                f"run_matrix(backend='mesh_fanout') needs >= 2 devices and {count} "
+                f"{device.type} devices are visible; pass devices= (a device may repeat) "
+                "or use backend='batched'")
+        return tuple(torch.device("cuda", i) for i in range(count))
+    devs = resolve_mesh_devices((len(tuple(devices)), 1), devices, device)
+    if len(devs) < 2:
+        raise ValueError("run_matrix(backend='mesh_fanout') needs >= 2 devices")
+    return devs
+
+
+def _fanout_sample(
+    specs: List[RunSpec],
+    execs: ExecutableCache,
+    part_cache: Dict[Tuple, Tuple],
+    draws_cache: Dict[Tuple, Tuple],
+    devices: Tuple[torch.device, ...],
+    device: torch.device,
+    *,
+    verbose: bool = False,
+) -> Tuple[int, int]:
+    """The mesh_fanout prepass: fill ``draws_cache`` for every distinct draw
+    cell, a fan (one set of chain loops on each device) a signature.
+
+    Cells of a signature (distinct seed or step) are stacked in order and
+    padded to a multiple of the device count with the last; device k runs
+    the k-th contiguous share, each cell setup and one chunk of T from the
+    cell's own generator, on the device's own stream. Every fan's first
+    cells are held to the chain-group check before their chunks run.
+    Returns ``(fans, operators checked)``.
+    """
+    ndev = len(devices)
+    groups: Dict[Signature, List[Tuple]] = {}
+    pending: set = set()
+    for spec in specs:
+        model = get_model(spec.model)
+        _, shards, counts = _partitioned(spec, model, device, part_cache)
+        padded = is_padded(model, shards, counts, spec.resolved_sampler())
+        sig = spec.executable_signature() + (padded,)
+        draws_key = (sig, spec.seed, spec.step_size)
+        if draws_key in draws_cache or draws_key in pending:
+            continue
+        pending.add(draws_key)
+        groups.setdefault(sig, []).append((draws_key, spec, model, padded, shards, counts))
+
+    lanes = GroupStreams(devices, device)
+    checked = 0
+    for sig, cells in groups.items():
+        per = -(-len(cells) // ndev)
+        padded_cells = cells + [cells[-1]] * (per * ndev - len(cells))
+        shares = [padded_cells[k * per:(k + 1) * per] for k in range(ndev)]
+        results: List[List[Tuple]] = [[] for _ in range(ndev)]
+        for i in range(per):
+            cell = [share[i] for share in shares]
+
+            def start(k, draws_key, spec, model, padded, shards, counts):
+                b = execs.fan_backend(sig, k, devices[k], spec, model, padded, shards, counts)
+                gen = stream_generator(spec.seed, "sample", devices[k])
+                state, eps = b.setup(gen)
+                return b, gen, state, eps
+
+            started = lanes.run([lambda k=k, c=c: start(k, *c) for k, c in enumerate(cell)])
+            backends, gens, states, eps = zip(*started)
+            if i == 0:  # the fan's check: one eager chunk of every slot
+                checked += lanes.check(backends, states, eps)
+            chunks = lanes.run([lambda b=b, gen=gen, st=st, e=e, T=c[1].T:
+                                b.next_chunk(gen, e, st, T)
+                                for b, gen, st, e, c in zip(backends, gens, states, eps, cell)])
+            for k, ((_, theta, accept_sum), c) in enumerate(zip(chunks, cell)):
+                results[k].append((c[0], theta.to(device), accept_sum.to(device), c[1].T))
+        for share in results:
+            for draws_key, theta, accept_sum, T in share:
+                draws_cache[draws_key] = (theta, accept_sum / T)
+        if verbose:
+            print(f"# fanout: {len(cells)} cell(s) of signature {cells[0][1].spec_id}-group "
+                  f"over {ndev} devices (padded to {per * ndev})", flush=True)
+    return len(groups), checked
+
+
 def run_matrix(
     specs: Iterable[RunSpec],
     *,
@@ -164,17 +274,19 @@ def run_matrix(
     verbose: bool = False,
     backend: str = "batched",
     device: str | torch.device | None = None,
+    devices=None,
 ) -> MatrixResult:
     """Execute every spec; build one set of chain loops a signature; return
-    tidy rows (see the module docstring). ``device``: ``cuda`` unless given."""
-    if backend == "mesh_fanout":
-        raise NotImplementedError(
-            "run_matrix(backend='mesh_fanout') fans cells out over devices: the port's "
-            "multi-device backends are ROADMAP Queue 1 item 9"
-        )
+    tidy rows (see the module docstring). ``device``: ``cuda`` unless given.
+    ``backend="mesh_fanout"`` deals the cells' sampling over ``devices``
+    (default: every visible CUDA device; fewer than 2 raises)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown run_matrix backend {backend!r} — expected one of {BACKENDS}")
     device = resolve_device(device)
+    fan_devices = _fanout_devices(devices, device) if backend == "mesh_fanout" else None
+    if devices is not None and fan_devices is None:
+        raise ValueError("devices= deals cells out over devices: it needs "
+                         "backend='mesh_fanout'")
     specs = [s.validate() for s in specs]
     for spec in specs:
         if spec.mesh_shape is not None:
@@ -188,6 +300,10 @@ def run_matrix(
     part_cache: Dict[Tuple, Tuple] = {}  # (model, n, seed, M) -> stage inputs
     rows: List[Dict[str, Any]] = []
     signatures: Dict[str, int] = {}
+    n_fans = n_checked = None
+    if fan_devices is not None:
+        n_fans, n_checked = _fanout_sample(specs, execs, part_cache, draws_cache, fan_devices,
+                                           device, verbose=verbose)
 
     for spec in specs:
         t0 = time.time()
@@ -244,11 +360,13 @@ def run_matrix(
     result = MatrixResult(
         rows=rows,
         n_specs=len(specs),
-        n_executables=len(execs.sample),
+        n_executables=len(execs.sample) if n_fans is None else n_fans,
         n_groundtruth_executables=len(execs.groundtruth),
         signatures=signatures,
-        backend=BackendId.batched(device.type),
+        backend=(BackendId.batched(device.type) if fan_devices is None
+                 else BackendId.mesh_fanout(device.type, len(fan_devices))),
         n_graphs=execs.n_graphs(),
+        collectives_checked=n_checked,
     )
     if json_path is not None:
         path = _json_path(json_path)
@@ -285,7 +403,10 @@ def main(argv=None) -> MatrixResult:
     )
     ap.add_argument("--json", default=None, metavar="PATH")
     ap.add_argument("--backend", default="batched", choices=BACKENDS,
-                    help="mesh_fanout (cells over devices) is not ported yet")
+                    help="mesh_fanout deals cells out over devices")
+    ap.add_argument("--devices", default=None,
+                    help="mesh_fanout's devices, comma-separated (a device may repeat; "
+                    "default: every visible CUDA device)")
     args = ap.parse_args(argv)
 
     split = lambda s: tuple(x for x in s.split(",") if x)  # noqa: E731
@@ -302,7 +423,8 @@ def main(argv=None) -> MatrixResult:
         )
     ]
     result = run_matrix(specs, json_path=args.json, verbose=True, backend=args.backend,
-                        device=args.device)
+                        device=args.device,
+                        devices=None if args.devices is None else split(args.devices))
     print(result.table())
     return result
 

@@ -1,6 +1,6 @@
 """Staged, resumable execution of one :class:`RunSpec`: partition → sample → combine → score.
 
-The port of ``repro/api/pipeline.py`` on one device:
+The port of ``repro/api/pipeline.py``:
 
     ``partition()   -> ShardedData``              (M shards + valid-row counts)
     ``sample()      -> SubposteriorDraws``        ((M, T, d) θ + acceptance)
@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.api.backends import resolve_mesh_devices
 from repro_torch.api.sampling import groundtruth_chain, sample_subposteriors
 from repro_torch.api.spec import RunSpec
 from repro_torch.api.streaming import (
@@ -140,6 +141,8 @@ class SubposteriorDraws(NamedTuple):
     accept: torch.Tensor  # (M,)
     counts: torch.Tensor  # (M,)
     backend: str  # a repro_torch.api.backends.BackendId string
+    # operators the chain-group check watched on a mesh (None: one device)
+    collectives_checked: Optional[int]
     t_done: int  # draws collected so far (== T unless interrupted)
     complete: bool
 
@@ -215,6 +218,17 @@ class Pipeline:
     one from the seed; it must lie on ``device`` and hold the spec's n rows.
     ``checkpoint_dir`` / ``checkpoint_every``: persist the sampling stage
     every ``checkpoint_every`` draws (0: at the end) and resume it from there.
+
+    Devices: ``spec.mesh_shape = (ndata, 1)`` with ndata > 1 splits the chains
+    into ndata groups, one on each of ``devices`` (default: one CUDA device a
+    group; an explicit list may name a device twice), through
+    :class:`~repro_torch.api.backends.MeshChunkBackend`: the same draws as
+    the batched run, bit for bit. ``(1, 1)`` is the batched backend. With no
+    ``mesh_shape``, more than one visible CUDA device and M divisible by
+    their count, the chains are split over all of them. One host thread
+    queues every group's transitions, so while a transition's host work
+    outweighs its device work (the paper's cells on an H100), n groups take
+    about n times one group's sampling time.
     """
 
     def __init__(
@@ -225,13 +239,23 @@ class Pipeline:
         device: str | torch.device | None = None,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 0,
+        devices: Optional[Sequence] = None,
     ):
         self.device = resolve_device(device)
         self.spec = spec.validate()
-        if spec.mesh_shape is not None:
-            raise NotImplementedError(
-                "repro_torch runs on one device; mesh_shape is not ported yet"
-            )
+        mesh_shape = spec.mesh_shape
+        if mesh_shape is None and devices is None and self.device.type == "cuda":
+            count = torch.cuda.device_count()
+            if count > 1 and spec.M % count == 0:
+                mesh_shape = (count, 1)  # the automatic mesh
+        if mesh_shape is not None and mesh_shape[0] > 1:
+            self.mesh_shape: Optional[Tuple[int, ...]] = tuple(mesh_shape)
+            self.devices = resolve_mesh_devices(mesh_shape, devices, self.device, spec.M)
+        elif devices is not None:
+            raise ValueError("devices= places chain groups: it needs a spec whose mesh_shape "
+                             "has a data axis above 1")
+        else:
+            self.mesh_shape, self.devices = None, None
         self.checkpoint_dir = str(checkpoint_dir) if checkpoint_dir else None
         if checkpoint_every > 0 and self.checkpoint_dir is None:
             raise ValueError(
@@ -294,8 +318,10 @@ class Pipeline:
         """Run (or resume) the M subposterior chains.
 
         With no cadence, checkpoint or subscriber: one batch of T draws
-        (``batched[<device>]``). Otherwise the chunk stream of
-        :func:`~repro_torch.api.streaming.stream_sample`: ``max_steps``
+        (``batched[<device>]``, or ``mesh[<device>](n devices)`` on a mesh).
+        Otherwise the chunk stream of
+        :func:`~repro_torch.api.streaming.stream_sample` (on the mesh's
+        groups when there is one): ``max_steps``
         bounds the draws of this call (checkpointed runs only; a partial
         artifact has ``complete=False`` and the next call continues), and
         ``on_chunk`` subscribers see every landed chunk in order, restored
@@ -315,6 +341,7 @@ class Pipeline:
             sampler=spec.sampler, warmup=spec.warmup, burn_in=spec.resolved_burn_in(),
             step_size=spec.step_size, sgld_batch=spec.sgld_batch,
             sampler_options=spec.sampler_options, shards=sharded.shards, counts=sharded.counts,
+            mesh_shape=self.mesh_shape, devices=self.devices,
         )
         if spec.stream_every > 0 or self.checkpoint_dir is not None or on_chunk:
             ss = stream_sample(
@@ -331,7 +358,8 @@ class Pipeline:
             t_done = spec.T
         self._timed("sample_s", t0, add=True)
         self._draws = SubposteriorDraws(
-            res.theta, res.accept, res.counts, res.backend, t_done, t_done >= spec.T
+            res.theta, res.accept, res.counts, res.backend, res.collectives_checked, t_done,
+            t_done >= spec.T,
         )
         return self._draws
 
@@ -591,7 +619,7 @@ class Pipeline:
                 errors=errors,
                 accept=float(draws.accept.mean()),
                 backend=draws.backend,
-                collectives_checked=None,
+                collectives_checked=draws.collectives_checked,
                 timings=dict(self.timings),
             )
         return self._board
@@ -599,3 +627,19 @@ class Pipeline:
     def run(self) -> Scoreboard:
         """All stages."""
         return self.score()
+
+
+def combine_draws(
+    gen: torch.Generator,
+    samples: torch.Tensor,
+    n_draws: int,
+    *,
+    combiner: str = "nonparametric",
+    **options,
+) -> CombineResult:
+    """Registry-dispatched combination of a dense ``(M, T, d)`` stack, for
+    callers that already hold subposterior draws: the combine stage's
+    backend (:func:`repro_torch.distributed.epmcmc.combine_gathered`)."""
+    from repro_torch.distributed.epmcmc import combine_gathered
+
+    return combine_gathered(gen, samples, n_draws, combiner=combiner, **options)

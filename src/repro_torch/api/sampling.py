@@ -20,14 +20,14 @@ is setup plus one chunk of T.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.subposterior import make_subposterior_logpdf, partition_data
 from repro_torch.models.bayes import BayesModel
 from repro_torch.samplers import chain_collect, chain_setup, filter_options, sampler_spec
-from repro_torch.samplers.base import MCMCKernel, TransitionLoop
+from repro_torch.samplers.base import MCMCKernel, TransitionLoop, tree_leaves, tree_map
 from repro_torch.samplers.mala import value_and_grad
 
 Data = Dict[str, torch.Tensor]
@@ -40,6 +40,8 @@ class SampleResult(NamedTuple):
     accept: torch.Tensor  # (M,) mean acceptance per chain
     counts: torch.Tensor  # (M,) real data rows per shard
     backend: str
+    # operators the chain-group check watched (None: no check ran)
+    collectives_checked: Optional[int] = None
 
 
 class ShardKernel(NamedTuple):
@@ -178,6 +180,98 @@ def make_shard_kernel(
     )
 
 
+def chain_rows(model: BayesModel, shards: Data, lo: int, hi: int) -> Data:
+    """Rows ``[lo, hi)`` of the per-datum leaves of ``shards`` (views); the
+    leaves every shard shares (the GMM's weights) whole."""
+    keys = model.shard_keys or tuple(shards)
+    return {k: (v[lo:hi] if k in keys else v) for k, v in shards.items()}
+
+
+class _Widened(tuple):
+    """A draw's inputs for rows ``[lo, hi)``: views of a full-width draw
+    (``full``, drawn for the stand-in position ``wide``) that later draws
+    into it refresh in place."""
+
+    full: Any
+    wide: Any
+
+
+def _chain_axes(small: Any, full: Any, n_rows: int, total: int) -> list:
+    """The chain axis of every leaf of a draw: the one axis whose size is
+    ``n_rows`` at the group's width and ``total`` at the full width."""
+    axes = []
+    for i, (a, b) in enumerate(zip(tree_leaves(small), tree_leaves(full))):
+        diff = [k for k, (p, q) in enumerate(zip(a.shape, b.shape)) if p != q]
+        if a.dim() != b.dim() or len(diff) != 1 or (a.shape[diff[0]], b.shape[diff[0]]) != \
+                (n_rows, total):
+            raise ValueError(
+                f"draw input {i} is {tuple(b.shape)} for {total} chains and {tuple(a.shape)} "
+                f"for {n_rows}: it has no chain axis, so its rows cannot be split over chain "
+                "groups")
+        axes.append(diff[0])
+    return axes
+
+
+def _widened_draw(draw: Callable[..., Any], lo: int, hi: int, total: int):
+    """``draw`` replayed at the full width of ``total`` chains, keeping the
+    rows ``[lo, hi)``: the inputs the batched run of all ``total`` chains
+    draws for those chains, from the same generator state, bit for bit."""
+
+    def widened(gen: torch.Generator, position: Any, out=None):
+        if isinstance(out, _Widened):
+            draw(gen, out.wide, out=out.full)  # the views follow
+            return out
+        wide = tree_map(lambda x: x.new_empty((total,) + tuple(x.shape[1:])), position)
+        full = draw(gen, wide)
+        probe = torch.Generator(device=tree_leaves(position)[0].device)
+        axes = iter(_chain_axes(draw(probe, position), full, hi - lo, total))
+        kept = tree_map(lambda x: x.narrow(next(axes), lo, hi - lo), full)
+        parts = _Widened(kept)
+        parts.full, parts.wide = full, wide
+        return parts
+
+    return widened
+
+
+def chain_slice_kernel(sk: ShardKernel, model: BayesModel, lo: int, hi: int,
+                       total: int) -> ShardKernel:
+    """``sk`` for the chains ``[lo, hi)`` of a run of ``total``, drawing what
+    the batched run of all ``total`` draws for them.
+
+    Every draw (the initial position and each step's inputs) is replayed at
+    the full width from the caller's generator and only the group's rows are
+    kept, so a chain's randomness depends on the spec and its index alone,
+    never on how the chains are split. The kernel's own work (its data, its
+    states) stays at the group's width. The initial position is drawn on
+    the group's shards set at their rows of zero-filled full-width ones
+    (an init reads its own chain's shard only). Each group draws the
+    randoms of ``total / (hi - lo)`` groups and keeps its own.
+    """
+    if (lo, hi) == (0, total):
+        return sk
+    keys = model.shard_keys or ()
+
+    def init_position(gen, shards):
+        full = {}
+        for k, v in shards.items():
+            if keys and k not in keys:
+                full[k] = v
+                continue
+            w = v.new_zeros((total,) + tuple(v.shape[1:]))
+            w[lo:hi] = v
+            full[k] = w
+        pos = sk.init_position(gen, full)
+        return tree_map(lambda x: x[lo:hi].clone(), pos)
+
+    def build(shards, counts, step_size):
+        kernel = sk.build(shards, counts, step_size)
+        if kernel.draw is None:
+            raise TypeError("a kernel without a draw function cannot run on a chain group")
+        return kernel._replace(draw=_widened_draw(kernel.draw, lo, hi, total))
+
+    return sk._replace(init_position=init_position, build=build)
+
+
 def setup_shard_chains(
     sk: ShardKernel,
     shards: Data,
@@ -276,12 +370,24 @@ def sample_subposteriors(
     sampler_options=(),
     shards: Optional[Data] = None,
     counts: Optional[torch.Tensor] = None,
+    mesh_shape: Optional[Sequence[int]] = None,
+    devices: Optional[Sequence] = None,
+    check: bool = True,
 ) -> SampleResult:
     """M independent subposterior chains, batched on the data's device.
 
     Partitions ``data`` (edge-padded) unless ``shards``/``counts`` are given.
+    A ``mesh_shape`` whose data axis is larger than 1 splits the chains into
+    that many groups, one on each of ``devices`` (default: one CUDA device a
+    group; :func:`~repro_torch.api.backends.resolve_mesh_devices`), run as
+    the one-shot path of :class:`~repro_torch.api.backends.MeshChunkBackend`:
+    the same draws as the batched run, bit for bit, gathered back onto the
+    data's device. The mesh always watches one eager chunk of every group
+    for collectives and cross-group reads; ``check`` (``repro``'s
+    signature) says whether the result reports the operators it watched
+    (``collectives_checked``; ``None`` without).
     """
-    from repro_torch.api.backends import BackendId
+    from repro_torch.api.backends import BackendId, MeshChunkBackend, resolve_mesh_devices
 
     if shards is None or counts is None:
         shards, counts = partition_data(data, num_shards, only=model.shard_keys, pad=True)
@@ -290,6 +396,15 @@ def sample_subposteriors(
         model, num_shards, sampler, sgld_batch=sgld_batch,
         use_counts=is_padded(model, shards, counts, sampler), sampler_options=sampler_options,
     )
+    if mesh_shape is not None and int(mesh_shape[0]) > 1:
+        mesh = MeshChunkBackend(
+            sk, model, shards, counts,
+            devices=resolve_mesh_devices(mesh_shape, devices, counts.device, num_shards),
+            burn_in=burn_in, warmup=warmup, step_size=step_size,
+        )
+        theta, accept_sum = mesh.run_fused(gen, num_samples)
+        return SampleResult(theta, accept_sum / max(num_samples, 1), counts, mesh.backend_id(),
+                            mesh.collectives_checked if check else None)
     theta, acc = run_shard_chain(
         sk, shards, counts, gen,
         num_samples=num_samples, burn_in=burn_in, warmup=warmup, step_size=step_size,

@@ -38,8 +38,9 @@ class RunSpec:
     tuple of names. ``stream_every > 0`` samples in chunks of that many draws
     and lets ``Pipeline.stream_combine`` fold each chunk as it lands (0: one
     chunk); a negative value is refused. ``sgld_batch`` is the SGLD minibatch
-    (0: the whole shard). ``mesh_shape`` is kept for the shared ``spec_id``;
-    the port does not run that path yet.
+    (0: the whole shard). ``mesh_shape = (ndata, nmodel)`` splits the chains
+    into ndata groups over devices (``Pipeline(devices=)``); ndata must
+    divide M, and a model axis above 1 is refused when the mesh is built.
     """
 
     model: str
@@ -119,6 +120,12 @@ class RunSpec:
             )
         for name in self.combiner_names():
             get_combiner(name)
+        if self.mesh_shape is not None:
+            ndata = self.mesh_shape[0]
+            if ndata < 1 or self.M % ndata != 0:
+                raise ValueError(
+                    f"spec {self.spec_id}: mesh data axis {ndata} must divide M={self.M}"
+                )
         return self
 
     def to_dict(self) -> Dict[str, Any]:

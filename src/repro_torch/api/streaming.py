@@ -1,6 +1,9 @@
 """The one chunk-emitting sampling driver of the port, and the fused fold.
 
-The port of ``repro/api/streaming.py`` on one device. One generator
+The port of ``repro/api/streaming.py``, on one device or on the chain
+groups of a mesh (``mesh_shape``; chunks and checkpoints leave the groups
+through the backend's ``localize``, a restored carry returns to them through
+``put_carry``). One generator
 (:meth:`ShardChainStream.chunks`) advances all M chains in global chunks and
 yields each landed ``(M, C, d)`` slice; everything else subscribes:
 checkpoint persistence (:mod:`repro_torch.api.resumable`), combine-while-
@@ -26,11 +29,19 @@ from __future__ import annotations
 
 import importlib
 import time
-from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.api.backends import CHUNKED, FUSED, RESUMABLE, BatchedChunkBackend
+from repro_torch.api.backends import (
+    CHUNKED,
+    FUSED,
+    RESUMABLE,
+    BatchedChunkBackend,
+    MeshChunkBackend,
+    resolve_mesh_devices,
+    slice_backend,
+)
 from repro_torch.api.sampling import SampleResult, is_padded, make_shard_kernel
 from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.core.subposterior import partition_data
@@ -91,7 +102,9 @@ class ShardChainStream:
     """M parallel subposterior chains, advanced in global chunks.
 
     ``gen`` is the sampling stage's generator; every chunk draws from it in
-    the one-shot driver's order.
+    the one-shot driver's order. ``chains = (lo, hi)`` drives only those
+    chains of the M, drawing what the whole run draws for them (a launch's
+    rank: :func:`~repro_torch.api.backends.slice_backend`).
     """
 
     def __init__(
@@ -110,6 +123,9 @@ class ShardChainStream:
         shards,
         counts: torch.Tensor,
         use_counts: bool,
+        mesh_shape: Optional[Sequence[int]] = None,
+        devices: Optional[Sequence] = None,
+        chains: Optional[Tuple[int, int]] = None,
     ):
         self.gen = gen
         self.model = model
@@ -119,10 +135,21 @@ class ShardChainStream:
             model, num_shards, sampler or model.default_sampler, sgld_batch=sgld_batch,
             use_counts=use_counts, sampler_options=sampler_options,
         )
-        self.backend = BatchedChunkBackend(
-            sk, shards, counts, burn_in=burn_in, warmup=warmup, step_size=step_size
-        )
+        options = dict(burn_in=burn_in, warmup=warmup, step_size=step_size)
+        if mesh_shape is not None and int(mesh_shape[0]) > 1:
+            if chains is not None:
+                raise ValueError("chains= drives one slice of the chains on one device; a "
+                                 "mesh splits them all")
+            self.backend = MeshChunkBackend(
+                sk, model, shards, counts,
+                devices=resolve_mesh_devices(mesh_shape, devices, counts.device, num_shards),
+                **options)
+        elif chains is not None:
+            self.backend = slice_backend(sk, model, shards, counts, *chains, **options)
+        else:
+            self.backend = BatchedChunkBackend(sk, shards, counts, **options)
         self.device = counts.device
+        self.n_chains = self.backend.n_chains
 
     def fresh_carry(self) -> Carry:
         """Setup (init, warmup, burn-in) and the empty draw buffer."""
@@ -130,9 +157,9 @@ class ShardChainStream:
         return {
             "state": state,
             "eps": eps,
-            "theta": torch.zeros((self.num_shards, 0, self.model.d), dtype=torch.float32,
+            "theta": torch.zeros((self.n_chains, 0, self.model.d), dtype=torch.float32,
                                  device=self.device),
-            "accept_sum": torch.zeros((self.num_shards,), dtype=torch.float32,
+            "accept_sum": torch.zeros((self.n_chains,), dtype=torch.float32,
                                       device=self.device),
             "rng": self.gen.get_state(),
         }
@@ -161,6 +188,8 @@ class ShardChainStream:
             state, theta_c, acc_c = self.backend.next_chunk(
                 self.gen, carry["eps"], carry["state"], t1 - t_done
             )
+            # chunks leave the backend's layout (the mesh's groups) first
+            theta_c, acc_c = self.backend.localize(theta_c), self.backend.localize(acc_c)
             carry = {
                 "state": state,
                 "eps": carry["eps"],
@@ -169,9 +198,8 @@ class ShardChainStream:
                 "rng": self.gen.get_state(),
             }
             t0, t_done = t_done, t1
-            theta_l, acc_l = self.backend.localize(theta_c), self.backend.localize(acc_c)
             synchronize(self.device)  # an honest landed_s: the draws exist
-            yield StreamChunk(theta_l, acc_l, t0, t1, T, carry, landed_s=time.monotonic())
+            yield StreamChunk(theta_c, acc_c, t0, t1, T, carry, landed_s=time.monotonic())
 
 
 class StreamedSample(NamedTuple):
@@ -243,6 +271,9 @@ def stream_sample(
     checkpoint_every: int = 0,
     spec_id: str = "",
     on_chunk: Sequence[Callable[[StreamChunk], None]] = (),
+    mesh_shape: Optional[Sequence[int]] = None,
+    devices: Optional[Sequence] = None,
+    chains: Optional[Tuple[int, int]] = None,
 ) -> StreamedSample:
     """Run (or resume) the parallel sampling stage as one chunked stream.
 
@@ -256,6 +287,13 @@ def stream_sample(
     bitwise; ``max_steps`` bounds the draws of this call and ends on a save
     boundary. With no subscriber, checkpoint or budget and a cadence below
     T, the fused path runs instead: all T draws with no host synchronisation.
+    A ``mesh_shape`` whose data axis is above 1 runs every chunk on the
+    chain groups of :class:`~repro_torch.api.backends.MeshChunkBackend`
+    (on ``devices``), the same draws, with the chain-group check: its
+    chunks and checkpoints are gathered onto the data's device first, and a
+    restored carry is split over the groups again. ``chains = (lo, hi)``
+    runs only those chains of the ``num_shards`` (:class:`ShardChainStream`):
+    the result holds their rows.
     """
     chunk = chunk_size if chunk_size > 0 else checkpoint_every
     if checkpoint_every > 0 and chunk_size > 0 and checkpoint_every % chunk_size:
@@ -278,9 +316,12 @@ def stream_sample(
         gen, model, num_shards, num_samples,
         sampler=sampler, warmup=warmup, burn_in=burn_in, step_size=step_size,
         sgld_batch=sgld_batch, sampler_options=sampler_options, shards=shards, counts=counts,
-        use_counts=is_padded(model, shards, counts, sampler),
+        use_counts=is_padded(model, shards, counts, sampler), mesh_shape=mesh_shape,
+        devices=devices, chains=chains,
     )
     backend = stream.backend
+    if chains is not None:
+        counts = counts[chains[0]:chains[1]]
 
     # fused: nobody subscribes and nothing persists (a cadence of 0 or T
     # keeps the one-chunk loop)
@@ -288,7 +329,7 @@ def stream_sample(
         theta, accept_sum = stream.fused_sample()
         return StreamedSample(
             SampleResult(theta, accept_sum / max(num_samples, 1), counts,
-                         backend.backend_id(FUSED)),
+                         backend.backend_id(FUSED), backend.collectives_checked),
             t_done=num_samples, total=num_samples, resumed_from=0,
         )
 
@@ -318,12 +359,13 @@ def stream_sample(
                     "void the bitwise-resume guarantee; pass the original cadence"
                 )
         stream.gen.set_state(carry["rng"])
+        carry = backend.put_carry(carry)
         resumed_from = t_done
         # replay the restored prefix at the original boundaries, so a
         # subscriber's state matches an uninterrupted run's
         if on_chunk and t_done > 0:
             replay_chunk = chunk if chunk > 0 else num_samples
-            zeros = torch.zeros((num_shards,), dtype=torch.float32, device=stream.device)
+            zeros = torch.zeros((stream.n_chains,), dtype=torch.float32, device=stream.device)
             for r0 in range(0, t_done, replay_chunk):
                 r1 = min(r0 + replay_chunk, t_done)
                 ev = StreamChunk(
@@ -349,12 +391,13 @@ def stream_sample(
             t_done == num_samples
         )
         if checkpoint_dir is not None and at_boundary:
+            full = backend.localize(carry)  # a mesh's groups gathered: one layout on disk
             save(
-                checkpoint_dir, t_done, carry,
+                checkpoint_dir, t_done, full,
                 metadata={
                     "spec_id": spec_id, "t_done": t_done, "T": num_samples,
                     "checkpoint_every": checkpoint_every, "chunk": chunk,
-                    "state_type": _state_type(carry["state"]),
+                    "state_type": _state_type(full["state"]),
                 },
                 keep=2,
             )
@@ -362,7 +405,8 @@ def stream_sample(
     accept = carry["accept_sum"] / max(t_done, 1)
     mode = RESUMABLE if checkpoint_dir is not None else CHUNKED
     return StreamedSample(
-        SampleResult(carry["theta"], accept, counts, backend.backend_id(mode)),
+        SampleResult(carry["theta"], accept, counts, backend.backend_id(mode),
+                     backend.collectives_checked),
         t_done=t_done, total=num_samples, resumed_from=resumed_from,
     )
 

@@ -40,9 +40,16 @@ def fixed(h: float) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def silverman(samples: torch.Tensor) -> torch.Tensor:
-    """Silverman's rule-of-thumb bandwidth for ``(T, d)`` samples (scalar h)."""
+    """Silverman's rule-of-thumb bandwidth for ``(T, d)`` samples (scalar h).
+
+    The spread in ``jnp.std``'s form, the mean and then the centred second
+    moment: for a chain that never moves, the mean's rounding leaves a
+    residual and h stays positive, as in ``repro`` (``torch.std`` gives
+    exactly 0 there, so h = 0 and a NaN distance).
+    """
     T, d = samples.shape
-    sigma = samples.std(dim=0, correction=0).mean()
+    centred = samples - samples.mean(dim=0)
+    sigma = (centred * centred).mean(dim=0).sqrt().mean()
     return (4.0 / (d + 2.0)) ** (1.0 / (d + 4.0)) * T ** (-1.0 / (d + 4.0)) * sigma
 
 

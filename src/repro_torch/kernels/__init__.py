@@ -36,13 +36,14 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import os
 import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -141,6 +142,7 @@ KERNELS: Dict[str, Kernel] = {
 _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()  # guards every kernel's counts
 _CAPTURING = threading.local()  # .tally: the LaunchTally of this thread's capture
+_OPERANDS = threading.local()  # .watch: called on every operand check_tensor passes
 
 
 def _nvcc() -> str:
@@ -174,7 +176,9 @@ def build() -> float:
                 for k in ks:
                     k.build_log = f"{out.name}: built earlier from the same source"
                 continue
-            tmp = out.with_suffix(f".tmp{id(ks[0])}.so")
+            # the pid too: processes that build at once (the ranks of one
+            # launch) can compute the same id()
+            tmp = out.with_suffix(f".tmp{os.getpid()}-{id(ks[0])}.so")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(ks[0].source)]
             procs.append((ks, tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -219,12 +223,15 @@ class LaunchTally:
     running them. Launches on other threads meanwhile count as usual.
     :meth:`replay` adds the tally's counts, once per replay of the graph.
     ``kernels`` (by name) are the counts it adds to, :data:`KERNELS` by default.
+    ``capturing(stream=)`` names the raw stream the graph will replay on,
+    which :func:`launch_stream` reports to the wrappers during the capture.
     """
 
     def __init__(self, kernels: Optional[Dict[str, Kernel]] = None):
         self.kernels = KERNELS if kernels is None else kernels
         self.launches: Dict[str, int] = {}
         self.route_launches: Dict[str, Dict[str, int]] = {}
+        self.stream: Optional[int] = None
 
     def add(self, name: str, route: Optional[str]) -> None:
         self.launches[name] = self.launches.get(name, 0) + 1
@@ -233,10 +240,11 @@ class LaunchTally:
             routes[route] = routes.get(route, 0) + 1
 
     @contextlib.contextmanager
-    def capturing(self):
+    def capturing(self, stream: Optional[int] = None):
         if getattr(_CAPTURING, "tally", None) is not None:
             raise RuntimeError("a capture is already being tallied on this thread")
         _CAPTURING.tally = self
+        self.stream = stream
         try:
             yield self
         finally:
@@ -261,10 +269,40 @@ def check_error(kernel: Kernel, err: int, error_string) -> None:
         )
 
 
+def launch_stream(device: torch.device) -> int:
+    """The raw handle of the stream a launch made now runs on: the current
+    stream; while this thread captures a graph, the stream the graph replays
+    on, as the capture's :class:`LaunchTally` names it, else the device's
+    default stream."""
+    tally = getattr(_CAPTURING, "tally", None)
+    if tally is not None and tally.stream is not None:
+        return tally.stream
+    if torch.cuda.is_current_stream_capturing():
+        return torch.cuda.default_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device_index(device))
+
+
+@contextlib.contextmanager
+def watch_operands(fn: Callable[[torch.Tensor, str], None]):
+    """Call ``fn(tensor, name)`` on every operand :func:`check_tensor` passes
+    on this thread meanwhile: the tensors a hand-written kernel reads and
+    writes through their pointers, which no dispatch mode sees."""
+    if getattr(_OPERANDS, "watch", None) is not None:
+        raise RuntimeError("operands are already watched on this thread")
+    _OPERANDS.watch = fn
+    try:
+        yield
+    finally:
+        _OPERANDS.watch = None
+
+
 def check_tensor(
     t: torch.Tensor, name: str, *, device: torch.device, ndim: int
 ) -> None:
     """What every CUDA launch requires of an operand; raises otherwise."""
+    watch = getattr(_OPERANDS, "watch", None)
+    if watch is not None:
+        watch(t, name)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:

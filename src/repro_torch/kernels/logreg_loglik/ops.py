@@ -7,9 +7,13 @@ as a differentiable function of β: a :class:`torch.autograd.Function` whose
 forward keeps the fused ∇ℓ, so a value-and-gradient costs one launch.
 
 A launch allocates its partials and output with ``torch.empty`` (inside a
-captured CUDA graph, the graph's pool serves them), and passes the device's
-ticket buffer, which the kernel's last block resets, so replays of a graph
-that holds the launch need nothing between them.
+captured CUDA graph, the graph's pool serves them), and passes a ticket
+buffer, which the kernel's last block resets, so replays of a graph that
+holds the launch need nothing between them. The tickets belong to a
+(device, stream) pair: launches on one stream run one after another and may
+share them, while launches on two streams may run at once (two chain groups
+on one card) and must not. A launch captured into a graph takes the tickets
+of the stream the graph replays on (:func:`~repro_torch.kernels.launch_stream`).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from repro_torch.kernels import (
     check_error,
     check_tensor,
     device_index,
+    launch_stream,
     stream_handle,
 )
 from repro_torch.kernels.logreg_loglik.ref import logreg_loglik_grad_ref
@@ -63,19 +68,21 @@ def _layout(N: int, d: int, C: int) -> Tuple[int, int]:
     return -(-N // lib.logreg_tile_rows(d)), -(-(C + d * C) // 4) * 4
 
 
-_TICKETS: Dict[int, torch.Tensor] = {}
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _tickets(device: torch.device) -> torch.Tensor:
-    """The device's per-problem tickets: zeros, made once outside any graph
-    capture; every launch leaves them zero."""
-    index = device_index(device)
-    if index not in _TICKETS:
+    """The per-problem tickets of the device and the stream the launch runs
+    on: zeros, made once outside any graph capture; every launch leaves
+    them zero."""
+    key = (device_index(device), launch_stream(device))
+    if key not in _TICKETS:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("logreg_loglik_grad: call it once on the device before a "
-                               "graph captures it (its ticket buffer is made then)")
-        _TICKETS[index] = torch.zeros(65535, dtype=torch.int32, device=device)
-    return _TICKETS[index]
+            raise RuntimeError("logreg_loglik_grad: call it once on the stream a graph "
+                               "replays on before the graph captures it (its ticket "
+                               "buffer is made then)")
+        _TICKETS[key] = torch.zeros(65535, dtype=torch.int32, device=device)
+    return _TICKETS[key]
 
 
 def _launch(X, y, beta, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -29,8 +29,11 @@ def logreg_loglik_grad_ref(
     X = X.float()
     y = y.float()[..., None]
     beta = beta.float()
-    z = y * torch.bmm(X, beta)  # (G, N, C)
+    # each problem's products elementwise (utils/rowwise.py), and σ(−z) as
+    # 1 / (1 + e^z): torch.sigmoid's CPU kernel rounds an element by where it
+    # falls in the tensor, so a problem's value would depend on its batch
+    z = y * (X.unsqueeze(-1) * beta.unsqueeze(1)).sum(dim=2)  # (G, N, C)
     loglik = F.logsigmoid(z).sum(dim=1)
-    coeff = y * torch.sigmoid(-z)
-    grad = torch.bmm(X.transpose(1, 2), coeff)
+    coeff = y / (1.0 + torch.exp(z))
+    grad = (X.unsqueeze(-1) * coeff.unsqueeze(2)).sum(dim=1)  # (G, d, C)
     return scale * loglik, scale * grad

@@ -25,6 +25,12 @@ n=50,000, d=2, Gibbs over the latents) and :data:`GMM_SPEC` (§8.2, n=50,000,
 K=10 means in 2-d, d=20, random-walk MH, scored in logL2). ``--sampler`` and ``--n`` override
 the spec's sampler and dataset size, as in ``repro``'s CLI.
 
+``--mesh-shape NDATA[,NMODEL]`` splits the chains into NDATA groups over
+devices (one CUDA device a group, or the comma-separated ``--mesh-devices``,
+where a device may repeat: ``--device cpu --mesh-shape 2,1 --mesh-devices
+cpu,cpu``); the draws are the batched run's, bit for bit, and the scoreboard
+line carries ``collectives_checked``.
+
 ``--serve`` runs the same Pipeline behind the :mod:`repro_torch.serve`
 posterior server (it needs ``--stream-every``): sampling streams chunks into
 the folder while ``--serve-readers`` concurrent TCP readers (and any external
@@ -112,11 +118,20 @@ def print_trajectory(sr) -> None:
               f"  [{row['elapsed_s']:.1f}s]")
 
 
+def parse_mesh(arg: Optional[str]):
+    """``"4,1"`` → ``(4, 1)``; ``"4"`` → ``(4, 1)``; ``None``/``""`` → None."""
+    if not arg:
+        return None
+    parts = tuple(int(x) for x in arg.split(",") if x)
+    return parts if len(parts) == 2 else parts + (1,)
+
+
 def build_spec(args: argparse.Namespace) -> RunSpec:
     """The adapter: argparse namespace → the declarative RunSpec of the first
     seed (:func:`spec_for` the combiners and model, then the overrides)."""
     spec = dataclasses.replace(spec_for(args.combiner, args.model),
-                               stream_every=args.stream_every, seed=args.seeds[0])
+                               stream_every=args.stream_every, seed=args.seeds[0],
+                               mesh_shape=parse_mesh(getattr(args, "mesh_shape", None)))
     if args.sampler is not None:
         spec = dataclasses.replace(spec, sampler=args.sampler)
     if args.n is not None:
@@ -139,6 +154,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         help="combine-while-sampling: fold every N landed draws into the streaming "
         "combiners and print the scoreboard trajectory (0 = off)",
     )
+    ap.add_argument("--mesh-shape", default=None, metavar="NDATA[,NMODEL]",
+                    help="split the chains into NDATA groups over devices (default: one "
+                    "device; more than one visible CUDA device dividing M splits over all)")
+    ap.add_argument("--mesh-devices", default=None, metavar="DEV,DEV,...",
+                    help="the groups' devices (a device may repeat; default: one CUDA "
+                    "device a group)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="persist/resume the sampling stage here (chunked kernel state)")
     ap.add_argument("--checkpoint-every", type=int, default=0,
@@ -165,8 +186,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     base = build_spec(args)
     for seed in args.seeds:
         spec = dataclasses.replace(base, seed=seed)
+        devices = None if args.mesh_devices is None else tuple(args.mesh_devices.split(","))
         pipe = Pipeline(spec, device=args.device, checkpoint_dir=args.checkpoint_dir,
-                        checkpoint_every=args.checkpoint_every)
+                        checkpoint_every=args.checkpoint_every, devices=devices)
         if args.serve:
             from repro_torch.serve import serve_pipeline
 

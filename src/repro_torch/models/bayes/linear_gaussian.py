@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.gaussian import GaussianMoments
 from repro_torch.models.bayes import registry
 from repro_torch.samplers.gibbs import BlockUpdate
+from repro_torch.utils.rowwise import matvec
 
 Data = Dict[str, torch.Tensor]
 
@@ -39,7 +40,7 @@ def log_prior(theta: torch.Tensor, tau: float = 3.0) -> torch.Tensor:
 
 
 def log_lik(theta: torch.Tensor, data: Data, noise_std: float = 1.0) -> torch.Tensor:
-    resid = data["y"] - (data["x"] @ theta.unsqueeze(-1)).squeeze(-1)
+    resid = data["y"] - matvec(data["x"], theta)  # per chain (utils/rowwise.py)
     n = data["y"].shape[-1]
     return -0.5 * (resid**2).sum(dim=-1) / noise_std**2 - 0.5 * n * math.log(
         2.0 * math.pi * noise_std**2
@@ -138,10 +139,9 @@ def gibbs_blocks(
             return (z,)
 
         def update(beta, z):
-            r = (b_S - (A_S @ beta.unsqueeze(-1)).squeeze(-1)
-                 + (A_SS @ beta[..., s0:s1].unsqueeze(-1)).squeeze(-1))
-            w = (linv @ r.unsqueeze(-1)).squeeze(-1) + z
-            new = (linv_t @ w.unsqueeze(-1)).squeeze(-1)
+            r = b_S - matvec(A_S, beta) + matvec(A_SS, beta[..., s0:s1])
+            w = matvec(linv, r) + z
+            new = matvec(linv_t, w)
             return torch.cat([beta[..., :s0], new, beta[..., s1:]], dim=-1), None
 
         return BlockUpdate(draw, update)

@@ -31,6 +31,7 @@ import torch
 from repro_torch.models.bayes import registry
 from repro_torch.samplers import randgamma
 from repro_torch.samplers.gibbs import BlockUpdate
+from repro_torch.utils.rowwise import rowsum
 
 Data = Dict[str, torch.Tensor]
 
@@ -81,8 +82,8 @@ def log_lik(theta: torch.Tensor, data: Data) -> torch.Tensor:
     x, t = data["x"], data["t"]
     lgx1 = data["lgx1"] if "lgx1" in data else torch.lgamma(x + 1.0)
     log_bt = torch.log(b + t)
-    return (torch.lgamma(x + a) - torch.lgamma(a) - lgx1
-            + a * (torch.log(b) - log_bt) + x * (torch.log(t) - log_bt)).sum(dim=-1)
+    return rowsum(torch.lgamma(x + a) - torch.lgamma(a) - lgx1
+                  + a * (torch.log(b) - log_bt) + x * (torch.log(t) - log_bt))
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +137,7 @@ def gibbs_blocks(
         # b | a, q ~ Gamma((α−1)/M + 1 + N a, β/M + Σ q): the prior tempered by 1/M
         a = torch.exp(pos.theta[..., 0])
         shape = (ALPHA - 1.0) * inv_m + 1.0 + n_eff * a
-        rate = BETA * inv_m + (pos.q.sum(dim=-1) if w is None else (w * pos.q).sum(dim=-1))
+        rate = BETA * inv_m + rowsum(pos.q if w is None else w * pos.q)
         g, unresolved = randgamma.gamma_from_rounds(shape, rounds)
         theta = torch.stack([pos.theta[..., 0], torch.log(g / rate)], dim=-1)
         return pos._replace(theta=theta), unresolved
@@ -160,7 +161,7 @@ def gibbs_blocks(
     def update_a(pos, noise, log_u):
         # a | b, q: non-conjugate — random-walk MH on log a
         log_q = torch.log(pos.q)
-        sum_logq = log_q.sum(dim=-1) if w is None else (w * log_q).sum(dim=-1)
+        sum_logq = rowsum(log_q if w is None else w * log_q)
         log_a, log_b = pos.theta[..., 0], pos.theta[..., 1]
         prop = log_a + mh_step * noise
         log_ratio = (a_conditional(prop, log_b, sum_logq)

@@ -25,12 +25,13 @@ in the eager order, so both give the eager loop's draws.
 
 from __future__ import annotations
 
+import gc
 import threading
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LaunchTally
+from repro_torch.kernels import LaunchTally, device_index
 
 LogDensityFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -108,7 +109,11 @@ class TransitionLoop:
     replays of that graph. A capture or replay error is raised; nothing
     falls back to eager steps. :class:`~repro_torch.kernels.LaunchTally`
     keeps the kernels' launch counts exact across capture and replays, and
-    the capture holds :data:`CAPTURE_LOCK`.
+    the capture holds :data:`CAPTURE_LOCK` with the garbage collector off.
+    The graph is captured for the
+    stream current at its capture (a chain group's own stream, on the mesh)
+    and replays only there: a kernel that keeps scratch a stream
+    (``logreg_loglik_grad``'s tickets) takes that stream's during the capture.
     """
 
     def __init__(
@@ -128,6 +133,7 @@ class TransitionLoop:
         self.info: Optional[StepInfo] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tally = LaunchTally()
+        self.device = device
 
     def load(self, state: Any) -> None:
         """Continue from ``state``: copy it into the loop's tensors."""
@@ -156,6 +162,9 @@ class TransitionLoop:
         if not self.graphed:
             self._transition(gen)
         elif self.graph is not None:
+            if _raw_stream(self.device) != self.tally.stream:
+                raise RuntimeError("a chain loop replays its graph on the stream it was "
+                                   "captured for (a kernel's scratch belongs to that stream)")
             self.graph.replay()
             self.tally.replay()
         elif self.info is None:  # the warm-up: a real step, eager, on a side stream
@@ -166,12 +175,39 @@ class TransitionLoop:
             torch.cuda.current_stream().wait_stream(side)
         else:
             graph = torch.cuda.CUDAGraph()
-            with CAPTURE_LOCK, self.tally.capturing(), torch.cuda.graph(graph):
-                self._transition(gen)
+            # no garbage collection during the capture: a collection there can
+            # destroy an old loop's graph (a loop and its warmup hold each
+            # other), and a CUDA call of that kind voids the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with CAPTURE_LOCK, self.tally.capturing(_raw_stream(self.device)), \
+                        torch.cuda.graph(graph, stream=_capture_stream(self.device)):
+                    self._transition(gen)
+            finally:
+                if collecting:
+                    gc.enable()
             self.graph = graph
             graph.replay()
             self.tally.replay()
         return self.info
+
+
+def _raw_stream(device: torch.device) -> int:
+    return torch._C._cuda_getCurrentRawStream(device_index(device))
+
+
+_CAPTURE_STREAMS: dict = {}  # device index -> the side stream captures run on
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """A side stream of ``device`` to capture on: ``torch.cuda.graph``'s own
+    default is one stream, of whichever device made it first, and a chain
+    group on another card must not capture there."""
+    index = device_index(device)
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return _CAPTURE_STREAMS[index]
 
 
 def chain_setup(

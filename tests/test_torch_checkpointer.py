@@ -8,7 +8,8 @@ exactly ``repro``'s arrays on a checkpoint that ``repro`` wrote, shrinking
 and growing (tiled ``key`` leaves bumped as in the reference), and a
 checkpoint the port writes restores in ``repro``. ``get_chunk_backend``
 returns one cached backend per configuration, loads each call's data into
-it (the same draws as a fresh backend on that data) and refuses a mesh.
+it (the same draws as a fresh backend on that data) and builds a mesh only
+on devices it is given.
 """
 
 import threading
@@ -185,9 +186,16 @@ def test_get_chunk_backend_is_cached_and_loads_each_calls_data(monkeypatch):
 
 
 def test_get_chunk_backend_raises_on_a_mesh():
+    """A mesh needs its devices: none is inferred on the CPU, and an explicit
+    list gives the mesh backend."""
+    from repro_torch.api.backends import MeshChunkBackend
+
     model, shards, counts = _linear_inputs(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="needs 4 devices"):
         get_chunk_backend(model, 4, "mala", shards=shards, counts=counts, mesh_shape=(4, 1))
+    assert isinstance(get_chunk_backend(model, 4, "mala", shards=shards, counts=counts,
+                                        mesh_shape=(4, 1), devices=("cpu",) * 4),
+                      MeshChunkBackend)
     # a data axis of 1 is the one-device backend
     assert isinstance(get_chunk_backend(model, 4, "mala", shards=shards, counts=counts,
                                         mesh_shape=(1, 2)), BatchedChunkBackend)

@@ -74,6 +74,79 @@ def test_logreg_kernel_matches_plain(cuda_device, G, N, d, C):
     torch.testing.assert_close(g, g_r, rtol=1e-4, atol=1e-2)
 
 
+def test_logreg_tickets_belong_to_a_stream(cuda_device):
+    """Launches on two streams at once (two chain groups of five of the
+    path's ten problems, as phase 4h runs them on one card) give the bits of
+    the same launches run one after the other: each stream has its own
+    tickets, which the last block of each launch resets. Both streams wait
+    behind a sleeping kernel while every launch is queued, so they start
+    together and run at once (a launch takes less time on the card than
+    the host takes to queue the next)."""
+    X, y, beta = _logreg_inputs(cuda_device, 10, 5000, 50, 1)
+    halves = [tuple(t[lo:lo + 5].contiguous() for t in (X, y, beta)) for lo in (0, 5)]
+    want = [logreg_loglik_grad(*h) for h in halves]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=cuda_device) for _ in halves]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s: the queue fills meanwhile
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(20):
+        for i, (s, h) in enumerate(zip(streams, halves)):
+            with torch.cuda.stream(s):
+                outs.append((i, logreg_loglik_grad(*h)))
+    torch.cuda.synchronize()
+    for i, out in outs:
+        for a, b in zip(out, want[i]):
+            assert torch.equal(a, b)
+
+
+def test_two_chain_groups_on_one_card_draw_the_batched_draws(cuda_device):
+    """A (2, 1) mesh with both groups on cuda:0, each on its own stream with
+    its own captured loops: θ bitwise the batched run's, the likelihood once
+    per init and transition of each group plus the chain-group check's eager
+    transitions."""
+    import dataclasses
+
+    from repro_torch.api import Pipeline, RunSpec
+    from repro_torch.api.backends import CHECK_TRANSITIONS
+
+    spec = RunSpec(model="logreg", sampler="mala", M=4, T=60, warmup=30, n=2000, seed=0,
+                   groundtruth_T=100, combiner="parametric", score_metric="logl2")
+    batched = Pipeline(spec, device=cuda_device).sample()
+    lr = kernels.KERNELS["logreg_loglik_grad"]
+    before = lr.launches
+    mesh = Pipeline(dataclasses.replace(spec, mesh_shape=(2, 1)), device=cuda_device,
+                    devices=(cuda_device, cuda_device)).sample()
+    torch.cuda.synchronize()
+    assert mesh.backend == "mesh[cuda](2 devices)" and mesh.collectives_checked > 0
+    assert torch.equal(mesh.theta, batched.theta)
+    per_group = 2 + spec.warmup + spec.resolved_burn_in() + spec.T
+    assert lr.launches - before == 2 * (per_group + CHECK_TRANSITIONS)
+
+
+def test_chain_groups_are_queued_before_any_is_waited_for(cuda_device):
+    """Two groups on two streams of one card: the second group's work does
+    not wait for the first's (it ends while the first still sleeps), and the
+    caller's stream waits for both."""
+    from repro_torch.api.backends import GroupStreams
+
+    lanes = GroupStreams((cuda_device, cuda_device), cuda_device)
+    done = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def slow():
+        torch.cuda._sleep(400_000_000)  # ~0.2 s of one SM's clock
+        done[0].record()
+
+    lanes.run([slow, done[1].record])
+    after = torch.cuda.Event()
+    after.record()  # on the caller's stream
+    done[1].synchronize()
+    assert not done[0].query(), "the second group waited for the first"
+    after.synchronize()
+    assert done[0].query(), "the caller's stream did not wait for the first group"
+
+
 def test_logreg_kernel_is_deterministic(cuda_device):
     X, y, beta = _logreg_inputs(cuda_device, 1, 50000, 50, 1)
     first = logreg_loglik_grad(X, y, beta)

@@ -44,11 +44,15 @@ def _same(a, b):
 
 
 def test_run_matrix_rejects_mesh_specs_and_the_fanout_backend():
+    """A mesh spec is refused; the fan-out needs two devices, which the CPU
+    never infers (tests/test_torch_mesh.py runs it on an explicit list)."""
     spec = RunSpec(**{**SPEC.to_dict(), "mesh_shape": (4, 1)})
     with pytest.raises(ValueError, match="vmap backend only"):
         run_matrix([spec], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="needs >= 2 devices and 0 cpu devices"):
         run_matrix([SPEC], device="cpu", backend="mesh_fanout")
+    with pytest.raises(ValueError, match="needs backend='mesh_fanout'"):
+        run_matrix([SPEC], device="cpu", devices=("cpu", "cpu"))
     with pytest.raises(ValueError, match="unknown run_matrix backend"):
         run_matrix([SPEC], device="cpu", backend="nope")
 
@@ -148,15 +152,42 @@ def test_sweep_feeds_run_matrix(tmp_path):
     res = run_matrix(specs, json_path=str(tmp_path / "sweep.json"), device="cpu")
     assert res.n_specs == 2
     assert res.n_executables == 1
-    # repro's test asserts finite errors; here the groundtruth chain (10
-    # warmup steps) never moves, its Silverman bandwidth is exactly 0 and the
-    # port's logL2 NaN, where repro's std rounds to ~1e-8 and gives a finite
-    # logL2 (ROADMAP Queue 3, known divergence): each row is held to the
-    # standalone Pipeline's instead
+    # repro's test asserts finite errors. Here the groundtruth chain (10
+    # warmup steps) never moves; its spread, in repro's form, is the mean's
+    # rounding residual, so seed 0's logL2 is finite (171.33, as in the
+    # Pipeline). Seed 1's is NaN for another reason: its 30 draws a chain
+    # hold fewer than d + 1 = 11 distinct points, and the parametric
+    # product's covariance has no float32 Cholesky factor in the port
+    # (repro's random stream and factor differ). Each row is held to the
+    # standalone Pipeline's.
     for spec in specs:
         board = Pipeline(spec, device="cpu").run().errors
         row = [r["error"] for r in res.rows if r["spec_id"] == spec.spec_id]
         assert len(row) == 1 and _same(row[0], board["parametric"])
+        if spec.seed == 0:
+            assert math.isfinite(row[0])
+
+
+def test_constant_chain_log_l2_is_finite_where_the_reference_is():
+    """The sweep spec's groundtruth chain never moves (seeds 0 and 1). On the
+    same draws, the port's logL2 against a moving cloud is finite wherever
+    repro's is: Silverman's spread is taken in ``jnp.std``'s form."""
+    import jax.numpy as jnp
+
+    from repro.core import metrics as jax_metrics
+    from repro_torch.core import metrics
+
+    for seed in (0, 1):
+        spec = RunSpec(model="linear", sampler="mala", combiner="parametric", M=4, T=30,
+                       warmup=10, n=256, groundtruth_T=60, score_metric="logl2", seed=seed)
+        pipe = Pipeline(spec, device="cpu")
+        gt, cloud = pipe.groundtruth(), pipe.sample().theta[0]
+        assert float(gt.std(dim=0).max()) == 0.0  # the chain never moved
+        for p, q in ((gt, cloud), (cloud, gt)):
+            want = float(jax_metrics.log_l2_distance(jnp.asarray(p.numpy()),
+                                                     jnp.asarray(q.numpy())))
+            got = float(metrics.log_l2_distance(p, q))
+            assert math.isfinite(want) and math.isfinite(got), (seed, want, got)
 
 
 def test_executable_cache_reloads_one_backend_per_signature():
