@@ -49,7 +49,15 @@ a non-zero exit:
               against float64 (``flash_probe.check_tile``); FMAs otherwise),
               each case checking which route's count rose, and three more
               runs of each tensor-core route's serving case giving the same
-              bits;
+              bits; every route's lse (``return_lse=True``, the training
+              path's) against the float64 plain lse, +inf on rows with
+              nothing visible; ``flash_attention_bwd`` (the hand-written
+              backward) on the forward kernel's out and lse against its
+              plain version in float64 and in its own dtype
+              (``flash_bwd_probe.CASES``: the training shape, three more
+              runs the same bits, float32, hd 64 / 256, hd 192 with hd_v
+              128, G 1 / 8 / 64, non-causal, ragged, kv_len < T, kv_len = 0
+              with exactly zero gradients);
 4. main     — the paper's §8.1 logistic-regression pipeline at full width
               through ``repro_torch.api.Pipeline(PAPER_SPEC).run()``: its
               kernels must have launched, the likelihood exactly once per
@@ -103,6 +111,20 @@ a non-zero exit:
               and Poisson/Gibbs: the 2-process ``online`` samples bitwise the
               1-process ones, each rank's bytes through the store exactly
               its moments and acceptance rates; the walls of every part;
+4i. train   — LM training at llama3.2-3b's full width (bf16, batch 1 x
+              seq 4,096, remat "full"), through ``python -m
+              repro_torch.launch.train``'s ``main``: (a) one block's
+              gradients through the flash kernels against the einsum
+              attention's, float32 and bf16; (b) ``--mode adamw``, 4 steps
+              of 28 layers, the loss falling from step 0 to 3; (c) ``--mode
+              epmcmc``, 1 chain of 28 layers and 4 chains of 2 layers
+              (finite per-chain losses, the Welford count steps − burn-in,
+              a finite parametric product); (d) an interrupted 4-chain
+              epmcmc run resumed bit for bit (reduced config); (e) ``--mode
+              sgd``, 2 steps of 4 chains of 2 layers; every full-width run's
+              flash launches exact (2 forward, by the remat recompute, and
+              1 backward a layer a chain a step), s a step and peak
+              ``max_memory_allocated`` printed;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
@@ -121,6 +143,11 @@ a non-zero exit:
               bound and the float32 FMA bound; the
               KDE kernel's bound the largest of its bytes, its three TF32
               passes on the tensor cores and its exps on the MUFU;
+              ``flash_attention_bwd`` at the training shape (warm, cold L2,
+              its plain version, autograd of scaled_dot_product_attention's
+              backward as the yardstick, the bound at the bf16 tensor-core
+              and float32 FMA rates) and the forward there with and without
+              lse;
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -578,7 +605,7 @@ def posterior_session(label, server, readers, *, transitions, sweeps_per_refresh
     want = {"logreg_loglik_grad": transitions,
             "img_log_weights": sweeps_per_refresh * state.refreshes,
             "machine_kde_log_density": state.logpdf_answered, "kde_log_density": 0,
-            "online_update": 0, "flash_attention": 0}
+            "online_update": 0, "flash_attention": 0, "flash_attention_bwd": 0}
     ok = launches == want and routes["img_log_weights"] == {
         "generic": 0, "sweep": want["img_log_weights"]}
     st = summary["staleness"]
@@ -747,6 +774,326 @@ def npz_bytes(*shapes) -> int:
     buf = io.BytesIO()
     np.savez(buf, **{f"a{i:03d}": np.zeros(s, np.float32) for i, s in enumerate(shapes)})
     return len(buf.getvalue())
+
+
+def step_split(out, cfg, argv, dev, sync):
+    """One more step after a training run, in parts, each ended by a
+    synchronise: (forward + backward s, the rest s). adamw: ``loss_fn`` and
+    its gradients, then ``adamw_update``, both timed. epmcmc and sgd: every
+    chain's ``_neg_logpost_and_grads`` timed one after another and summed,
+    then one whole ``epmcmc_step`` (or ``sgd_baseline_step``) timed; the
+    rest (the pSGLD update, its noise and the Welford fold, or the chain
+    mean) is that step's time less the summed forward + backward: a
+    remainder, which takes any difference between the two."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed import epmcmc
+    from repro_torch.models.lm import steps as lm_steps
+    from repro_torch.optim import adamw_update
+
+    mode = argv[argv.index("--mode") + 1]
+    seq, batch = int(argv[argv.index("--seq") + 1]), int(argv[argv.index("--batch") + 1])
+    if mode == "adamw":
+        model, opt = out["state"]
+        b = TokenStream(cfg.vocab_size, batch, seq, seed=1, device=dev).batch(0)
+        params = dict(model.named_parameters())
+        sync()
+        t0 = time.perf_counter()
+        total, _ = lm_steps.loss_fn(model, cfg, b)
+        grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+        sync()
+        t1 = time.perf_counter()
+        adamw_update(params, grads, opt)
+        sync()
+        return t1 - t0, time.perf_counter() - t1
+    state = out["state"]
+    chains = state.m_count.shape[0]
+    streams = [TokenStream(cfg.vocab_size, batch, seq, seed=1, shard_index=c, device=dev)
+               for c in range(chains)]
+    b = {k: torch.stack([s.batch(0)[k] for s in streams]) for k in ("tokens", "labels")}
+    kw = dict(num_shards=chains, shard_tokens=float(batch * seq * 100))
+    fwd_bwd = 0.0
+    for c in range(chains):
+        sync()
+        t0 = time.perf_counter()
+        _, grads = epmcmc._neg_logpost_and_grads(epmcmc.chain_view(cfg, state.params, c), cfg,
+                                                 {k: v[c] for k, v in b.items()}, **kw)
+        sync()
+        fwd_bwd += time.perf_counter() - t0
+        del grads
+    step = epmcmc.epmcmc_step if mode == "epmcmc" else epmcmc.sgd_baseline_step
+    sync()
+    t0 = time.perf_counter()
+    step(state, b, cfg, step_size=1e-5, **kw)
+    sync()
+    return fwd_bwd, time.perf_counter() - t0 - fwd_bwd
+
+
+def train_phase(dev, kernels, lm_config):
+    """Phase 4i: LM training at llama3.2-3b's full width (d 3,072, 24/8 heads,
+    hd 128, d_ff 8,192, vocab 128,256, bf16, remat "full"), batch 1 × seq
+    4,096 (train_4k's sequence, > attn_chunk, so every layer's attention is
+    flash): (a) one block's gradients through the flash kernels against the
+    einsum attention's (the plain versions), float32 and bf16; (b) adamw, 4
+    steps of 28 layers; (c) epmcmc, 1 chain of 28 layers and 4 chains of 2
+    layers; (d) an interrupted 4-chain epmcmc run resumed bit for bit (at
+    the reduced config: a full-width 4-chain checkpoint is 34 GB); (e) sgd,
+    2 steps of 4 chains of 2 layers. Flash launches exact on every full-width
+    run: 2 forward (the block and its remat recompute) and 1 backward a layer
+    a chain a step. Returns (the full-width runs' launches, their flash
+    forward launches by route, the record printed)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.models.lm import model as lm_model
+
+    phase("4i train: llama3.2-3b full width, bf16, batch 1 x seq 4096, remat full")
+    cfg = lm_config("llama3.2-3b")
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    record, launches_train = {}, {name: 0 for name in kernels.KERNELS}
+    routes_train = {route: 0 for route in fwd_kernel.route_launches}
+
+    # (a) one block, x + attn(ln1(x)) then + mlp(ln2(·)), loss Σ r·out with
+    # r fixed: its gradients (input and every weight) through the kernels
+    # against the same block whose attention is the einsum path (softmax
+    # materialized, autograd through it): float32 (tf32x3 forward, float32
+    # backward) within 1e-3 of each gradient's max, bf16 within 5e-2 (the
+    # two paths round P and the attention output to bf16 in other places)
+    pos = torch.arange(4096, device=dev)[None]
+    block_errs = {}
+    for dtype_name, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
+        c = dataclasses.replace(cfg, dtype=dtype_name, param_dtype=dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(31)
+        block = lm_model.Block(c, generator=gen, device=dev)
+        plain = lm_model.Block(dataclasses.replace(c, attn_impl="einsum"), device=dev)
+        plain.load_state_dict(block.state_dict())
+        dtype = block.attn.w_q.dtype
+        h = torch.randn((1, 4096, c.d_model), generator=gen, device=dev).to(dtype)
+        r = torch.randn((1, 4096, c.d_model), generator=gen, device=dev)
+
+        def grads(b):
+            x = h.clone().requires_grad_()
+            loss = (b(x, pos).float() * r).sum()
+            return torch.autograd.grad(loss, [x, *b.parameters()])
+
+        kernels.reset_launches()
+        got = grads(block)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want_counts = {n: int(n in ("flash_attention", "flash_attention_bwd")) for n in counts}
+        if counts != want_counts:
+            raise AssertionError(f"(a) one block ({dtype_name}) launched {counts}")
+        want = grads(plain)
+        names = ["x", *(n for n, _ in block.named_parameters())]
+        rel = {n: float((a.double() - b.double()).abs().max() / b.double().abs().max())
+               for n, a, b in zip(names, got, want)}
+        worst = max(rel, key=rel.get)
+        ok = all(torch.isfinite(a).all() for a in got) and rel[worst] <= tol
+        print(f"  (a) one block {dtype_name}: gradients through the kernels vs the einsum "
+              f"attention's: worst {worst} {rel[worst]:.3e} of its max (tol {tol:g}), x "
+              f"{rel['x']:.3e}, attn.w_q {rel['attn.w_q']:.3e}, attn.w_k {rel['attn.w_k']:.3e}, "
+              f"attn.w_v {rel['attn.w_v']:.3e}; launches flash_attention 1, "
+              f"flash_attention_bwd 1 {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"(a) one block ({dtype_name}): gradients disagree")
+        block_errs[dtype_name] = rel
+        del block, plain, got, want, h, r
+        torch.cuda.empty_cache()
+    record["block_grad_rel_err"] = {k: max(v.values()) for k, v in block_errs.items()}
+
+    base = ["--arch", "llama3.2-3b", "--batch", "1", "--seq", "4096", "--log-every", "1",
+            "--seed", "0"]
+
+    def run(label, argv, *, layers, chains, steps):
+        """train.main with the counts reset; flash launches exact."""
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = train.main(base + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routes = kernels.launch_counts(), dict(fwd_kernel.route_launches)
+        calls = layers * chains * steps
+        want = {n: {"flash_attention": 2 * calls, "flash_attention_bwd": calls}.get(n, 0)
+                for n in counts}
+        if counts != want or routes.get("tensor_core") != 2 * calls:
+            raise AssertionError(f"{label}: launched {counts} (flash by route {routes}), "
+                                 f"expected {want}, all on the tensor-core route")
+        for n in counts:
+            launches_train[n] += counts[n]
+        for rt in routes:
+            routes_train[rt] += routes[rt]
+        losses = [x.tolist() for x in out["losses"]]
+        if not all(math.isfinite(v) for x in losses for v in (x if isinstance(x, list) else [x])):
+            raise AssertionError(f"{label}: a loss is not finite: {losses}")
+        combined = out.pop("combined", None)  # epmcmc: 25.7 GB at 28 layers, checked here
+        if combined is not None:
+            out["combined_finite"] = all(bool(torch.isfinite(t).all())
+                                         for part in (combined.mean, combined.cov)
+                                         for t in part.values())
+            out["combined_dims"] = sum(t.numel() for t in combined.mean.values())
+            out["welford_count"] = out["state"].m_count.tolist()  # before the split's step
+            del combined
+            torch.cuda.empty_cache()
+        fwd_bwd, rest = step_split(out, dataclasses.replace(cfg, num_layers=layers), base + argv,
+                                   dev, torch.cuda.synchronize)
+        adamw = argv[argv.index("--mode") + 1] == "adamw"
+        rec = {"losses": losses, "step_s": out["step_s"], "wall_s": wall,
+               "peak_gb": out["peak_bytes"] / 1e9, "flash_attention": counts["flash_attention"],
+               "flash_attention_bwd": counts["flash_attention_bwd"],
+               "split_s": {"forward_backward": fwd_bwd, "update" if adamw else "rest": rest}}
+        print(f"  {label}: loss by step {json.dumps(losses)}; s a step "
+              f"{json.dumps([round(t, 4) for t in out['step_s']])} (one more step split: "
+              f"forward + backward {fwd_bwd:.4f} s" + (
+                  f", the update {rest:.4f} s" if adamw else
+                  f" (every chain's, summed), the rest {rest:.4f} s (the step less that)")
+              + "); peak "
+              f"max_memory_allocated "
+              f"{rec['peak_gb']:.2f} GB; wall {wall:.2f} s; launches flash_attention "
+              f"{counts['flash_attention']} (tensor_core), flash_attention_bwd "
+              f"{counts['flash_attention_bwd']} ({layers} layers x {chains} chains x {steps} "
+              f"steps, remat) ok", flush=True)
+        record[label] = rec
+        return out
+
+    # (b) adamw at the reference's rate, 3e-4: the first step lowers the loss
+    # (fresh batches of the u^4 token marginal). Later steps need not, and the
+    # gate holds no more: on an NVIDIA H100 80GB HBM3, 700 W, the loss went
+    # 12.47, 12.04, 13.44, 13.19, 12.73, 12.30 at this rate; with the max
+    # detached outside the exponent too (no extra one-hot(argmax) term, the
+    # reference's fault) 12.47, 12.70, 13.85, 28.31, so the term does not
+    # cause the rise; at 1e-4 it went 12.47, 12.18, 12.42, 12.37
+    out = run("(b) adamw 28 layers", ["--mode", "adamw", "--steps", "4"],
+              layers=28, chains=1, steps=4)
+    if not out["losses"][1] < out["losses"][0]:
+        raise AssertionError(f"(b) adamw: the first step did not lower the loss: {out['losses']}")
+    del out
+    torch.cuda.empty_cache()
+
+    # (c) epmcmc: per-chain losses finite, the Welford count steps − burn-in,
+    # the diagonal parametric product finite
+    for label, layers, chains in (("(c) epmcmc 1 chain x 28 layers", 28, 1),
+                                  ("(c) epmcmc 4 chains x 2 layers", 2, 4)):
+        out = run(label, ["--mode", "epmcmc", "--steps", "3", "--burn-in", "1", "--chains",
+                          str(chains), "--layers", str(layers)], layers=layers, chains=chains,
+                  steps=3)
+        count, finite = out["welford_count"], out["combined_finite"]
+        if count != [2.0] * chains or not finite:
+            raise AssertionError(f"{label}: Welford count {count} (want 2 a chain), combined "
+                                 f"finite {finite}")
+        print(f"  {label}: Welford count {count}, combine_parametric_diag over "
+              f"{out['combined_dims']} dims finite", flush=True)
+        del out
+        torch.cuda.empty_cache()
+
+    # (d) an interrupted 4-chain run resumed bit for bit: reduced (4 layers,
+    # d 128, float32), seq 1,088 > attn_chunk so every layer runs the flash
+    # kernels (the FMA forward route at hd 32)
+    reduced_run = ["--arch", "llama3.2-3b", "--reduced", "--mode", "epmcmc", "--chains", "4",
+                   "--burn-in", "1", "--batch", "1", "--seq", "1088", "--log-every", "100"]
+    kernels.reset_launches()
+    full = train.main(reduced_run + ["--steps", "4"])["state"]
+    with tempfile.TemporaryDirectory() as ckdir:
+        ck = ["--ckpt-dir", ckdir, "--ckpt-every", "2"]
+        train.main(reduced_run + ["--steps", "2"] + ck)
+        resumed = train.main(reduced_run + ["--steps", "4", "--resume"] + ck)["state"]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    diffs = {f"{key}/{name}": float((t.float() - getattr(resumed, key)[name].float()).abs().max())
+             for key in ("params", "v", "m_mean", "m_var") for name, t in getattr(full, key).items()}
+    same = (all(torch.equal(t, getattr(resumed, key)[name]) for key in ("params", "v", "m_mean",
+                                                                        "m_var")
+                for name, t in getattr(full, key).items())
+            and torch.equal(full.m_count, resumed.m_count)
+            and all(torch.equal(a.get_state(), b.get_state())
+                    for a, b in zip(full.gens, resumed.gens)))
+    print(f"  (d) reduced epmcmc, 4 chains: 4 steps against 2 + checkpoint + resume 2: "
+          f"{'bit for bit' if same else 'DIFFERENT'} (largest |diff| {max(diffs.values()):.3e}); "
+          f"launches flash_attention {counts['flash_attention']}, flash_attention_bwd "
+          f"{counts['flash_attention_bwd']}", flush=True)
+    if not same or counts["flash_attention_bwd"] != 4 * 4 * 8:
+        raise AssertionError("(d) the resumed run differs from the uninterrupted one, or the "
+                             "kernels were not launched (4 layers x 4 chains x 8 steps)")
+    record["resume_bitwise"] = same
+    del full, resumed
+    torch.cuda.empty_cache()
+
+    # (e) the synchronous baseline
+    out = run("(e) sgd 4 chains x 2 layers", ["--mode", "sgd", "--steps", "2", "--chains", "4",
+                                              "--layers", "2"], layers=2, chains=4, steps=2)
+    del out
+    torch.cuda.empty_cache()
+    print(f"  train path launches {json.dumps(launches_train)}, flash_attention by route "
+          f"{json.dumps(routes_train)}", flush=True)
+    return launches_train, routes_train, record
+
+
+def flash_bwd_timing(dev, gen, flush):
+    """Phase 5's flash_attention_bwd row at the training shape (B=1, K=8,
+    G=3, S=T=4096, hd=hd_v=128, bf16, causal): the kernel warm and with a
+    cold L2, its plain version (float32 arithmetic), autograd of PyTorch's
+    scaled_dot_product_attention's backward on the same tensors (the
+    library yardstick; the port never calls it), and the forward with and
+    without lse. Bound: the backward's products, 2.5 times the forward's
+    2·(hd + hd_v) flop per visible pair, over the bf16 tensor-core rate (and
+    over the float32 FMA rate, the rate this design's products run at),
+    against q, k, v, out, dout and lse read once and dq, dk, dv written once."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+    )
+
+    B, K, G, hd, S = 1, 8, 3, 128, 4096
+    q = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    run = lambda: flash_attention_bwd(q, k, v, out, lse, dout)  # noqa: E731
+    ms, host = device_ms(run, iters=10)
+    cold, _ = device_ms(run, iters=5, flush=flush)
+    plain, _ = device_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout), iters=1)
+    fwd_ms, _ = device_ms(lambda: flash_attention(q, k, v), iters=10)
+    fwd_lse_ms, _ = device_ms(lambda: flash_attention(q, k, v, return_lse=True), iters=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh = q.reshape(B, S, K * G, hd).transpose(1, 2).detach().requires_grad_()
+    kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (k, v))
+    gout = dout.reshape(B, S, K * G, hd).transpose(1, 2)
+    try:
+        o = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+        how = "enable_gqa"
+        lib_run = lambda: torch.autograd.grad(o, (qh, kh, vh), gout, retain_graph=True)  # noqa: E731
+    except TypeError:  # an older PyTorch: repeat the KV heads for it
+        kr, vr = (x.detach().repeat_interleave(G, dim=1).requires_grad_() for x in (kh, vh))
+        o = sdpa(qh, kr, vr, is_causal=True)
+        how = "KV heads repeated"
+        lib_run = lambda: torch.autograd.grad(o, (qh, kr, vr), gout, retain_graph=True)  # noqa: E731
+    lib_ms, _ = device_ms(lib_run, iters=10)
+    nbytes = 2 * (3 * B * S * K * G * hd + 2 * B * S * K * hd) + 4 * B * S * K * G \
+        + 2 * (B * S * K * G * hd + 2 * B * S * K * hd)
+    flops = 2.5 * 2 * (hd + hd) * B * K * G * S * (S + 1) // 2
+    bound, bound_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
+    bound32, _ = least_ms(nbytes, flops)
+    print(f"  flash_attention_bwd B={B} K={K} G={G} S=T={S} hd={hd} causal bf16: kernel "
+          f"{ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} us/call), "
+          f"plain {plain * 1e3:.2f} us, scaled_dot_product_attention backward ({how}) "
+          f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {bound_by} at the bf16 "
+          f"tensor-core rate ({bound32 * 1e3:.2f} us at the float32 FMA rate; {flops:.4e} flop, "
+          f"{nbytes / 1e6:.1f} MB); the forward at this shape {fwd_ms * 1e3:.2f} us without lse, "
+          f"{fwd_lse_ms * 1e3:.2f} us with", flush=True)
+    row = {"name": "flash_attention_bwd", "ms": ms, "cold_ms": cold, "host_ms": host,
+           "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+           "bound_ms_float32": bound32, "library_ms": lib_ms,
+           "forward_ms": fwd_ms, "forward_lse_ms": fwd_lse_ms,
+           "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} causal bfloat16"}
+    del q, k, v, dout, out, lse, qh, kh, vh, gout, o, lib_run
+    torch.cuda.empty_cache()
+    return row
 
 
 def multi_device_phase(dev, kernels, img_kernel, online_kernel, *, paper_theta, paper_errors,
@@ -1553,6 +1900,33 @@ def main() -> int:
         del q, k, v, out
     torch.cuda.empty_cache()
 
+    # flash_attention_bwd (the training path's attention backward) and the
+    # forward's lse, with flash_bwd_probe's cases and tolerances: every
+    # forward route's lse against the float64 plain lse (1e-4 + 1e-5·|lse|;
+    # +inf exactly on the rows with nothing visible; out the same bits with
+    # and without lse); the backward on the forward kernel's out and lse
+    # against the plain version in float64 and in the case's dtype (float32
+    # 2e-4, bf16 2e-2, of max|g| plus as much of |g|: P and dS round to bf16
+    # in the kernel), at the training shape (B=1, S=T=4096, K=8, G=3, hd=128,
+    # bf16, causal, three more runs the same bits), float32, hd 64 and 256,
+    # hd 192 with hd_v 128, G 1, 8 and 64, non-causal, ragged S and T,
+    # kv_len < T and kv_len = 0 (exactly zero gradients); one launch a call.
+    from repro_torch.launch import flash_bwd_probe
+
+    log = lambda m: print(m, flush=True)  # noqa: E731
+    bwd_gen = torch.Generator(device=dev).manual_seed(23)
+    lse_err, ok = flash_bwd_probe.check_lse(bwd_gen, log)
+    if not ok:
+        raise AssertionError("flash_attention: an lse disagrees with its plain version")
+    for label, case in flash_bwd_probe.CASES.items():
+        e64, e32, ok = flash_bwd_probe.check_case(bwd_gen, label, case, log)
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd {label}: the kernel disagrees with its "
+                                 f"plain version")
+        errs["flash_attention_bwd"] = max(errs.get("flash_attention_bwd", 0.0), e64)
+        err32["flash_attention_bwd"] = max(err32.get("flash_attention_bwd", 0.0), e32)
+        torch.cuda.empty_cache()
+
     phase("4 main path: Pipeline(PAPER_SPEC).run() on the card")
     print(f"  spec {PAPER_SPEC.to_json()}", flush=True)
     kernels.reset_launches()
@@ -2155,6 +2529,9 @@ def main() -> int:
         stream_img=img_routes["stream"], n_chunks=n_chunks, cells=cells, mres=mres)
     torch.cuda.empty_cache()
 
+    launches_train, routes_train, train_record = train_phase(dev, kernels, lm_config)
+    torch.cuda.empty_cache()
+
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
 
@@ -2489,6 +2866,7 @@ def main() -> int:
                      fma_route={key: flash_rows["float32 B=2 q 4 bytes off 16"][key]
                                 for key in keys + ("shape",)})
     rows.append(flash_row)
+    rows.append(flash_bwd_timing(dev, gen, flush))
 
     phase("6 summary")
     print(f"  chip_smoke ran {time.perf_counter() - t_start:.1f} s, the build included", flush=True)
@@ -2498,7 +2876,8 @@ def main() -> int:
         k = kernels.KERNELS[name]
         # each kernel's launches on its own main path: the serving run for
         # flash_attention, the stream (which runs every MCMC kernel) otherwise
-        main_launches = launches_serve if name == "flash_attention" else launches_stream
+        main_launches = {"flash_attention": launches_serve,
+                         "flash_attention_bwd": launches_train}.get(name, launches_stream)
         entry = {
             "name": name, "route": "cuda", "source": os.path.relpath(k.source, root),
             "replaces": k.replaces, "launches": main_launches[name],
@@ -2508,7 +2887,8 @@ def main() -> int:
                                  "posterior_serve": launches_post[name],
                                  "mesh_paper": launches_mesh[name],
                                  "mesh_stream": launches_mesh_stream[name],
-                                 **{label: o["launches"][name] for label, o in other.items()}},
+                                 **{label: o["launches"][name] for label, o in other.items()},
+                                 "train": launches_train[name]},
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]
@@ -2516,10 +2896,14 @@ def main() -> int:
             entry["launches_by_route"] = img_routes
         if name == "online_update":  # the stream path's launches, by route
             entry["launches_by_route"] = {"stream": online_routes_stream}
-        if name == "flash_attention":  # the serving runs' launches, by route
+        if name == "flash_attention":  # the serving and training runs' launches, by route
             entry["launches_by_route"] = {"serve_bfloat16": routes_serve16,
-                                          "serve_float32": routes_serve32}
+                                          "serve_float32": routes_serve32,
+                                          "train": routes_train}
             entry["max_abs_err_by_route"] = flash_err64
+            entry["lse_max_abs_err"] = lse_err
+        if name == "flash_attention_bwd":
+            entry["train"] = train_record
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

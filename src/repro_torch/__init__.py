@@ -7,8 +7,9 @@ of ``repro``. The TPU kernels on its path are hand-written CUDA kernels under
 :mod:`repro_torch.kernels`.
 
 Device rule: every entry point (``Pipeline``, ``sample_subposteriors``, the
-combiners, the kernel wrappers, the LM serving CLI) runs on ``cuda`` unless the caller passes
-``device="cpu"``; with no card visible and no explicit CPU device it raises
+combiners, the kernel wrappers, the LM serving and training CLIs) runs on
+``cuda`` unless the caller passes ``device="cpu"``; with no card visible and
+no explicit CPU device it raises
 (:func:`resolve_device`) rather than continue on the CPU.
 
 TF32 is switched off for cuBLAS and cuDNN at import, for the whole process:

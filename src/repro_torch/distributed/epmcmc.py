@@ -1,6 +1,34 @@
-"""EP-MCMC's communication, and the proof that sampling has none.
+"""EP-MCMC on the LM, its communication, and the proof that sampling has none.
 
-The port of the part of ``repro/distributed/epmcmc.py`` that is not the LM:
+The port of ``repro/distributed/epmcmc.py``.
+
+The LM-scale training mode (the paper's algorithm on an LM): M independent
+pSGLD chains, each on its own token shard, each targeting its subposterior
+(paper Eq. 2.1) ``log p_c(θ) = (1/M)·log p(θ) + N_c·(mean token
+log-likelihood)`` with an N(0, ``PRIOR_SIGMA``²) prior, no cross-chain
+communication during sampling, streaming Welford moments per chain, and a
+diagonal parametric (BvM) product at the end:
+
+- :class:`EpmcmcState`, :func:`num_chains`, :func:`init_state`: the state
+  stacked on a leading chain axis and keyed by the port's parameter names
+  (``blocks.3.attn.w_q``), one explicit ``torch.Generator`` a chain;
+- :func:`epmcmc_step`: one pSGLD transition of every chain, chain after
+  chain; a chain's transition reads only its own slices and draws its noise
+  from its own generator (``noise=`` feeds given draws instead, so a test
+  can hand it the reference's); metrics stay per chain, as the reference's
+  comment at :237 demands;
+- :func:`sgd_baseline_step`: the synchronous strawman (gradients averaged
+  over the chains every step);
+- :func:`combine_parametric_diag`, :func:`gather_subset_samples`: the
+  combination stage.
+
+The reference vmaps the chain axis and lets GSPMD shard it; the port loops
+the chains on one device (``state_specs``, ``batch_spec`` and
+``chain_axes`` are sharding, ROADMAP Queue 1 item 11.10). A chain's model is
+an ``LM`` whose parameters are views of the stacked state
+(:func:`chain_view`), so the transition updates the state in place.
+
+The combination and the checks of the MCMC pipeline:
 
 - :func:`combine_gathered` — the final combination of gathered
   ``(M, T, d_sub)`` draws, resolved by registry name;
@@ -18,21 +46,295 @@ The port of the part of ``repro/distributed/epmcmc.py`` that is not the LM:
   collective (``c10d`` or a functional collective) or on an operand that
   lies on another group's device or in the storage of another group's
   inputs or carry (storage, not device: two groups may share a card).
-
-Left for ROADMAP Queue 1 item 11.1 (the LM's SGLD EP-MCMC training mode):
-``init_state``, ``epmcmc_step``, ``sgd_baseline_step``, ``state_specs``,
-``gather_subset_samples`` (it selects LM parameters by path) and the
-diagonal parametric combine of the LM's per-chain moments.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable, List, NamedTuple, Sequence
+import re
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch import resolve_device
+from repro_torch.core.gaussian import GaussianMoments, product_moments_diag
+from repro_torch.data.tokens import seed_of
 from repro_torch.kernels import watch_operands
+from repro_torch.models.lm import model as mdl
+from repro_torch.models.lm import steps
+from repro_torch.models.lm.config import ModelConfig
+
+Tensors = Dict[str, torch.Tensor]
+
+PRIOR_SIGMA = 1.0  # N(0, σ²) prior over every weight — BvM-regime reference prior
+
+
+class EpmcmcState(NamedTuple):
+    """State of M parallel subposterior pSGLD chains (+ streaming moments)."""
+
+    params: Tensors  # (C, ...) stacked chain parameters, cfg.param_dtype
+    v: Tensors  # (C, ...) RMSProp preconditioner accumulators, float32
+    step: int
+    gens: List[torch.Generator]  # one a chain: its noise
+    # streaming diagonal moments of the post-burn-in samples, per chain:
+    m_count: torch.Tensor  # (C,) float32
+    m_mean: Tensors  # (C, ...) running mean of θ samples, float32
+    m_var: Tensors  # (C, ...) running Σ(θ−mean)² (Welford), float32
+
+
+def num_chains(mesh_shape: Sequence[int] = (1, 1)) -> int:
+    """Chains of a run on ``mesh_shape`` (data, model): one a data index
+    (the reference's pod × data axes; the port's host mesh is (1, 1))."""
+    return int(mesh_shape[0])
+
+
+def chain_generators(seed: int, n_chains: int, device) -> List[torch.Generator]:
+    """Chain ``c``'s noise generator, seeded from ``(seed, "noise", c)``."""
+    device = torch.device(device)
+    return [torch.Generator(device=device).manual_seed(seed_of(seed, "noise", c))
+            for c in range(n_chains)]
+
+
+def init_state(seed: int, cfg: ModelConfig, n_chains: int, *, device=None) -> EpmcmcState:
+    """Every chain starts at its own draw of ``init_params`` (overdispersed
+    starts), from a generator seeded by ``(seed, "init", c)``; zero
+    accumulators and moments. The draws are not the reference's (another
+    generator): :func:`repro_torch.interop.from_reference_epmcmc_state`
+    carries a reference state over."""
+    device = resolve_device(device)
+    params: Tensors = {}
+    for c in range(n_chains):
+        gen = torch.Generator(device=device).manual_seed(seed_of(seed, "init", c))
+        model = mdl.init_params(cfg, generator=gen, device=device)
+        for name, p in model.named_parameters():
+            if c == 0:
+                params[name] = torch.empty((n_chains, *p.shape), dtype=p.dtype, device=device)
+            params[name][c].copy_(p.detach())
+        del model
+
+    def zeros():
+        return {n: torch.zeros(p.shape, dtype=torch.float32, device=device)
+                for n, p in params.items()}
+
+    return EpmcmcState(params=params, v=zeros(), step=0,
+                       gens=chain_generators(seed, n_chains, device),
+                       m_count=torch.zeros((n_chains,), dtype=torch.float32, device=device),
+                       m_mean=zeros(), m_var=zeros())
+
+
+def chain_view(cfg: ModelConfig, params: Tensors, c: int) -> mdl.LM:
+    """An ``LM`` whose parameters are views of chain ``c``'s slices of the
+    stacked ``params``: its gradients are chain ``c``'s, and an in-place
+    write to the stack is a write to it."""
+    model = mdl.init_params(cfg, device="meta")
+    for name, _ in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner) if owner else model, leaf,
+                nn.Parameter(params[name][c], requires_grad=True))
+    return model
+
+
+def _neg_logpost_and_grads(
+    model: mdl.LM,
+    cfg: ModelConfig,
+    batch: Dict[str, torch.Tensor],
+    *,
+    num_shards: int,
+    shard_tokens: float,
+) -> Tuple[torch.Tensor, Tensors]:
+    """−log p_c(θ) up to a constant, for ONE chain (``model`` its view), and
+    its gradient by name: the reference's ``_subposterior_neg_logpost`` and
+    its gradient. CE is mean/token, so ``shard_tokens × CE`` is −log-lik of
+    the whole shard (the N_c/B unbiased scaling); the Gaussian prior enters
+    with weight 1/M (paper Eq. 2.1's underweighted prior). The likelihood's
+    gradient comes from autograd, the prior's, θ/(σ²·M) in float32 cast to
+    the parameter's dtype, in closed form and added in that dtype, as the
+    reference's cotangents add: autograd of the prior would keep a float32
+    copy of every parameter for the backward (12.8 GB at llama3.2-3b)."""
+    params = dict(model.named_parameters())
+    total, _ = steps.loss_fn(model, cfg, batch)
+    grads = torch.autograd.grad(shard_tokens * total, list(params.values()))
+    with torch.no_grad():
+        sq = sum((p.float() ** 2).sum() for p in params.values())
+        value = shard_tokens * total.detach() + sq / (2.0 * PRIOR_SIGMA**2) / num_shards
+        prior = 1.0 / (PRIOR_SIGMA**2 * num_shards)
+        out = {n: g + (p.float() * prior).to(g.dtype) for (n, p), g in zip(params.items(), grads)}
+    return value, out
+
+
+def _chain_batch(batch: Dict[str, torch.Tensor], c: int) -> Dict[str, torch.Tensor]:
+    return {k: v[c] for k, v in batch.items()}
+
+
+@torch.no_grad()
+def _welford(state: EpmcmcState, c: int, take: bool) -> None:
+    """Fold chain ``c``'s θ into its running moments, in place (a no-op
+    before burn-in ends, where the reference adds zeros)."""
+    if not take:
+        return
+    state.m_count[c] += 1.0
+    n = state.m_count[c]
+    for name, p in state.params.items():
+        p32 = p[c].float()
+        mean, var = state.m_mean[name][c], state.m_var[name][c]
+        delta = p32 - mean
+        mean += delta / n
+        var += delta * (p32 - mean)
+
+
+def epmcmc_step(
+    state: EpmcmcState,
+    batch: Dict[str, torch.Tensor],  # (C, b, ...) — one sub-batch per chain
+    cfg: ModelConfig,
+    *,
+    num_shards: int,
+    shard_tokens: float,
+    step_size: float = 1e-6,
+    rmsprop_decay: float = 0.99,
+    rmsprop_eps: float = 1e-4,
+    temperature: float = 1.0,
+    burn_in: int = 0,
+    noise: Optional[Sequence[Tensors]] = None,
+) -> Tuple[EpmcmcState, Dict[str, torch.Tensor]]:
+    """One pSGLD transition of all chains + streaming-moment update, in
+    place: G = 1/(√v̂ + ε), θ += −(ε/2)·G·∇(−log p_c) + √(ε·G·T)·ξ with v̂
+    the RMSProp average of the squared gradient.
+
+    ``temperature=0`` turns the transition into preconditioned SGD *per
+    chain* — still embarrassingly parallel, and it draws no noise.
+    ``noise[c][name]`` (float32, the leaf's shape) replaces chain ``c``'s
+    draws of ξ. Returns ``(state, {"loss_per_chain", "gnorm_per_chain"})``.
+    """
+    n_chains = state.m_count.shape[0]
+    take = state.step >= burn_in
+    losses, gnorms = [], []
+    for c in range(n_chains):
+        model = chain_view(cfg, state.params, c)
+        loss, grads = _neg_logpost_and_grads(model, cfg, _chain_batch(batch, c),
+                                             num_shards=num_shards, shard_tokens=shard_tokens)
+        del model
+        with torch.no_grad():
+            sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+            for name, g in grads.items():
+                p, v = state.params[name][c], state.v[name][c]
+                g32 = g.float()
+                sq += (g32 * g32).sum()
+                v.mul_(rmsprop_decay).add_((1 - rmsprop_decay) * torch.square(g32))
+                precond = 1.0 / (torch.sqrt(v) + rmsprop_eps)
+                new = p.float() - 0.5 * step_size * precond * g32
+                if temperature:
+                    xi = noise[c][name] if noise is not None else torch.randn(
+                        p.shape, generator=state.gens[c], dtype=torch.float32, device=p.device)
+                    new += torch.sqrt(step_size * precond * temperature) * xi
+                p.copy_(new)
+            del grads
+            losses.append(loss)
+            gnorms.append(torch.sqrt(sq))
+        _welford(state, c, take)
+    # NB: metrics stay PER-CHAIN, as in the reference (no reduction over chains)
+    metrics = {"loss_per_chain": torch.stack(losses), "gnorm_per_chain": torch.stack(gnorms)}
+    return state._replace(step=state.step + 1), metrics
+
+
+def sgd_baseline_step(
+    state: EpmcmcState,
+    batch: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    num_shards: int,
+    shard_tokens: float,
+    step_size: float = 1e-6,
+    rmsprop_decay: float = 0.99,
+    rmsprop_eps: float = 1e-4,
+) -> Tuple[EpmcmcState, Dict[str, torch.Tensor]]:
+    """The synchronous strawman: the same per-chain gradient, then *averaged
+    across chains* (the data-axis all-reduce EP-MCMC eliminates) and one
+    preconditioned step of every chain with the mean, in place. The mean is
+    summed in float32 and cast to the parameter's dtype, as the reference's
+    ``jnp.mean`` of the stacked gradients gives it."""
+    n_chains = state.m_count.shape[0]
+    losses, total = [], None
+    for c in range(n_chains):
+        model = chain_view(cfg, state.params, c)
+        loss, grads = _neg_logpost_and_grads(model, cfg, _chain_batch(batch, c),
+                                             num_shards=num_shards, shard_tokens=shard_tokens)
+        del model
+        with torch.no_grad():
+            if total is None:
+                total = {n: g.float() for n, g in grads.items()}
+            else:
+                for n, g in grads.items():
+                    total[n] += g.float()
+        del grads
+        losses.append(loss)
+    with torch.no_grad():
+        for name, gsum in total.items():
+            p_all, v_all = state.params[name], state.v[name]
+            g32 = (gsum / n_chains).to(p_all.dtype).float()
+            for c in range(n_chains):
+                v = v_all[c]
+                v.mul_(rmsprop_decay).add_((1 - rmsprop_decay) * torch.square(g32))
+                precond = 1.0 / (torch.sqrt(v) + rmsprop_eps)
+                p_all[c].copy_(p_all[c].float() - 0.5 * step_size * precond * g32)
+    return state._replace(step=state.step + 1), {"loss_per_chain": torch.stack(losses)}
+
+
+# ---------------------------------------------------------------------------
+# combination (the single communicating stage)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def combine_parametric_diag(state: EpmcmcState) -> GaussianMoments:
+    """Full-θ parametric product (Eqs 3.1–3.2, diagonal/BvM form) from the
+    streaming moments, leaf by leaf: ``GaussianMoments(mean={name: ...},
+    cov={name: ...})`` with each leaf's unstacked shape. The reduce over the
+    chain axis is the only cross-chain step of the run."""
+    counts = torch.clamp(state.m_count - 1.0, min=1.0)
+    means, covs = {}, {}
+    for name, mean in state.m_mean.items():
+        n_chains = mean.shape[0]
+        cshape = (n_chains,) + (1,) * (mean.dim() - 1)
+        var = state.m_var[name] / counts.reshape(cshape) + 1e-12
+        mom = product_moments_diag(mean.reshape(n_chains, -1), var.reshape(n_chains, -1))
+        means[name] = mom.mean.reshape(mean.shape[1:])
+        covs[name] = mom.cov.reshape(mean.shape[1:])
+    return GaussianMoments(mean=means, cov=covs)
+
+
+def gather_subset_samples(
+    params: Optional[Tensors] = None,
+    paths: Optional[Sequence[str]] = None,
+    *,
+    history: bool = False,
+    chunk: Optional[Sequence[Tensors]] = None,
+) -> torch.Tensor:
+    """Flatten a designated low-dim θ subset per chain → ``(C, d_sub)``
+    float32 (a copy).
+
+    Default subset: the final norm's scale (present in every arch);
+    ``paths`` are regular expressions searched in the port's parameter names
+    (``blocks\\.0\\.ln1``), where the reference searches its pytree paths.
+    ``history=True`` returns ``(C, 1, d_sub)``; ``chunk=`` (a window of
+    stacked params) returns ``(C, k, d_sub)``, one streaming chunk."""
+    if chunk is not None:
+        if params is not None:
+            raise ValueError(
+                "pass either one stacked params dict or chunk= (a window of them), not both"
+            )
+        if len(chunk) == 0:
+            raise ValueError("chunk= needs at least one per-step snapshot")
+        return torch.stack([gather_subset_samples(p, paths) for p in chunk], dim=1)
+    if params is None:
+        raise ValueError("gather_subset_samples needs params (or chunk=)")
+    sel = [leaf for name, leaf in params.items()
+           if ("final_norm" in name if paths is None else any(re.search(p, name) for p in paths))]
+    if not sel:
+        raise ValueError("subset selector matched no parameters")
+    n_chains = sel[0].shape[0]
+    out = torch.cat([s.reshape(n_chains, -1).float() for s in sel], dim=1).clone()
+    return out[:, None, :] if history else out
 
 # operator namespaces that move data between processes or devices
 COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional",

@@ -5,12 +5,15 @@ compared is the dataset. :func:`from_reference_data` takes ``repro``'s
 generated data and generating parameters, passed as numpy arrays, and
 returns them as the port's float32 tensors in the form ``generate_data``
 returns, which ``Pipeline(spec, data=...)`` accepts.
-:func:`from_reference_lm_params` does the same for the LM sidecar's weights.
+:func:`from_reference_lm_params` does the same for the LM's weights,
+:func:`from_reference_epmcmc_state` for the reference's stacked EP-MCMC
+training state, and :func:`to_reference_lm_grads` takes the port's
+gradients back to the reference's pytree, for comparison leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,49 +45,101 @@ def _weight(a: Any) -> torch.Tensor:
     return torch.tensor(a)
 
 
+def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]:
+    """How ``repro``'s dense LM pytree maps onto the port's parameter names:
+    ``(port name, reference path, layer index into a stacked leaf or None)``
+    in the port's ``named_parameters`` order.
+
+    The reference stacks the layers of a group on a leading axis
+    (``params["g0"]["l0"]["attn"]["w_q"]["w"]`` is (L, d, H·hd) for L > 1,
+    see ``layer_groups``); each layer's slice is ``blocks[i]``. Weights keep
+    the reference's ``x @ w`` layout, (d_in, d_out), so nothing is
+    transposed: ``w_q/w_k/w_v/w_o`` (and biases ``b_q/b_k/b_v``),
+    ``w_gate/w_up/w_down``, the norms' ``scale``, ``embed`` (V, d) and, when
+    untied, ``lm_head`` (d, V).
+    """
+    from repro_torch.models.lm import model as mdl
+
+    out = [("embed", ("embed",), None)]
+    if not cfg.tie_embeddings:
+        out.append(("lm_head", ("lm_head",), None))
+    out.append(("final_norm.scale", ("final_norm", "scale"), None))
+    layer = 0
+    for gi, group in enumerate(mdl.layer_groups(cfg)):
+        for r in range(group.repeat):
+            for li in range(len(group.specs)):
+                base = (f"g{gi}", f"l{li}")
+                idx = r if group.repeat > 1 else None
+                prefix = f"blocks.{layer}."
+                out.append((prefix + "ln1.scale", base + ("ln1", "scale"), idx))
+                for w in ("w_q", "w_k", "w_v", "w_o"):
+                    out.append((prefix + f"attn.{w}", base + ("attn", w, "w"), idx))
+                if cfg.qkv_bias:
+                    for w in ("w_q", "w_k", "w_v"):
+                        out.append((prefix + f"attn.b_{w[-1]}", base + ("attn", w, "b"), idx))
+                out.append((prefix + "ln2.scale", base + ("ln2", "scale"), idx))
+                for w in ("w_gate", "w_up", "w_down"):
+                    out.append((prefix + f"mlp.{w}", base + ("mlp", w), idx))
+                layer += 1
+    return out
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def from_reference_lm_tree(tree: Dict[str, Any], cfg, *, lead: int = 0) -> Dict[str, np.ndarray]:
+    """A reference LM pytree of numpy leaves (parameters, or anything shaped
+    like them: gradients, moments) as ``{port name: array}``. ``lead``
+    leading axes (a chain axis: 1) are kept in front of each leaf; the layer
+    axis of a stacked leaf follows them."""
+    out = {}
+    for name, path, idx in reference_lm_leaves(cfg):
+        a = np.asarray(_get(tree, path))
+        out[name] = a if idx is None else a[(slice(None),) * lead + (idx,)]
+    return out
+
+
+def to_reference_lm_grads(grads: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
+    """The port's ``{name: gradient}`` as the reference's pytree of numpy
+    float32 arrays, a stacked group's layers stacked again, so that the two
+    packages' gradients compare leaf by leaf."""
+    tree: Dict[str, Any] = {}
+    stacked: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    for name, path, idx in reference_lm_leaves(cfg):
+        a = grads[name].detach().float().cpu().numpy()
+        if idx is None:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = a
+        else:
+            stacked.setdefault(path, {})[idx] = a
+    for path, by_idx in stacked.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([by_idx[i] for i in sorted(by_idx)])
+    return tree
+
+
 def from_reference_lm_params(
     params: Dict[str, Any],
     cfg,
     *,
     device: str | torch.device | None = None,
 ):
-    """``repro``'s LM ``init_params`` pytree (numpy leaves) as the port's model.
-
-    The dense family only. The reference stacks the layers of a group on a
-    leading axis (``params["g0"]["l0"]["attn"]["w_q"]["w"]`` is (L, d, H·hd)
-    for L > 1, see ``layer_groups``); each layer's slice goes to
-    ``blocks[i]``. Weights keep the reference's ``x @ w`` layout, (d_in,
-    d_out), so nothing is transposed: ``w_q/w_k/w_v/w_o`` (and biases
-    ``b_q/b_k/b_v``), ``w_gate/w_up/w_down``, the norms' ``scale``, ``embed``
-    (V, d) and, when untied, ``lm_head`` (d, V). Every tensor is cast to
-    ``cfg.param_dtype``; the numbers are the reference's.
-    """
+    """``repro``'s LM ``init_params`` pytree (numpy leaves) as the port's
+    model (the dense family only; the map is :func:`reference_lm_leaves`).
+    Every tensor is cast to ``cfg.param_dtype``; the numbers are the
+    reference's."""
     from repro_torch.models.lm import model as mdl
 
     device = resolve_device(device)
     model = mdl.init_params(cfg, device=device)
-    targets = {"embed": params["embed"], "final_norm.scale": params["final_norm"]["scale"]}
-    if not cfg.tie_embeddings:
-        targets["lm_head"] = params["lm_head"]
-    layer = 0
-    for gi, group in enumerate(mdl.layer_groups(cfg)):
-        for r in range(group.repeat):
-            for li in range(len(group.specs)):
-                p = params[f"g{gi}"][f"l{li}"]
-
-                def take(a):
-                    return np.asarray(a)[r] if group.repeat > 1 else a
-
-                prefix = f"blocks.{layer}."
-                for name in ("ln1", "ln2"):
-                    targets[prefix + f"{name}.scale"] = take(p[name]["scale"])
-                for w in ("w_q", "w_k", "w_v", "w_o"):
-                    targets[prefix + f"attn.{w}"] = take(p["attn"][w]["w"])
-                    if "b" in p["attn"][w]:
-                        targets[prefix + f"attn.b_{w[-1]}"] = take(p["attn"][w]["b"])
-                for w in ("w_gate", "w_up", "w_down"):
-                    targets[prefix + f"mlp.{w}"] = take(p["mlp"][w])
-                layer += 1
+    targets = from_reference_lm_tree(params, cfg)
     state = model.state_dict()
     if set(targets) != set(state):
         raise ValueError(
@@ -98,3 +153,39 @@ def from_reference_lm_params(
                 raise ValueError(f"{name}: reference {tuple(w.shape)}, port {tuple(state[name].shape)}")
             state[name].copy_(w.to(state[name].dtype))
     return model
+
+
+def from_reference_epmcmc_state(
+    state: Any,
+    cfg,
+    *,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+):
+    """``repro``'s stacked ``EpmcmcState`` (numpy leaves: ``params``, ``v``,
+    ``step``, ``key``, ``m_count``, ``m_mean``, ``m_var``) as the port's
+    :class:`~repro_torch.distributed.epmcmc.EpmcmcState` on ``device``:
+    parameters in ``cfg.param_dtype``, accumulators float32. The chains'
+    JAX keys do not carry over: the port's chain ``c`` gets a generator
+    seeded from ``(seed, c)`` (feed the reference's noise through
+    ``epmcmc_step(noise=)`` to compare the two)."""
+    from repro_torch.distributed.epmcmc import EpmcmcState, chain_generators
+    from repro_torch.models.lm.layers import dtype_of
+
+    device = resolve_device(device)
+    pdtype = dtype_of(cfg.param_dtype)
+
+    def tree(t, dtype):
+        return {n: _weight(a).to(device=device, dtype=dtype)
+                for n, a in from_reference_lm_tree(t, cfg, lead=1).items()}
+
+    m_count = torch.tensor(np.asarray(state.m_count, dtype=np.float32), device=device)
+    return EpmcmcState(
+        params=tree(state.params, pdtype),
+        v=tree(state.v, torch.float32),
+        step=int(np.asarray(state.step)),
+        gens=chain_generators(seed, int(m_count.shape[0]), device),
+        m_count=m_count,
+        m_mean=tree(state.m_mean, torch.float32),
+        m_var=tree(state.m_var, torch.float32),
+    )

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port: build, load, dispatch rule, launch counts.
 
 One subpackage per kernel, as in :mod:`repro.kernels`: ``ref.py`` is the
-plain PyTorch version and ``ops.py`` the public wrapper. The CUDA C++ sources
+plain PyTorch version and ``ops.py`` the public wrapper (the flash
+backward, which ports no Pallas kernel, lives beside its forward). The CUDA C++ sources
 live in ``csrc/``, one file per kernel, each with a plain C entry point that
 returns its ``cudaError_t``.
 
@@ -136,6 +137,11 @@ KERNELS: Dict[str, Kernel] = {
     "flash_attention": Kernel(
         "flash_attention", "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:113",
+    ),
+    # no Pallas kernel: the port of the reference's pure-JAX backward
+    "flash_attention_bwd": Kernel(
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        replaces="src/repro/models/lm/flash.py:122",
     ),
 }
 

@@ -23,6 +23,16 @@
 // is clamped at 1e-30) and no NaN. No float atomics on any route: a fixed
 // input gives the same bits on every run.
 //
+// lse. Given a non-null `lse` (B, S, K, G) float32, contiguous, every route
+// also writes each row's log-sum-exp of its scaled scores, natural log,
+// m + ln l with m the row max of q·kᵀ·hd^-½ and l the sum of the weights:
+// what the backward (flash_attention_bwd.cu) recomputes P = exp(s − lse)
+// from. The tensor-core routes keep m in raw score units and the weights in
+// base 2 (scale_log2), so there lse = ln 2 · (m·scale_log2 + log2 l). A row
+// with no visible position gets +inf, so that the backward's P, and with it
+// every gradient of the row, is exactly 0. A null `lse` (serving) writes
+// nothing.
+//
 // What bounds each route on an H100. At the serving path's shape (B=2, K=8,
 // G=3, S=T=4096, hd=hd_v=128, causal) the causal work is 2·B·K·G·S·T·hd =
 // 2.06e11 flop against 0.13 GB of bf16 operands (0.27 GB in float32): bound
@@ -124,9 +134,11 @@
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 #include <stdio.h>
 
+#include "flash_fma.cuh"
 #include "pipeline.cuh"
 #include "tf32x3.cuh"
 
@@ -136,82 +148,21 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 (tx: kv columns) x 16 (ty: rows)
 constexpr int kRows = 64;       // (query position, head) rows per block
 constexpr int kBK = 64;         // kv positions per tile
 constexpr int kRP = kRows + 4;  // row stride of the P tile (floats), /4 odd
 constexpr float kNegInf = -1e30f;
 
-// Row stride (floats) of a staged (rows, d) tile: d rounded up to 4, padded
-// so that stride / 4 is odd (float4 reads of 8 consecutive rows are then
-// conflict-free).
-__host__ __device__ inline int padded_stride(int d) {
-  const int d4 = (d + 3) / 4 * 4;
-  return ((d4 / 4) % 2 == 0) ? d4 + 4 : d4;
-}
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ void load4(const float* p, float* x) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* x) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  x[0] = __low2float(lo); x[1] = __high2float(lo);
-  x[2] = __low2float(hi); x[3] = __high2float(hi);
-}
-
-// Stage n_rows rows of `len` elements into dst[r * stride + c] as float32;
-// row r starts at src + row_off(r). Rows >= n_valid and columns in
-// [len, width) are zero. Chunks of 4; consecutive threads take consecutive
-// chunks of a row, so global reads coalesce. `vec`: every row start is
-// aligned for one 4-element load.
-template <typename T, typename RowOff>
-__device__ __forceinline__ void stage(float* dst, int stride, const T* __restrict__ src,
-                                      RowOff row_off, int n_rows, int n_valid, int len,
-                                      int width, bool vec) {
-  const int chunks = width / 4;
-  for (int e = threadIdx.x; e < n_rows * chunks; e += kThreads) {
-    const int r = e / chunks;
-    const int c = (e - r * chunks) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r < n_valid && c < len) {
-      const T* p = src + row_off(r) + c;
-      if (vec && c + 4 <= len) {
-        load4(p, x);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (c + i < len) x[i] = to_float(p[i]);
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * stride + c) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
-
 struct Params {
   int S, K, G, hd, hd_v, kv_lim, causal, bq, n_qtiles, vec;
   float scale;
   long long q_sb, q_ss, q_sk, q_sg, k_sb, k_st, k_sk, v_sb, v_st, v_sk;
+  float* lse;  // (B, S, K, G) or null
 };
 
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
@@ -350,9 +301,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int r = ty * 4 + i;
     if (r >= rows) continue;
     const int qi = r / G;
-    const long long base =
-        ((((long long)b * p.S + q0 + qi) * p.K + kh) * G + (r - qi * G)) * p.hd_v;
+    const long long row = (((long long)b * p.S + q0 + qi) * p.K + kh) * G + (r - qi * G);
+    const long long base = row * p.hd_v;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0) p.lse[row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -396,7 +348,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, con
 // dtype: 0 float32, 1 bfloat16. scale: hd^-1/2 as the caller rounds it. vec: bit 0/1/2 set when every row of q/k/v
 // starts aligned for one 4-element load. Strides are in elements.
 extern "C" int flash_attention_fwd(int device, int dtype, const void* q, const void* k,
-                                   const void* v, void* out, int B, int S, int T, int K, int G,
+                                   const void* v, void* out, void* lse, int B, int S, int T, int K, int G,
                                    int hd, int hd_v, int kv_len, int causal, float scale,
                                    int vec,
                                    long long q_sb, long long q_ss, long long q_sk,
@@ -419,6 +371,7 @@ extern "C" int flash_attention_fwd(int device, int dtype, const void* q, const v
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sk = q_sk; p.q_sg = q_sg;
   p.k_sb = k_sb; p.k_st = k_st; p.k_sk = k_sk;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sk = v_sk;
+  p.lse = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(q, k, v, out, p, B * K, st);
   if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, out, p, B * K, st);
@@ -460,6 +413,7 @@ struct Cfg {
 struct Params {
   int S, K, G, BK, kv_lim, causal, n_slabs, n_groups;
   float scale_log2;  // the caller's hd^-1/2 times log2(e)
+  float* lse;        // (B, S, K, G) or null
 };
 
 // wgmma descriptor of a 128-byte-swizzled operand at shared address `addr`
@@ -532,6 +486,12 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
       : "memory");
+}
+
+// A row's natural-log lse from its running max m (raw score units) and its
+// weight sum l (weights 2^(s·sl − m·sl)); +inf for a row with nothing visible.
+__device__ __forceinline__ float lse_of(float m, float l, float sl) {
+  return l > 0.f ? fmaf(m, sl, log2f(l)) * 0.6931471805599453f : INFINITY;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -690,8 +650,14 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     }
 
     if (valid) {  // O / l as bf16 into this slab's shared memory, then rows < S out
-      const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-      const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+      const float ls0 = quad_sum(l0), ls1 = quad_sum(l1);
+      const float inv0 = 1.f / fmaxf(ls0, 1e-30f);
+      const float inv1 = 1.f / fmaxf(ls1, 1e-30f);
+      if (p.lse != nullptr && (lane & 3) == 0) {
+        const long long row0 = (((long long)b * p.S + pos0) * p.K + kh) * p.G + g;
+        if (pos0 < p.S) p.lse[row0] = lse_of(m0, ls0, sl);
+        if (pos1 < p.S) p.lse[row0 + 8LL * p.K * p.G] = lse_of(m1, ls1, sl);
+      }
       constexpr int kRow = HDV * 2;  // bytes; 16-byte chunk c of row r sits at c ^ (r % 8)
       uint8_t* const o_s = smem + wg * C::kSlab;
       fence_proxy();
@@ -764,7 +730,7 @@ cudaError_t by_hd_v(int hd_v, const CUtensorMap& tq, const CUtensorMap& tk, cons
 // wrapper's route rule). Strides are in elements. Returns a cudaError_t, or
 // 100000 + the CUresult of a tensor map that would not encode.
 extern "C" int flash_attention_fwd_tc(int device, const void* q, const void* k, const void* v,
-                                      void* out, int B, int S, int T, int K, int G, int hd,
+                                      void* out, void* lse, int B, int S, int T, int K, int G, int hd,
                                       int hd_v, int kv_len, int causal, float scale,
                                       long long q_sb, long long q_ss, long long q_sk,
                                       long long q_sg, long long k_sb, long long k_st,
@@ -785,6 +751,7 @@ extern "C" int flash_attention_fwd_tc(int device, const void* q, const void* k, 
   p.n_slabs = (S + tc::kM - 1) / tc::kM * G;
   p.n_groups = 0;  // set per instantiation
   p.scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
+  p.lse = static_cast<float*>(lse);
   // the kv axis ends at kv_len, so TMA reads zeros past it (at least one row
   // for the encoder; with kv_len = 0 no kv tile is loaded)
   const cuuint64_t tm = (cuuint64_t)imax(p.kv_lim, 1);
@@ -910,6 +877,7 @@ struct Params {
   int S, K, G, BK, kv_lim, causal, n_slabs, n_groups;
   float scale_log2;  // the caller's hd^-1/2 times log2(e)
   float* probe;      // kProbe: the first tile's raw S (n_slabs, 64, kN), then S·V
+  float* lse;        // (B, S, K, G) or null
 };
 
 // S = q·kᵀ from TF32 halves, three passes a k step: q's hi from registers
@@ -1147,8 +1115,14 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     if (valid && !kProbe) {  // O / l, float2 a thread and row: 32-byte sectors of a row
-      const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-      const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+      const float ls0 = quad_sum(l0), ls1 = quad_sum(l1);
+      const float inv0 = 1.f / fmaxf(ls0, 1e-30f);
+      const float inv1 = 1.f / fmaxf(ls1, 1e-30f);
+      if (kCut == 0 && p.lse != nullptr && (lane & 3) == 0) {
+        const long long row0 = (((long long)b * p.S + pos0) * p.K + kh) * p.G + g;
+        if (pos0 < p.S) p.lse[row0] = tc::lse_of(m0, ls0, sl);
+        if (pos1 < p.S) p.lse[row0 + 8LL * p.K * p.G] = tc::lse_of(m1, ls1, sl);
+      }
       if (kCut == 0 || kCut == 5) {
 #pragma unroll
         for (int j = 0; j < HDV / 8; ++j)
@@ -1198,7 +1172,7 @@ cudaError_t by_dims(int hd, int hd_v, const Maps& m, float* out, const Params& p
 
 struct Call {
   const float *q, *k, *v;
-  float *out, *scratch, *probe;
+  float *out, *scratch, *probe, *lse;
   int B, S, T, K, G, hd, hd_v, kv_len, causal;
   float scale;
   long long q_sb, q_ss, q_sk, q_sg, k_sb, k_st, k_sk, v_sb, v_st, v_sk;
@@ -1237,6 +1211,7 @@ int run(const Call& c, cudaStream_t st) {
   p.n_groups = 0;  // set per instantiation
   p.scale_log2 = static_cast<float>(static_cast<double>(c.scale) * 1.4426950408889634);
   p.probe = c.probe;
+  p.lse = c.lse;
   const cuuint64_t q_dims[5] = {(cuuint64_t)c.hd, (cuuint64_t)c.S, (cuuint64_t)c.G,
                                 (cuuint64_t)c.K, (cuuint64_t)c.B};
   const cuuint64_t q_str[4] = {(cuuint64_t)c.q_ss * 4, (cuuint64_t)c.q_sg * 4,
@@ -1277,7 +1252,7 @@ extern "C" long long flash_tf32x3_scratch_floats(int B, int T, int K, int hd, in
 // cudaError_t, or 100000 + the CUresult of a tensor map that would not
 // encode.
 extern "C" int flash_attention_fwd_tf32x3(int device, const void* q, const void* k, const void* v,
-                                          void* out, void* scratch, int B, int S, int T, int K,
+                                          void* out, void* lse, void* scratch, int B, int S, int T, int K,
                                           int G, int hd, int hd_v, int kv_len, int causal,
                                           float scale, long long q_sb, long long q_ss,
                                           long long q_sk, long long q_sg, long long k_sb,
@@ -1287,7 +1262,8 @@ extern "C" int flash_attention_fwd_tf32x3(int device, const void* q, const void*
   if (e != cudaSuccess) return e;
   const tf::Call c{static_cast<const float*>(q), static_cast<const float*>(k),
                    static_cast<const float*>(v), static_cast<float*>(out),
-                   static_cast<float*>(scratch), nullptr, B, S, T, K, G, hd, hd_v, kv_len, causal,
+                   static_cast<float*>(scratch), nullptr, static_cast<float*>(lse), B, S, T, K, G,
+                   hd, hd_v, kv_len, causal,
                    scale, q_sb, q_ss, q_sk, q_sg, k_sb, k_st, k_sk, v_sb, v_st, v_sk};
   return tf::run<false>(c, static_cast<cudaStream_t>(stream));
 }
@@ -1306,7 +1282,7 @@ extern "C" int flash_tf32x3_probe(int device, const void* q, const void* k, cons
   const long long s_row = (long long)G * hd, kv_row = hd, v_row = hd_v;
   const tf::Call c{static_cast<const float*>(q), static_cast<const float*>(k),
                    static_cast<const float*>(v), nullptr, static_cast<float*>(scratch),
-                   static_cast<float*>(probe), 1, tf::kM, tf::kN, 1, G, hd, hd_v, tf::kN, 0, 1.f,
+                   static_cast<float*>(probe), nullptr, 1, tf::kM, tf::kN, 1, G, hd, hd_v, tf::kN, 0, 1.f,
                    tf::kM * s_row, s_row, s_row, hd, tf::kN * kv_row, kv_row, kv_row,
                    tf::kN * v_row, v_row, v_row};
   return tf::run<true>(c, static_cast<cudaStream_t>(stream));

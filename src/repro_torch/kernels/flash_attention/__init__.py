@@ -1,6 +1,7 @@
-"""GQA flash-attention forward (the LM sidecar's prefill attention)."""
+"""GQA flash attention (the LM sidecar's attention): forward and backward."""
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",
+           "flash_attention_ref"]

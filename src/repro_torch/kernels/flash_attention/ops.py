@@ -1,4 +1,4 @@
-"""Public wrapper of the GQA flash-attention forward: dispatch by the tensor's device.
+"""Public wrappers of the GQA flash-attention forward and backward: dispatch by the tensor's device.
 
 CUDA tensors launch one of the three hand-written kernels of
 ``csrc/flash_attention.cu``, one launch per call; CPU tensors take the plain
@@ -23,8 +23,21 @@ strides and mask the ragged S and T tails themselves.
 On the card q, k and v must share a device and a dtype (float32 or
 bfloat16), have a contiguous last axis, hd and hd_v ≤ 256, G ≤ 64 and
 B·K ≤ 65,535; anything else raises. The output is a new contiguous tensor
-in q's dtype. Forward only: the result carries no gradient (the backward
-comes with the training slice).
+in q's dtype. With ``return_lse=True`` every route also writes each row's
+log-sum-exp (B, S, K, G) float32, natural log, +inf on a row with nothing
+visible, into a tensor the wrapper allocates; without it the kernels are
+handed a null pointer and write none. The result carries no gradient
+(``models/lm/flash.py`` wraps both wrappers in a ``torch.autograd.Function``).
+
+:func:`flash_attention_bwd` is the backward from the saved ``out`` and
+``lse``: ``csrc/flash_attention_bwd.cu``'s two kernels (dq; dk and dv) a
+call, counted as one launch of ``KERNEL_BWD``, for float32 or bfloat16
+operands with hd, hd_v ≤ 256, G ≤ 64; the plain version
+(``ref.flash_attention_bwd_ref``) on the CPU. Float32 arithmetic throughout
+with the reference's cast points (P and dS rounded to the input dtype
+before their products), sums in another order than the plain version's, so
+they agree to float32 rounding (bf16: to the rounding of P and dS); a
+fixed input gives the same bits on every run (no float atomics).
 
 Tolerance: every route sums q·k and P·v in float32 in another order than
 the plain version's matrix products, so they agree to float32 rounding
@@ -49,9 +62,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import KERNELS, check_error, device_index, stream_handle
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
 KERNEL = KERNELS["flash_attention"]
+KERNEL_BWD = KERNELS["flash_attention_bwd"]
 ROUTES = ("tensor_core", "tf32x3", "fma")
 KERNEL.route_launches.update({route: 0 for route in ROUTES})
 MAX_HEAD_DIM = 256
@@ -69,15 +83,15 @@ def _entry(route: str):
     lib = KERNEL.lib()
     if route == "tensor_core":
         fn = lib.flash_attention_fwd_tc
-        fn.argtypes = [_I, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, *[_L] * 10, _P]
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, *[_L] * 10, _P]
     elif route == "tf32x3":
         fn = lib.flash_attention_fwd_tf32x3
-        fn.argtypes = [_I, _P, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, *[_L] * 10, _P]
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, *[_L] * 10, _P]
         lib.flash_tf32x3_scratch_floats.argtypes = [_I] * 6
         lib.flash_tf32x3_scratch_floats.restype = _L
     else:
         fn = lib.flash_attention_fwd
-        fn.argtypes = [_I, _I, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, _I, *[_L] * 10, _P]
+        fn.argtypes = [_I, _I, _P, _P, _P, _P, _P, *[_I] * 9, ctypes.c_float, _I, *[_L] * 10, _P]
     fn.restype = _I
     lib.flash_attention_error_string.argtypes = [_I]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -121,7 +135,7 @@ def _vec4(t: torch.Tensor) -> bool:
     return t.data_ptr() % (4 * t.element_size()) == 0 and all(st % 4 == 0 for st in strides)
 
 
-def _launch(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, kv_len: int, want_lse: bool):
     b, s, kh, g, hd = q.shape
     t, hd_v = k.shape[1], v.shape[-1]
     device = q.device
@@ -138,8 +152,10 @@ def _launch(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
     if g > MAX_GROUP or b * kh > 65535:
         raise ValueError(f"need G <= {MAX_GROUP} and B*K <= 65535; got G={g} B={b} K={kh}")
     out = torch.empty((b, s, kh, g, hd_v), dtype=q.dtype, device=device)
+    lse = torch.empty((b, s, kh, g), dtype=torch.float32, device=device) if want_lse else None
     if out.numel() == 0:
-        return out  # nothing to compute: no launch
+        return out, lse  # nothing to compute: no launch
+    lse_ptr = None if lse is None else lse.data_ptr()
     route = _route(q, k, v)
     lib, fn = _entry(route)
     scale = hd ** -0.5
@@ -147,7 +163,7 @@ def _launch(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
         qs, ks, vs = _tma_strides(q), _tma_strides(k), _tma_strides(v)
         err = fn(
             device_index(device), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale,
+            lse_ptr, b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale,
             *qs, *ks, *vs, stream_handle(device),
         )
     elif route == "tf32x3":  # k and v go through the pre-pass by their strides
@@ -155,31 +171,23 @@ def _launch(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
                               dtype=torch.float32, device=device)
         err = fn(
             device_index(device), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale,
+            lse_ptr, scratch.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale,
             *_tma_strides(q), *k.stride()[:3], *v.stride()[:3], stream_handle(device),
         )
     else:
         vec = int(_vec4(q)) | int(_vec4(k)) << 1 | int(_vec4(v)) << 2
         err = fn(
             device_index(device), _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale, vec,
+            out.data_ptr(), lse_ptr, b, s, t, kh, g, hd, hd_v, kv_len, int(causal), scale, vec,
             *q.stride()[:4], k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), stream_handle(device),
         )
     check_error(KERNEL, err, lib.flash_attention_error_string)
     KERNEL.count_launch(route)
-    return out
+    return out, lse
 
 
-def flash_attention(
-    q: torch.Tensor,  # (B, S, K, G, hd)
-    k: torch.Tensor,  # (B, T, K, hd)
-    v: torch.Tensor,  # (B, T, K, hd_v)
-    *,
-    causal: bool = True,
-    kv_len: Optional[int] = None,  # kv positions ≥ kv_len are masked (None ⇒ T)
-) -> torch.Tensor:
-    """Flash-attention forward; returns (B, S, K, G, hd_v) in q's dtype."""
+def _check_qkv(q, k, v) -> None:
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(
             f"need q (B,S,K,G,hd), k (B,T,K,hd), v (B,T,K,hd_v); got {tuple(q.shape)}, "
@@ -190,11 +198,107 @@ def flash_attention(
         raise ValueError(
             f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
+
+
+def _kv_len(k: torch.Tensor, kv_len: Optional[int]) -> int:
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     if kv_len < 0:
         raise ValueError(f"kv_len must be >= 0, got {kv_len}")
+    return kv_len
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, K, G, hd)
+    k: torch.Tensor,  # (B, T, K, hd)
+    v: torch.Tensor,  # (B, T, K, hd_v)
+    *,
+    causal: bool = True,
+    kv_len: Optional[int] = None,  # kv positions ≥ kv_len are masked (None ⇒ T)
+    return_lse: bool = False,
+):
+    """Flash-attention forward; returns (B, S, K, G, hd_v) in q's dtype, and
+    with ``return_lse`` also the rows' lse (B, S, K, G) float32."""
+    _check_qkv(q, k, v)
+    kv_len = _kv_len(k, kv_len)
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal, kv_len)
+        out, lse = _launch(q, k, v, causal, kv_len, return_lse)
+        return (out, lse) if return_lse else out
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+        return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len, return_lse=return_lse)
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+@functools.cache
+def _bwd_entry():
+    lib = KERNEL_BWD.lib()
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [_I, _I, *[_P] * 10, *[_I] * 9, ctypes.c_float, _I, _P, _P]
+    fn.restype = _I
+    lib.flash_attention_bwd_error_string.argtypes = [_I]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal: bool, kv_len: int):
+    b, s, kh, g, hd = q.shape
+    t, hd_v = k.shape[1], v.shape[-1]
+    device = q.device
+    for name, x in (("k", k), ("v", v), ("out", out), ("dout", dout)):
+        if x.device != device or x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype} on {x.device}; q is {q.dtype} on {device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q, k, v must be float32 or bfloat16 on the card, got {q.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
+        if x.shape[-1] > 1 and x.stride(-1) != 1:
+            raise ValueError(f"{name}'s last axis must be contiguous, got strides {x.stride()}")
+    if lse.device != device or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError(f"lse must be contiguous float32 on {device}, got {lse.dtype} on "
+                        f"{lse.device}")
+    if hd > MAX_HEAD_DIM or hd_v > MAX_HEAD_DIM or hd < 1 or hd_v < 1:
+        raise ValueError(f"need 1 <= hd, hd_v <= {MAX_HEAD_DIM}; got hd={hd} hd_v={hd_v}")
+    if g > MAX_GROUP or b * kh > 65535:
+        raise ValueError(f"need G <= {MAX_GROUP} and B*K <= 65535; got G={g} B={b} K={kh}")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, t, kh, hd), dtype=k.dtype, device=device)
+    dv = torch.empty((b, t, kh, hd_v), dtype=v.dtype, device=device)
+    if b == 0 or s == 0 or t == 0:  # nothing to compute: no launch
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, s, kh, g), dtype=torch.float32, device=device)  # D, the kernel's scratch
+    vec = (int(_vec4(q)) | int(_vec4(k)) << 1 | int(_vec4(v)) << 2 | int(_vec4(out)) << 3
+           | int(_vec4(dout)) << 4)
+    strides = (ctypes.c_longlong * 18)(*q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+                                       *out.stride()[:4], *dout.stride()[:4])
+    lib, fn = _bwd_entry()
+    err = fn(device_index(device), _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal),
+             hd ** -0.5, vec, strides, stream_handle(device))
+    check_error(KERNEL_BWD, err, lib.flash_attention_bwd_error_string)
+    KERNEL_BWD.count_launch()
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, S, K, G, hd)
+    k: torch.Tensor,  # (B, T, K, hd)
+    v: torch.Tensor,  # (B, T, K, hd_v)
+    out: torch.Tensor,  # (B, S, K, G, hd_v), the forward's
+    lse: torch.Tensor,  # (B, S, K, G) float32, the forward's
+    dout: torch.Tensor,  # (B, S, K, G, hd_v)
+    *,
+    causal: bool = True,
+    kv_len: Optional[int] = None,
+):
+    """Flash-attention backward: ``(dq, dk, dv)`` in the dtypes of q, k, v."""
+    _check_qkv(q, k, v)
+    b, s, kh, g, _ = q.shape
+    want = (b, s, kh, g, v.shape[-1])
+    if tuple(out.shape) != want or tuple(dout.shape) != want or tuple(lse.shape) != want[:4]:
+        raise ValueError(f"out and dout must be {want} and lse {want[:4]}; got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}, {tuple(lse.shape)}")
+    kv_len = _kv_len(k, kv_len)
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, out, lse, dout, causal, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, kv_len=kv_len)
+    raise ValueError(f"no flash_attention_bwd for device {q.device}")

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the GQA flash-attention forward.
+"""Plain PyTorch versions of the GQA flash-attention forward and backward.
 
 The counterpart of ``repro/kernels/flash_attention/ref.py``: float32 scores
 ``q·kᵀ·hd^-½``, the finite ``-1e30`` mask (never ``-inf``, so no NaN
@@ -14,8 +14,9 @@ position that is the reference's softmax to the bit (``exp(-1e30 - m)`` is
 softmax would average v uniformly. The reference's callers never build such
 a row: causal with no offset always leaves kv position 0 visible.
 
-It serves the CPU path and the tests; on the card the hand-written kernels
-compute the same function. A float64 input is computed in float64, so a
+:func:`flash_attention_bwd_ref` is the backward from the saved ``out`` and
+``lse``. They serve the CPU path and the tests; on the card the
+hand-written kernels compute the same functions. A float64 input is computed in float64, so a
 float64 call is the tight check of the kernels.
 :func:`flash_attention_ref_split` models the float32 tensor-core route's
 arithmetic (3×TF32 products) for the tests and the card probe.
@@ -48,8 +49,12 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     kv_len: Optional[int] = None,  # kv positions ≥ kv_len are masked (None ⇒ T)
-) -> torch.Tensor:
-    """Returns (B, S, K, G, hd_v) in ``q.dtype``."""
+    return_lse: bool = False,
+):
+    """Returns (B, S, K, G, hd_v) in ``q.dtype``; with ``return_lse`` also
+    each row's log-sum-exp of its scaled scores (B, S, K, G), natural log,
+    in float32 (float64 for a float64 input), +inf on a row with nothing
+    visible (the kernels' sentinel, which zeroes that row's gradients)."""
     s, hd = q.shape[1], q.shape[-1]
     t = k.shape[1]
     acc = torch.promote_types(q.dtype, torch.float32)
@@ -57,8 +62,52 @@ def flash_attention_ref(
     mask = _mask(s, t, causal, kv_len, q.device)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.where(mask, torch.softmax(scores, dim=-1), 0.0)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(acc))
-    return out.to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(acc)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(mask.any(dim=-1), torch.logsumexp(scores, dim=-1), float("inf"))
+    return out, lse.permute(0, 3, 1, 2).contiguous()  # (B, K, G, S) -> (B, S, K, G)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # (B, S, K, G, hd)
+    k: torch.Tensor,  # (B, T, K, hd)
+    v: torch.Tensor,  # (B, T, K, hd_v)
+    out: torch.Tensor,  # (B, S, K, G, hd_v)
+    lse: torch.Tensor,  # (B, S, K, G)
+    dout: torch.Tensor,  # (B, S, K, G, hd_v)
+    *,
+    causal: bool = True,
+    kv_len: Optional[int] = None,
+):
+    """The backward of :func:`flash_attention_ref` from the saved ``out`` and
+    ``lse``: ``(dq, dk, dv)`` in the dtypes of q, k and v.
+
+    The reference's ``_flash_bwd`` (``repro/models/lm/flash.py:122``) in one
+    pass: D = rowsum(dout∘out), P = exp(s·hd^-½ − lse) (0 where masked),
+    dS = P∘(dP − D) with dP = dout·vᵀ; dv = Pᵀ·dout, dk = dSᵀ·q·hd^-½,
+    dq = dS·k·hd^-½, dk and dv summed over the G heads of a kv head. Its
+    cast points: P (for dv) and dS, from the unrounded P, are rounded to the
+    input dtype before their products; everything else is float32 (float64
+    for a float64 input).
+    """
+    s, hd = q.shape[1], q.shape[-1]
+    t = k.shape[1]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = hd ** -0.5
+    mask = _mask(s, t, causal, kv_len, q.device)
+    qa, ka, va, oa, da = (x.to(acc) for x in (q, k, v, out, dout))
+    scores = torch.einsum("bskgd,btkd->bkgst", qa, ka) * scale
+    lse_t = lse.to(acc).permute(0, 2, 3, 1)[..., None]  # (B, K, G, S, 1)
+    p = torch.where(mask, torch.exp(scores - lse_t), 0.0)
+    dsum = (da * oa).sum(dim=-1).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bskgd,btkd->bkgst", da, va)
+    ds = (p * (dp - dsum)).to(q.dtype).to(acc)
+    p = p.to(q.dtype).to(acc)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, da)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qa) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, ka) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _split_product(a: torch.Tensor, b: torch.Tensor, equation: str, passes: int) -> torch.Tensor:

@@ -244,7 +244,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     scratch = torch.empty((lib.flash_tf32x3_scratch_floats(B, S, K, hd, hd, S),), device=dev)
 
     def run(fn):
-        err = fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        err = fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                 scratch.data_ptr(),
                  B, S, S, K, G, hd, hd, S, 1, hd ** -0.5, *ops._tma_strides(q),
                  *k.stride()[:3], *v.stride()[:3], stream_handle(dev))
         if err:

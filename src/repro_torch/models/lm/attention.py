@@ -28,7 +28,7 @@ from torch import nn
 
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.flash import flash_attention
-from repro_torch.models.lm.layers import apply_rope, dtype_of, frozen, linear, linear_param
+from repro_torch.models.lm.layers import apply_rope, dtype_of, linear, linear_param, trainable
 
 NEG_INF = -1e30
 Cache = Dict[str, torch.Tensor]
@@ -51,7 +51,7 @@ class GQA(nn.Module):
         self.w_v = linear_param(d, kh * hd, **init)
         self.w_o = linear_param(h * hd, d, **init)
         for name, width in (("b_q", h * hd), ("b_k", kh * hd), ("b_v", kh * hd)):
-            bias = frozen(torch.zeros((width,), dtype=dtype, device=device)) if cfg.qkv_bias else None
+            bias = trainable(torch.zeros((width,), dtype=dtype, device=device)) if cfg.qkv_bias else None
             self.register_parameter(name, bias)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *, causal: bool = True):

@@ -40,10 +40,10 @@ def init_linear(
     return (w * scale).to(dtype)
 
 
-def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A serving weight: a parameter without autograd (the training slice
-    turns gradients on)."""
-    return nn.Parameter(t, requires_grad=False)
+def trainable(t: torch.Tensor) -> nn.Parameter:
+    """A weight: a parameter autograd differentiates (serving runs under
+    ``torch.inference_mode`` and builds no graph)."""
+    return nn.Parameter(t, requires_grad=True)
 
 
 def linear_param(
@@ -52,8 +52,8 @@ def linear_param(
     """A (d_in, d_out) weight drawn by :func:`init_linear`; zeros without a
     generator (a model whose weights are loaded next)."""
     if generator is None:
-        return frozen(torch.zeros((d_in, d_out), dtype=dtype, device=device))
-    return frozen(init_linear(d_in, d_out, generator=generator, device=device, dtype=dtype))
+        return trainable(torch.zeros((d_in, d_out), dtype=dtype, device=device))
+    return trainable(init_linear(d_in, d_out, generator=generator, device=device, dtype=dtype))
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -5,9 +5,18 @@ every layer is ``attn + mlp``. The reference runs each layer group as a
 ``lax.scan`` over stacked parameters; the port keeps ``layer_specs`` and
 ``layer_groups`` as they are (pure data) and runs a Python loop over an
 ``nn.ModuleList`` of :class:`Block`. The three execution paths share the
-block: ``forward`` (the whole sequence), ``prefill`` (forward plus each
-layer's KV cache, padded to ``max_len``) and ``decode_step`` (one token
-against the caches, which it updates in place).
+block: ``forward`` (the whole sequence, also the training path), ``prefill``
+(forward plus each layer's KV cache, padded to ``max_len``) and
+``decode_step`` (one token against the caches, which it updates in place).
+
+Remat: the reference wraps each layer group's period in ``jax.checkpoint``
+under ``cfg.remat="full"`` (``_maybe_remat``, :303), the default of every
+config. ``forward`` does the same per block with ``torch.utils.checkpoint``
+(non-reentrant) while autograd records: a block's activations are
+recomputed in the backward, so the flash forward runs twice a layer and a
+training step holds one layer's activations at a time. ``"none"`` runs
+plain; ``"dots"`` (save the matrix products' outputs), which no config
+sets, raises.
 
 A config of another family (MoE, MLA, Mamba-2, hybrid, encoder–decoder,
 image tokens) raises ``NotImplementedError``: those come in later slices
@@ -21,13 +30,14 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.layers import (
     dtype_of,
     embed_lookup,
-    frozen,
+    trainable,
     init_embed,
     linear_param,
     mlp,
@@ -111,7 +121,7 @@ class RMSNorm(nn.Module):
     def __init__(self, d: int, eps: float, *, dtype: torch.dtype, device=None):
         super().__init__()
         self.eps = eps
-        self.scale = frozen(torch.ones((d,), dtype=dtype, device=device))
+        self.scale = trainable(torch.ones((d,), dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(x, self.scale, self.eps)
@@ -181,7 +191,7 @@ class LM(nn.Module):
         else:
             embed = init_embed(cfg.vocab_size, cfg.d_model, generator=generator, device=device,
                                dtype=dtype)
-        self.embed = frozen(embed)
+        self.embed = trainable(embed)
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.lm_head = None if cfg.tie_embeddings else linear_param(
             cfg.d_model, cfg.vocab_size, generator=generator, device=device, dtype=dtype)
@@ -211,11 +221,27 @@ def _inputs_to_h(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     return h, positions
 
 
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether ``forward`` recomputes each block in the backward."""
+    if cfg.remat == "full":
+        return True
+    if cfg.remat == "none":
+        return False
+    raise NotImplementedError(
+        f"remat={cfg.remat!r} is not ported (no config sets it); the port runs 'full' and "
+        "'none', the rest is ROADMAP Queue 1 item 11"
+    )
+
+
 def forward(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits (B, S, V), aux loss): the dense family's aux (MoE balance) is 0."""
+    remat = _remat(model.cfg) and torch.is_grad_enabled()
     h, positions = _inputs_to_h(model, tokens)
     for block in model.blocks:
-        h = block(h, positions)
+        if remat:  # a block draws no random numbers: no RNG state to stash
+            h = checkpoint(block, h, positions, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = block(h, positions)
     return model.head(h), torch.zeros((), dtype=torch.float32, device=h.device)
 
 

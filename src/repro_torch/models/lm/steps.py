@@ -1,9 +1,16 @@
-"""Serving step functions of the LM sidecar: prefill, then greedy decode.
+"""Train and serve step functions of the LM.
 
-The counterpart of the serving half of ``repro/models/lm/steps.py``
-(``serve_prefill`` :82, ``serve_decode_step`` :108), each run under
-``torch.inference_mode()``. ``train_step`` and ``loss_fn`` come with the
-training slice (ROADMAP Queue 1 item 11).
+The counterpart of ``repro/models/lm/steps.py``:
+
+- ``loss_fn`` (:29): CE + z-loss + ``MOE_AUX_COEFF``·aux over the model's
+  forward; ``train_step`` (:50): its gradients, then AdamW, one optimizer
+  step; ``init_train_state`` (:65): the model and its AdamW state. The
+  EP-MCMC (pSGLD subposterior) step lives in :mod:`repro_torch.distributed.
+  epmcmc` and reuses the same loss. The model is an ``nn.Module`` and
+  ``train_step`` updates its parameters in place, where the reference maps
+  a parameter pytree to a new one.
+- ``serve_prefill`` (:82) and ``serve_decode_step`` (:108), each run under
+  ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -13,6 +20,60 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.models.lm import model as mdl
+from repro_torch.models.lm.config import ModelConfig
+from repro_torch.models.lm.layers import dtype_of
+from repro_torch.models.lm.loss import cross_entropy, shift_labels
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
+
+MOE_AUX_COEFF = 0.01
+Z_LOSS_COEFF = 1e-4
+
+
+def loss_fn(
+    model: mdl.LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, {"ce", "z_loss", "moe_aux"}): the dense family's forward
+    has no image or audio inputs, and its aux is 0."""
+    del cfg  # the model carries it
+    logits, moe_aux = mdl.forward(model, batch["tokens"])
+    labels = batch.get("labels")
+    if labels is None:
+        labels = shift_labels(batch["tokens"])
+    ce, zl = cross_entropy(logits, labels, z_loss_coeff=Z_LOSS_COEFF)
+    total = ce + zl + MOE_AUX_COEFF * moe_aux
+    return total, {"ce": ce, "z_loss": zl, "moe_aux": moe_aux}
+
+
+def train_step(
+    model: mdl.LM,
+    opt_state: AdamWState,
+    batch: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    lr: float = 3e-4,
+) -> Tuple[mdl.LM, AdamWState, Dict[str, torch.Tensor]]:
+    """One AdamW step on ``model``'s parameters, in place; returns
+    ``(model, opt_state, metrics)`` with ``metrics["loss"]`` the total."""
+    params = dict(model.named_parameters())
+    total, metrics = loss_fn(model, cfg, batch)
+    grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+    _, opt_state = adamw_update(params, grads, opt_state, lr=lr)
+    metrics = {k: v.detach() for k, v in dict(metrics, loss=total).items()}
+    return model, opt_state, metrics
+
+
+def init_train_state(
+    generator: torch.Generator, cfg: ModelConfig, *, device=None
+) -> Tuple[mdl.LM, AdamWState]:
+    """The model drawn from ``generator`` and its AdamW state in
+    ``cfg.opt_state_dtype``."""
+    model = mdl.init_params(cfg, generator=generator, device=device)
+    state = adamw_init(dict(model.named_parameters()), state_dtype=dtype_of(cfg.opt_state_dtype))
+    return model, state
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 
 class DecodeState(NamedTuple):

@@ -34,7 +34,11 @@ from repro_torch.kernels.logreg_loglik import (
     logreg_loglik_grad,
     logreg_loglik_grad_ref,
 )
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_ref,
+)
 from repro_torch.kernels.online_update import online_moments_update, online_moments_update_ref
 from test_torch_threads import pin_torch_threads
 
@@ -1095,3 +1099,64 @@ def test_a_queued_chunk_is_not_overwritten_by_later_chunks(cuda_device):
     ptrs = {ev.theta.untyped_storage().data_ptr() for ev in landed}
     assert len(ptrs) == len(landed)  # one fresh tensor a chunk
     assert draws.theta.untyped_storage().data_ptr() not in ptrs
+
+
+# flash_attention_bwd (the training path's attention backward) and the forward's lse:
+# the cases, checks and tolerances of ``repro_torch.launch.flash_bwd_probe``
+# (the backward on the forward kernel's out and lse against the plain
+# version in float64 and in the case's dtype: float32 2e-4, bf16 2e-2 of
+# max|g| plus as much of |g|; lse 1e-4 + 1e-5·|lse|), at a few shapes.
+FLASH_BWD_CASES = ["hd=64", "float32 S=T=1000", "hd=192 hd_v=128", "G=8",
+                   "non-causal kv_len=777 T=1000", "kv_len=17 hd=36 hd_v=20", "kv_len=0"]
+
+
+@pytest.mark.parametrize("label", FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda_device, label):
+    from repro_torch.launch import flash_bwd_probe as probe
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    _, _, ok = probe.check_case(gen, label, probe.CASES[label], log=lambda m: None)
+    assert ok  # kv_len = 0: every gradient exactly zero
+
+
+def test_flash_bwd_kernel_is_deterministic_and_counted(cuda_device):
+    from repro_torch.launch import flash_bwd_probe as probe
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v, dout = probe.operands(gen, 1, 1000, 1000, 2, 3, 128, 128, torch.bfloat16)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    kernel = kernels.KERNELS["flash_attention_bwd"]
+    before = kernel.launches
+    runs = [flash_attention_bwd(q, k, v, out, lse, dout) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 3  # one a call: both kernels counted once
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0]))
+
+
+def test_flash_lse_on_every_route(cuda_device):
+    from repro_torch.launch import flash_bwd_probe as probe
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    assert probe.check_lse(gen, log=lambda m: None)[1]
+
+
+def test_model_flash_gradient_goes_through_the_kernels(cuda_device):
+    """The model's autograd Function: one forward launch (with lse) and one
+    backward launch, and the gradients of the plain version within bf16's
+    tolerance."""
+    from repro_torch.models.lm.flash import flash_attention as model_flash
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+               for shape in ((1, 300, 2, 3, 128), (1, 300, 2, 128), (1, 300, 2, 128)))
+    fwd, bwd = kernels.KERNELS["flash_attention"], kernels.KERNELS["flash_attention_bwd"]
+    counts = (fwd.launches, bwd.launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    model_flash(*leaves).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    plain = [x.double().requires_grad_() for x in (q, k, v)]
+    flash_attention_ref(*plain).square().sum().backward()
+    for got, want in zip(leaves, plain):
+        err = float((got.grad.double() - want.grad).abs().max())
+        assert err <= 3e-2 * float(want.grad.abs().max())

@@ -130,11 +130,27 @@ def test_cpu_call_counts_no_launch_and_bad_shapes_raise():
 
 
 def test_model_flash_refuses_a_gradient():
+    """The backward kernel has no gradient of its own: a second-order
+    gradient through the model's flash raises."""
     q, k, v = _torch(*_inputs(1, 16, 16, 1, 2, 8, 8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        model_flash(q.requires_grad_(True), k, v)
+    out = model_flash(q.requires_grad_(True), k, v)
+    dout = torch.ones_like(out, requires_grad=True)
+    (dq,) = torch.autograd.grad(out, (q,), dout, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()
+
+
+def test_model_flash_takes_a_gradient_on_the_cpu():
+    """The model's flash takes a gradient (the autograd Function around the
+    forward with lse and the backward, both the plain versions here);
+    without one asked it is the forward alone."""
+    q, k, v = _torch(*_inputs(1, 16, 16, 1, 2, 8, 8))
+    out = model_flash(q.requires_grad_(True), k, v)
+    assert out.grad_fn is not None
+    (dq,) = torch.autograd.grad(out.sum(), (q,))
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
     with torch.no_grad():
-        model_flash(q, k, v)  # no gradient asked: fine
+        assert torch.equal(model_flash(q, k, v), out.detach())  # no gradient asked: fine
 
 
 def _bf16(*shape):

@@ -259,7 +259,7 @@ def test_init_params_is_seeded_and_counts():
     b = mdl.init_params(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
     assert sum(p.numel() for p in a.parameters()) == cfg.param_count()
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
-    assert not any(p.requires_grad for p in a.parameters())
+    assert all(p.requires_grad for p in a.parameters())  # trainable: the training path differentiates them
 
 
 def test_serve_cli_runs_on_cpu():
