@@ -52,12 +52,14 @@ a non-zero exit:
               bits; every route's lse (``return_lse=True``, the training
               path's) against the float64 plain lse, +inf on rows with
               nothing visible; ``flash_attention_bwd`` (the hand-written
-              backward) on the forward kernel's out and lse against its
-              plain version in float64 and in its own dtype
+              backward) on the forward kernel's out and lse, on both its
+              routes where the bf16 tensor-core route takes the case and on
+              the FMA route otherwise, against its plain version in float64
+              and in its own dtype and the two routes against each other
               (``flash_bwd_probe.CASES``: the training shape, three more
               runs the same bits, float32, hd 64 / 256, hd 192 with hd_v
               128, G 1 / 8 / 64, non-causal, ragged, kv_len < T, kv_len = 0
-              with exactly zero gradients);
+              with exactly zero gradients; one launch a call on its route);
 4. main     — the paper's §8.1 logistic-regression pipeline at full width
               through ``repro_torch.api.Pipeline(PAPER_SPEC).run()``: its
               kernels must have launched, the likelihood exactly once per
@@ -123,7 +125,8 @@ a non-zero exit:
               epmcmc run resumed bit for bit (reduced config); (e) ``--mode
               sgd``, 2 steps of 4 chains of 2 layers; every full-width run's
               flash launches exact (2 forward, by the remat recompute, and
-              1 backward a layer a chain a step), s a step and peak
+              1 backward a layer a chain a step, every one on the bf16
+              tensor-core routes), s a step and peak
               ``max_memory_allocated`` printed;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
@@ -143,11 +146,14 @@ a non-zero exit:
               bound and the float32 FMA bound; the
               KDE kernel's bound the largest of its bytes, its three TF32
               passes on the tensor cores and its exps on the MUFU;
-              ``flash_attention_bwd`` at the training shape (warm, cold L2,
-              its plain version, autograd of scaled_dot_product_attention's
-              backward as the yardstick, the bound at the bf16 tensor-core
-              and float32 FMA rates) and the forward there with and without
-              lse;
+              ``flash_attention_bwd`` at the training shape (the bf16
+              tensor-core route warm, with a cold L2 and its host enqueue;
+              the FMA route beside it; each route's dq / dkdv split from the
+              profiler; its plain version, autograd of
+              scaled_dot_product_attention's backward as the yardstick, the
+              bound of the work at the bf16 tensor-core rate, the
+              tensor-core design's 7-product bound and the float32 FMA
+              bound) and the forward there with and without lse;
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -853,8 +859,10 @@ def train_phase(dev, kernels, lm_config):
     phase("4i train: llama3.2-3b full width, bf16, batch 1 x seq 4096, remat full")
     cfg = lm_config("llama3.2-3b")
     fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
     record, launches_train = {}, {name: 0 for name in kernels.KERNELS}
     routes_train = {route: 0 for route in fwd_kernel.route_launches}
+    routes_train_bwd = {route: 0 for route in bwd_kernel.route_launches}
 
     # (a) one block, x + attn(ln1(x)) then + mlp(ln2(·)), loss Σ r·out with
     # r fixed: its gradients (input and every weight) through the kernels
@@ -884,8 +892,10 @@ def train_phase(dev, kernels, lm_config):
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         want_counts = {n: int(n in ("flash_attention", "flash_attention_bwd")) for n in counts}
-        if counts != want_counts:
-            raise AssertionError(f"(a) one block ({dtype_name}) launched {counts}")
+        bwd_route = "tensor_core" if dtype_name == "bfloat16" else "fma"
+        if counts != want_counts or bwd_kernel.route_launches[bwd_route] != 1:
+            raise AssertionError(f"(a) one block ({dtype_name}) launched {counts}, the backward "
+                                 f"by route {bwd_kernel.route_launches} (want one {bwd_route})")
         want = grads(plain)
         names = ["x", *(n for n, _ in block.named_parameters())]
         rel = {n: float((a.double() - b.double()).abs().max() / b.double().abs().max())
@@ -896,7 +906,7 @@ def train_phase(dev, kernels, lm_config):
               f"attention's: worst {worst} {rel[worst]:.3e} of its max (tol {tol:g}), x "
               f"{rel['x']:.3e}, attn.w_q {rel['attn.w_q']:.3e}, attn.w_k {rel['attn.w_k']:.3e}, "
               f"attn.w_v {rel['attn.w_v']:.3e}; launches flash_attention 1, "
-              f"flash_attention_bwd 1 {'ok' if ok else 'FAIL'}", flush=True)
+              f"flash_attention_bwd 1 ({bwd_route}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"(a) one block ({dtype_name}): gradients disagree")
         block_errs[dtype_name] = rel
@@ -915,16 +925,21 @@ def train_phase(dev, kernels, lm_config):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, routes = kernels.launch_counts(), dict(fwd_kernel.route_launches)
+        routes_bwd = dict(bwd_kernel.route_launches)
         calls = layers * chains * steps
         want = {n: {"flash_attention": 2 * calls, "flash_attention_bwd": calls}.get(n, 0)
                 for n in counts}
-        if counts != want or routes.get("tensor_core") != 2 * calls:
-            raise AssertionError(f"{label}: launched {counts} (flash by route {routes}), "
-                                 f"expected {want}, all on the tensor-core route")
+        if (counts != want or routes.get("tensor_core") != 2 * calls
+                or routes_bwd != {"tensor_core": calls, "fma": 0}):
+            raise AssertionError(f"{label}: launched {counts} (flash by route {routes}, its "
+                                 f"backward by route {routes_bwd}), expected {want}, all on "
+                                 f"the tensor-core routes")
         for n in counts:
             launches_train[n] += counts[n]
         for rt in routes:
             routes_train[rt] += routes[rt]
+        for rt in routes_bwd:
+            routes_train_bwd[rt] += routes_bwd[rt]
         losses = [x.tolist() for x in out["losses"]]
         if not all(math.isfinite(v) for x in losses for v in (x if isinstance(x, list) else [x])):
             raise AssertionError(f"{label}: a loss is not finite: {losses}")
@@ -943,6 +958,7 @@ def train_phase(dev, kernels, lm_config):
         rec = {"losses": losses, "step_s": out["step_s"], "wall_s": wall,
                "peak_gb": out["peak_bytes"] / 1e9, "flash_attention": counts["flash_attention"],
                "flash_attention_bwd": counts["flash_attention_bwd"],
+               "flash_attention_bwd_by_route": routes_bwd,
                "split_s": {"forward_backward": fwd_bwd, "update" if adamw else "rest": rest}}
         print(f"  {label}: loss by step {json.dumps(losses)}; s a step "
               f"{json.dumps([round(t, 4) for t in out['step_s']])} (one more step split: "
@@ -953,8 +969,8 @@ def train_phase(dev, kernels, lm_config):
               f"max_memory_allocated "
               f"{rec['peak_gb']:.2f} GB; wall {wall:.2f} s; launches flash_attention "
               f"{counts['flash_attention']} (tensor_core), flash_attention_bwd "
-              f"{counts['flash_attention_bwd']} ({layers} layers x {chains} chains x {steps} "
-              f"steps, remat) ok", flush=True)
+              f"{counts['flash_attention_bwd']} (tensor_core; {layers} layers x {chains} chains "
+              f"x {steps} steps, remat) ok", flush=True)
         record[label] = rec
         return out
 
@@ -1012,10 +1028,12 @@ def train_phase(dev, kernels, lm_config):
     print(f"  (d) reduced epmcmc, 4 chains: 4 steps against 2 + checkpoint + resume 2: "
           f"{'bit for bit' if same else 'DIFFERENT'} (largest |diff| {max(diffs.values()):.3e}); "
           f"launches flash_attention {counts['flash_attention']}, flash_attention_bwd "
-          f"{counts['flash_attention_bwd']}", flush=True)
-    if not same or counts["flash_attention_bwd"] != 4 * 4 * 8:
+          f"{counts['flash_attention_bwd']} (by route {bwd_kernel.route_launches})", flush=True)
+    if (not same or counts["flash_attention_bwd"] != 4 * 4 * 8
+            or bwd_kernel.route_launches != {"tensor_core": 0, "fma": 4 * 4 * 8}):
         raise AssertionError("(d) the resumed run differs from the uninterrupted one, or the "
-                             "kernels were not launched (4 layers x 4 chains x 8 steps)")
+                             "kernels were not launched (4 layers x 4 chains x 8 steps, the "
+                             "float32 backward on the FMA route)")
     record["resume_bitwise"] = same
     del full, resumed
     torch.cuda.empty_cache()
@@ -1026,27 +1044,36 @@ def train_phase(dev, kernels, lm_config):
     del out
     torch.cuda.empty_cache()
     print(f"  train path launches {json.dumps(launches_train)}, flash_attention by route "
-          f"{json.dumps(routes_train)}", flush=True)
-    return launches_train, routes_train, record
+          f"{json.dumps(routes_train)}, flash_attention_bwd by route "
+          f"{json.dumps(routes_train_bwd)}", flush=True)
+    return launches_train, routes_train, routes_train_bwd, record
 
 
 def flash_bwd_timing(dev, gen, flush):
     """Phase 5's flash_attention_bwd row at the training shape (B=1, K=8,
-    G=3, S=T=4096, hd=hd_v=128, bf16, causal): the kernel warm and with a
-    cold L2, its plain version (float32 arithmetic), autograd of PyTorch's
-    scaled_dot_product_attention's backward on the same tensors (the
-    library yardstick; the port never calls it), and the forward with and
-    without lse. Bound: the backward's products, 2.5 times the forward's
-    2·(hd + hd_v) flop per visible pair, over the bf16 tensor-core rate (and
-    over the float32 FMA rate, the rate this design's products run at),
-    against q, k, v, out, dout and lse read once and dq, dk, dv written once."""
+    G=3, S=T=4096, hd=hd_v=128, bf16, causal): the bf16 tensor-core route
+    (the one the path takes) warm, with a cold L2 and its host enqueue; the
+    FMA route on the same tensors (``ops._launch_bwd(route="fma")``, the
+    first design, which float32 still takes); each route's split between its
+    dq and dkdv kernels (``torch.profiler``); the plain version (float32
+    arithmetic); autograd of PyTorch's scaled_dot_product_attention's
+    backward on the same tensors (the library yardstick; the port never
+    calls it); and the forward with and without lse. Bound: the backward's
+    products, 2.5 times the forward's 2·(hd + hd_v) flop per visible pair
+    (FlashAttention-2's five products), over the bf16 tensor-core rate,
+    against q, k, v, out, dout and lse read once and dq, dk, dv written
+    once; beside it the tensor-core design's own bound (its seven products,
+    the dq kernel's recomputed S and dP included) and the float32 FMA
+    bound."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_ref,
+        ops,
     )
+    from repro_torch.launch.flash_bwd_probe import bwd_part, kernel_split_ms
 
     B, K, G, hd, S = 1, 8, 3, 128, 4096
     q = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -1054,9 +1081,21 @@ def flash_bwd_timing(dev, gen, flush):
     v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
     dout = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
     out, lse = flash_attention(q, k, v, return_lse=True)
+    if ops._route_bwd(q, k, v, out, dout) != "tensor_core":
+        raise AssertionError("flash_attention_bwd: the training shape is not on the tensor-core "
+                             "route")
     run = lambda: flash_attention_bwd(q, k, v, out, lse, dout)  # noqa: E731
+    run_fma = lambda: ops._launch_bwd(q, k, v, out, lse, dout, True, S, route="fma")  # noqa: E731
     ms, host = device_ms(run, iters=10)
     cold, _ = device_ms(run, iters=5, flush=flush)
+    fma_ms, fma_host = device_ms(run_fma, iters=10)
+    split = {}
+    for route, fn in (("tensor_core", run), ("fma", run_fma)):
+        parts = {"dq": 0.0, "dkdv": 0.0}
+        for key, part_ms in kernel_split_ms(fn, 5).items():
+            if bwd_part(key):
+                parts[bwd_part(key)] += part_ms
+        split[route] = {f"{part}_ms": x for part, x in parts.items()}
     plain, _ = device_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout), iters=1)
     fwd_ms, _ = device_ms(lambda: flash_attention(q, k, v), iters=10)
     fwd_lse_ms, _ = device_ms(lambda: flash_attention(q, k, v, return_lse=True), iters=10)
@@ -1078,17 +1117,25 @@ def flash_bwd_timing(dev, gen, flush):
         + 2 * (B * S * K * G * hd + 2 * B * S * K * hd)
     flops = 2.5 * 2 * (hd + hd) * B * K * G * S * (S + 1) // 2
     bound, bound_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
+    design, _ = least_ms(nbytes, flops * 7 / 5, peak=BF16_FLOPS)
     bound32, _ = least_ms(nbytes, flops)
-    print(f"  flash_attention_bwd B={B} K={K} G={G} S=T={S} hd={hd} causal bf16: kernel "
-          f"{ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue {host * 1e3:.2f} us/call), "
-          f"plain {plain * 1e3:.2f} us, scaled_dot_product_attention backward ({how}) "
+    tc, fm = split["tensor_core"], split["fma"]
+    print(f"  flash_attention_bwd B={B} K={K} G={G} S=T={S} hd={hd} causal bf16: tensor_core "
+          f"route {ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue "
+          f"{host * 1e3:.2f} us/call; profiler: dq {tc['dq_ms'] * 1e3:.2f} us, dkdv "
+          f"{tc['dkdv_ms'] * 1e3:.2f} us), fma route {fma_ms * 1e3:.2f} us (dq "
+          f"{fm['dq_ms'] * 1e3:.2f} us, dkdv {fm['dkdv_ms'] * 1e3:.2f} us), plain "
+          f"{plain * 1e3:.2f} us, scaled_dot_product_attention backward ({how}) "
           f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {bound_by} at the bf16 "
-          f"tensor-core rate ({bound32 * 1e3:.2f} us at the float32 FMA rate; {flops:.4e} flop, "
-          f"{nbytes / 1e6:.1f} MB); the forward at this shape {fwd_ms * 1e3:.2f} us without lse, "
+          f"tensor-core rate ({flops:.4e} flop, {nbytes / 1e6:.1f} MB; the tensor-core design's "
+          f"7 products {design * 1e3:.2f} us; {bound32 * 1e3:.2f} us at the float32 FMA rate); "
+          f"the forward at this shape {fwd_ms * 1e3:.2f} us without lse, "
           f"{fwd_lse_ms * 1e3:.2f} us with", flush=True)
     row = {"name": "flash_attention_bwd", "ms": ms, "cold_ms": cold, "host_ms": host,
            "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-           "bound_ms_float32": bound32, "library_ms": lib_ms,
+           "bound_ms_design": design, "bound_ms_float32": bound32, "library_ms": lib_ms,
+           "split_ms": split["tensor_core"],
+           "fma_route": {"ms": fma_ms, "host_ms": fma_host, "split_ms": split["fma"]},
            "forward_ms": fwd_ms, "forward_lse_ms": fwd_lse_ms,
            "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} causal bfloat16"}
     del q, k, v, dout, out, lse, qh, kh, vh, gout, o, lib_run
@@ -1910,7 +1957,10 @@ def main() -> int:
     # in the kernel), at the training shape (B=1, S=T=4096, K=8, G=3, hd=128,
     # bf16, causal, three more runs the same bits), float32, hd 64 and 256,
     # hd 192 with hd_v 128, G 1, 8 and 64, non-causal, ragged S and T,
-    # kv_len < T and kv_len = 0 (exactly zero gradients); one launch a call.
+    # kv_len < T and kv_len = 0 (exactly zero gradients); one launch a call,
+    # counted on its route. Every case runs on the FMA route, and those that
+    # the bf16 tensor-core route takes on that route too, the two routes
+    # held to each other within the same tolerance.
     from repro_torch.launch import flash_bwd_probe
 
     log = lambda m: print(m, flush=True)  # noqa: E731
@@ -1918,8 +1968,9 @@ def main() -> int:
     lse_err, ok = flash_bwd_probe.check_lse(bwd_gen, log)
     if not ok:
         raise AssertionError("flash_attention: an lse disagrees with its plain version")
+    bwd_err64 = {}
     for label, case in flash_bwd_probe.CASES.items():
-        e64, e32, ok = flash_bwd_probe.check_case(bwd_gen, label, case, log)
+        e64, e32, ok = flash_bwd_probe.check_case(bwd_gen, label, case, log, by_route=bwd_err64)
         if not ok:
             raise AssertionError(f"flash_attention_bwd {label}: the kernel disagrees with its "
                                  f"plain version")
@@ -2529,7 +2580,8 @@ def main() -> int:
         stream_img=img_routes["stream"], n_chunks=n_chunks, cells=cells, mres=mres)
     torch.cuda.empty_cache()
 
-    launches_train, routes_train, train_record = train_phase(dev, kernels, lm_config)
+    launches_train, routes_train, routes_train_bwd, train_record = train_phase(dev, kernels,
+                                                                               lm_config)
     torch.cuda.empty_cache()
 
     phase("5 timing (CUDA events)")
@@ -2902,7 +2954,9 @@ def main() -> int:
                                           "train": routes_train}
             entry["max_abs_err_by_route"] = flash_err64
             entry["lse_max_abs_err"] = lse_err
-        if name == "flash_attention_bwd":
+        if name == "flash_attention_bwd":  # the training runs' launches, by route
+            entry["launches_by_route"] = {"train": routes_train_bwd}
+            entry["max_abs_err_by_route"] = bwd_err64
             entry["train"] = train_record
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)

@@ -1,8 +1,9 @@
-// Hopper helpers shared by the tensor-core kernels (kde_density.cu and the
-// bf16 and float32 tensor-core routes of flash_attention.cu): the copy
-// pipeline (mbarriers, TMA tile loads, named barriers, the tensor-map
-// encoder), the producer/consumer register split, wgmma's fences and the
-// row reductions of a wgmma accumulator.
+// Hopper helpers shared by the tensor-core kernels (kde_density.cu, the
+// bf16 and float32 tensor-core routes of flash_attention.cu and the bf16
+// route of flash_attention_bwd.cu): the copy pipeline (mbarriers, TMA tile
+// and bulk loads, named barriers, the tensor-map encoder), the
+// producer/consumer register split, wgmma's fences and the row reductions of
+// a wgmma accumulator.
 //
 // Waits trap instead of hanging the card: a wait that outlasts ~2^34 cycles
 // (seconds) is a fault of the pipeline, and the launch then fails.
@@ -83,6 +84,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous global memory into shared memory,
+// both 16-byte aligned, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Named barriers (id 0 is __syncthreads'): sync waits for `count` threads,
 // arrive counts this thread without waiting.
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -115,6 +126,11 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Until at most N of this warpgroup's committed product groups are pending.
+template <int N>
+__device__ __forceinline__ void wg_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Registers written by an asynchronous wgmma are read only after this point.

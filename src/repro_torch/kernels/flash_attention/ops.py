@@ -33,11 +33,19 @@ handed a null pointer and write none. The result carries no gradient
 ``lse``: ``csrc/flash_attention_bwd.cu``'s two kernels (dq; dk and dv) a
 call, counted as one launch of ``KERNEL_BWD``, for float32 or bfloat16
 operands with hd, hd_v ≤ 256, G ≤ 64; the plain version
-(``ref.flash_attention_bwd_ref``) on the CPU. Float32 arithmetic throughout
-with the reference's cast points (P and dS rounded to the input dtype
-before their products), sums in another order than the plain version's, so
-they agree to float32 rounding (bf16: to the rounding of P and dS); a
-fixed input gives the same bits on every run (no float atomics).
+(``ref.flash_attention_bwd_ref``) on the CPU. :func:`_route_bwd` picks the
+kernels from the tensors alone, before the launch: ``"tensor_core"`` (bf16
+``wgmma`` + TMA) takes bfloat16 q, k, v, out and dout with hd and hd_v in
+{64, 128} that TMA takes, ``"fma"`` (float32 FMAs) every other call;
+``KERNEL_BWD.route_launches`` counts each route's launches, and a failed
+launch raises on either route, never falling back. :func:`bwd_tc_plan`
+mirrors the tensor-core route's launch plan (the C source's
+``flash_attention_bwd_tc_plan``) and :func:`bwd_tc_pairs` the tile pairs its
+loops visit. Float32 sums throughout with the reference's cast points (P
+and dS rounded to the input dtype before their products), in another
+order than the plain version's, so they agree to float32 rounding (bf16:
+to the rounding of P and dS); a fixed input gives the same bits on every
+run on either route (no float atomics).
 
 Tolerance: every route sums q·k and P·v in float32 in another order than
 the plain version's matrix products, so they agree to float32 rounding
@@ -57,7 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,6 +76,9 @@ KERNEL = KERNELS["flash_attention"]
 KERNEL_BWD = KERNELS["flash_attention_bwd"]
 ROUTES = ("tensor_core", "tf32x3", "fma")
 KERNEL.route_launches.update({route: 0 for route in ROUTES})
+BWD_ROUTES = ("tensor_core", "fma")
+KERNEL_BWD.route_launches.update({route: 0 for route in BWD_ROUTES})
+BWD_TC_HEAD_DIMS = (64, 128)
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64
 TF32X3_HEAD_DIMS = (64, 128)
@@ -229,17 +240,114 @@ def flash_attention(
 
 
 @functools.cache
-def _bwd_entry():
+def _bwd_entry(route: str):
+    """The loaded library and the backward entry point of ``route`` with C
+    types set."""
     lib = KERNEL_BWD.lib()
-    fn = lib.flash_attention_bwd
-    fn.argtypes = [_I, _I, *[_P] * 10, *[_I] * 9, ctypes.c_float, _I, _P, _P]
+    if route == "tensor_core":
+        fn = lib.flash_attention_bwd_tc
+        fn.argtypes = [_I, *[_P] * 10, *[_I] * 9, ctypes.c_float, _P, _P]
+        lib.flash_attention_bwd_tc_plan.argtypes = [*[_I] * 8, _P]
+        lib.flash_attention_bwd_tc_plan.restype = _I
+    else:
+        fn = lib.flash_attention_bwd
+        fn.argtypes = [_I, _I, *[_P] * 10, *[_I] * 9, ctypes.c_float, _I, _P, _P]
     fn.restype = _I
     lib.flash_attention_bwd_error_string.argtypes = [_I]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
-def _launch_bwd(q, k, v, out, lse, dout, causal: bool, kv_len: int):
+def _route_bwd(q, k, v, out, dout) -> str:
+    """``"tensor_core"`` or ``"fma"``: which backward kernels take the call,
+    from the tensors alone (dtypes, head dims, alignment and strides)."""
+    xs = (q, k, v, out, dout)
+    if ({x.dtype for x in xs} == {torch.bfloat16} and q.shape[-1] in BWD_TC_HEAD_DIMS
+            and v.shape[-1] in BWD_TC_HEAD_DIMS and all(_tma_ok(x) for x in xs)):
+        return "tensor_core"
+    return "fma"
+
+
+class BwdPlan(NamedTuple):
+    """One kernel of the tensor-core backward as it is launched."""
+
+    blocks: int
+    threads: int  # a block
+    smem: int  # dynamic shared bytes a block
+    scratch_floats: int  # lse·log2(e) and D, both kernels'
+
+
+# the tensor-core backward's tiles (csrc/flash_attention_bwd.cu, namespace tc)
+TC_TILE = 64  # positions a q slab, q tile or kv tile
+TC_WARPGROUPS = 2  # consumer warpgroups a block, both kernels
+TC_STAGES = 2  # ring depth, both kernels
+_TC_BLOCK = 64 * 128  # bytes of a 64-column block of a 64-row bf16 tile
+_TC_BARRIERS = 8 * (1 + 2 * TC_STAGES) + 1024  # mbarriers + the alignment slack
+
+
+def bwd_tc_smem(kernel: str, hd: int, hd_v: int) -> int:
+    """Dynamic shared bytes a block of ``kernel`` ("dq" or "dkdv") takes."""
+    kq, ko = hd // 64 * _TC_BLOCK, hd_v // 64 * _TC_BLOCK
+    if kernel == "dq":  # each warpgroup's q, dout and out; the K/V ring
+        return TC_WARPGROUPS * (kq + 2 * ko) + TC_STAGES * (kq + ko) + _TC_BARRIERS
+    # each warpgroup's K and V; the q/dout ring and its lse·log2(e) and D slices
+    return (TC_WARPGROUPS + TC_STAGES) * (kq + ko) + TC_STAGES * 2 * TC_TILE * 4 + _TC_BARRIERS
+
+
+def bwd_tc_plan(kernel: str, b: int, s: int, t: int, kh: int, g: int, hd: int,
+                hd_v: int) -> Optional[BwdPlan]:
+    """The tensor-core backward's launch of ``kernel`` ("dq" or "dkdv"), as
+    the C source plans it (``flash_attention_bwd_tc_plan``, held equal on
+    the card); None for a shape the route does not take."""
+    if hd not in BWD_TC_HEAD_DIMS or hd_v not in BWD_TC_HEAD_DIMS or min(b, s, t, kh, g) < 1:
+        return None
+    n_qt = -(-s // TC_TILE)
+    if kernel == "dq":  # TC_WARPGROUPS (position slab, head) slabs a block
+        per_bk = -(-n_qt * g // TC_WARPGROUPS)
+    else:  # TC_WARPGROUPS kv tiles a block
+        per_bk = -(-t // (TC_WARPGROUPS * TC_TILE))
+    return BwdPlan(per_bk * b * kh, (TC_WARPGROUPS + 1) * 128, bwd_tc_smem(kernel, hd, hd_v),
+                   2 * b * kh * g * n_qt * TC_TILE)
+
+
+def _dq_tiles(ps: int, s: int, kv_lim: int, causal: bool) -> int:
+    end = min(kv_lim, (ps + 1) * TC_TILE, s) if causal else kv_lim
+    return -(-end // TC_TILE)
+
+
+def bwd_tc_pairs(kernel: str, s: int, t: int, g: int, causal: bool, kv_len: int) -> list:
+    """The (head, q tile, kv tile) pairs, tiles of 64, whose products
+    ``kernel``'s consumer warpgroups compute for one (b, kv head), in the
+    order of the C source's loops: a mirror of them for the tests."""
+    n_qt = -(-s // TC_TILE)
+    kv_lim = max(0, min(kv_len, t))
+    pairs = []
+    if kernel == "dq":
+        n_slabs = n_qt * g
+        for grp in range(-(-n_slabs // TC_WARPGROUPS)):
+            slab0 = grp * TC_WARPGROUPS
+            last = min(slab0 + TC_WARPGROUPS, n_slabs) - 1
+            n_tiles = _dq_tiles(last // g, s, kv_lim, causal)  # the block's loads
+            for slab in range(slab0, last + 1):
+                ps, head = divmod(slab, g)
+                mine = _dq_tiles(ps, s, kv_lim, causal)
+                pairs += [(head, ps, jt) for jt in range(n_tiles) if jt < mine]
+        return pairs
+    for kvb in range(-(-t // (TC_WARPGROUPS * TC_TILE))):
+        kv0b = kvb * TC_WARPGROUPS * TC_TILE
+        qt0 = kvb * TC_WARPGROUPS if causal else 0
+        n_q = max(0, n_qt - qt0) if kv0b < kv_lim else 0
+        for i in range(g * n_q):  # the block's loads: heads, then q tiles
+            head, qt = i // n_q, qt0 + i % n_q
+            for w in range(TC_WARPGROUPS):
+                kvw = kv0b + w * TC_TILE
+                if kvw < kv_lim and (not causal or min(qt * TC_TILE + TC_TILE, s) - 1 >= kvw):
+                    pairs.append((head, qt, kvw // TC_TILE))
+    return pairs
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal: bool, kv_len: int,
+                route: Optional[str] = None):
     b, s, kh, g, hd = q.shape
     t, hd_v = k.shape[1], v.shape[-1]
     device = q.device
@@ -263,18 +371,32 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool, kv_len: int):
     dv = torch.empty((b, t, kh, hd_v), dtype=v.dtype, device=device)
     if b == 0 or s == 0 or t == 0:  # nothing to compute: no launch
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((b, s, kh, g), dtype=torch.float32, device=device)  # D, the kernel's scratch
-    vec = (int(_vec4(q)) | int(_vec4(k)) << 1 | int(_vec4(v)) << 2 | int(_vec4(out)) << 3
-           | int(_vec4(dout)) << 4)
-    strides = (ctypes.c_longlong * 18)(*q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
-                                       *out.stride()[:4], *dout.stride()[:4])
-    lib, fn = _bwd_entry()
-    err = fn(device_index(device), _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal),
-             hd ** -0.5, vec, strides, stream_handle(device))
+    route = _route_bwd(q, k, v, out, dout) if route is None else route
+    if route == "tensor_core" and q.dtype != torch.bfloat16:  # the C entry sees no dtype
+        raise TypeError(f"the tensor-core backward takes bfloat16 only, got {q.dtype}")
+    lib, fn = _bwd_entry(route)
+    if route == "tensor_core":  # scratch: lse·log2(e) and D, by (b·K + kv head, head, position)
+        plan = bwd_tc_plan("dq", b, s, t, kh, g, hd, hd_v)
+        scratch = torch.empty((plan.scratch_floats if plan else 1,), dtype=torch.float32,
+                              device=device)
+        strides = (ctypes.c_longlong * 18)(*_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
+                                           *_tma_strides(out), *_tma_strides(dout))
+        err = fn(device_index(device), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len, int(causal),
+                 hd ** -0.5, strides, stream_handle(device))
+    else:
+        dsum = torch.empty((b, s, kh, g), dtype=torch.float32, device=device)  # D, the scratch
+        vec = (int(_vec4(q)) | int(_vec4(k)) << 1 | int(_vec4(v)) << 2 | int(_vec4(out)) << 3
+               | int(_vec4(dout)) << 4)
+        strides = (ctypes.c_longlong * 18)(*q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+                                           *out.stride()[:4], *dout.stride()[:4])
+        err = fn(device_index(device), _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, kh, g, hd, hd_v, kv_len,
+                 int(causal), hd ** -0.5, vec, strides, stream_handle(device))
     check_error(KERNEL_BWD, err, lib.flash_attention_bwd_error_string)
-    KERNEL_BWD.count_launch()
+    KERNEL_BWD.count_launch(route)
     return dq, dk, dv
 
 

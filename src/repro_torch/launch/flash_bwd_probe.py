@@ -1,4 +1,4 @@
-"""A short card check of the flash backward kernel and the forward's lse: build, check, time.
+"""A short card check of the flash backward kernels and the forward's lse: build, check, time.
 
     PYTHONPATH=src python -m repro_torch.launch.flash_bwd_probe
 
@@ -6,17 +6,21 @@ The quick first call after a change to ``kernels/csrc/flash_attention_bwd.cu``
 or to the forward's lse epilogues in ``flash_attention.cu`` (``chip_smoke.py``
 runs the same checks as part of phase 3, and times the backward in phase 5).
 Builds the kernels and prints the backward source's ptxas report (registers,
-spills, shared memory). Then, on each case of :data:`CASES` (the training
-path's shape, float32, head dims 64 / 192 with hd_v 128 / 256, G of 1, 3, 8
-and 64, non-causal, ragged S and T, ``kv_len < T`` and ``kv_len = 0``), the
-forward kernel's ``out`` and ``lse`` go into :func:`flash_attention_bwd`,
-whose dq, dk and dv are held to the plain version on the same inputs in
-float64 and in their own dtype (:func:`check_case`, tolerances there); a
-``kv_len = 0`` case must give exactly zero gradients. Three more runs of the
-training shape give the same bits. Every forward route's lse is held to the
-float64 plain lse (:func:`check_lse`). Last, the backward at the training
-shape over 10 launches with CUDA events. Exits 1 if a check fails, 2 without
-a card.
+spills, shared memory) and the count of ``HGMMA`` instructions in each of its
+kernels (``cuobjdump -sass``). Then, on each case of :data:`CASES` (the
+training path's shape, float32, head dims 64 / 192 with hd_v 128 / 256, G of
+1, 3, 8 and 64, non-causal, ragged S and T, ``kv_len < T`` and ``kv_len =
+0``), the forward kernel's ``out`` and ``lse`` go into the backward on every
+route that takes the case (the ``fma`` route takes all; ``tensor_core`` the
+bf16 cases at hd, hd_v in {64, 128}, ``ops._route_bwd``), whose dq, dk and dv
+are held to the plain version on the same inputs in float64 and in their
+own dtype and, where both routes ran, to each other (:func:`check_case`,
+tolerances there); a ``kv_len = 0`` case must give exactly zero gradients.
+Three more runs of the training shape give the same bits. Every forward
+route's lse is held to the float64 plain lse (:func:`check_lse`). Last, the
+backward at the training shape on each route over 10 launches with CUDA
+events, and the split of its device time between the dq and dkdv kernels
+from ``torch.profiler``. Exits 1 if a check fails, 2 without a card.
 """
 
 from __future__ import annotations
@@ -84,41 +88,77 @@ def _close(got: torch.Tensor, want: torch.Tensor, tol: float) -> Tuple[float, bo
         (err <= limit).all())
 
 
+def routes_of(q, k, v, out, dout) -> Tuple[str, ...]:
+    """The backward routes that take a call: the one ``_route_bwd`` picks
+    first, and the ``fma`` route, which takes every call, beside it."""
+    picked = ops._route_bwd(q, k, v, out, dout)
+    return (picked,) if picked == "fma" else (picked, "fma")
+
+
+def run_route(route: str, q, k, v, out, lse, dout, causal=True, kv_len=None):
+    """The backward on ``route``: the public call where the rule picks it,
+    else the wrapper's launch with the route named."""
+    if route == ops._route_bwd(q, k, v, out, dout):
+        return flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, kv_len=kv_len)
+    return ops._launch_bwd(q, k, v, out, lse, dout, causal, ops._kv_len(k, kv_len), route=route)
+
+
 def check_case(gen: torch.Generator, label: str, case: Tuple,
-               log: Callable[[str], None] = print) -> Tuple[float, float, bool]:
-    """One case: the backward kernel on the forward kernel's out and lse,
-    against the plain version in float64 and in the case's dtype; launches
-    counted. Returns (float64 error, same-dtype error, ok): the largest
-    absolute error over dq, dk and dv."""
+               log: Callable[[str], None] = print,
+               by_route: Optional[Dict[str, float]] = None) -> Tuple[float, float, bool]:
+    """One case: the backward on every route that takes it, on the forward
+    kernel's out and lse, against the plain version in float64 and in the
+    case's dtype, and the routes against each other; one launch a call,
+    counted on its route. Returns (float64 error, same-dtype error, ok): the
+    largest absolute error over dq, dk, dv and the routes; ``by_route``
+    gets each route's float64 error."""
     b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype = case
     q, k, v, dout = operands(gen, b, s, t, kh, g, hd, hd_v, dtype)
     out, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len, return_lse=True)
-    before = ops.KERNEL_BWD.launches
-    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, kv_len=kv_len)
-    torch.cuda.synchronize()
-    ok = ops.KERNEL_BWD.launches == before + 1
     want64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, lse, dout)),
                                      causal=causal, kv_len=kv_len)
     want = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, kv_len=kv_len)
+    tol, name = TOL[dtype], str(dtype).split('.')[-1]
     e64 = e32 = 0.0
-    for name, a, w64, w in zip(("dq", "dk", "dv"), got, want64, want):
-        err64, ok64 = _close(a, w64, TOL[dtype])
-        err32, ok32 = _close(a, w, TOL[dtype])
-        e64, e32, ok = max(e64, err64), max(e32, err32), ok and ok64 and ok32
-        if kv_len == 0:
-            ok = ok and bool((a == 0).all())
+    all_ok, results = True, {}
+    for route in routes_of(q, k, v, out, dout):
+        launches, before = ops.KERNEL_BWD.launches, dict(ops.KERNEL_BWD.route_launches)
+        got = run_route(route, q, k, v, out, lse, dout, causal, kv_len)
+        torch.cuda.synchronize()
+        ok = (ops.KERNEL_BWD.launches == launches + 1
+              and ops.KERNEL_BWD.route_launches == dict(before, **{route: before[route] + 1}))
+        r64 = r32 = 0.0
+        for a, w64, w in zip(got, want64, want):
+            err64, ok64 = _close(a, w64, tol)
+            err32, ok32 = _close(a, w, tol)
+            r64, r32, ok = max(r64, err64), max(r32, err32), ok and ok64 and ok32
+            if kv_len == 0:
+                ok = ok and bool((a == 0).all())
+        log(f"  flash_attention_bwd [{route}] {label} {(b, s, t, kh, g, hd, hd_v)} "
+            f"causal={causal} kv_len={kv_len} {name}: vs float64 plain max_abs_err={r64:.3e}, "
+            f"vs {name} plain {r32:.3e} (tol {tol:g} of max|want| + {tol:g}·|want|)"
+            f"{' zero gradients' if kv_len == 0 else ''}; one launch on the route "
+            f"{'ok' if ok else 'FAIL'}")
+        if by_route is not None:
+            by_route[route] = max(by_route.get(route, 0.0), r64)
+        e64, e32, all_ok, results[route] = max(e64, r64), max(e32, r32), all_ok and ok, got
     del want64, want
-    log(f"  flash_attention_bwd {label} {(b, s, t, kh, g, hd, hd_v)} causal={causal} "
-        f"kv_len={kv_len} {str(dtype).split('.')[-1]}: vs float64 plain max_abs_err={e64:.3e}, "
-        f"vs {str(dtype).split('.')[-1]} plain {e32:.3e} (tol {TOL[dtype]:g} of max|want| + "
-        f"{TOL[dtype]:g}·|want|){' zero gradients' if kv_len == 0 else ''} "
-        f"{'ok' if ok else 'FAIL'}")
-    if ok and case == TRAINING:  # deterministic: no float atomics
+    if len(results) == 2:  # the two routes within the same tolerance of each other
+        tc, fma = results["tensor_core"], results["fma"]
+        worst, ok = 0.0, True
+        for a, w in zip(tc, fma):
+            err, close = _close(a, w, tol)
+            worst, ok = max(worst, err), ok and close
+        all_ok = all_ok and ok
+        log(f"  flash_attention_bwd {label}: tensor_core vs fma max_abs_err={worst:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+    if all_ok and case == TRAINING:  # deterministic: no float atomics
+        got = results[routes_of(q, k, v, out, dout)[0]]
         again = [flash_attention_bwd(q, k, v, out, lse, dout, causal=causal) for _ in range(3)]
-        ok = all(torch.equal(x, y) for run in again for x, y in zip(run, got))
+        all_ok = all(torch.equal(x, y) for run in again for x, y in zip(run, got))
         log(f"  flash_attention_bwd {label}: three more runs, "
-            f"{'the same bits' if ok else 'OTHER BITS'}")
-    return e64, e32, ok
+            f"{'the same bits' if all_ok else 'OTHER BITS'}")
+    return e64, e32, all_ok
 
 
 LSE_CASES = {  # route: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype)
@@ -171,6 +211,81 @@ def event_ms(fn) -> float:
     return start.elapsed_time(end) / LAUNCHES
 
 
+def kernel_split_ms(fn, n: int = LAUNCHES) -> Dict[str, float]:
+    """Device milliseconds a call of ``fn`` spends in each kernel, by
+    kernel name, from ``torch.profiler`` over ``n`` calls after two warm
+    ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            split[e.key] = split.get(e.key, 0.0) + e.self_device_time_total / 1e3 / n
+    return split
+
+
+def bwd_part(kernel_name: str) -> str:
+    """The part of the backward a kernel's (mangled) name is: "dq", "dkdv"
+    or ""."""
+    for part in ("dkdv", "dq"):
+        if f"flash_bwd_{part}_" in kernel_name:
+            return part
+    return ""
+
+
+def hgmma_counts() -> Dict[str, int]:
+    """``HGMMA`` instructions in each kernel of the backward's library, from
+    ``cuobjdump -sass`` (empty without the tool)."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(ops.KERNEL_BWD.library_path())],
+                              capture_output=True, text=True, timeout=120).stdout
+    except OSError:
+        return {}
+    counts: Dict[str, int] = {}
+    name = ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and name:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def time_training_shape(gen: torch.Generator, log: Callable[[str], None] = print) -> Dict:
+    """The backward at the training shape on each route: ms a launch from
+    CUDA events, and the dq / dkdv split from the profiler."""
+    b, s, t, kh, g, hd, hd_v, causal, _, dtype = TRAINING
+    q, k, v, dout = operands(gen, b, s, t, kh, g, hd, hd_v, dtype)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    timed = {}
+    for route in routes_of(q, k, v, out, dout):
+        run = lambda: run_route(route, q, k, v, out, lse, dout)  # noqa: E731
+        ms = event_ms(run)
+        split = {"dq": 0.0, "dkdv": 0.0}
+        for key, part_ms in kernel_split_ms(run).items():
+            if bwd_part(key):
+                split[bwd_part(key)] += part_ms
+        timed[route] = {"ms": ms, **{f"{part}_ms": x for part, x in split.items()}}
+        log(f"  training shape [{route}]: backward {ms:.4f} ms a launch (events); profiler: "
+            f"dq kernel {split['dq']:.4f} ms, dkdv kernel {split['dkdv']:.4f} ms")
+    timed["forward_lse_ms"] = event_ms(lambda: flash_attention(q, k, v, return_lse=True))
+    timed["forward_ms"] = event_ms(lambda: flash_attention(q, k, v))
+    log(f"  training shape: forward with lse {timed['forward_lse_ms']:.4f} ms, without "
+        f"{timed['forward_ms']:.4f} ms a launch")
+    return timed
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     del argv  # no options
     if not torch.cuda.is_available():
@@ -179,22 +294,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dev = torch.device("cuda", 0)
     print(f"device {torch.cuda.get_device_name(0)}", flush=True)
     print(f"build {kernels.build():.2f} s", flush=True)
+    log = lambda m: print(m, flush=True)  # noqa: E731
     for line in ops.KERNEL_BWD.build_log.splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "warning", "error")):
-            print(f"  {line.strip()}", flush=True)
+            log(f"  {line.strip()}")
+    for name, n in sorted(hgmma_counts().items()):
+        log(f"  cuobjdump -sass: {n} HGMMA in {name}")
     gen = torch.Generator(device=dev).manual_seed(0)
     failed = 0
-    _, ok = check_lse(gen, lambda m: print(m, flush=True))
+    _, ok = check_lse(gen, log)
     failed += not ok
     for label, case in CASES.items():
-        failed += not check_case(gen, label, case, lambda m: print(m, flush=True))[2]
+        failed += not check_case(gen, label, case, log)[2]
         torch.cuda.empty_cache()
-    b, s, t, kh, g, hd, hd_v, causal, _, dtype = TRAINING
-    q, k, v, dout = operands(gen, b, s, t, kh, g, hd, hd_v, dtype)
-    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-    print(f"  training shape: backward {event_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout)):.4f} ms, "
-          f"forward with lse {event_ms(lambda: flash_attention(q, k, v, return_lse=True)):.4f} ms, "
-          f"without {event_ms(lambda: flash_attention(q, k, v)):.4f} ms a launch", flush=True)
+    time_training_shape(gen, log)
     print(f"flash_bwd_probe: {'FAIL' if failed else 'ok'}", flush=True)
     return 1 if failed else 0
 

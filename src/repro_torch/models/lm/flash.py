@@ -9,8 +9,11 @@ same five tensors, its backward calls :func:`~repro_torch.kernels.
 flash_attention.flash_attention_bwd`. Both go by the kernels' dispatch
 rule: a CUDA tensor launches the hand-written kernel, a CPU tensor takes its
 plain version. Without a gradient to take (serving, ``inference_mode``) the
-forward asks for no lse and the kernels write none. The backward kernel
-has no gradient of its own, so a second-order gradient raises.
+forward asks for no lse and the kernels write none. The backward copies an
+incoming gradient that a tensor map cannot take (``ops._tma_ok``) into a
+fresh contiguous tensor, so that a bf16 backward goes to the tensor-core route. The
+backward kernel has no gradient of its own, so a second-order gradient
+raises.
 
 GQA layout: q (B,S,K,G,hd), k/v (B,T,K,hd|hd_v). ``q_chunk`` and ``kv_chunk``
 are accepted for signature parity with the reference; the kernels pick
@@ -24,6 +27,7 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.flash_attention import flash_attention_bwd as _flash_bwd_kernel
+from repro_torch.kernels.flash_attention.ops import _tma_ok
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -38,8 +42,8 @@ class _FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
+        if not _tma_ok(dout):  # a fresh contiguous copy: bf16 then takes the tensor-core route
+            dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = _flash_bwd_kernel(q, k, v, out, lse, dout, causal=ctx.causal)
         return dq, dk, dv, None
 

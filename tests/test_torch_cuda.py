@@ -9,6 +9,8 @@ machine that has only the port's stack:
 (``--noconftest``: the repo's ``tests/conftest.py`` configures JAX.)
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -1105,7 +1107,11 @@ def test_a_queued_chunk_is_not_overwritten_by_later_chunks(cuda_device):
 # the cases, checks and tolerances of ``repro_torch.launch.flash_bwd_probe``
 # (the backward on the forward kernel's out and lse against the plain
 # version in float64 and in the case's dtype: float32 2e-4, bf16 2e-2 of
-# max|g| plus as much of |g|; lse 1e-4 + 1e-5·|lse|), at a few shapes.
+# max|g| plus as much of |g|; lse 1e-4 + 1e-5·|lse|), at a few shapes. A
+# case the bf16 tensor-core route takes (hd=64, G=8, kv_len=777, kv_len=0)
+# runs on it and on the FMA route, each held to the plain version, the two
+# to each other within the same tolerance, and one launch a call counted on
+# its route; kv_len = 0 gives exactly zero gradients on both.
 FLASH_BWD_CASES = ["hd=64", "float32 S=T=1000", "hd=192 hd_v=128", "G=8",
                    "non-causal kv_len=777 T=1000", "kv_len=17 hd=36 hd_v=20", "kv_len=0"]
 
@@ -1120,17 +1126,65 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, label):
 
 
 def test_flash_bwd_kernel_is_deterministic_and_counted(cuda_device):
+    """Three launches at S = T = 1,000 in bf16 give the same bits, each
+    counted once, on the tensor-core route; the FMA route's three the same
+    bits too."""
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import flash_bwd_probe as probe
 
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     q, k, v, dout = probe.operands(gen, 1, 1000, 1000, 2, 3, 128, 128, torch.bfloat16)
     out, lse = flash_attention(q, k, v, return_lse=True)
     kernel = kernels.KERNELS["flash_attention_bwd"]
-    before = kernel.launches
+    before, routes = kernel.launches, dict(kernel.route_launches)
     runs = [flash_attention_bwd(q, k, v, out, lse, dout) for _ in range(3)]
     torch.cuda.synchronize()
     assert kernel.launches == before + 3  # one a call: both kernels counted once
+    assert kernel.route_launches == dict(routes, tensor_core=routes["tensor_core"] + 3)
     assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0]))
+    fma = [ops._launch_bwd(q, k, v, out, lse, dout, True, 1000, route="fma") for _ in range(3)]
+    torch.cuda.synchronize()
+    assert kernel.route_launches == dict(routes, tensor_core=routes["tensor_core"] + 3,
+                                         fma=routes["fma"] + 3)
+    assert all(torch.equal(a, b) for run in fma[1:] for a, b in zip(run, fma[0]))
+
+
+def test_flash_bwd_tc_plan_is_the_sources_and_refusals_raise(cuda_device):
+    """The wrapper's mirror of the tensor-core backward's plan (blocks,
+    threads, shared memory, scratch) is the C source's at every head-dim
+    pair; a pair the mirror refuses the source refuses too, and a launch of
+    it raises with nothing counted. A float32 call named onto the route
+    raises before the launch."""
+    from repro_torch.kernels.flash_attention import ops
+
+    lib = ops._bwd_entry("tensor_core")[0]
+    plan = (ctypes.c_longlong * 4)()
+    for hd in (32, 64, 96, 128, 192, 256):
+        for hd_v in (64, 128, 256):
+            for shape in ((1, 4096, 4096, 8, 3), (2, 70, 90, 2, 3), (1, 1, 1, 1, 64)):
+                for i, kern in enumerate(("dq", "dkdv")):
+                    want = ops.bwd_tc_plan(kern, *shape, hd, hd_v)
+                    err = lib.flash_attention_bwd_tc_plan(i, *shape, hd, hd_v, plan)
+                    if want is None:
+                        assert err != 0, (kern, shape, hd, hd_v)
+                    else:
+                        assert err == 0 and tuple(plan) == tuple(want), (kern, shape, hd, hd_v)
+                        assert want.smem <= 232_448
+    kernel = kernels.KERNELS["flash_attention_bwd"]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    for hd, dtype, exc in ((192, torch.bfloat16, RuntimeError), (128, torch.float32, TypeError)):
+        q, k, v, dout = (x.to(dtype) for x in _bwd_inputs(gen, cuda_device, hd))
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        before = dict(kernel.route_launches)
+        with pytest.raises(exc):
+            ops._launch_bwd(q, k, v, out, lse, dout, True, 130, route="tensor_core")
+        assert kernel.route_launches == before
+
+
+def _bwd_inputs(gen, device, hd):
+    return (torch.randn(shape, generator=gen, device=device)
+            for shape in ((1, 130, 2, 3, hd), (1, 130, 2, hd), (1, 130, 2, hd),
+                          (1, 130, 2, 3, hd)))
 
 
 def test_flash_lse_on_every_route(cuda_device):
@@ -1142,19 +1196,20 @@ def test_flash_lse_on_every_route(cuda_device):
 
 def test_model_flash_gradient_goes_through_the_kernels(cuda_device):
     """The model's autograd Function: one forward launch (with lse) and one
-    backward launch, and the gradients of the plain version within bf16's
-    tolerance."""
+    backward launch, on the tensor-core route, and the gradients of the
+    plain version within bf16's tolerance."""
     from repro_torch.models.lm.flash import flash_attention as model_flash
 
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
                for shape in ((1, 300, 2, 3, 128), (1, 300, 2, 128), (1, 300, 2, 128)))
     fwd, bwd = kernels.KERNELS["flash_attention"], kernels.KERNELS["flash_attention_bwd"]
-    counts = (fwd.launches, bwd.launches)
+    counts, routes = (fwd.launches, bwd.launches), dict(bwd.route_launches)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     model_flash(*leaves).float().square().sum().backward()
     torch.cuda.synchronize()
     assert (fwd.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    assert bwd.route_launches == dict(routes, tensor_core=routes["tensor_core"] + 1)
     plain = [x.double().requires_grad_() for x in (q, k, v)]
     flash_attention_ref(*plain).square().sum().backward()
     for got, want in zip(leaves, plain):
