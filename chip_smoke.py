@@ -56,7 +56,8 @@ a non-zero exit:
               routes where the bf16 tensor-core route takes the case and on
               the FMA route otherwise, against its plain version in float64
               and in its own dtype and the two routes against each other
-              (``flash_bwd_probe.CASES``: the training shape, three more
+              (``flash_bwd_probe.CASES``: the training shapes (llama3.2-3b's
+              and granite-moe-1b-a400m's G = 2, hd 64), three more
               runs the same bits, float32, hd 64 / 256, hd 192 with hd_v
               128, G 1 / 8 / 64, non-causal, ragged, kv_len < T, kv_len = 0
               with exactly zero gradients; one launch a call on its route);
@@ -128,6 +129,20 @@ a non-zero exit:
               1 backward a layer a chain a step, every one on the bf16
               tensor-core routes), s a step and peak
               ``max_memory_allocated`` printed;
+4j. moe     — the MoE LM at granite-moe-1b-a400m's full width (24 layers,
+              d 1,024, 16/8 heads, hd 64, 32 experts top-8, capacity factor
+              1.25): (a) ``serve.main`` at B=2, prompt 4,096, 16 generated,
+              in bf16 and float32, 24 ``flash_attention`` launches a prefill
+              (``tensor_core`` / ``tf32x3``) and nothing else, the share of
+              (token, slot) pairs the prefill dropped, ``moe_forward``
+              against ``moe_forward_gather`` at a decode step (2e-3, held in
+              float32), and 4d's decode-vs-forward invariant on a copy at
+              capacity factor 4 (nothing dropped) with the (position, layer)
+              pairs whose top-8 set differs counted; (b) ``train.main`` at
+              batch 1 x 4,096, bf16, remat full: adamw 4 steps (the first
+              lowers the loss), epmcmc 2 chains x 24 layers, sgd 2 chains,
+              launches exact as 4i's; (c) a 2-chain epmcmc run at 1 layer
+              interrupted and resumed bit for bit;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
@@ -143,7 +158,9 @@ a non-zero exit:
               tensor-core route at B=2 and B=1, and at B=2 in float32 the
               ``tf32x3`` route and the FMA route (reached through a q the
               tensor maps refuse) beside float32 SDPA, the three-TF32-pass
-              bound and the float32 FMA bound; the
+              bound and the float32 FMA bound, and at granite-moe-1b-a400m's
+              shape (G = 2, hd 64) bf16 at B=2 and B=1 and ``tf32x3`` at
+              B=2; the
               KDE kernel's bound the largest of its bytes, its three TF32
               passes on the tensor cores and its exps on the MUFU;
               ``flash_attention_bwd`` at the training shape (the bf16
@@ -153,7 +170,8 @@ a non-zero exit:
               scaled_dot_product_attention's backward as the yardstick, the
               bound of the work at the bf16 tensor-core rate, the
               tensor-core design's 7-product bound and the float32 FMA
-              bound) and the forward there with and without lse;
+              bound) and the forward there with and without lse, at both
+              training shapes;
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -770,6 +788,40 @@ def launch_ranks(root: str, args, nproc: int, out_dir: str):
     return records
 
 
+def forward_tail(model, out):
+    """forward(prompt + generated[:-1])'s logits at the positions whose next
+    token a serving run chose (prefill's last, then each decode), float32."""
+    import torch
+
+    from repro_torch.models.lm import model as lm_model
+
+    seq = torch.cat([out["prompt"], out["tokens"][:, :-1]], dim=1)
+    with torch.inference_mode():
+        logits, _ = lm_model.forward(model, seq)
+        tail = logits[:, -out["tokens"].shape[1]:].to(torch.float32, copy=True)
+    del logits
+    torch.cuda.empty_cache()
+    return tail
+
+
+def invariant(label, out, fwd, tol):
+    """A serving run's logits at each stage within ``tol`` of forward's
+    (``forward_tail``); the chosen token equal to forward's argmax wherever
+    forward's top-2 gap exceeds tol. Returns the largest gap."""
+    gap = float((out["logits"] - fwd).abs().max())
+    top2 = fwd.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol
+    agree = out["tokens"] == fwd.argmax(-1)
+    ok = gap <= tol and bool(agree[clear].all())
+    print(f"  {label}: max |stage logits - forward logits| = {gap:.4e} (tol {tol:.4e}); "
+          f"tokens agree at {int(agree[clear].sum())}/{int(clear.sum())} positions whose "
+          f"top-2 gap > tol ({int(agree.sum())}/{agree.numel()} overall) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: decode disagrees with forward")
+    return gap
+
+
 def npz_bytes(*shapes) -> int:
     """The size of ``numpy.savez`` of float32 zeros of these shapes, leaves
     named as the launch names them: a rank's payload in the store."""
@@ -836,6 +888,113 @@ def step_split(out, cfg, argv, dev, sync):
     return fwd_bwd, time.perf_counter() - t0 - fwd_bwd
 
 
+def train_run(kernels, cfg, base, label, argv, *, layers, chains, steps, totals, record):
+    """``train.main(base + argv)`` with the counts reset: flash launches exact
+    (2 forward, by the remat recompute, and 1 backward a layer a chain a
+    step, every one on the bf16 tensor-core routes), losses finite, an
+    epmcmc run's parametric product finite; one more step split
+    (``step_split``); s a step and peak memory printed. Adds the run's
+    launches to ``totals`` (by kernel, the forward's by route, the
+    backward's by route) and its record to ``record``; returns train.main's
+    dict."""
+    import torch
+
+    from repro_torch.launch import train
+
+    dev = torch.device("cuda", 0)
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
+    launches_train, routes_train, routes_train_bwd = totals
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = train.main(base + argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes = kernels.launch_counts(), dict(fwd_kernel.route_launches)
+    routes_bwd = dict(bwd_kernel.route_launches)
+    calls = layers * chains * steps
+    want = {n: {"flash_attention": 2 * calls, "flash_attention_bwd": calls}.get(n, 0)
+            for n in counts}
+    if (counts != want or routes.get("tensor_core") != 2 * calls
+            or routes_bwd != {"tensor_core": calls, "fma": 0}):
+        raise AssertionError(f"{label}: launched {counts} (flash by route {routes}, its "
+                             f"backward by route {routes_bwd}), expected {want}, all on "
+                             f"the tensor-core routes")
+    for n in counts:
+        launches_train[n] += counts[n]
+    for rt in routes:
+        routes_train[rt] += routes[rt]
+    for rt in routes_bwd:
+        routes_train_bwd[rt] += routes_bwd[rt]
+    losses = [x.tolist() for x in out["losses"]]
+    if not all(math.isfinite(v) for x in losses for v in (x if isinstance(x, list) else [x])):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    combined = out.pop("combined", None)  # epmcmc: 25.7 GB at 28 layers, checked here
+    if combined is not None:
+        out["combined_finite"] = all(bool(torch.isfinite(t).all())
+                                     for part in (combined.mean, combined.cov)
+                                     for t in part.values())
+        out["combined_dims"] = sum(t.numel() for t in combined.mean.values())
+        out["welford_count"] = out["state"].m_count.tolist()  # before the split's step
+        del combined
+        torch.cuda.empty_cache()
+    fwd_bwd, rest = step_split(out, dataclasses.replace(cfg, num_layers=layers), base + argv,
+                               dev, torch.cuda.synchronize)
+    adamw = argv[argv.index("--mode") + 1] == "adamw"
+    rec = {"losses": losses, "step_s": out["step_s"], "wall_s": wall,
+           "peak_gb": out["peak_bytes"] / 1e9, "flash_attention": counts["flash_attention"],
+           "flash_attention_bwd": counts["flash_attention_bwd"],
+           "flash_attention_bwd_by_route": routes_bwd,
+           "split_s": {"forward_backward": fwd_bwd, "update" if adamw else "rest": rest}}
+    print(f"  {label}: loss by step {json.dumps(losses)}; s a step "
+          f"{json.dumps([round(t, 4) for t in out['step_s']])} (one more step split: "
+          f"forward + backward {fwd_bwd:.4f} s" + (
+              f", the update {rest:.4f} s" if adamw else
+              f" (every chain's, summed), the rest {rest:.4f} s (the step less that)")
+          + "); peak "
+          f"max_memory_allocated "
+          f"{rec['peak_gb']:.2f} GB; wall {wall:.2f} s; launches flash_attention "
+          f"{counts['flash_attention']} (tensor_core), flash_attention_bwd "
+          f"{counts['flash_attention_bwd']} (tensor_core; {layers} layers x {chains} chains "
+          f"x {steps} steps, remat) ok", flush=True)
+    record[label] = rec
+    return out
+
+
+def resume_run(kernels, run_argv):
+    """``train.main(run_argv)`` (an epmcmc run) for 4 steps, against 2 steps
+    with a checkpoint then ``--resume`` to 4, counts reset before the three:
+    (the two final states equal bit for bit, generators included; the
+    largest |difference|; the launches by kernel; the flash backward's by
+    route)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train
+
+    kernels.reset_launches()
+    full = train.main(run_argv + ["--steps", "4"])["state"]
+    with tempfile.TemporaryDirectory() as ckdir:
+        ck = ["--ckpt-dir", ckdir, "--ckpt-every", "2"]
+        train.main(run_argv + ["--steps", "2"] + ck)
+        resumed = train.main(run_argv + ["--steps", "4", "--resume"] + ck)["state"]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    by_route = dict(kernels.KERNELS["flash_attention_bwd"].route_launches)
+    keys = ("params", "v", "m_mean", "m_var")
+    largest = max(float((t.float() - getattr(resumed, key)[name].float()).abs().max())
+                  for key in keys for name, t in getattr(full, key).items())
+    same = (all(torch.equal(t, getattr(resumed, key)[name])
+                for key in keys for name, t in getattr(full, key).items())
+            and torch.equal(full.m_count, resumed.m_count)
+            and all(torch.equal(a.get_state(), b.get_state())
+                    for a, b in zip(full.gens, resumed.gens)))
+    del full, resumed
+    torch.cuda.empty_cache()
+    return same, largest, counts, by_route
+
+
 def train_phase(dev, kernels, lm_config):
     """Phase 4i: LM training at llama3.2-3b's full width (d 3,072, 24/8 heads,
     hd 128, d_ff 8,192, vocab 128,256, bf16, remat "full"), batch 1 × seq
@@ -849,11 +1008,8 @@ def train_phase(dev, kernels, lm_config):
     run: 2 forward (the block and its remat recompute) and 1 backward a layer
     a chain a step. Returns (the full-width runs' launches, their flash
     forward launches by route, the record printed)."""
-    import tempfile
-
     import torch
 
-    from repro_torch.launch import train
     from repro_torch.models.lm import model as lm_model
 
     phase("4i train: llama3.2-3b full width, bf16, batch 1 x seq 4096, remat full")
@@ -884,7 +1040,7 @@ def train_phase(dev, kernels, lm_config):
 
         def grads(b):
             x = h.clone().requires_grad_()
-            loss = (b(x, pos).float() * r).sum()
+            loss = (b(x, pos)[0].float() * r).sum()
             return torch.autograd.grad(loss, [x, *b.parameters()])
 
         kernels.reset_launches()
@@ -916,63 +1072,11 @@ def train_phase(dev, kernels, lm_config):
 
     base = ["--arch", "llama3.2-3b", "--batch", "1", "--seq", "4096", "--log-every", "1",
             "--seed", "0"]
+    totals = (launches_train, routes_train, routes_train_bwd)
 
     def run(label, argv, *, layers, chains, steps):
-        """train.main with the counts reset; flash launches exact."""
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        out = train.main(base + argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts, routes = kernels.launch_counts(), dict(fwd_kernel.route_launches)
-        routes_bwd = dict(bwd_kernel.route_launches)
-        calls = layers * chains * steps
-        want = {n: {"flash_attention": 2 * calls, "flash_attention_bwd": calls}.get(n, 0)
-                for n in counts}
-        if (counts != want or routes.get("tensor_core") != 2 * calls
-                or routes_bwd != {"tensor_core": calls, "fma": 0}):
-            raise AssertionError(f"{label}: launched {counts} (flash by route {routes}, its "
-                                 f"backward by route {routes_bwd}), expected {want}, all on "
-                                 f"the tensor-core routes")
-        for n in counts:
-            launches_train[n] += counts[n]
-        for rt in routes:
-            routes_train[rt] += routes[rt]
-        for rt in routes_bwd:
-            routes_train_bwd[rt] += routes_bwd[rt]
-        losses = [x.tolist() for x in out["losses"]]
-        if not all(math.isfinite(v) for x in losses for v in (x if isinstance(x, list) else [x])):
-            raise AssertionError(f"{label}: a loss is not finite: {losses}")
-        combined = out.pop("combined", None)  # epmcmc: 25.7 GB at 28 layers, checked here
-        if combined is not None:
-            out["combined_finite"] = all(bool(torch.isfinite(t).all())
-                                         for part in (combined.mean, combined.cov)
-                                         for t in part.values())
-            out["combined_dims"] = sum(t.numel() for t in combined.mean.values())
-            out["welford_count"] = out["state"].m_count.tolist()  # before the split's step
-            del combined
-            torch.cuda.empty_cache()
-        fwd_bwd, rest = step_split(out, dataclasses.replace(cfg, num_layers=layers), base + argv,
-                                   dev, torch.cuda.synchronize)
-        adamw = argv[argv.index("--mode") + 1] == "adamw"
-        rec = {"losses": losses, "step_s": out["step_s"], "wall_s": wall,
-               "peak_gb": out["peak_bytes"] / 1e9, "flash_attention": counts["flash_attention"],
-               "flash_attention_bwd": counts["flash_attention_bwd"],
-               "flash_attention_bwd_by_route": routes_bwd,
-               "split_s": {"forward_backward": fwd_bwd, "update" if adamw else "rest": rest}}
-        print(f"  {label}: loss by step {json.dumps(losses)}; s a step "
-              f"{json.dumps([round(t, 4) for t in out['step_s']])} (one more step split: "
-              f"forward + backward {fwd_bwd:.4f} s" + (
-                  f", the update {rest:.4f} s" if adamw else
-                  f" (every chain's, summed), the rest {rest:.4f} s (the step less that)")
-              + "); peak "
-              f"max_memory_allocated "
-              f"{rec['peak_gb']:.2f} GB; wall {wall:.2f} s; launches flash_attention "
-              f"{counts['flash_attention']} (tensor_core), flash_attention_bwd "
-              f"{counts['flash_attention_bwd']} (tensor_core; {layers} layers x {chains} chains "
-              f"x {steps} steps, remat) ok", flush=True)
-        record[label] = rec
-        return out
+        return train_run(kernels, cfg, base, label, argv, layers=layers, chains=chains,
+                         steps=steps, totals=totals, record=record)
 
     # (b) adamw at the reference's rate, 3e-4: the first step lowers the loss
     # (fresh batches of the u^4 token marginal). Later steps need not, and the
@@ -1009,34 +1113,17 @@ def train_phase(dev, kernels, lm_config):
     # kernels (the FMA forward route at hd 32)
     reduced_run = ["--arch", "llama3.2-3b", "--reduced", "--mode", "epmcmc", "--chains", "4",
                    "--burn-in", "1", "--batch", "1", "--seq", "1088", "--log-every", "100"]
-    kernels.reset_launches()
-    full = train.main(reduced_run + ["--steps", "4"])["state"]
-    with tempfile.TemporaryDirectory() as ckdir:
-        ck = ["--ckpt-dir", ckdir, "--ckpt-every", "2"]
-        train.main(reduced_run + ["--steps", "2"] + ck)
-        resumed = train.main(reduced_run + ["--steps", "4", "--resume"] + ck)["state"]
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    diffs = {f"{key}/{name}": float((t.float() - getattr(resumed, key)[name].float()).abs().max())
-             for key in ("params", "v", "m_mean", "m_var") for name, t in getattr(full, key).items()}
-    same = (all(torch.equal(t, getattr(resumed, key)[name]) for key in ("params", "v", "m_mean",
-                                                                        "m_var")
-                for name, t in getattr(full, key).items())
-            and torch.equal(full.m_count, resumed.m_count)
-            and all(torch.equal(a.get_state(), b.get_state())
-                    for a, b in zip(full.gens, resumed.gens)))
+    same, largest, counts, by_route = resume_run(kernels, reduced_run)
     print(f"  (d) reduced epmcmc, 4 chains: 4 steps against 2 + checkpoint + resume 2: "
-          f"{'bit for bit' if same else 'DIFFERENT'} (largest |diff| {max(diffs.values()):.3e}); "
+          f"{'bit for bit' if same else 'DIFFERENT'} (largest |diff| {largest:.3e}); "
           f"launches flash_attention {counts['flash_attention']}, flash_attention_bwd "
-          f"{counts['flash_attention_bwd']} (by route {bwd_kernel.route_launches})", flush=True)
+          f"{counts['flash_attention_bwd']} (by route {by_route})", flush=True)
     if (not same or counts["flash_attention_bwd"] != 4 * 4 * 8
-            or bwd_kernel.route_launches != {"tensor_core": 0, "fma": 4 * 4 * 8}):
+            or by_route != {"tensor_core": 0, "fma": 4 * 4 * 8}):
         raise AssertionError("(d) the resumed run differs from the uninterrupted one, or the "
                              "kernels were not launched (4 layers x 4 chains x 8 steps, the "
                              "float32 backward on the FMA route)")
     record["resume_bitwise"] = same
-    del full, resumed
-    torch.cuda.empty_cache()
 
     # (e) the synchronous baseline
     out = run("(e) sgd 4 chains x 2 layers", ["--mode", "sgd", "--steps", "2", "--chains", "4",
@@ -1049,9 +1136,260 @@ def train_phase(dev, kernels, lm_config):
     return launches_train, routes_train, routes_train_bwd, record
 
 
-def flash_bwd_timing(dev, gen, flush):
-    """Phase 5's flash_attention_bwd row at the training shape (B=1, K=8,
-    G=3, S=T=4096, hd=hd_v=128, bf16, causal): the bf16 tensor-core route
+def moe_phase(dev, kernels, lm_config):
+    """Phase 4j: the MoE LM at granite-moe-1b-a400m's full width (24 layers,
+    d 1,024, 16/8 heads, hd 64, 32 experts top-8, d_ff_expert 512, group 128,
+    capacity factor 1.25, vocab 49,155, tied head; random weights from the
+    seed). (a) Serving, ``serve.main`` at B = 2 × 4,096 + 16 in bf16 and
+    float32: 24 flash launches a prefill, on ``tensor_core`` and ``tf32x3``,
+    nothing else; the share of (token, slot) pairs the prefill dropped (the
+    same weights and prompt, its prefill again with the MoE inputs tapped);
+    at one decode step, ``moe_forward`` (capacity dispatch) against
+    ``moe_forward_gather`` within the reference's ``test_moe.py`` bound,
+    2e-3 (held in float32, printed in bf16). At capacity factor 1.25
+    forward drops tokens that decode (2 tokens a group, capacity 4) keeps,
+    so 4d's decode-vs-forward invariant is held on a copy at capacity factor
+    4 (capacity 132 ≥ the group's 128 tokens: nothing dropped), with 4d's
+    tolerances, and the (position, layer) pairs whose top-8 set differs
+    between decode and forward counted. (b) Training, ``train.main`` at
+    batch 1 × 4,096, bf16, remat full: adamw 4 steps (the first lowers the
+    loss), epmcmc 2 chains × 24 layers 3 steps, burn-in 1, then the
+    parametric combine, sgd 2 chains 2 steps; flash 2 forward + 1 backward a
+    layer a chain a step, all ``tensor_core``. (c) An interrupted 2-chain
+    epmcmc run resumed bit for bit, at 1 layer (a 24-layer 2-chain
+    checkpoint is 37 GB) and seq 1,088 (flash, and a padded group).
+    Returns (the bf16 serving run's launches, each serving run's flash
+    launches by route, the training runs' launches, their flash launches by
+    route forward and backward, the record printed)."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import model as lm_model
+    from repro_torch.models.lm import moe as moe_lib
+    from repro_torch.models.lm import steps as lm_steps
+
+    arch = "granite-moe-1b-a400m"
+    phase(f"4j moe: {arch} full width (24 layers, d 1024, 32 experts top-8, hd 64, G 2): "
+          "serve B=2 S=4096, train batch 1 x 4096, resume")
+    cfg = lm_config(arch)
+    n_layers, k, e = cfg.num_layers, cfg.moe.top_k, cfg.moe.num_experts
+    prompt_len, gen_len = 4096, 16
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
+    record, routes_serve = {}, {}
+    serve_argv = ["--arch", arch, "--batch", "2", "--prompt-len", str(prompt_len), "--gen",
+                  str(gen_len), "--seed", "0"]
+
+    def tap(model, fn):
+        """fn(layer, x) on every MoE input (each block's ln2 output)."""
+        return [blk.ln2.register_forward_hook(lambda m, a, o, i=i: fn(i, o))
+                for i, blk in enumerate(model.blocks)]
+
+    # (a) the serving path's own runs, then on the same weights and prompt
+    # the prefill's drops and one decode step's dispatch against gather
+    for dtype in ("bfloat16", "float32"):
+        kernels.reset_launches()
+        out = serve.main(serve_argv + ["--dtype", dtype])
+        torch.cuda.synchronize()
+        counts, routes = kernels.launch_counts(), dict(fwd_kernel.route_launches)
+        want = {name: (n_layers if name == "flash_attention" else 0) for name in counts}
+        want_routes = {"tensor_core": n_layers if dtype == "bfloat16" else 0,
+                       "tf32x3": n_layers if dtype == "float32" else 0, "fma": 0}
+        tokens = out["tokens"]
+        print(f"  (a) serve {dtype}: prefill_s={out['prefill_s']:.4f} decode_ms_per_tok="
+              f"{out['decode_s_per_tok'] * 1e3:.3f} launches={json.dumps(counts)}, "
+              f"flash_attention by route {json.dumps(routes)}", flush=True)
+        if counts != want or routes != want_routes:
+            raise AssertionError(f"(a) serve {dtype} launched {counts}, by route {routes}; "
+                                 f"expected {want}, by route {want_routes}")
+        if tokens.shape != (2, gen_len) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"(a) serve {dtype}: tokens {tuple(tokens.shape)} out of range")
+        if dtype == "bfloat16":
+            launches_serve = counts
+        routes_serve[dtype] = routes
+
+        _, model, prompt = serve.setup(serve.parse(serve_argv + ["--dtype", dtype]))
+        if not torch.equal(prompt, out["prompt"]):
+            raise AssertionError("serve.setup drew another prompt from the same seed")
+        warm = serve.generate(model, prompt, gen_len)  # the same weights, warm
+        if not torch.equal(warm["tokens"], tokens):
+            raise AssertionError(f"(a) serve {dtype}: a warm run generated other tokens")
+        kept = torch.zeros((), dtype=torch.float64, device=dev)
+
+        def count_kept(i, x):
+            p = moe_lib.plan(model.blocks[i].moe, x)
+            kept.add_(p.dispatch.reshape(-1, e * p.dispatch.shape[-1])[:p.n].sum())
+
+        hooks = tap(model, count_kept)
+        state = lm_steps.serve_prefill(model, {"tokens": prompt}, prompt_len + gen_len)
+        for h in hooks:
+            h.remove()
+        dropped = 1.0 - float(kept) / (2 * prompt_len * k * n_layers)
+        gaps = []
+
+        def dispatch_vs_gather(i, x):
+            moe = model.blocks[i].moe
+            y_dispatch, _ = moe_lib.moe_forward(moe, x)
+            y_gather, _ = moe_lib.moe_forward_gather(moe, x)
+            gap = (y_dispatch.float() - y_gather.float()).abs()
+            gaps.append(float((gap - 2e-3 * y_gather.float().abs()).max()))
+            gaps.append(float(gap.max()))
+
+        hooks = tap(model, dispatch_vs_gather)
+        lm_steps.serve_decode_step(model, state)
+        for h in hooks:
+            h.remove()
+        excess, largest = max(gaps[0::2]), max(gaps[1::2])
+        ok = dtype == "bfloat16" or excess <= 2e-3
+        print(f"  (a) serve {dtype}: the prefill dropped {dropped:.6%} of its "
+              f"{2 * prompt_len * k * n_layers} (token, slot) pairs (capacity "
+              f"{moe_lib._capacity(cfg, cfg.moe.group_size)} a group of "
+              f"{cfg.moe.group_size}); decode step, moe_forward vs moe_forward_gather on every "
+              f"layer's input: max |diff| {largest:.3e}, max (|diff| - 2e-3 |gather|) "
+              f"{excess:.3e} (tol 2e-3{', held' if dtype == 'float32' else ', a reading'}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"(a) {dtype}: dispatch and gather disagree at decode")
+        print(f"  (a) serve {dtype}, warm: prefill_s={warm['prefill_s']:.4f} "
+              f"decode_ms_per_tok={warm['decode_s_per_tok'] * 1e3:.3f}, the same tokens",
+              flush=True)
+        record[f"serve_{dtype}"] = {
+            "prefill_s": out["prefill_s"], "decode_s_per_tok": out["decode_s_per_tok"],
+            "warm_prefill_s": warm["prefill_s"], "warm_decode_s_per_tok": warm["decode_s_per_tok"],
+            "dropped_share": dropped, "dispatch_vs_gather_max_abs": largest}
+        del model, state, out, prompt, warm
+        torch.cuda.empty_cache()
+
+    # (a) the invariant at capacity factor 4 (nothing dropped): the weights
+    # and prompt of serve.setup's seed (its draw order: the model, then the
+    # prompt; checked against the serving run's prompt)
+    cfg4 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    path_prompt = serve.setup(serve.parse(serve_argv + ["--dtype", "bfloat16"]))[2]
+
+    def setup4(dtype):
+        c = dataclasses.replace(cfg4, dtype=dtype, param_dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = lm_model.init_params(c, generator=gen, device=dev)
+        prompt = torch.randint(0, c.vocab_size, (2, prompt_len), generator=gen, device=dev)
+        if not torch.equal(prompt, path_prompt):
+            raise AssertionError("the capacity-4 copy drew another prompt than serve.setup")
+        return model, prompt
+
+    chosen, stage = {}, [None]
+
+    def pick(model):
+        def fn(i, x):
+            top = moe_lib.route(model.blocks[i].moe, x)[2].sort(dim=-1).values
+            chosen.setdefault((stage[0], i), []).append(top)
+        return tap(model, fn)
+
+    def routed_apart():
+        """(position, layer) pairs of the 15 decode steps whose top-8 set
+        differs from forward's at the same position; positions with any."""
+        apart = torch.stack([
+            (torch.cat(chosen[("generate", i)][1:], dim=1)
+             != chosen[("forward", i)][0][:, prompt_len:]).any(-1)
+            for i in range(n_layers)])  # (layers, B, 15)
+        chosen.clear()
+        return int(apart.sum()), int(apart.any(0).sum()), apart[0].numel()
+
+    flips, invariant_gap = {}, {}
+    model32, prompt = setup4("float32")
+    hooks = pick(model32)
+    stage[0] = "generate"
+    out32 = dict(serve.generate(model32, prompt, gen_len), prompt=prompt)
+    stage[0] = "forward"
+    fwd32 = forward_tail(model32, out32)
+    for h in hooks:
+        h.remove()
+    flips["float32"] = routed_apart()
+    invariant_gap["float32"] = invariant("(a) capacity 4, float32 decode vs forward", out32,
+                                         fwd32, 2e-3)
+    del out32, fwd32
+    model16, _ = setup4("bfloat16")
+    hooks = pick(model16)
+    stage[0] = "generate"
+    out16 = dict(serve.generate(model16, prompt, gen_len), prompt=prompt)
+    stage[0] = "forward"
+    fwd16 = forward_tail(model16, out16)
+    for h in hooks:
+        h.remove()
+    flips["bfloat16"] = routed_apart()
+    dev16 = float((fwd16 - forward_tail(model32, out16)).abs().max())
+    print(f"  (a) capacity 4, bfloat16 forward vs float32 forward on the same tokens: max |diff| "
+          f"= {dev16:.4e}", flush=True)
+    invariant_gap["bfloat16"] = invariant("(a) capacity 4, bfloat16 decode vs forward", out16,
+                                          fwd16, 2.0 * dev16)
+    for dtype, (pairs, positions, n_pos) in flips.items():
+        print(f"  (a) capacity 4, {dtype}: decode chose another top-{k} set than forward at "
+              f"{pairs} of {n_pos * n_layers} (position, layer) pairs, at {positions} of "
+              f"{n_pos} decode positions", flush=True)
+    record["capacity4"] = {"invariant_gap": invariant_gap, "bfloat16_vs_float32": dev16,
+                           "topk_apart_pairs": {d: f[0] for d, f in flips.items()},
+                           "topk_apart_positions": {d: f[1] for d, f in flips.items()}}
+    del model32, model16, out16, fwd16
+    torch.cuda.empty_cache()
+
+    # (b) training at full width; (c) the resume
+    launches_train = {name: 0 for name in kernels.KERNELS}
+    routes_train = {route: 0 for route in fwd_kernel.route_launches}
+    routes_train_bwd = {route: 0 for route in bwd_kernel.route_launches}
+    totals = (launches_train, routes_train, routes_train_bwd)
+    base = ["--arch", arch, "--batch", "1", "--seq", "4096", "--log-every", "1", "--seed", "0"]
+
+    def run(label, argv, *, layers, chains, steps):
+        return train_run(kernels, cfg, base, label, argv, layers=layers, chains=chains,
+                         steps=steps, totals=totals, record=record)
+
+    out = run("(b) adamw 24 layers", ["--mode", "adamw", "--steps", "4"], layers=n_layers,
+              chains=1, steps=4)
+    if not out["losses"][1] < out["losses"][0]:
+        raise AssertionError(f"(b) adamw: the first step did not lower the loss: {out['losses']}")
+    del out
+    torch.cuda.empty_cache()
+    label = f"(b) epmcmc 2 chains x {n_layers} layers"
+    out = run(label, ["--mode", "epmcmc", "--steps", "3", "--burn-in", "1", "--chains", "2"],
+              layers=n_layers, chains=2, steps=3)
+    count, finite = out["welford_count"], out["combined_finite"]
+    print(f"  {label}: Welford count {count}, combine_parametric_diag over "
+          f"{out['combined_dims']} dims finite {finite}", flush=True)
+    if count != [2.0, 2.0] or not finite:
+        raise AssertionError(f"{label}: Welford count {count} (want 2 a chain), combined "
+                             f"finite {finite}")
+    del out
+    torch.cuda.empty_cache()
+    out = run(f"(b) sgd 2 chains x {n_layers} layers", ["--mode", "sgd", "--steps", "2",
+                                                         "--chains", "2"],
+              layers=n_layers, chains=2, steps=2)
+    del out
+    torch.cuda.empty_cache()
+
+    resume_argv = ["--arch", arch, "--mode", "epmcmc", "--chains", "2", "--burn-in", "1",
+                   "--batch", "1", "--seq", "1088", "--layers", "1", "--log-every", "100"]
+    same, largest, counts, by_route = resume_run(kernels, resume_argv)
+    calls = 1 * 2 * 8  # 1 layer x 2 chains x (4 + 2 + 2) steps
+    print(f"  (c) epmcmc 2 chains x 1 layer, full width, seq 1088: 4 steps against 2 + "
+          f"checkpoint + resume 2: {'bit for bit' if same else 'DIFFERENT'} (largest |diff| "
+          f"{largest:.3e}); launches flash_attention {counts['flash_attention']}, "
+          f"flash_attention_bwd {counts['flash_attention_bwd']} (by route {by_route})",
+          flush=True)
+    if (not same or counts["flash_attention"] != 2 * calls
+            or by_route != {"tensor_core": calls, "fma": 0}):
+        raise AssertionError("(c) the resumed run differs from the uninterrupted one, or the "
+                             "kernels were not launched as expected")
+    record["resume_bitwise"] = same
+    print(f"  4j launches: serve (bf16) {json.dumps(launches_serve)}; train "
+          f"{json.dumps(launches_train)}, flash_attention by route {json.dumps(routes_train)}, "
+          f"flash_attention_bwd by route {json.dumps(routes_train_bwd)}", flush=True)
+    print(f"  moe {json.dumps(record)}", flush=True)
+    return launches_serve, routes_serve, launches_train, routes_train, routes_train_bwd, record
+
+
+def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128):
+    """Phase 5's flash_attention_bwd row at a training shape (B=1, S=T=4096,
+    bf16, causal; llama3.2-3b's K=8, G=3, hd=hd_v=128 by default,
+    granite-moe-1b-a400m's K=8, G=2, hd=64 too): the bf16 tensor-core route
     (the one the path takes) warm, with a cold L2 and its host enqueue; the
     FMA route on the same tensors (``ops._launch_bwd(route="fma")``, the
     first design, which float32 still takes); each route's split between its
@@ -1075,7 +1413,7 @@ def flash_bwd_timing(dev, gen, flush):
     )
     from repro_torch.launch.flash_bwd_probe import bwd_part, kernel_split_ms
 
-    B, K, G, hd, S = 1, 8, 3, 128, 4096
+    B, S = 1, 4096
     q = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -1836,7 +2174,9 @@ def main() -> int:
     # the "tf32x3" route against float64 (flash_probe.check_tile: its raw
     # q·kᵀ and S·v, which a wrong descriptor or fragment cannot pass). Shapes:
     # the serving path's prefill (llama3.2-3b: 8 KV heads of 3 query heads,
-    # hd 128, S = T = 4096, causal) in bf16 and float32, the reference tests'
+    # hd 128, S = T = 4096, causal) in bf16 and float32, granite-moe-1b-a400m's
+    # (8 KV heads of 2, hd 64, S = T = 4096, at its training batch of 1), the
+    # reference tests'
     # GQA / hd_v≠hd and ragged non-causal shapes, MLA's hd 192 with hd_v 128,
     # a kv_len inside the causal reach, and every row masked (kv_len 0: zeros,
     # no NaN), all of which but the serving path take the FMA route in
@@ -1845,8 +2185,8 @@ def main() -> int:
     # 128), q as the model's (B,S,H,hd) view into a fused projection, and
     # operands the tensor maps cannot take (a base 2 or 4 bytes off 16, a
     # bf16 row stride of 132), which go to the FMA route. Each case checks
-    # which route's count rose; both serving-path cases give the same bits in
-    # three more runs.
+    # which route's count rose; the serving and granite path cases give the
+    # same bits in three more runs.
     from repro_torch.launch.flash_probe import check_tile as flash_check_tile
 
     flash_kernel = kernels.KERNELS["flash_attention"]
@@ -1858,6 +2198,8 @@ def main() -> int:
     flash_cases = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype[, layout])
         "serving path": (2, 4096, 4096, 8, 3, 128, 128, True, None, bf16),
         "serving path float32": (2, 4096, 4096, 8, 3, 128, 128, True, None, f32),
+        "granite path": (1, 4096, 4096, 8, 2, 64, 64, True, None, bf16),
+        "granite path float32": (1, 4096, 4096, 8, 2, 64, 64, True, None, f32),
         "GQA hd_v=16": (2, 128, 128, 2, 2, 32, 16, True, None, f32),
         "ragged non-causal S=100 T=160": (1, 100, 160, 1, 4, 16, 16, False, None, f32),
         "MLA hd=192 hd_v=128": (1, 300, 300, 4, 1, 192, 128, True, None, bf16),
@@ -1939,7 +2281,7 @@ def main() -> int:
         flash_err64[route] = max(flash_err64.get(route, 0.0), e64)
         if kv_len == 0 and not bool((out == 0).all()):
             raise AssertionError(f"flash_attention [{route}]: a fully masked row is not zero")
-        if label.startswith("serving path"):  # each tensor-core route is deterministic
+        if "path" in label:  # each tensor-core route is deterministic
             if not all(torch.equal(out, flash_attention(q, k, v)) for _ in range(3)):
                 raise AssertionError(f"flash_attention [{route}]: three runs of one input differ")
             print(f"  flash_attention [{route}] {label}: three more runs, the same bits",
@@ -2259,33 +2601,6 @@ def main() -> int:
             raise AssertionError(f"serve ({dtype}): tokens {tuple(tokens.shape)} out of range")
         return out, counts, routes
 
-    def forward_tail(model, out):
-        """forward(prompt + generated[:-1])'s logits at the 16 positions whose
-        next token the serving run chose (prefill's last, then each decode)."""
-        seq = torch.cat([out["prompt"], out["tokens"][:, :-1]], dim=1)
-        with torch.inference_mode():
-            logits, _ = lm_model.forward(model, seq)
-            tail = logits[:, -out["tokens"].shape[1]:].to(torch.float32, copy=True)
-        del logits
-        torch.cuda.empty_cache()
-        return tail
-
-    def invariant(label, out, fwd, tol):
-        """Each stage's logits within ``tol`` of forward's; the chosen token
-        equal to forward's argmax wherever forward's top-2 gap exceeds tol."""
-        gap = float((out["logits"] - fwd).abs().max())
-        top2 = fwd.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > tol
-        agree = out["tokens"] == fwd.argmax(-1)
-        ok = gap <= tol and bool(agree[clear].all())
-        print(f"  {label}: max |stage logits - forward logits| = {gap:.4e} (tol {tol:.4e}); "
-              f"tokens agree at {int(agree[clear].sum())}/{int(clear.sum())} positions whose "
-              f"top-2 gap > tol ({int(agree.sum())}/{agree.numel()} overall) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise AssertionError(f"{label}: decode disagrees with forward")
-        return gap
-
     # float32: decode (einsum over the cache) against forward (flash) differs
     # only by summation order; 2e-3 is the reference's own consistency figure
     # (tests/test_model_consistency.py) on logits of size ~1
@@ -2583,6 +2898,9 @@ def main() -> int:
     launches_train, routes_train, routes_train_bwd, train_record = train_phase(dev, kernels,
                                                                                lm_config)
     torch.cuda.empty_cache()
+    (launches_moe_serve, routes_moe_serve, launches_moe_train, routes_moe_train,
+     routes_moe_train_bwd, moe_record) = moe_phase(dev, kernels, lm_config)
+    torch.cuda.empty_cache()
 
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
@@ -2834,7 +3152,9 @@ def main() -> int:
                  "slab_route": online_rows["slab: the draw buffer as one chunk"]})
 
     # flash_attention at the serving path's prefill shape (B=2) and the table's
-    # (B=1): 8 KV heads of 3 query heads, hd 128, S = T = 4096, causal. In
+    # (B=1): 8 KV heads of 3 query heads, hd 128, S = T = 4096, causal; and at
+    # granite-moe-1b-a400m's (8 KV heads of 2, hd 64) in bf16 at B=2 and B=1
+    # and in float32 at B=2 on the "tf32x3" route. In
     # bf16 on the bf16 tensor-core route (bound over the bf16 tensor-core
     # rate); at B=2 in float32 on the "tf32x3" route (bound over the TF32
     # rate for its three passes: 3× the work) and on the FMA route, reached
@@ -2848,11 +3168,15 @@ def main() -> int:
     # and library times it shares.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_rows = {}
-    for label, B, dtype, route in (("bf16 B=2", 2, torch.bfloat16, "tensor_core"),
-                                   ("bf16 B=1", 1, torch.bfloat16, "tensor_core"),
-                                   ("float32 B=2", 2, torch.float32, "tf32x3"),
-                                   ("float32 B=2 q 4 bytes off 16", 2, torch.float32, "fma")):
-        K, G, hd, S = 8, 3, 128, 4096
+    for label, B, dtype, route, (K, G, hd) in (
+            ("bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 3, 128)),
+            ("bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 3, 128)),
+            ("float32 B=2", 2, torch.float32, "tf32x3", (8, 3, 128)),
+            ("float32 B=2 q 4 bytes off 16", 2, torch.float32, "fma", (8, 3, 128)),
+            ("granite bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 2, 64)),
+            ("granite bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 2, 64)),
+            ("granite float32 B=2", 2, torch.float32, "tf32x3", (8, 2, 64))):
+        S = 4096
         if route == "fma":
             flat = torch.randn((B * S * K * G * hd + 1,), generator=gen, device=dev)
             q = flat[1:].view(B, S, K, G, hd)
@@ -2916,9 +3240,15 @@ def main() -> int:
                      at_B1={key: flash_rows["bf16 B=1"][key] for key in keys},
                      tf32x3_route={key: flash_rows["float32 B=2"][key] for key in keys + ("shape",)},
                      fma_route={key: flash_rows["float32 B=2 q 4 bytes off 16"][key]
-                                for key in keys + ("shape",)})
+                                for key in keys + ("shape",)},
+                     at_granite={label: {key: flash_rows[f"granite {label}"][key]
+                                         for key in keys + ("shape",)}
+                                 for label in ("bf16 B=2", "bf16 B=1", "float32 B=2")})
     rows.append(flash_row)
-    rows.append(flash_bwd_timing(dev, gen, flush))
+    bwd_row = flash_bwd_timing(dev, gen, flush)
+    bwd_row["at_granite"] = flash_bwd_timing(dev, gen, flush, K=8, G=2, hd=64)
+    del bwd_row["at_granite"]["name"]
+    rows.append(bwd_row)
 
     phase("6 summary")
     print(f"  chip_smoke ran {time.perf_counter() - t_start:.1f} s, the build included", flush=True)
@@ -2940,7 +3270,9 @@ def main() -> int:
                                  "mesh_paper": launches_mesh[name],
                                  "mesh_stream": launches_mesh_stream[name],
                                  **{label: o["launches"][name] for label, o in other.items()},
-                                 "train": launches_train[name]},
+                                 "train": launches_train[name],
+                                 "serve_moe": launches_moe_serve[name],
+                                 "train_moe": launches_moe_train[name]},
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]
@@ -2951,13 +3283,18 @@ def main() -> int:
         if name == "flash_attention":  # the serving and training runs' launches, by route
             entry["launches_by_route"] = {"serve_bfloat16": routes_serve16,
                                           "serve_float32": routes_serve32,
-                                          "train": routes_train}
+                                          "train": routes_train,
+                                          "serve_moe_bfloat16": routes_moe_serve["bfloat16"],
+                                          "serve_moe_float32": routes_moe_serve["float32"],
+                                          "train_moe": routes_moe_train}
             entry["max_abs_err_by_route"] = flash_err64
             entry["lse_max_abs_err"] = lse_err
         if name == "flash_attention_bwd":  # the training runs' launches, by route
-            entry["launches_by_route"] = {"train": routes_train_bwd}
+            entry["launches_by_route"] = {"train": routes_train_bwd,
+                                          "train_moe": routes_moe_train_bwd}
             entry["max_abs_err_by_route"] = bwd_err64
             entry["train"] = train_record
+            entry["moe"] = moe_record
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

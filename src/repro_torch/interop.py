@@ -46,7 +46,7 @@ def _weight(a: Any) -> torch.Tensor:
 
 
 def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]:
-    """How ``repro``'s dense LM pytree maps onto the port's parameter names:
+    """How ``repro``'s LM pytree (dense and MoE) maps onto the port's parameter names:
     ``(port name, reference path, layer index into a stacked leaf or None)``
     in the port's ``named_parameters`` order.
 
@@ -56,7 +56,10 @@ def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]
     the reference's ``x @ w`` layout, (d_in, d_out), so nothing is
     transposed: ``w_q/w_k/w_v/w_o`` (and biases ``b_q/b_k/b_v``),
     ``w_gate/w_up/w_down``, the norms' ``scale``, ``embed`` (V, d) and, when
-    untied, ``lm_head`` (d, V).
+    untied, ``lm_head`` (d, V). An MoE layer's ``moe.router`` (d, E),
+    ``moe.experts.w_*`` ((E, d, f) and (E, f, d); a stacked leaf is (L, E,
+    d, f)) and ``moe.shared.w_*`` take the same paths in the reference's
+    ``moe`` subtree.
     """
     from repro_torch.models.lm import model as mdl
 
@@ -78,8 +81,15 @@ def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]
                     for w in ("w_q", "w_k", "w_v"):
                         out.append((prefix + f"attn.b_{w[-1]}", base + ("attn", w, "b"), idx))
                 out.append((prefix + "ln2.scale", base + ("ln2", "scale"), idx))
-                for w in ("w_gate", "w_up", "w_down"):
-                    out.append((prefix + f"mlp.{w}", base + ("mlp", w), idx))
+                if group.specs[li].ffn == "moe":
+                    out.append((prefix + "moe.router", base + ("moe", "router"), idx))
+                    subtrees = ["experts"] + (["shared"] if cfg.moe.num_shared_experts else [])
+                    for sub in subtrees:
+                        for w in ("w_gate", "w_up", "w_down"):
+                            out.append((prefix + f"moe.{sub}.{w}", base + ("moe", sub, w), idx))
+                else:
+                    for w in ("w_gate", "w_up", "w_down"):
+                        out.append((prefix + f"mlp.{w}", base + ("mlp", w), idx))
                 layer += 1
     return out
 
@@ -132,7 +142,7 @@ def from_reference_lm_params(
     device: str | torch.device | None = None,
 ):
     """``repro``'s LM ``init_params`` pytree (numpy leaves) as the port's
-    model (the dense family only; the map is :func:`reference_lm_leaves`).
+    model (the dense and MoE families; the map is :func:`reference_lm_leaves`).
     Every tensor is cast to ``cfg.param_dtype``; the numbers are the
     reference's."""
     from repro_torch.models.lm import model as mdl

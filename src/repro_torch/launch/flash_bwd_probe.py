@@ -8,15 +8,15 @@ runs the same checks as part of phase 3, and times the backward in phase 5).
 Builds the kernels and prints the backward source's ptxas report (registers,
 spills, shared memory) and the count of ``HGMMA`` instructions in each of its
 kernels (``cuobjdump -sass``). Then, on each case of :data:`CASES` (the
-training path's shape, float32, head dims 64 / 192 with hd_v 128 / 256, G of
-1, 3, 8 and 64, non-causal, ragged S and T, ``kv_len < T`` and ``kv_len =
-0``), the forward kernel's ``out`` and ``lse`` go into the backward on every
+training paths' shapes, llama3.2-3b's and granite-moe-1b-a400m's, float32,
+head dims 64 / 192 with hd_v 128 / 256, G of 1, 3, 8 and 64, non-causal,
+ragged S and T, ``kv_len < T`` and ``kv_len = 0``), the forward kernel's ``out`` and ``lse`` go into the backward on every
 route that takes the case (the ``fma`` route takes all; ``tensor_core`` the
 bf16 cases at hd, hd_v in {64, 128}, ``ops._route_bwd``), whose dq, dk and dv
 are held to the plain version on the same inputs in float64 and in their
 own dtype and, where both routes ran, to each other (:func:`check_case`,
 tolerances there); a ``kv_len = 0`` case must give exactly zero gradients.
-Three more runs of the training shape give the same bits. Every forward
+Three more runs of each training shape give the same bits. Every forward
 route's lse is held to the float64 plain lse (:func:`check_lse`). Last, the
 backward at the training shape on each route over 10 launches with CUDA
 events, and the split of its device time between the dq and dkdv kernels
@@ -41,8 +41,10 @@ from repro_torch.kernels.flash_attention import ops
 
 BF16, F32 = torch.bfloat16, torch.float32
 TRAINING = (1, 4096, 4096, 8, 3, 128, 128, True, None, BF16)  # llama3.2-3b, train_4k
+MOE_TRAINING = (1, 4096, 4096, 8, 2, 64, 64, True, None, BF16)  # granite-moe-1b-a400m
 CASES: Dict[str, Tuple] = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype)
     "training path": TRAINING,
+    "granite training path": MOE_TRAINING,
     "float32 S=T=1000": (1, 1000, 1000, 2, 3, 128, 128, True, None, F32),
     "hd=64": (2, 200, 200, 2, 3, 64, 64, True, None, BF16),
     "hd=256": (1, 300, 300, 2, 2, 256, 256, True, None, BF16),
@@ -152,7 +154,7 @@ def check_case(gen: torch.Generator, label: str, case: Tuple,
         all_ok = all_ok and ok
         log(f"  flash_attention_bwd {label}: tensor_core vs fma max_abs_err={worst:.3e} "
             f"{'ok' if ok else 'FAIL'}")
-    if all_ok and case == TRAINING:  # deterministic: no float atomics
+    if all_ok and case in (TRAINING, MOE_TRAINING):  # deterministic: no float atomics
         got = results[routes_of(q, k, v, out, dout)[0]]
         again = [flash_attention_bwd(q, k, v, out, lse, dout, causal=causal) for _ in range(3)]
         all_ok = all(torch.equal(x, y) for run in again for x, y in zip(run, got))

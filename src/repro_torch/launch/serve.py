@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --batch 2 \\
         --prompt-len 4096 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --reduced \\
+        --device cpu
 
 The port of ``repro/launch/serve.py:25``, with its flags plus ``--device``
 (default ``cuda``; with no card visible it raises) and ``--dtype`` (the
@@ -10,8 +12,9 @@ weights' and activations' dtype, default the config's: bfloat16 at full
 width, float32 under ``--reduced``). Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` (other numbers than the reference's
 ``jax.random`` draws), then the prompt from the same generator;
-``max_len = prompt_len + gen``. The dense family only (see
-:mod:`repro_torch.models.lm.model`). A prompt longer than the config's
+``max_len = prompt_len + gen``. The dense and MoE families (see
+:mod:`repro_torch.models.lm.model`; ``--arch granite-moe-1b-a400m``, whose
+decode runs ``cfg.moe_decode_impl``'s MoE). A prompt longer than the config's
 ``attn_chunk`` (1,024) runs every layer's prefill attention through the
 flash kernel; decode attends over the cache with the einsum path. Each
 timed stage ends with ``torch.cuda.synchronize()`` on the card.

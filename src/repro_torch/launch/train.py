@@ -20,7 +20,9 @@ with the chains' generator states, and ``--resume`` restarts from the
 newest one bit for bit (the chain count must be the checkpoint's). Beyond
 the reference's flags: ``--device`` (``cuda`` unless ``cpu``) and
 ``--layers`` (cut the depth, the width unchanged; 0 keeps the config's).
-The dense family only (``check_dense``); other archs raise.
+The dense and MoE families (``check_supported``): ``--arch
+granite-moe-1b-a400m`` trains with the MoE aux loss in the total; other
+archs raise.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch llama3_2_3b --reduced --mode epmcmc --steps 30 --batch 4 --seq 128
@@ -137,7 +139,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         )
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
-    mdl.check_dense(cfg)
+    mdl.check_supported(cfg)
     if args.reduced:
         cfg = reduced(cfg)
     if args.layers:

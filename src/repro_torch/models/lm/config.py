@@ -6,8 +6,9 @@ reference to the digit. One dataclass describes dense GQA transformers, MoE
 (incl. MLA), Mamba-2 SSD, hybrid (Jamba) interleaves, encoder–decoder
 (Whisper) and VLM-stub (LLaVA) backbones; ``repro_torch/configs/<arch>.py``
 instantiate it with the exact assigned numbers. The port runs the dense
-family only (:mod:`repro_torch.models.lm.model`); the other fields are kept
-so that every config loads and counts its parameters as in the reference.
+and MoE families (:mod:`repro_torch.models.lm.model`); the other fields are
+kept so that every config loads and counts its parameters as in the
+reference.
 """
 
 from __future__ import annotations

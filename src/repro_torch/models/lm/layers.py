@@ -1,8 +1,9 @@
-"""Primitive layers of the dense LM family, as plain functions on tensors.
+"""Primitive layers of the LM, as plain functions on tensors.
 
-The counterpart of ``repro/models/lm/layers.py`` for what a dense model
-uses. Weights keep the reference's ``x @ w`` layout, ``(d_in, d_out)``, so
-they cross between the packages without a transpose. Matrix products run in
+The counterpart of ``repro/models/lm/layers.py`` for what the dense and MoE
+families use (:class:`MLP` holds a SwiGLU's weights: a dense layer's FFN, an
+MoE layer's shared experts). Weights keep the reference's ``x @ w`` layout,
+``(d_in, d_out)``, so they cross between the packages without a transpose. Matrix products run in
 the activations' dtype (``cfg.dtype``); RMSNorm statistics and the RoPE
 rotation are float32, as in the reference.
 """
@@ -94,6 +95,20 @@ def mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch
     gate = F.silu(x @ w_gate.to(x.dtype))
     up = x @ w_up.to(x.dtype)
     return (gate * up) @ w_down.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """SwiGLU weights in ``x @ w`` layout: w_gate, w_up (d, d_ff), w_down (d_ff, d)."""
+
+    def __init__(self, d: int, d_ff: int, *, generator=None, dtype: torch.dtype, device=None):
+        super().__init__()
+        init = dict(generator=generator, device=device, dtype=dtype)
+        self.w_gate = linear_param(d, d_ff, **init)
+        self.w_up = linear_param(d, d_ff, **init)
+        self.w_down = linear_param(d_ff, d, **init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp(x, self.w_gate, self.w_up, self.w_down)
 
 
 def init_embed(

@@ -1,13 +1,19 @@
-"""Model assembly of the dense LM family: forward, prefill and decode.
+"""Model assembly of the dense and MoE LM families: forward, prefill and decode.
 
-The counterpart of ``repro/models/lm/model.py`` for the dense family, whose
-every layer is ``attn + mlp``. The reference runs each layer group as a
-``lax.scan`` over stacked parameters; the port keeps ``layer_specs`` and
-``layer_groups`` as they are (pure data) and runs a Python loop over an
-``nn.ModuleList`` of :class:`Block`. The three execution paths share the
-block: ``forward`` (the whole sequence, also the training path), ``prefill``
-(forward plus each layer's KV cache, padded to ``max_len``) and
-``decode_step`` (one token against the caches, which it updates in place).
+The counterpart of ``repro/models/lm/model.py`` for the families whose every
+layer is ``attn + mlp`` (dense) or ``attn + moe`` (MoE, after an optional
+dense prefix of ``moe.first_dense`` layers). The reference runs each layer
+group as a ``lax.scan`` over stacked parameters; the port keeps
+``layer_specs`` and ``layer_groups`` as they are (pure data) and runs a
+Python loop over an ``nn.ModuleList`` of :class:`Block`, each built for its
+layer's spec. The three execution paths share the block: ``forward`` (the
+whole sequence, also the training path), ``prefill`` (forward plus each
+layer's KV cache, padded to ``max_len``) and ``decode_step`` (one token
+against the caches, which it updates in place). An MoE block's FFN is
+:func:`repro_torch.models.lm.moe.moe_forward` in forward and prefill, and in
+decode the one ``cfg.moe_decode_impl`` names (``"dispatch"``, the default,
+or ``"gather"``); ``forward`` returns the sum of the blocks' aux losses, as
+the reference's ``_run_groups`` does.
 
 Remat: the reference wraps each layer group's period in ``jax.checkpoint``
 under ``cfg.remat="full"`` (``_maybe_remat``, :303), the default of every
@@ -18,9 +24,9 @@ training step holds one layer's activations at a time. ``"none"`` runs
 plain; ``"dots"`` (save the matrix products' outputs), which no config
 sets, raises.
 
-A config of another family (MoE, MLA, Mamba-2, hybrid, encoder–decoder,
-image tokens) raises ``NotImplementedError``: those come in later slices
-(ROADMAP Queue 1 item 11) and never run on a substitute.
+A config of another family or with other layers (MLA, Mamba-2, hybrid,
+encoder–decoder, image tokens) raises ``NotImplementedError``: those come
+in later slices (ROADMAP Queue 1 item 11) and never run on a substitute.
 """
 
 from __future__ import annotations
@@ -33,14 +39,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.lm import attention as attn
+from repro_torch.models.lm import moe as moe_lib
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.layers import (
+    MLP,
     dtype_of,
     embed_lookup,
     trainable,
     init_embed,
     linear_param,
-    mlp,
     rmsnorm,
 )
 
@@ -61,6 +68,7 @@ class GroupSpec:
 
 
 DENSE = LayerSpec(mixer="attn", ffn="mlp")
+MOE = LayerSpec(mixer="attn", ffn="moe")
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -101,19 +109,21 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
     return groups
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise unless every layer of ``cfg`` is ``attn + mlp`` with nothing else."""
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless every layer of ``cfg`` is ``attn + mlp`` or ``attn + moe``
+    with nothing else (a dense prefix before MoE layers included)."""
     extras = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-        ("ssm", cfg.ssm is not None), ("hybrid", cfg.hybrid is not None),
+        ("mla", cfg.mla is not None), ("ssm", cfg.ssm is not None),
+        ("hybrid", cfg.hybrid is not None),
         ("encoder layers", cfg.num_encoder_layers > 0),
         ("image tokens", cfg.num_image_tokens > 0),
     ) if on]
-    odd = sorted({f"{s.mixer}+{s.ffn}" for s in layer_specs(cfg) if s != DENSE})
+    odd = sorted({f"{s.mixer}+{s.ffn}" for s in layer_specs(cfg) if s not in (DENSE, MOE)})
     if extras or odd:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) needs {', '.join(extras + odd)}; the port runs the "
-            "dense family (attn+mlp) only so far, the rest is ROADMAP Queue 1 item 11"
+            "dense family (attn+mlp) and MoE (attn+moe) only so far, the rest is ROADMAP "
+            "Queue 1 item 11"
         )
 
 
@@ -127,34 +137,35 @@ class RMSNorm(nn.Module):
         return rmsnorm(x, self.scale, self.eps)
 
 
-class MLP(nn.Module):
-    """SwiGLU weights in ``x @ w`` layout: w_gate, w_up (d, d_ff), w_down (d_ff, d)."""
-
-    def __init__(self, d: int, d_ff: int, *, generator=None, dtype: torch.dtype, device=None):
-        super().__init__()
-        init = dict(generator=generator, device=device, dtype=dtype)
-        self.w_gate = linear_param(d, d_ff, **init)
-        self.w_up = linear_param(d, d_ff, **init)
-        self.w_down = linear_param(d_ff, d, **init)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp(x, self.w_gate, self.w_up, self.w_down)
-
-
 class Block(nn.Module):
-    """One dense layer: x + attn(ln1(x)), then + mlp(ln2(·))."""
+    """One layer: x + attn(ln1(x)), then + ffn(ln2(·)), the FFN an ``mlp``
+    or a ``moe`` as ``spec.ffn`` says."""
 
-    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec = DENSE, *, generator=None,
+                 device=None):
         super().__init__()
+        self.spec = spec
         dtype = dtype_of(cfg.param_dtype)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.attn = attn.GQA(cfg, generator=generator, device=device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, generator=generator, dtype=dtype, device=device)
+        if spec.ffn == "moe":
+            self.moe = moe_lib.MoE(cfg, generator=generator, device=device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, generator=generator, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), positions)
-        return x + self.mlp(self.ln2(x))
+    def ffn(self, x: torch.Tensor, moe_fn=moe_lib.moe_forward
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x + ffn(ln2(x)), and the MoE aux loss (None for an mlp)."""
+        if self.spec.ffn == "moe":
+            y, aux = moe_fn(self.moe, self.ln2(x))
+            return x + y, aux
+        return x + self.mlp(self.ln2(x)), None
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the block's output, its aux loss: None for an mlp block)."""
+        return self.ffn(x + self.attn(self.ln1(x), positions))
 
     def prefill(
         self, x: torch.Tensor, positions: torch.Tensor, max_len: int
@@ -167,23 +178,25 @@ class Block(nn.Module):
         cache = attn.init_gqa_cache(self.attn.cfg, b, max_len, k.dtype, device=k.device)
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
-        return x + self.mlp(self.ln2(x)), cache
+        return self.ffn(x)[0], cache
 
     def decode(
         self, x: torch.Tensor, cache: attn.Cache, position: int
     ) -> Tuple[torch.Tensor, attn.Cache]:
         h, cache = attn.gqa_decode(self.attn, self.ln1(x), cache, position)
-        x = x + h
-        return x + self.mlp(self.ln2(x)), cache
+        gather = self.attn.cfg.moe_decode_impl != "dispatch"
+        moe_fn = moe_lib.moe_forward_gather if gather else moe_lib.moe_forward
+        return self.ffn(x + h, moe_fn)[0], cache
 
 
 class LM(nn.Module):
-    """The dense LM: ``embed`` (V, d), ``blocks``, ``final_norm``, and ``lm_head``
-    (d, V) unless ``cfg.tie_embeddings`` (then the head is ``embed.T``)."""
+    """The LM: ``embed`` (V, d), ``blocks`` (one a layer, each built for its
+    ``layer_specs`` entry), ``final_norm``, and ``lm_head`` (d, V) unless
+    ``cfg.tie_embeddings`` (then the head is ``embed.T``)."""
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
-        check_dense(cfg)
+        check_supported(cfg)
         self.cfg = cfg
         dtype = dtype_of(cfg.param_dtype)
         if generator is None:
@@ -196,7 +209,7 @@ class LM(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else linear_param(
             cfg.d_model, cfg.vocab_size, generator=generator, device=device, dtype=dtype)
         self.blocks = nn.ModuleList(
-            Block(cfg, generator=generator, device=device) for _ in range(cfg.num_layers)
+            Block(cfg, spec, generator=generator, device=device) for spec in layer_specs(cfg)
         )
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
@@ -234,28 +247,35 @@ def _remat(cfg: ModelConfig) -> bool:
 
 
 def forward(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, S, V), aux loss): the dense family's aux (MoE balance) is 0."""
+    """(logits (B, S, V), aux loss): the MoE blocks' aux losses summed, 0 for
+    the dense family."""
     remat = _remat(model.cfg) and torch.is_grad_enabled()
     h, positions = _inputs_to_h(model, tokens)
+    auxes = []
     for block in model.blocks:
         if remat:  # a block draws no random numbers: no RNG state to stash
-            h = checkpoint(block, h, positions, use_reentrant=False, preserve_rng_state=False)
+            h, aux = checkpoint(block, h, positions, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            h = block(h, positions)
-    return model.head(h), torch.zeros((), dtype=torch.float32, device=h.device)
+            h, aux = block(h, positions)
+        if aux is not None:
+            auxes.append(aux)
+    aux = torch.stack(auxes).sum() if auxes else torch.zeros((), dtype=torch.float32,
+                                                               device=h.device)
+    return model.head(h), aux
 
 
 def init_caches(
     cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype, device=None
 ) -> Caches:
     """One (B, max_len, K, hd) k/v pair per layer."""
-    check_dense(cfg)
+    check_supported(cfg)
     return [attn.init_gqa_cache(cfg, batch, max_len, dtype, device) for _ in range(cfg.num_layers)]
 
 
 def prefill(model: LM, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Caches]:
     """Run the prompt: (last-token logits (B, 1, V), caches). The reference also
-    returns the encoder memory, which the dense family has not."""
+    returns the encoder memory, which neither family has."""
     h, positions = _inputs_to_h(model, tokens)
     caches = []
     for block in model.blocks:

@@ -32,8 +32,10 @@ Z_LOSS_COEFF = 1e-4
 def loss_fn(
     model: mdl.LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total loss, {"ce", "z_loss", "moe_aux"}): the dense family's forward
-    has no image or audio inputs, and its aux is 0."""
+    """(total loss, {"ce", "z_loss", "moe_aux"}): ``moe_aux`` is the forward's
+    summed MoE aux loss (0 for the dense family), weighted by
+    ``MOE_AUX_COEFF`` in the total. The port's families have no image or
+    audio inputs."""
     del cfg  # the model carries it
     logits, moe_aux = mdl.forward(model, batch["tokens"])
     labels = batch.get("labels")

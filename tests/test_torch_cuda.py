@@ -793,6 +793,7 @@ FLASH_SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal, kv_len
     (1, 100, 4096, 2, 3, 128, 128, False, None),  # non-causal, S ≪ T
     (1, 200, 1000, 2, 3, 128, 128, False, 777),  # non-causal kv_len < T
     (1, 130, 130, 2, 3, 128, 128, True, 0),  # kv_len 0 at hd 128: every row exactly 0
+    (1, 4096, 4096, 8, 2, 64, 64, True, None),  # granite-moe-1b-a400m's prefill and training
 ]
 
 
@@ -1113,7 +1114,8 @@ def test_a_queued_chunk_is_not_overwritten_by_later_chunks(cuda_device):
 # to each other within the same tolerance, and one launch a call counted on
 # its route; kv_len = 0 gives exactly zero gradients on both.
 FLASH_BWD_CASES = ["hd=64", "float32 S=T=1000", "hd=192 hd_v=128", "G=8",
-                   "non-causal kv_len=777 T=1000", "kv_len=17 hd=36 hd_v=20", "kv_len=0"]
+                   "non-causal kv_len=777 T=1000", "kv_len=17 hd=36 hd_v=20", "kv_len=0",
+                   "granite training path"]
 
 
 @pytest.mark.parametrize("label", FLASH_BWD_CASES)
@@ -1215,3 +1217,64 @@ def test_model_flash_gradient_goes_through_the_kernels(cuda_device):
     for got, want in zip(leaves, plain):
         err = float((got.grad.double() - want.grad).abs().max())
         assert err <= 3e-2 * float(want.grad.abs().max())
+
+
+def _moe_pair(device, *, capacity_factor=None, zero_router=False):
+    """The reduced granite-moe-1b-a400m MoE layer (8 experts top-2, group 16,
+    float32) on the CPU and a copy of it on ``device``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import moe as moe_lib
+    from repro_torch.models.lm.config import reduced
+
+    cfg = reduced(get_config("granite_moe_1b"))
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               capacity_factor=capacity_factor))
+    cpu = moe_lib.MoE(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    if zero_router:
+        with torch.no_grad():
+            cpu.router.zero_()
+    card = moe_lib.MoE(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("cf", [4.0, 0.5], ids=["dropless", "drops"])
+def test_moe_layer_on_card_routes_as_on_cpu(cuda_device, cf):
+    """The same MoE layer and tokens (a padded last group) on the card and
+    on the CPU: equal routing (top-k indices and the dispatch mask: which
+    pair holds which slot), y and aux within float32 rounding (1e-5 of
+    max|y|; cuBLAS sums in another order)."""
+    from repro_torch.models.lm import moe as moe_lib
+
+    cfg, cpu, card = _moe_pair(cuda_device, capacity_factor=cf)
+    x = torch.randn((3, 37, cfg.d_model), generator=torch.Generator().manual_seed(1)) * 0.5
+    with torch.no_grad():
+        want_plan, want = moe_lib.plan(cpu, x), moe_lib.moe_forward(cpu, x)
+        got_plan, got = moe_lib.plan(card, x.to(cuda_device)), moe_lib.moe_forward(
+            card, x.to(cuda_device))
+    assert torch.equal(got_plan.top_idx.cpu(), want_plan.top_idx)
+    assert torch.equal(got_plan.dispatch.cpu(), want_plan.dispatch)
+    scale = float(want[0].abs().max())
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5 * scale)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
+
+
+def test_moe_zero_router_ties_go_to_the_lower_expert_on_card(cuda_device):
+    """A zero router ties all 8 experts on every token (padding included):
+    the card's top-2 is experts 0 and 1, in that order, as ``jax.lax.top_k``
+    gives it, and the aux loss exactly 1."""
+    from repro_torch.models.lm import moe as moe_lib
+
+    cfg, _, card = _moe_pair(cuda_device, capacity_factor=0.5, zero_router=True)
+    x = torch.randn((2, 29, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        plan = moe_lib.plan(card, x.to(cuda_device))
+        y, aux = moe_lib.moe_forward(card, x.to(cuda_device))
+    assert bool((plan.top_idx == torch.arange(cfg.moe.top_k, device=cuda_device)).all())
+    assert float(aux) == 1.0 and bool(torch.isfinite(y).all())
+    probs = torch.full((64, cfg.moe.num_experts), 1.0 / cfg.moe.num_experts, device=cuda_device)
+    assert moe_lib.top_k(probs, 3)[1].tolist() == [[0, 1, 2]] * 64
+

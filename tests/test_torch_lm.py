@@ -244,13 +244,26 @@ def test_serve_steps_are_greedy_and_match_decode_step():
     assert torch.equal(nxt.last_token[:, 0], logits[:, -1].argmax(-1))
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).family != "dense"])
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if get_config(a).family != "dense" and a != "granite_moe_1b"])
 def test_non_dense_config_raises(arch):
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         mdl.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         mdl.init_caches(cfg, 1, 8, torch.float32, device="cpu")
+
+
+def test_moe_config_builds_and_counts_as_the_reference():
+    """granite-moe-1b-a400m, the MoE config without MLA, builds at full width
+    (on the meta device: no memory) with the reference's parameter count."""
+    cfg = get_config("granite-moe-1b-a400m")
+    model = mdl.init_params(cfg, device="meta")
+    assert all(s == mdl.MOE for s in mdl.layer_specs(cfg))
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count() == \
+        ref_get_config("granite_moe_1b").param_count() == 1_334_628_352
+    assert tuple(model.blocks[23].moe.experts.w_down.shape) == (32, 512, 1024)
+    assert len(mdl.init_caches(reduced(cfg), 1, 8, torch.float32, device="cpu")) == 4
 
 
 def test_init_params_is_seeded_and_counts():

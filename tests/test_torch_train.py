@@ -519,12 +519,20 @@ def test_lm_bayes_sgld_runs_at_its_reduced_default():
 
 
 def test_reference_leaf_map_covers_every_parameter():
-    ref_cfg, cfg = _cfgs()
-    params = _np(ref_mdl.init_params(jax.random.PRNGKey(0), ref_cfg))
-    port = from_reference_lm_tree(params, cfg)
-    assert list(port) == [n for n, _ in mdl.init_params(cfg, device="meta").named_parameters()]
-    back = to_reference_lm_grads({n: torch.from_numpy(np.asarray(a)) for n, a in port.items()}, cfg)
-    for (p1, a), (p2, b) in zip(jax.tree_util.tree_flatten_with_path(back)[0],
-                                jax.tree_util.tree_flatten_with_path(params)[0]):
-        assert p1 == p2
-        np.testing.assert_array_equal(a, b)
+    """The dense model's map and the MoE model's (granite: router and
+    experts, stacked (L, E, d, f) in the reference)."""
+    moe_cfgs = (ref_reduced(ref_get_config("granite_moe_1b")),
+                reduced(get_config("granite_moe_1b")))
+    for ref_cfg, cfg in (_cfgs(), moe_cfgs):
+        params = _np(ref_mdl.init_params(jax.random.PRNGKey(0), ref_cfg))
+        port = from_reference_lm_tree(params, cfg)
+        assert list(port) == [n for n, _ in mdl.init_params(cfg, device="meta").named_parameters()]
+        back = to_reference_lm_grads({n: torch.from_numpy(np.asarray(a)) for n, a in port.items()},
+                                     cfg)
+        flat_back = jax.tree_util.tree_flatten_with_path(back)[0]
+        flat_ref = jax.tree_util.tree_flatten_with_path(params)[0]
+        assert len(flat_back) == len(flat_ref)
+        for (p1, a), (p2, b) in zip(flat_back, flat_ref):
+            assert p1 == p2
+            np.testing.assert_array_equal(a, b)
+    assert "blocks.3.moe.experts.w_gate" in port and "blocks.0.moe.router" in port
