@@ -134,9 +134,11 @@ a non-zero exit:
               1.25): (a) ``serve.main`` at B=2, prompt 4,096, 16 generated,
               in bf16 and float32, 24 ``flash_attention`` launches a prefill
               (``tensor_core`` / ``tf32x3``) and nothing else, the share of
-              (token, slot) pairs the prefill dropped, ``moe_forward``
-              against ``moe_forward_gather`` at a decode step (2e-3, held in
-              float32), and 4d's decode-vs-forward invariant on a copy at
+              (token, slot) pairs the prefill dropped (with the overlap
+              of adjacent positions' top-8 sets and the busiest expert's
+              share of a group), ``moe_forward`` against
+              ``moe_forward_gather`` at a decode step (2e-3 in float32,
+              twice bf16's own error in bf16, 4d's rule), and 4d's decode-vs-forward invariant on a copy at
               capacity factor 4 (nothing dropped) with the (position, layer)
               pairs whose top-8 set differs counted; (b) ``train.main`` at
               batch 1 x 4,096, bf16, remat full: adamw 4 steps (the first
@@ -1144,9 +1146,11 @@ def moe_phase(dev, kernels, lm_config):
     float32: 24 flash launches a prefill, on ``tensor_core`` and ``tf32x3``,
     nothing else; the share of (token, slot) pairs the prefill dropped (the
     same weights and prompt, its prefill again with the MoE inputs tapped);
-    at one decode step, ``moe_forward`` (capacity dispatch) against
-    ``moe_forward_gather`` within the reference's ``test_moe.py`` bound,
-    2e-3 (held in float32, printed in bf16). At capacity factor 1.25
+    with the overlap of adjacent positions' top-8 sets and the busiest
+    expert's share of a group; at one decode step, ``moe_forward``
+    (capacity dispatch) against ``moe_forward_gather``, in float32 within
+    the reference's ``test_moe.py`` bound, 2e-3, in bf16 within twice
+    bf16's own error there (4d's rule). At capacity factor 1.25
     forward drops tokens that decode (2 tokens a group, capacity 4) keeps,
     so 4d's decode-vs-forward invariant is held on a copy at capacity factor
     4 (capacity 132 ≥ the group's 128 tokens: nothing dropped), with 4d's
@@ -1216,39 +1220,74 @@ def moe_phase(dev, kernels, lm_config):
         if not torch.equal(warm["tokens"], tokens):
             raise AssertionError(f"(a) serve {dtype}: a warm run generated other tokens")
         kept = torch.zeros((), dtype=torch.float64, device=dev)
+        overlap, busiest = [], []
 
         def count_kept(i, x):
             p = moe_lib.plan(model.blocks[i].moe, x)
             kept.add_(p.dispatch.reshape(-1, e * p.dispatch.shape[-1])[:p.n].sum())
+            # why tokens drop: the share of a position's top-k set that the
+            # next position also chose (k/E for independent uniform sets),
+            # and the busiest expert's (token, slot) pairs a group over the
+            # group's tokens (drops begin above capacity / group)
+            sets = moe_lib._one_hot(p.top_idx.reshape(-1, k)[:p.n].reshape(2, prompt_len, k),
+                                    e).sum(-2)
+            overlap.append(float((sets[:, 1:] * sets[:, :-1]).sum(-1).mean()) / k)
+            load = moe_lib._one_hot(p.top_idx, e).sum(dim=(1, 2)).amax(-1)
+            busiest.append(float(load.mean()) / p.top_idx.shape[1])
 
         hooks = tap(model, count_kept)
         state = lm_steps.serve_prefill(model, {"tokens": prompt}, prompt_len + gen_len)
         for h in hooks:
             h.remove()
         dropped = 1.0 - float(kept) / (2 * prompt_len * k * n_layers)
-        gaps = []
+        cap = moe_lib._capacity(cfg, cfg.moe.group_size)
+        print(f"  (a) serve {dtype}: the prefill dropped {dropped:.6%} of its "
+              f"{2 * prompt_len * k * n_layers} (token, slot) pairs (capacity {cap} a group of "
+              f"{cfg.moe.group_size}, {cap / cfg.moe.group_size:.4f} of it); adjacent "
+              f"positions' top-{k} sets share {sum(overlap) / n_layers:.4f} of their experts "
+              f"(layers {min(overlap):.4f}-{max(overlap):.4f}; {k / e:.4f} if independent), "
+              f"the busiest expert a group takes {sum(busiest) / n_layers:.4f} of its tokens "
+              f"(layers {min(busiest):.4f}-{max(busiest):.4f})", flush=True)
+        gaps, rounding = [], []
 
         def dispatch_vs_gather(i, x):
+            # bfloat16: the bound is bf16's own error, moe_forward's gap to
+            # moe_forward of the same (rounded) input and weights in
+            # float32, taken on the layers where both route alike: dispatch
+            # and gather each sit within about that, so their gap within
+            # twice it (4d's rule)
             moe = model.blocks[i].moe
             y_dispatch, _ = moe_lib.moe_forward(moe, x)
             y_gather, _ = moe_lib.moe_forward_gather(moe, x)
             gap = (y_dispatch.float() - y_gather.float()).abs()
-            gaps.append(float((gap - 2e-3 * y_gather.float().abs()).max()))
-            gaps.append(float(gap.max()))
+            gaps.append((float((gap - 2e-3 * y_gather.float().abs()).max()), float(gap.max())))
+            if x.dtype != torch.float32:
+                alike = torch.equal(moe_lib.route(moe, x)[2].sort(-1).values,
+                                    moe_lib.route(moe, x.float())[2].sort(-1).values)
+                y32, _ = moe_lib.moe_forward(moe, x.float())
+                rounding.append((alike, float((y_dispatch.float() - y32).abs().max())))
 
         hooks = tap(model, dispatch_vs_gather)
         lm_steps.serve_decode_step(model, state)
         for h in hooks:
             h.remove()
-        excess, largest = max(gaps[0::2]), max(gaps[1::2])
-        ok = dtype == "bfloat16" or excess <= 2e-3
-        print(f"  (a) serve {dtype}: the prefill dropped {dropped:.6%} of its "
-              f"{2 * prompt_len * k * n_layers} (token, slot) pairs (capacity "
-              f"{moe_lib._capacity(cfg, cfg.moe.group_size)} a group of "
-              f"{cfg.moe.group_size}); decode step, moe_forward vs moe_forward_gather on every "
-              f"layer's input: max |diff| {largest:.3e}, max (|diff| - 2e-3 |gather|) "
-              f"{excess:.3e} (tol 2e-3{', held' if dtype == 'float32' else ', a reading'}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+        excess, largest = max(g[0] for g in gaps), max(g[1] for g in gaps)
+        if dtype == "float32":
+            tol, held = 2e-3, excess
+            rule = f"max (|diff| - 2e-3 |gather|) {excess:.3e} (tol 2e-3)"
+        else:
+            alike = [r for a, r in rounding if a]
+            if not alike:
+                raise AssertionError("(a) bfloat16: every layer routes apart from its float32 "
+                                     "copy at decode; no rounding bound to hold against")
+            dev_round = max(alike)
+            tol, held = 2.0 * dev_round, largest
+            rule = (f"tol 2 x {dev_round:.3e}, bf16 moe_forward vs float32 on the {len(alike)} "
+                    f"of {n_layers} layers that route alike")
+        ok = held <= tol
+        print(f"  (a) serve {dtype}: decode step, moe_forward vs moe_forward_gather on every "
+              f"layer's input: max |diff| {largest:.3e}, {rule} {'ok' if ok else 'FAIL'}",
+              flush=True)
         if not ok:
             raise AssertionError(f"(a) {dtype}: dispatch and gather disagree at decode")
         print(f"  (a) serve {dtype}, warm: prefill_s={warm['prefill_s']:.4f} "
@@ -1257,7 +1296,9 @@ def moe_phase(dev, kernels, lm_config):
         record[f"serve_{dtype}"] = {
             "prefill_s": out["prefill_s"], "decode_s_per_tok": out["decode_s_per_tok"],
             "warm_prefill_s": warm["prefill_s"], "warm_decode_s_per_tok": warm["decode_s_per_tok"],
-            "dropped_share": dropped, "dispatch_vs_gather_max_abs": largest}
+            "dropped_share": dropped, "adjacent_topk_overlap": sum(overlap) / n_layers,
+            "busiest_expert_share": sum(busiest) / n_layers,
+            "dispatch_vs_gather_max_abs": largest, "dispatch_vs_gather_tol": tol}
         del model, state, out, prompt, warm
         torch.cuda.empty_cache()
 

@@ -3,12 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train --arch granite-moe-1b-a400m \\
         --batch 1 --seq 4096
 
-``launch/train.py``'s adamw mode on the card (random weights and AdamW
-state from ``--seed``, the token stream of ``--seed``, the config's remat),
-after the hand-written kernels are built: the first step timed alone and
-profiled on the host (it carries the process's first use of every other
-kernel, and of each cuBLAS shape; its operators by their own host time),
-``--warm`` more steps, then one step's forward + backward (``loss_fn`` and
+``launch/train.py``'s adamw mode on the card at the config's full depth
+(random weights and AdamW state from seed 0, the token stream of seed 0,
+the config's remat), after the hand-written kernels are built: the first
+step timed alone and profiled on the host (it carries the process's first
+use of every other kernel, and of each cuBLAS shape; its operators by their
+own host time), ``WARM`` more steps, then one step's forward + backward (``loss_fn`` and
 its gradients) and its AdamW update profiled apart with device activity
 only. Prints one JSON line: the card, the config, the first step's seconds
 and its top operators by host time, and for each window its wall seconds,
@@ -22,7 +22,6 @@ its wall is not reported).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import sys
 import time
@@ -39,6 +38,8 @@ from repro_torch.models.lm import steps as lm_steps
 from repro_torch.optim import adamw_update
 
 TOP = 12
+WARM = 2  # steps between the first and the profiled one
+SEED = 0
 
 
 def _rows(prof, key: str, device_type):
@@ -53,20 +54,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--seq", type=int, default=4096)
-    ap.add_argument("--layers", type=int, default=0, help="cut the depth (0 = the config's)")
-    ap.add_argument("--warm", type=int, default=2, help="steps between the first and the profile")
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train measures the card; no CUDA device is visible")
     dev = torch.device("cuda", 0)
     build_s = kernels.build()
     cfg = get_config(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    model, opt = lm_steps.init_train_state(torch.Generator(device=dev).manual_seed(args.seed),
+    model, opt = lm_steps.init_train_state(torch.Generator(device=dev).manual_seed(SEED),
                                            cfg, device=dev)
-    stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=args.seed, device=dev)
+    stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=SEED, device=dev)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU]) as cold_prof:
@@ -76,9 +72,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         first_s = time.perf_counter() - t0
     cold_ops = [{"name": e.key[:80], "count": e.count, "self_host_ms": e.self_cpu_time_total / 1e3}
                 for e in _rows(cold_prof, "self_cpu_time_total", torch.autograd.DeviceType.CPU)]
-    for step in range(1, 1 + args.warm):
+    for step in range(1, 1 + WARM):
         model, opt, _ = lm_steps.train_step(model, opt, stream.batch(step), cfg)
-    batch = stream.batch(1 + args.warm)
+    batch = stream.batch(1 + WARM)
     params = dict(model.named_parameters())
 
     def fwd_bwd():

@@ -11,9 +11,9 @@ whole sequence, also the training path), ``prefill`` (forward plus each
 layer's KV cache, padded to ``max_len``) and ``decode_step`` (one token
 against the caches, which it updates in place). An MoE block's FFN is
 :func:`repro_torch.models.lm.moe.moe_forward` in forward and prefill, and in
-decode the one ``cfg.moe_decode_impl`` names (``"dispatch"``, the default,
-or ``"gather"``); ``forward`` returns the sum of the blocks' aux losses, as
-the reference's ``_run_groups`` does.
+decode (``MoE.decode``) the one ``cfg.moe_decode_impl`` names
+(``"dispatch"``, the default, or ``"gather"``); ``forward`` returns the sum
+of the blocks' aux losses, as the reference's ``_run_groups`` does.
 
 Remat: the reference wraps each layer group's period in ``jax.checkpoint``
 under ``cfg.remat="full"`` (``_maybe_remat``, :303), the default of every
@@ -154,11 +154,12 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, generator=generator, dtype=dtype, device=device)
 
-    def ffn(self, x: torch.Tensor, moe_fn=moe_lib.moe_forward
+    def ffn(self, x: torch.Tensor, decode: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """x + ffn(ln2(x)), and the MoE aux loss (None for an mlp)."""
+        """x + ffn(ln2(x)), and the MoE aux loss (None for an mlp); ``decode``
+        runs the MoE's decode-time form (:meth:`repro_torch.models.lm.moe.MoE.decode`)."""
         if self.spec.ffn == "moe":
-            y, aux = moe_fn(self.moe, self.ln2(x))
+            y, aux = (self.moe.decode if decode else self.moe)(self.ln2(x))
             return x + y, aux
         return x + self.mlp(self.ln2(x)), None
 
@@ -184,9 +185,7 @@ class Block(nn.Module):
         self, x: torch.Tensor, cache: attn.Cache, position: int
     ) -> Tuple[torch.Tensor, attn.Cache]:
         h, cache = attn.gqa_decode(self.attn, self.ln1(x), cache, position)
-        gather = self.attn.cfg.moe_decode_impl != "dispatch"
-        moe_fn = moe_lib.moe_forward_gather if gather else moe_lib.moe_forward
-        return self.ffn(x + h, moe_fn)[0], cache
+        return self.ffn(x + h, decode=True)[0], cache
 
 
 class LM(nn.Module):

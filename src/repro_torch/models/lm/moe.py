@@ -92,7 +92,15 @@ class MoE(nn.Module):
                        if m.num_shared_experts else None)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(y, aux) of x (B, S, d): :func:`moe_forward`, as forward and prefill run it."""
         return moe_forward(self, x)
+
+    def decode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(y, aux) of a decode step's x (B, 1, d): :func:`moe_forward` when
+        ``cfg.moe_decode_impl`` is ``"dispatch"``, else :func:`moe_forward_gather`."""
+        if self.cfg.moe_decode_impl == "dispatch":
+            return moe_forward(self, x)
+        return moe_forward_gather(self, x)
 
 
 def _capacity(cfg: ModelConfig, group: int) -> int:
