@@ -58,8 +58,9 @@ a non-zero exit:
               and in its own dtype and the two routes against each other
               (``flash_bwd_probe.CASES``: the training shapes (llama3.2-3b's
               and granite-moe-1b-a400m's G = 2, hd 64), three more
-              runs the same bits, float32, hd 64 / 256, hd 192 with hd_v
-              128, G 1 / 8 / 64, non-causal, ragged, kv_len < T, kv_len = 0
+              runs the same bits, deepseek-v2-236b's MLA (hd 192, hd_v
+              128, K = H, G = 1) at S = T = 1,000 on both routes, float32,
+              hd 64 / 256, hd 192 with hd_v 128, G 1 / 8 / 64, non-causal, ragged, kv_len < T, kv_len = 0
               with exactly zero gradients; one launch a call on its route);
 4. main     — the paper's §8.1 logistic-regression pipeline at full width
               through ``repro_torch.api.Pipeline(PAPER_SPEC).run()``: its
@@ -145,6 +146,23 @@ a non-zero exit:
               lowers the loss), epmcmc 2 chains x 24 layers, sgd 2 chains,
               launches exact as 4i's; (c) a 2-chain epmcmc run at 1 layer
               interrupted and resumed bit for bit;
+4k. mla     — MLA at deepseek-v2-236b's full width (d 5,120, 128 heads,
+              kv_lora 512, flash at K = H, G = 1, hd 192, hd_v 128; 160
+              experts top-6 and 2 shared), the depth cut by ``--layers``:
+              (a) ``serve.main`` at B=2, prompt 4,096, 16 generated, bf16
+              at 4 layers (4 ``flash_attention`` launches a prefill, all
+              ``tensor_core``) and float32 at 2 (2, on ``fma``), nothing
+              else; cold and warm times, the absorbed cache's bytes beside
+              a GQA cache's, the drop share; the absorbed decode against
+              the expanded forward on a copy at capacity factor 27 (nothing
+              dropped), 4d's tolerances, differing top-6 sets counted; (b)
+              one full-width block's gradients (the dense layer 0) through
+              the kernels against the einsum attention's, float32 and bf16;
+              (c) ``train.main --layers 1`` at batch 1 x 4,096: adamw 2
+              steps at the reference's rate (a reading) and 3 at ``--lr
+              3e-5`` (the first lowers the loss), epmcmc 2 chains 3 steps,
+              launches exact as 4i's (the backward at (192, 128) on
+              ``tensor_core``);
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
@@ -162,7 +180,9 @@ a non-zero exit:
               tensor maps refuse) beside float32 SDPA, the three-TF32-pass
               bound and the float32 FMA bound, and at granite-moe-1b-a400m's
               shape (G = 2, hd 64) bf16 at B=2 and B=1 and ``tf32x3`` at
-              B=2; the
+              B=2, and at deepseek-v2-236b's MLA shape (K = 128, G = 1, hd
+              192, hd_v 128) bf16 at B=2 and B=1 and the FMA route in
+              float32 at B=2 (SDPA's kernels named); the
               KDE kernel's bound the largest of its bytes, its three TF32
               passes on the tensor cores and its exps on the MUFU;
               ``flash_attention_bwd`` at the training shape (the bf16
@@ -172,8 +192,9 @@ a non-zero exit:
               scaled_dot_product_attention's backward as the yardstick, the
               bound of the work at the bf16 tensor-core rate, the
               tensor-core design's 7-product bound and the float32 FMA
-              bound) and the forward there with and without lse, at both
-              training shapes;
+              bound) and the forward there with and without lse, at the
+              three training shapes (llama's, granite's, deepseek's MLA;
+              SDPA's kernels named, or its refusal printed);
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -824,6 +845,75 @@ def invariant(label, out, fwd, tol):
     return gap
 
 
+def moe_taps(model, fn):
+    """fn(layer, x) on every MoE block's input (its ln2 output); returns the hooks."""
+    return [blk.ln2.register_forward_hook(lambda mod, a, o, i=i: fn(i, o))
+            for i, blk in enumerate(model.blocks) if blk.spec.ffn == "moe"]
+
+
+def decode_vs_forward(label, setup, *, prompt_len, gen_len):
+    """4d's decode-vs-forward invariant on an MoE model copy whose capacity
+    drops nothing (``setup(dtype)`` gives its model and prompt): float32
+    within the reference's consistency bound, 2e-3; bf16 within twice bf16's
+    own error (bf16 forward against the float32 model's on the same tokens);
+    the (position, layer) pairs of the decode steps whose top-k set differs
+    from forward's at the same position counted. Returns the record."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import moe as moe_lib
+
+    chosen, stage = {}, [None]
+
+    def pick(model):
+        def fn(i, x):
+            top = moe_lib.route(model.blocks[i].moe, x)[2].sort(dim=-1).values
+            chosen.setdefault((stage[0], i), []).append(top)
+        return moe_taps(model, fn)
+
+    def run(model, prompt):
+        """(the serving run, forward's logits there, (pairs apart, positions
+        with any, decode positions, MoE layers))."""
+        hooks = pick(model)
+        stage[0] = "generate"
+        out = dict(serve.generate(model, prompt, gen_len), prompt=prompt)
+        stage[0] = "forward"
+        fwd = forward_tail(model, out)
+        for h in hooks:
+            h.remove()
+        layers = sorted({i for _, i in chosen})
+        apart = torch.stack([
+            (torch.cat(chosen[("generate", i)][1:], dim=1)
+             != chosen[("forward", i)][0][:, prompt_len:]).any(-1)
+            for i in layers])  # (MoE layers, B, decode steps)
+        chosen.clear()
+        return out, fwd, (int(apart.sum()), int(apart.any(0).sum()), apart[0].numel(),
+                          len(layers))
+
+    flips, gap = {}, {}
+    model32, prompt = setup("float32")
+    out32, fwd32, flips["float32"] = run(model32, prompt)
+    gap["float32"] = invariant(f"{label}, float32 decode vs forward", out32, fwd32, 2e-3)
+    del out32, fwd32
+    model16, _ = setup("bfloat16")
+    out16, fwd16, flips["bfloat16"] = run(model16, prompt)
+    dev16 = float((fwd16 - forward_tail(model32, out16)).abs().max())
+    print(f"  {label}, bfloat16 forward vs float32 forward on the same tokens: max |diff| = "
+          f"{dev16:.4e}", flush=True)
+    gap["bfloat16"] = invariant(f"{label}, bfloat16 decode vs forward", out16, fwd16,
+                                2.0 * dev16)
+    k = model32.cfg.moe.top_k
+    for dtype, (pairs, positions, n_pos, n_layers) in flips.items():
+        print(f"  {label}, {dtype}: decode chose another top-{k} set than forward at {pairs} of "
+              f"{n_pos * n_layers} (position, layer) pairs, at {positions} of {n_pos} decode "
+              f"positions", flush=True)
+    del model32, model16, out16, fwd16
+    torch.cuda.empty_cache()
+    return {"invariant_gap": gap, "bfloat16_vs_float32": dev16,
+            "topk_apart_pairs": {d: f[0] for d, f in flips.items()},
+            "topk_apart_positions": {d: f[1] for d, f in flips.items()}}
+
+
 def npz_bytes(*shapes) -> int:
     """The size of ``numpy.savez`` of float32 zeros of these shapes, leaves
     named as the launch names them: a rank's payload in the store."""
@@ -997,46 +1087,31 @@ def resume_run(kernels, run_argv):
     return same, largest, counts, by_route
 
 
-def train_phase(dev, kernels, lm_config):
-    """Phase 4i: LM training at llama3.2-3b's full width (d 3,072, 24/8 heads,
-    hd 128, d_ff 8,192, vocab 128,256, bf16, remat "full"), batch 1 × seq
-    4,096 (train_4k's sequence, > attn_chunk, so every layer's attention is
-    flash): (a) one block's gradients through the flash kernels against the
-    einsum attention's (the plain versions), float32 and bf16; (b) adamw, 4
-    steps of 28 layers; (c) epmcmc, 1 chain of 28 layers and 4 chains of 2
-    layers; (d) an interrupted 4-chain epmcmc run resumed bit for bit (at
-    the reduced config: a full-width 4-chain checkpoint is 34 GB); (e) sgd,
-    2 steps of 4 chains of 2 layers. Flash launches exact on every full-width
-    run: 2 forward (the block and its remat recompute) and 1 backward a layer
-    a chain a step. Returns (the full-width runs' launches, their flash
-    forward launches by route, the record printed)."""
+def block_grads(dev, kernels, cfg, label, *, spec=None):
+    """One block (``spec``: the config's first layer's by default), x +
+    attn(ln1(x)) then + ffn(ln2(·)), at batch 1 x 4,096, loss Σ r·out with r
+    fixed: its gradients (input and every weight) through the kernels against
+    the same block whose attention is the einsum path (softmax materialized,
+    autograd through it). Float32 (the float32 forward route, the FMA
+    backward) within 1e-3 of each gradient's max, bf16 (both tensor-core
+    routes) within 5e-2 (the two paths round P and the attention output to
+    bf16 in other places); one flash launch each way. Returns each dtype's
+    worst relative error."""
     import torch
 
     from repro_torch.models.lm import model as lm_model
 
-    phase("4i train: llama3.2-3b full width, bf16, batch 1 x seq 4096, remat full")
-    cfg = lm_config("llama3.2-3b")
-    fwd_kernel = kernels.KERNELS["flash_attention"]
+    spec = lm_model.layer_specs(cfg)[0] if spec is None else spec
     bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
-    record, launches_train = {}, {name: 0 for name in kernels.KERNELS}
-    routes_train = {route: 0 for route in fwd_kernel.route_launches}
-    routes_train_bwd = {route: 0 for route in bwd_kernel.route_launches}
-
-    # (a) one block, x + attn(ln1(x)) then + mlp(ln2(·)), loss Σ r·out with
-    # r fixed: its gradients (input and every weight) through the kernels
-    # against the same block whose attention is the einsum path (softmax
-    # materialized, autograd through it): float32 (tf32x3 forward, float32
-    # backward) within 1e-3 of each gradient's max, bf16 within 5e-2 (the
-    # two paths round P and the attention output to bf16 in other places)
     pos = torch.arange(4096, device=dev)[None]
-    block_errs = {}
+    worst_by_dtype = {}
     for dtype_name, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
         c = dataclasses.replace(cfg, dtype=dtype_name, param_dtype=dtype_name)
         gen = torch.Generator(device=dev).manual_seed(31)
-        block = lm_model.Block(c, generator=gen, device=dev)
-        plain = lm_model.Block(dataclasses.replace(c, attn_impl="einsum"), device=dev)
+        block = lm_model.Block(c, spec, generator=gen, device=dev)
+        plain = lm_model.Block(dataclasses.replace(c, attn_impl="einsum"), spec, device=dev)
         plain.load_state_dict(block.state_dict())
-        dtype = block.attn.w_q.dtype
+        dtype = block.attn.w_o.dtype
         h = torch.randn((1, 4096, c.d_model), generator=gen, device=dev).to(dtype)
         r = torch.randn((1, 4096, c.d_model), generator=gen, device=dev)
 
@@ -1052,7 +1127,7 @@ def train_phase(dev, kernels, lm_config):
         want_counts = {n: int(n in ("flash_attention", "flash_attention_bwd")) for n in counts}
         bwd_route = "tensor_core" if dtype_name == "bfloat16" else "fma"
         if counts != want_counts or bwd_kernel.route_launches[bwd_route] != 1:
-            raise AssertionError(f"(a) one block ({dtype_name}) launched {counts}, the backward "
+            raise AssertionError(f"{label} ({dtype_name}) launched {counts}, the backward "
                                  f"by route {bwd_kernel.route_launches} (want one {bwd_route})")
         want = grads(plain)
         names = ["x", *(n for n, _ in block.named_parameters())]
@@ -1060,17 +1135,44 @@ def train_phase(dev, kernels, lm_config):
                for n, a, b in zip(names, got, want)}
         worst = max(rel, key=rel.get)
         ok = all(torch.isfinite(a).all() for a in got) and rel[worst] <= tol
-        print(f"  (a) one block {dtype_name}: gradients through the kernels vs the einsum "
+        attn_errs = ", ".join(f"{n} {e:.3e}" for n, e in rel.items() if n.startswith("attn."))
+        print(f"  {label} {dtype_name}: gradients through the kernels vs the einsum "
               f"attention's: worst {worst} {rel[worst]:.3e} of its max (tol {tol:g}), x "
-              f"{rel['x']:.3e}, attn.w_q {rel['attn.w_q']:.3e}, attn.w_k {rel['attn.w_k']:.3e}, "
-              f"attn.w_v {rel['attn.w_v']:.3e}; launches flash_attention 1, "
+              f"{rel['x']:.3e}, {attn_errs}; launches flash_attention 1, "
               f"flash_attention_bwd 1 ({bwd_route}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"(a) one block ({dtype_name}): gradients disagree")
-        block_errs[dtype_name] = rel
+            raise AssertionError(f"{label} ({dtype_name}): gradients disagree")
+        worst_by_dtype[dtype_name] = rel[worst]
         del block, plain, got, want, h, r
         torch.cuda.empty_cache()
-    record["block_grad_rel_err"] = {k: max(v.values()) for k, v in block_errs.items()}
+    return worst_by_dtype
+
+
+def train_phase(dev, kernels, lm_config):
+    """Phase 4i: LM training at llama3.2-3b's full width (d 3,072, 24/8 heads,
+    hd 128, d_ff 8,192, vocab 128,256, bf16, remat "full"), batch 1 × seq
+    4,096 (train_4k's sequence, > attn_chunk, so every layer's attention is
+    flash): (a) one block's gradients through the flash kernels against the
+    einsum attention's (the plain versions), float32 and bf16; (b) adamw, 4
+    steps of 28 layers; (c) epmcmc, 1 chain of 28 layers and 4 chains of 2
+    layers; (d) an interrupted 4-chain epmcmc run resumed bit for bit (at
+    the reduced config: a full-width 4-chain checkpoint is 34 GB); (e) sgd,
+    2 steps of 4 chains of 2 layers. Flash launches exact on every full-width
+    run: 2 forward (the block and its remat recompute) and 1 backward a layer
+    a chain a step. Returns (the full-width runs' launches, their flash
+    forward launches by route, the record printed)."""
+    import torch
+
+    phase("4i train: llama3.2-3b full width, bf16, batch 1 x seq 4096, remat full")
+    cfg = lm_config("llama3.2-3b")
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
+    record, launches_train = {}, {name: 0 for name in kernels.KERNELS}
+    routes_train = {route: 0 for route in fwd_kernel.route_launches}
+    routes_train_bwd = {route: 0 for route in bwd_kernel.route_launches}
+
+    # (a) one block's gradients through the kernels against the einsum path's
+    record["block_grad_rel_err"] = block_grads(dev, kernels, cfg, "(a) one block")
 
     base = ["--arch", "llama3.2-3b", "--batch", "1", "--seq", "4096", "--log-every", "1",
             "--seed", "0"]
@@ -1184,11 +1286,6 @@ def moe_phase(dev, kernels, lm_config):
     serve_argv = ["--arch", arch, "--batch", "2", "--prompt-len", str(prompt_len), "--gen",
                   str(gen_len), "--seed", "0"]
 
-    def tap(model, fn):
-        """fn(layer, x) on every MoE input (each block's ln2 output)."""
-        return [blk.ln2.register_forward_hook(lambda m, a, o, i=i: fn(i, o))
-                for i, blk in enumerate(model.blocks)]
-
     # (a) the serving path's own runs, then on the same weights and prompt
     # the prefill's drops and one decode step's dispatch against gather
     for dtype in ("bfloat16", "float32"):
@@ -1235,7 +1332,7 @@ def moe_phase(dev, kernels, lm_config):
             load = moe_lib._one_hot(p.top_idx, e).sum(dim=(1, 2)).amax(-1)
             busiest.append(float(load.mean()) / p.top_idx.shape[1])
 
-        hooks = tap(model, count_kept)
+        hooks = moe_taps(model, count_kept)
         state = lm_steps.serve_prefill(model, {"tokens": prompt}, prompt_len + gen_len)
         for h in hooks:
             h.remove()
@@ -1267,7 +1364,7 @@ def moe_phase(dev, kernels, lm_config):
                 y32, _ = moe_lib.moe_forward(moe, x.float())
                 rounding.append((alike, float((y_dispatch.float() - y32).abs().max())))
 
-        hooks = tap(model, dispatch_vs_gather)
+        hooks = moe_taps(model, dispatch_vs_gather)
         lm_steps.serve_decode_step(model, state)
         for h in hooks:
             h.remove()
@@ -1317,60 +1414,8 @@ def moe_phase(dev, kernels, lm_config):
             raise AssertionError("the capacity-4 copy drew another prompt than serve.setup")
         return model, prompt
 
-    chosen, stage = {}, [None]
-
-    def pick(model):
-        def fn(i, x):
-            top = moe_lib.route(model.blocks[i].moe, x)[2].sort(dim=-1).values
-            chosen.setdefault((stage[0], i), []).append(top)
-        return tap(model, fn)
-
-    def routed_apart():
-        """(position, layer) pairs of the 15 decode steps whose top-8 set
-        differs from forward's at the same position; positions with any."""
-        apart = torch.stack([
-            (torch.cat(chosen[("generate", i)][1:], dim=1)
-             != chosen[("forward", i)][0][:, prompt_len:]).any(-1)
-            for i in range(n_layers)])  # (layers, B, 15)
-        chosen.clear()
-        return int(apart.sum()), int(apart.any(0).sum()), apart[0].numel()
-
-    flips, invariant_gap = {}, {}
-    model32, prompt = setup4("float32")
-    hooks = pick(model32)
-    stage[0] = "generate"
-    out32 = dict(serve.generate(model32, prompt, gen_len), prompt=prompt)
-    stage[0] = "forward"
-    fwd32 = forward_tail(model32, out32)
-    for h in hooks:
-        h.remove()
-    flips["float32"] = routed_apart()
-    invariant_gap["float32"] = invariant("(a) capacity 4, float32 decode vs forward", out32,
-                                         fwd32, 2e-3)
-    del out32, fwd32
-    model16, _ = setup4("bfloat16")
-    hooks = pick(model16)
-    stage[0] = "generate"
-    out16 = dict(serve.generate(model16, prompt, gen_len), prompt=prompt)
-    stage[0] = "forward"
-    fwd16 = forward_tail(model16, out16)
-    for h in hooks:
-        h.remove()
-    flips["bfloat16"] = routed_apart()
-    dev16 = float((fwd16 - forward_tail(model32, out16)).abs().max())
-    print(f"  (a) capacity 4, bfloat16 forward vs float32 forward on the same tokens: max |diff| "
-          f"= {dev16:.4e}", flush=True)
-    invariant_gap["bfloat16"] = invariant("(a) capacity 4, bfloat16 decode vs forward", out16,
-                                          fwd16, 2.0 * dev16)
-    for dtype, (pairs, positions, n_pos) in flips.items():
-        print(f"  (a) capacity 4, {dtype}: decode chose another top-{k} set than forward at "
-              f"{pairs} of {n_pos * n_layers} (position, layer) pairs, at {positions} of "
-              f"{n_pos} decode positions", flush=True)
-    record["capacity4"] = {"invariant_gap": invariant_gap, "bfloat16_vs_float32": dev16,
-                           "topk_apart_pairs": {d: f[0] for d, f in flips.items()},
-                           "topk_apart_positions": {d: f[1] for d, f in flips.items()}}
-    del model32, model16, out16, fwd16
-    torch.cuda.empty_cache()
+    record["capacity4"] = decode_vs_forward("(a) capacity 4", setup4, prompt_len=prompt_len,
+                                            gen_len=gen_len)
 
     # (b) training at full width; (c) the resume
     launches_train = {name: 0 for name in kernels.KERNELS}
@@ -1427,19 +1472,229 @@ def moe_phase(dev, kernels, lm_config):
     return launches_serve, routes_serve, launches_train, routes_train, routes_train_bwd, record
 
 
-def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128):
+def mla_phase(dev, kernels, lm_config):
+    """Phase 4k: MLA at deepseek-v2-236b's full width (d 5,120, 128 heads,
+    q_lora 1,536, kv_lora 512, nope 128 / rope 64 / v 128; 160 experts top-6
+    and 2 shared, d_ff_expert 1,536, group 256, capacity factor 1.25; layer
+    0 dense, d_ff 12,288; vocab 102,400, untied; random weights from the
+    seed), its depth cut by ``--layers``: 236 B parameters do not fit one
+    card. MLA's attention is flash at K = H = 128, G = 1, hd = nope + rope =
+    192, hd_v = 128. (a) Serving, ``serve.main`` at B = 2 × 4,096 + 16: bf16
+    at 4 layers (layer 0 dense, 1–3 MoE; 13.30 B parameters, 26.6 GB), 4
+    flash launches a prefill, all ``tensor_core``; float32 at 2 layers (5.36
+    B, 21.4 GB), 2 launches on ``fma`` (the float32 tensor-core route takes
+    hd 64 and 128 only); nothing else launched. Cold and warm prefill s and
+    decode ms a token, the absorbed cache's bytes beside a GQA cache of the
+    same heads (k 192 + v 128 a head a position), the share of (token,
+    slot) pairs the prefill dropped. The decode-vs-forward invariant (the
+    one check of the absorbed form on the card) on a copy at capacity factor
+    27 (``moe._capacity`` 260 ≥ a group's 256 tokens: nothing dropped) at
+    the float32 run's depth, prompt 1,088 + 16 (flash in prefill and
+    forward; 2,176 tokens, a padded group), 4d's tolerances, the (position,
+    layer) pairs whose top-6 set differs counted. (b) One full-width block,
+    the dense layer 0, its gradients through the kernels against the einsum
+    path's (``block_grads``). (c) Training, ``train.main --layers 1`` (the
+    dense layer: 1.39 B parameters) at batch 1 × 4,096, bf16, remat full,
+    the config's bf16 optimizer state: adamw 2 steps at the reference's rate,
+    3e-4 (a reading: its first step raises the loss at this depth), then 3
+    steps at 3e-5 (the first lowers the loss); epmcmc 2 chains × 1 layer 3
+    steps, burn-in 1, then the parametric
+    combine; flash 2 forward + 1 backward a layer a chain a step, all
+    ``tensor_core`` (the backward at (192, 128)). Peak memory, reckoned: adamw
+    holds p, g, μ and ν at 2 B each (11.1 GB) and AdamW's float32
+    temporaries over its largest leaf, the embedding or the head (524 M
+    elements, 2.1 GB each, ~6 alive: 12.6 GB), and the loss's (1, 4,096,
+    102,400) logits (0.84 GB in bf16, 1.68 in float32, a few alive): ~28 GB;
+    epmcmc 14 B a parameter a chain (19.4 GB) × 2 and one chain's gradients
+    and activations, ~45 GB, then the parametric combine's float32 moments
+    over 1.39 B dims (5.5 GB each): it peaked at 62.3 GB on an NVIDIA H100
+    80GB HBM3, 700 W. At 2 layers adamw would hold 42.9 GB of p, g,
+    μ, ν and float32 temporaries over the (160, 5,120, 1,536) expert leaf,
+    5.0 GB each: ~75 GB before activations. No resume here (4i, 4j hold
+    it). Returns (the bf16 serving run's launches, each serving run's flash
+    launches by route, the training runs' launches, their flash launches by
+    route forward and backward, the record printed)."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import model as lm_model
+    from repro_torch.models.lm import moe as moe_lib
+    from repro_torch.models.lm import steps as lm_steps
+
+    arch = "deepseek-v2-236b"
+    phase(f"4k mla: {arch} full width (d 5120, 128 heads, kv_lora 512, hd 192 / hd_v 128, "
+          "160 experts top-6): serve B=2 S=4096 (bf16 4 layers, float32 2), block gradients, "
+          "train 1 layer batch 1 x 4096")
+    cfg = lm_config(arch)
+    m, k_top, e = cfg.mla, cfg.moe.top_k, cfg.moe.num_experts
+    prompt_len, gen_len = 4096, 16
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
+    record, routes_serve = {}, {}
+
+    def serve_argv(layers, dtype):
+        return ["--arch", arch, "--batch", "2", "--prompt-len", str(prompt_len), "--gen",
+                str(gen_len), "--seed", "0", "--layers", str(layers), "--dtype", dtype]
+
+    # (a) the serving path's own runs, then on the same weights and prompt a
+    # warm run, the prefill's drops and the cache's bytes
+    for dtype, layers, route in (("bfloat16", 4, "tensor_core"), ("float32", 2, "fma")):
+        kernels.reset_launches()
+        out = serve.main(serve_argv(layers, dtype))
+        torch.cuda.synchronize()
+        counts, routes = kernels.launch_counts(), dict(fwd_kernel.route_launches)
+        want = {name: (layers if name == "flash_attention" else 0) for name in counts}
+        want_routes = {r: (layers if r == route else 0) for r in routes}
+        tokens = out["tokens"]
+        print(f"  (a) serve {dtype}, {layers} layers: prefill_s={out['prefill_s']:.4f} "
+              f"decode_ms_per_tok={out['decode_s_per_tok'] * 1e3:.3f} "
+              f"launches={json.dumps(counts)}, flash_attention by route {json.dumps(routes)}",
+              flush=True)
+        if counts != want or routes != want_routes:
+            raise AssertionError(f"(a) serve {dtype} launched {counts}, by route {routes}; "
+                                 f"expected {want}, by route {want_routes}")
+        if tokens.shape != (2, gen_len) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"(a) serve {dtype}: tokens {tuple(tokens.shape)} out of range")
+        if dtype == "bfloat16":
+            launches_serve = counts
+        routes_serve[dtype] = routes
+
+        _, model, prompt = serve.setup(serve.parse(serve_argv(layers, dtype)))
+        if not torch.equal(prompt, out["prompt"]):
+            raise AssertionError("serve.setup drew another prompt from the same seed")
+        warm = serve.generate(model, prompt, gen_len)  # the same weights, warm
+        if not torch.equal(warm["tokens"], tokens):
+            raise AssertionError(f"(a) serve {dtype}: a warm run generated other tokens")
+        kept = torch.zeros((), dtype=torch.float64, device=dev)
+
+        def count_kept(i, x):
+            p = moe_lib.plan(model.blocks[i].moe, x)
+            kept.add_(p.dispatch.reshape(-1, e * p.dispatch.shape[-1])[:p.n].sum())
+
+        hooks = moe_taps(model, count_kept)
+        state = lm_steps.serve_prefill(model, {"tokens": prompt}, prompt_len + gen_len)
+        for h in hooks:
+            h.remove()
+        n_moe = len(hooks)
+        dropped = 1.0 - float(kept) / (2 * prompt_len * k_top * n_moe)
+        cache_bytes = sum(t.numel() * t.element_size() for c in state.caches for t in c.values())
+        per_pos = m.kv_lora_rank + m.rope_head_dim
+        gqa_bytes = (layers * 2 * (prompt_len + gen_len) * cfg.num_heads
+                     * (m.nope_head_dim + m.rope_head_dim + m.v_head_dim)
+                     * torch.finfo(getattr(torch, dtype)).bits // 8)
+        cap = moe_lib._capacity(cfg, cfg.moe.group_size)
+        print(f"  (a) serve {dtype}, warm: prefill_s={warm['prefill_s']:.4f} "
+              f"decode_ms_per_tok={warm['decode_s_per_tok'] * 1e3:.3f}, the same tokens; the "
+              f"absorbed cache {cache_bytes} bytes ({per_pos} values a position a layer) "
+              f"against {gqa_bytes} for a GQA cache of the same {cfg.num_heads} heads "
+              f"({cfg.num_heads * (m.nope_head_dim + m.rope_head_dim + m.v_head_dim)} values; "
+              f"1/{gqa_bytes / cache_bytes:.1f}); the prefill dropped {dropped:.6%} of its "
+              f"{2 * prompt_len * k_top * n_moe} (token, slot) pairs (capacity {cap} a group "
+              f"of {cfg.moe.group_size})", flush=True)
+        record[f"serve_{dtype}"] = {
+            "layers": layers, "prefill_s": out["prefill_s"],
+            "decode_s_per_tok": out["decode_s_per_tok"], "warm_prefill_s": warm["prefill_s"],
+            "warm_decode_s_per_tok": warm["decode_s_per_tok"], "cache_bytes": cache_bytes,
+            "gqa_cache_bytes": gqa_bytes, "dropped_share": dropped}
+        del model, state, out, prompt, warm
+        torch.cuda.empty_cache()
+
+    # (a) the invariant at capacity factor 27 (nothing dropped), 2 layers, the
+    # weights of serve.setup's seed (its draw order: the model, then the prompt)
+    inv_layers, inv_prompt = 2, 1088
+    cfg27 = dataclasses.replace(cfg, num_layers=inv_layers,
+                                moe=dataclasses.replace(cfg.moe, capacity_factor=27.0))
+    cap27 = moe_lib._capacity(cfg27, cfg.moe.group_size)
+    if cap27 < cfg.moe.group_size:
+        raise AssertionError(f"capacity {cap27} at factor 27 drops tokens of a group of "
+                             f"{cfg.moe.group_size}")
+
+    def setup27(dtype):
+        c = dataclasses.replace(cfg27, dtype=dtype, param_dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = lm_model.init_params(c, generator=gen, device=dev)
+        prompt = torch.randint(0, c.vocab_size, (2, inv_prompt), generator=gen, device=dev)
+        return model, prompt
+
+    record["capacity27"] = decode_vs_forward("(a) capacity 27", setup27,
+                                             prompt_len=inv_prompt, gen_len=gen_len)
+
+    # (b) one full-width block, the dense layer 0
+    record["block_grad_rel_err"] = block_grads(dev, kernels, cfg, "(b) one MLA block (layer 0)")
+
+    # (c) training at 1 layer
+    launches_train = {name: 0 for name in kernels.KERNELS}
+    routes_train = {route: 0 for route in fwd_kernel.route_launches}
+    routes_train_bwd = {route: 0 for route in bwd_kernel.route_launches}
+    totals = (launches_train, routes_train, routes_train_bwd)
+    base = ["--arch", arch, "--batch", "1", "--seq", "4096", "--log-every", "1", "--seed", "0",
+            "--layers", "1"]
+
+    def run(label, argv, *, chains, steps):
+        return train_run(kernels, cfg, base, label, argv, layers=1, chains=chains,
+                         steps=steps, totals=totals, record=record)
+
+    # adamw at the reference's 3e-4, a reading (printed, not gated): at this
+    # one-layer depth its first step, which moves nearly every weight by the
+    # rate, raises the loss while the gradients hold to the einsum path's in
+    # (b); then the gated run at 3e-5, one step ten times smaller
+    out = run("(c) adamw 1 layer, lr 3e-4 (a reading)", ["--mode", "adamw", "--steps", "2"],
+              chains=1, steps=2)
+    record["adamw_lr3e-4_losses"] = [float(x) for x in out["losses"]]
+    del out
+    torch.cuda.empty_cache()
+    out = run("(c) adamw 1 layer, lr 3e-5", ["--mode", "adamw", "--steps", "3", "--lr", "3e-5"],
+              chains=1, steps=3)
+    if not out["losses"][1] < out["losses"][0]:
+        raise AssertionError(f"(c) adamw: the first step did not lower the loss: {out['losses']}")
+    del out
+    torch.cuda.empty_cache()
+    label = "(c) epmcmc 2 chains x 1 layer"
+    out = run(label, ["--mode", "epmcmc", "--steps", "3", "--burn-in", "1", "--chains", "2"],
+              chains=2, steps=3)
+    count, finite = out["welford_count"], out["combined_finite"]
+    print(f"  {label}: Welford count {count}, combine_parametric_diag over "
+          f"{out['combined_dims']} dims finite {finite}", flush=True)
+    if count != [2.0, 2.0] or not finite:
+        raise AssertionError(f"{label}: Welford count {count} (want 2 a chain), combined "
+                             f"finite {finite}")
+    del out
+    torch.cuda.empty_cache()
+    print(f"  4k launches: serve (bf16) {json.dumps(launches_serve)}; train "
+          f"{json.dumps(launches_train)}, flash_attention by route {json.dumps(routes_train)}, "
+          f"flash_attention_bwd by route {json.dumps(routes_train_bwd)}", flush=True)
+    print(f"  mla {json.dumps(record)}", flush=True)
+    return launches_serve, routes_serve, launches_train, routes_train, routes_train_bwd, record
+
+
+def sdpa_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` (a ``scaled_dot_product_attention``
+    call) spends most time in, by the profiler: which backend PyTorch took
+    (flash, memory-efficient / CUTLASS ``fmha``, cuDNN or the math path's
+    matrix products)."""
+    from repro_torch.launch.flash_bwd_probe import kernel_split_ms
+
+    split = sorted(kernel_split_ms(fn, 2).items(), key=lambda kv: -kv[1])
+    return "; ".join(f"{name[:90]} {ms * 1e3:.1f} us" for name, ms in split[:2])
+
+
+def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
     """Phase 5's flash_attention_bwd row at a training shape (B=1, S=T=4096,
     bf16, causal; llama3.2-3b's K=8, G=3, hd=hd_v=128 by default,
-    granite-moe-1b-a400m's K=8, G=2, hd=64 too): the bf16 tensor-core route
+    granite-moe-1b-a400m's K=8, G=2, hd=64 and deepseek-v2-236b's MLA, K=128,
+    G=1, hd=192, hd_v=128, too): the bf16 tensor-core route
     (the one the path takes) warm, with a cold L2 and its host enqueue; the
     FMA route on the same tensors (``ops._launch_bwd(route="fma")``, the
     first design, which float32 still takes); each route's split between its
     dq and dkdv kernels (``torch.profiler``); the plain version (float32
     arithmetic); autograd of PyTorch's scaled_dot_product_attention's
     backward on the same tensors (the library yardstick; the port never
-    calls it); and the forward with and without lse. Bound: the backward's
-    products, 2.5 times the forward's 2·(hd + hd_v) flop per visible pair
-    (FlashAttention-2's five products), over the bf16 tensor-core rate,
+    calls it; the kernels it ran named, or its refusal of the shape printed
+    in place of a time); and the forward with and without lse. Bound: the
+    backward's products, 2·(3·hd + 2·hd_v) flop per visible pair
+    (FlashAttention-2's five: S, dq and dk over hd, dP and dv over hd_v;
+    2.5 times the forward's at hd = hd_v), over the bf16 tensor-core rate,
     against q, k, v, out, dout and lse read once and dq, dk, dv written
     once; beside it the tensor-core design's own bound (its seven products,
     the dq kernel's recomputed S and dP included) and the float32 FMA
@@ -1455,10 +1710,11 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128):
     from repro_torch.launch.flash_bwd_probe import bwd_part, kernel_split_ms
 
     B, S = 1, 4096
+    hd_v = hd if hd_v is None else hd_v
     q = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
-    dout = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, K, hd_v), generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn((B, S, K, G, hd_v), generator=gen, device=dev).to(torch.bfloat16)
     out, lse = flash_attention(q, k, v, return_lse=True)
     if ops._route_bwd(q, k, v, out, dout) != "tensor_core":
         raise AssertionError("flash_attention_bwd: the training shape is not on the tensor-core "
@@ -1481,31 +1737,41 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh = q.reshape(B, S, K * G, hd).transpose(1, 2).detach().requires_grad_()
     kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (k, v))
-    gout = dout.reshape(B, S, K * G, hd).transpose(1, 2)
+    gout = dout.reshape(B, S, K * G, hd_v).transpose(1, 2)
+    lib_ms, backend = None, ""
     try:
-        o = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
-        how = "enable_gqa"
-        lib_run = lambda: torch.autograd.grad(o, (qh, kh, vh), gout, retain_graph=True)  # noqa: E731
-    except TypeError:  # an older PyTorch: repeat the KV heads for it
-        kr, vr = (x.detach().repeat_interleave(G, dim=1).requires_grad_() for x in (kh, vh))
-        o = sdpa(qh, kr, vr, is_causal=True)
-        how = "KV heads repeated"
-        lib_run = lambda: torch.autograd.grad(o, (qh, kr, vr), gout, retain_graph=True)  # noqa: E731
-    lib_ms, _ = device_ms(lib_run, iters=10)
-    nbytes = 2 * (3 * B * S * K * G * hd + 2 * B * S * K * hd) + 4 * B * S * K * G \
-        + 2 * (B * S * K * G * hd + 2 * B * S * K * hd)
-    flops = 2.5 * 2 * (hd + hd) * B * K * G * S * (S + 1) // 2
+        try:
+            o = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+            how = "enable_gqa"
+            lib_run = lambda: torch.autograd.grad(o, (qh, kh, vh), gout, retain_graph=True)  # noqa: E731
+        except TypeError:  # an older PyTorch: repeat the KV heads for it
+            kr, vr = (x.detach().repeat_interleave(G, dim=1).requires_grad_() for x in (kh, vh))
+            o = sdpa(qh, kr, vr, is_causal=True)
+            how = "KV heads repeated"
+            lib_run = lambda: torch.autograd.grad(o, (qh, kr, vr), gout, retain_graph=True)  # noqa: E731
+        lib_ms, _ = device_ms(lib_run, iters=10)
+        backend = sdpa_kernels(lib_run)
+        lib_text = f"{lib_ms * 1e3:.2f} us (kernels: {backend})"
+    except RuntimeError as exc:  # the library refuses the shape: a reading, not a fault
+        o = lib_run = None
+        how, lib_text = "refused", f"refused: {str(exc).splitlines()[0][:160]}"
+    # q, out, dout, k, v and lse read once; dq, dk, dv written once
+    nbytes = 2 * (B * S * K * G * (hd + 2 * hd_v) + B * S * K * (hd + hd_v)) + 4 * B * S * K * G \
+        + 2 * (B * S * K * G * hd + B * S * K * (hd + hd_v))
+    pairs = B * K * G * S * (S + 1) // 2  # visible (query, kv) pairs
+    flops = 2 * (3 * hd + 2 * hd_v) * pairs  # S, dq, dk at hd; dP, dv at hd_v
     bound, bound_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
-    design, _ = least_ms(nbytes, flops * 7 / 5, peak=BF16_FLOPS)
+    design, _ = least_ms(nbytes, flops + 2 * (hd + hd_v) * pairs, peak=BF16_FLOPS)
     bound32, _ = least_ms(nbytes, flops)
     tc, fm = split["tensor_core"], split["fma"]
-    print(f"  flash_attention_bwd B={B} K={K} G={G} S=T={S} hd={hd} causal bf16: tensor_core "
+    print(f"  flash_attention_bwd B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} causal bf16: "
+          f"tensor_core "
           f"route {ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue "
           f"{host * 1e3:.2f} us/call; profiler: dq {tc['dq_ms'] * 1e3:.2f} us, dkdv "
           f"{tc['dkdv_ms'] * 1e3:.2f} us), fma route {fma_ms * 1e3:.2f} us (dq "
           f"{fm['dq_ms'] * 1e3:.2f} us, dkdv {fm['dkdv_ms'] * 1e3:.2f} us), plain "
           f"{plain * 1e3:.2f} us, scaled_dot_product_attention backward ({how}) "
-          f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {bound_by} at the bf16 "
+          f"{lib_text}, bound {bound * 1e3:.2f} us by {bound_by} at the bf16 "
           f"tensor-core rate ({flops:.4e} flop, {nbytes / 1e6:.1f} MB; the tensor-core design's "
           f"7 products {design * 1e3:.2f} us; {bound32 * 1e3:.2f} us at the float32 FMA rate); "
           f"the forward at this shape {fwd_ms * 1e3:.2f} us without lse, "
@@ -1513,10 +1779,11 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128):
     row = {"name": "flash_attention_bwd", "ms": ms, "cold_ms": cold, "host_ms": host,
            "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
            "bound_ms_design": design, "bound_ms_float32": bound32, "library_ms": lib_ms,
+           "library_kernels": backend if lib_ms is not None else lib_text,
            "split_ms": split["tensor_core"],
            "fma_route": {"ms": fma_ms, "host_ms": fma_host, "split_ms": split["fma"]},
            "forward_ms": fwd_ms, "forward_lse_ms": fwd_lse_ms,
-           "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} causal bfloat16"}
+           "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} causal bfloat16"}
     del q, k, v, dout, out, lse, qh, kh, vh, gout, o, lib_run
     torch.cuda.empty_cache()
     return row
@@ -2942,6 +3209,9 @@ def main() -> int:
     (launches_moe_serve, routes_moe_serve, launches_moe_train, routes_moe_train,
      routes_moe_train_bwd, moe_record) = moe_phase(dev, kernels, lm_config)
     torch.cuda.empty_cache()
+    (launches_mla_serve, routes_mla_serve, launches_mla_train, routes_mla_train,
+     routes_mla_train_bwd, mla_record) = mla_phase(dev, kernels, lm_config)
+    torch.cuda.empty_cache()
 
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
@@ -3193,9 +3463,11 @@ def main() -> int:
                  "slab_route": online_rows["slab: the draw buffer as one chunk"]})
 
     # flash_attention at the serving path's prefill shape (B=2) and the table's
-    # (B=1): 8 KV heads of 3 query heads, hd 128, S = T = 4096, causal; and at
+    # (B=1): 8 KV heads of 3 query heads, hd 128, S = T = 4096, causal; at
     # granite-moe-1b-a400m's (8 KV heads of 2, hd 64) in bf16 at B=2 and B=1
-    # and in float32 at B=2 on the "tf32x3" route. In
+    # and in float32 at B=2 on the "tf32x3" route; and at deepseek-v2-236b's
+    # MLA (128 heads, G = 1, hd 192, hd_v 128) in bf16 at B=2 and B=1 and in
+    # float32 at B=2 on the FMA route, which float32 takes at hd 192. In
     # bf16 on the bf16 tensor-core route (bound over the bf16 tensor-core
     # rate); at B=2 in float32 on the "tf32x3" route (bound over the TF32
     # rate for its three passes: 3× the work) and on the FMA route, reached
@@ -3209,25 +3481,28 @@ def main() -> int:
     # and library times it shares.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_rows = {}
-    for label, B, dtype, route, (K, G, hd) in (
-            ("bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 3, 128)),
-            ("bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 3, 128)),
-            ("float32 B=2", 2, torch.float32, "tf32x3", (8, 3, 128)),
-            ("float32 B=2 q 4 bytes off 16", 2, torch.float32, "fma", (8, 3, 128)),
-            ("granite bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 2, 64)),
-            ("granite bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 2, 64)),
-            ("granite float32 B=2", 2, torch.float32, "tf32x3", (8, 2, 64))):
+    misaligned = "float32 B=2 q 4 bytes off 16"
+    for label, B, dtype, route, (K, G, hd, hd_v) in (
+            ("bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 3, 128, 128)),
+            ("bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 3, 128, 128)),
+            ("float32 B=2", 2, torch.float32, "tf32x3", (8, 3, 128, 128)),
+            (misaligned, 2, torch.float32, "fma", (8, 3, 128, 128)),
+            ("granite bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 2, 64, 64)),
+            ("granite bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 2, 64, 64)),
+            ("granite float32 B=2", 2, torch.float32, "tf32x3", (8, 2, 64, 64)),
+            ("deepseek bf16 B=2", 2, torch.bfloat16, "tensor_core", (128, 1, 192, 128)),
+            ("deepseek bf16 B=1", 1, torch.bfloat16, "tensor_core", (128, 1, 192, 128)),
+            ("deepseek float32 B=2", 2, torch.float32, "fma", (128, 1, 192, 128))):
         S = 4096
-        if route == "fma":
+        if label == misaligned:
             flat = torch.randn((B * S * K * G * hd + 1,), generator=gen, device=dev)
             q = flat[1:].view(B, S, K, G, hd)
         else:
             q = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(dtype)
         k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
-        is16 = dtype == torch.bfloat16
-        nbytes = q.element_size() * (2 * B * S * K * G * hd + 2 * B * S * K * hd)
-        flops = 2 * (hd + hd) * B * K * G * S * (S + 1) // 2
+        v = torch.randn((B, S, K, hd_v), generator=gen, device=dev).to(dtype)
+        nbytes = q.element_size() * (B * S * K * G * (hd + hd_v) + B * S * K * (hd + hd_v))
+        flops = 2 * (hd + hd_v) * B * K * G * S * (S + 1) // 2
         bound32, _ = least_ms(nbytes, flops)  # the float32 FMA rate
         if route == "tensor_core":
             bound, bound_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
@@ -3242,7 +3517,7 @@ def main() -> int:
         moved = {r: n - routes[r] for r, n in flash_kernel.route_launches.items() if n != routes[r]}
         if set(moved) != {route}:
             raise AssertionError(f"flash_attention timing ({label}) launched {moved}, not {route}")
-        if route != "fma":
+        if label != misaligned:
             qh, kh_, vh = q.reshape(B, S, K * G, hd).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             try:
                 sdpa(qh[:, :, :8], kh_[:, :, :8], vh[:, :, :8], is_causal=True, enable_gqa=True)
@@ -3254,14 +3529,17 @@ def main() -> int:
                 how = "KV heads repeated"
             # a reading only: in bf16 the library and the kernel round P alike
             lib_gap = float((flash_attention(q, k, v).float()
-                             - lib_run().transpose(1, 2).reshape(B, S, K, G, hd).float()).abs().max())
+                             - lib_run().transpose(1, 2).reshape(B, S, K, G, hd_v).float()).abs().max())
             lib_ms, lib_host = device_ms(lib_run, iters=20)
+            if label.startswith("deepseek"):  # which backend takes hd 192 with hd_v 128
+                how += f"; kernels: {sdpa_kernels(lib_run)}"
             # one plain call behind the sleep: it is ~10 launches over GBs of scores
             plain, plain_host = device_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=1)
             del qh, kh_, vh, lib_run
         rate = {"tensor_core": "bf16 tensor-core", "tf32x3": "TF32 tensor-core (three passes)",
                 "fma": "float32 FMA"}[route]
-        print(f"  flash_attention [{route}] B={B} K={K} G={G} S=T={S} hd={hd} causal {label}: "
+        print(f"  flash_attention [{route}] B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} causal "
+              f"{label}: "
               f"kernel {ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue "
               f"{host * 1e3:.2f} us/call), plain {plain * 1e3:.2f} us, "
               f"scaled_dot_product_attention ({how}) {lib_ms * 1e3:.2f} us, bound "
@@ -3272,7 +3550,7 @@ def main() -> int:
                              "host_ms": host, "plain_ms": plain, "bound_ms": bound,
                              "bound_by": bound_by, "bound_ms_float32": bound32,
                              "library_ms": lib_ms,
-                             "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} causal "
+                             "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} causal "
                                       f"{str(dtype).split('.')[-1]}"}
         del q, k, v
         torch.cuda.empty_cache()
@@ -3282,13 +3560,15 @@ def main() -> int:
                      tf32x3_route={key: flash_rows["float32 B=2"][key] for key in keys + ("shape",)},
                      fma_route={key: flash_rows["float32 B=2 q 4 bytes off 16"][key]
                                 for key in keys + ("shape",)},
-                     at_granite={label: {key: flash_rows[f"granite {label}"][key]
-                                         for key in keys + ("shape",)}
-                                 for label in ("bf16 B=2", "bf16 B=1", "float32 B=2")})
+                     **{f"at_{arch}": {label: {key: flash_rows[f"{arch} {label}"][key]
+                                               for key in keys + ("shape",)}
+                                       for label in ("bf16 B=2", "bf16 B=1", "float32 B=2")}
+                        for arch in ("granite", "deepseek")})
     rows.append(flash_row)
     bwd_row = flash_bwd_timing(dev, gen, flush)
     bwd_row["at_granite"] = flash_bwd_timing(dev, gen, flush, K=8, G=2, hd=64)
-    del bwd_row["at_granite"]["name"]
+    bwd_row["at_deepseek"] = flash_bwd_timing(dev, gen, flush, K=128, G=1, hd=192, hd_v=128)
+    del bwd_row["at_granite"]["name"], bwd_row["at_deepseek"]["name"]
     rows.append(bwd_row)
 
     phase("6 summary")
@@ -3313,7 +3593,9 @@ def main() -> int:
                                  **{label: o["launches"][name] for label, o in other.items()},
                                  "train": launches_train[name],
                                  "serve_moe": launches_moe_serve[name],
-                                 "train_moe": launches_moe_train[name]},
+                                 "train_moe": launches_moe_train[name],
+                                 "serve_mla": launches_mla_serve[name],
+                                 "train_mla": launches_mla_train[name]},
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]
@@ -3327,15 +3609,20 @@ def main() -> int:
                                           "train": routes_train,
                                           "serve_moe_bfloat16": routes_moe_serve["bfloat16"],
                                           "serve_moe_float32": routes_moe_serve["float32"],
-                                          "train_moe": routes_moe_train}
+                                          "train_moe": routes_moe_train,
+                                          "serve_mla_bfloat16": routes_mla_serve["bfloat16"],
+                                          "serve_mla_float32": routes_mla_serve["float32"],
+                                          "train_mla": routes_mla_train}
             entry["max_abs_err_by_route"] = flash_err64
             entry["lse_max_abs_err"] = lse_err
         if name == "flash_attention_bwd":  # the training runs' launches, by route
             entry["launches_by_route"] = {"train": routes_train_bwd,
-                                          "train_moe": routes_moe_train_bwd}
+                                          "train_moe": routes_moe_train_bwd,
+                                          "train_mla": routes_mla_train_bwd}
             entry["max_abs_err_by_route"] = bwd_err64
             entry["train"] = train_record
             entry["moe"] = moe_record
+            entry["mla"] = mla_record
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

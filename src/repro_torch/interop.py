@@ -46,7 +46,7 @@ def _weight(a: Any) -> torch.Tensor:
 
 
 def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]:
-    """How ``repro``'s LM pytree (dense and MoE) maps onto the port's parameter names:
+    """How ``repro``'s LM pytree (dense and MoE, GQA or MLA) maps onto the port's parameter names:
     ``(port name, reference path, layer index into a stacked leaf or None)``
     in the port's ``named_parameters`` order.
 
@@ -59,7 +59,10 @@ def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]
     untied, ``lm_head`` (d, V). An MoE layer's ``moe.router`` (d, E),
     ``moe.experts.w_*`` ((E, d, f) and (E, f, d); a stacked leaf is (L, E,
     d, f)) and ``moe.shared.w_*`` take the same paths in the reference's
-    ``moe`` subtree.
+    ``moe`` subtree. An MLA layer's attention weights are bare arrays in the
+    reference (``params["g0"]["l0"]["attn"]["w_dq"]``, no ``"w"`` level):
+    ``w_dq``, ``q_norm``, ``w_uq`` (or ``w_q`` when ``q_lora_rank`` is 0),
+    ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``, ``w_o``, as ``blocks.i.attn.*``.
     """
     from repro_torch.models.lm import model as mdl
 
@@ -75,11 +78,17 @@ def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]
                 idx = r if group.repeat > 1 else None
                 prefix = f"blocks.{layer}."
                 out.append((prefix + "ln1.scale", base + ("ln1", "scale"), idx))
-                for w in ("w_q", "w_k", "w_v", "w_o"):
-                    out.append((prefix + f"attn.{w}", base + ("attn", w, "w"), idx))
-                if cfg.qkv_bias:
-                    for w in ("w_q", "w_k", "w_v"):
-                        out.append((prefix + f"attn.b_{w[-1]}", base + ("attn", w, "b"), idx))
+                if group.specs[li].mixer == "mla":  # bare arrays, no "w" level
+                    q = ("w_dq", "q_norm", "w_uq") if cfg.mla.q_lora_rank else ("w_q",)
+                    for w in q + ("w_dkv", "kv_norm", "w_uk", "w_uv", "w_o"):
+                        out.append((prefix + f"attn.{w}", base + ("attn", w), idx))
+                else:
+                    for w in ("w_q", "w_k", "w_v", "w_o"):
+                        out.append((prefix + f"attn.{w}", base + ("attn", w, "w"), idx))
+                    if cfg.qkv_bias:
+                        for w in ("w_q", "w_k", "w_v"):
+                            out.append((prefix + f"attn.b_{w[-1]}", base + ("attn", w, "b"),
+                                        idx))
                 out.append((prefix + "ln2.scale", base + ("ln2", "scale"), idx))
                 if group.specs[li].ffn == "moe":
                     out.append((prefix + "moe.router", base + ("moe", "router"), idx))
@@ -142,7 +151,7 @@ def from_reference_lm_params(
     device: str | torch.device | None = None,
 ):
     """``repro``'s LM ``init_params`` pytree (numpy leaves) as the port's
-    model (the dense and MoE families; the map is :func:`reference_lm_leaves`).
+    model (the dense and MoE families, GQA or MLA; the map is :func:`reference_lm_leaves`).
     Every tensor is cast to ``cfg.param_dtype``; the numbers are the
     reference's."""
     from repro_torch.models.lm import model as mdl

@@ -3,9 +3,9 @@
 // passes as two kernels a call on one stream. Two routes, chosen by the
 // wrapper before the launch (kernels/flash_attention/ops.py, _route_bwd):
 //   flash_attention_bwd_tc — bf16 on Hopper's tensor cores (wgmma + TMA,
-//     namespace tc), for bf16 q, k, v, out and dout with hd and hd_v in
-//     {64, 128} that TMA can take (16-byte aligned bases, strides of 16-byte
-//     multiples);
+//     namespace tc), for bf16 q, k, v, out and dout with (hd, hd_v) in
+//     {64, 128}² or (192, 128) (MLA's) that TMA can take (16-byte aligned
+//     bases, strides of 16-byte multiples);
 //   flash_attention_bwd    — float32 FMAs from shared memory, every other
 //     call (float32 included).
 // Each route is a dq kernel then a dkdv kernel:
@@ -49,7 +49,10 @@
 // forward's 1.03e11 flop (FlashAttention-2's count, five products against
 // two): 2.58e11 flop on 0.13 GB of bf16 operands and outputs, bound by
 // operations: 260.63 us on the bf16 tensor cores (bytes: 40 us). The design
-// does 7/5 of those products, so its own bound is 364.9 us.
+// does 7/5 of those products, so its own bound is 364.9 us. At MLA's
+// training shape (deepseek-v2-236b: B=1, K=128, G=1, hd=192, hd_v=128) the
+// five products are 2·(3·192 + 2·128) flop a visible pair, 1.79e12 flop:
+// 1,807 us; the design's seven 2,502 us.
 //
 // bf16 tensor-core route (namespace tc). Both kernels are the forward's
 // tensor-core shape: a producer warpgroup (24 registers by setmaxnreg) whose
@@ -80,8 +83,11 @@
 //   the lse slice while dPᵀ runs, dSᵀ = Pᵀ∘(dPᵀ − D), and sums dv +=
 //   bf16(Pᵀ)·dout and dk += bf16(dSᵀ)·q (dout and q position-major, the
 //   B-transpose bit set). A thread holds dk 64 + dv 64 + Sᵀ 32 + dPᵀ 32
-//   floats at hd = hd_v = 128. dk·hd^-½ and dv leave through the warpgroup's
-//   K and V tiles.
+//   floats at hd = hd_v = 128. At MLA's (192, 128) dk's last 64 columns are
+//   summed a tile at a time into a zeroed fragment and added to a float32
+//   accumulator in shared memory (DkdvCfg::kDkSh), so a thread holds the
+//   same 192 accumulator floats as at (128, 128). dk·hd^-½ and dv leave
+//   through the warpgroup's K and V tiles.
 // Untried: one fused kernel with a deterministic dq reduction (per-block dq
 // partials summed in a fixed order by a second pass), ping-pong turns of the
 // two warpgroups on the tensor cores, issuing the next tile's products
@@ -565,8 +571,9 @@ constexpr int kProducerRegs = 24;
 constexpr int kVec = kT * 4;         // bytes of a q tile's lse·log2(e) or D slice
 constexpr float kLog2e = 1.4426950408889634f;
 
+// {64, 128}², and (192, 128): MLA's nope ⊕ rope q·k head against its v head
 __host__ __device__ inline bool dims_ok(int hd, int hd_v) {
-  return (hd == 64 || hd == 128) && (hd_v == 64 || hd_v == 128);
+  return ((hd == 64 || hd == 128) && (hd_v == 64 || hd_v == 128)) || (hd == 192 && hd_v == 128);
 }
 
 template <int HD, int HDV>
@@ -582,8 +589,15 @@ template <int HD, int HDV>
 struct DkdvCfg {
   static constexpr int kQ = HD / 64 * kBlock;   // a K tile (64 kv rows) or a q tile
   static constexpr int kO = HDV / 64 * kBlock;  // a V tile or a dout tile
+  // dk's columns past 128 (MLA's rope 64 at hd 192) are summed a q tile at a
+  // time into a zeroed register fragment and added to a float32 accumulator
+  // in shared memory, each thread its own slots: held in registers with the
+  // rest, dk 96 + dv 64 + Sᵀ 32 + dPᵀ 32 spilled 156 bytes (ptxas, H100 run)
+  static constexpr int kDkReg = HD > 128 ? 128 : HD;  // dk columns in registers
+  static constexpr int kDkSh = HD - kDkReg;           // dk columns in shared memory
   static constexpr int kVecOff = (kNW + kStages) * (kQ + kO);
-  static constexpr int kBarOff = kVecOff + kStages * 2 * kVec;
+  static constexpr int kAccOff = kVecOff + kStages * 2 * kVec;
+  static constexpr int kBarOff = kAccOff + kNW * 128 * (kDkSh / 2) * 4;
   static constexpr int kSmem = kBarOff + 8 * (1 + 2 * kStages) + 1024;
 };
 
@@ -897,11 +911,15 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
     const uint32_t my_k = k_s + wg * C::kQ, my_v = v_s + wg * C::kO;
     const float sl = p.scale_log2;
 
-    float dk[HD / 2], dv[HDV / 2];
+    float dk[C::kDkReg / 2], dv[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dk[i] = 0.f;
+    for (int i = 0; i < C::kDkReg / 2; ++i) dk[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < HDV / 2; ++i) dv[i] = 0.f;
+    // dk's columns kDkReg.. : slot i of this thread at acc[i·128 + t]
+    float* const acc = reinterpret_cast<float*>(smem + C::kAccOff) + wg * 128 * (C::kDkSh / 2);
+#pragma unroll
+    for (int i = 0; i < C::kDkSh / 2; ++i) acc[i * 128 + t] = 0.f;
     if (n_tiles > 0) mbar_wait(kv_full, 0);
     for (int i = 0; i < n_tiles; ++i) {
       const int g = i / n_q, q0 = (qt0 + i - g * n_q) * kT;
@@ -946,13 +964,22 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
             pa[kk][r] = pack_bf16(s[x], s[x + 1]);
             da[kk][r] = pack_bf16(s[x] * (dp[x] - d.x), s[x + 1] * (dp[x + 1] - d.y));
           }
+        float dks[C::kDkSh > 0 ? C::kDkSh / 2 : 1];  // this tile's dk columns kDkReg..
+#pragma unroll
+        for (int j = 0; j < C::kDkSh / 2; ++j) dks[j] = 0.f;
         wg_fence();
         sums<HDV>(dv, pa, o_t);
-        sums<HD>(dk, da, q_t);
+        sums<C::kDkReg>(dk, da, q_t);
+        if constexpr (C::kDkSh > 0) sums<C::kDkSh>(dks, da, q_t + C::kDkReg / 64 * kBlock);
         wg_commit();
         wg_wait();
         fence_regs(dv);
         fence_regs(dk);
+        if constexpr (C::kDkSh > 0) {
+          fence_regs(dks);
+#pragma unroll
+          for (int j = 0; j < C::kDkSh / 2; ++j) acc[j * 128 + t] += dks[j];
+        }
       }
       mbar_arrive(empty(st));
     }
@@ -960,8 +987,13 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
     // dk·hd^-½ and dv as bf16 through this warpgroup's K and V tiles, then kv rows < T out
     uint8_t* const k_tile = smem + wg * C::kQ;
     uint8_t* const v_tile = smem + kNW * C::kQ + wg * C::kO;
+    float dk_all[HD / 2];  // the register columns, then those from acc
+#pragma unroll
+    for (int i = 0; i < C::kDkReg / 2; ++i) dk_all[i] = dk[i];
+#pragma unroll
+    for (int i = 0; i < C::kDkSh / 2; ++i) dk_all[C::kDkReg / 2 + i] = acc[i * 128 + t];
     fence_proxy();
-    stage_rows<HD>(k_tile, dk, p.scale, r0, lane);
+    stage_rows<HD>(k_tile, dk_all, p.scale, r0, lane);
     stage_rows<HDV>(v_tile, dv, 1.f, r0, lane);
     bar_sync(1 + wg, 128);
     const int n = imin(kT, p.T - kvw);
@@ -1000,14 +1032,17 @@ cudaError_t launch(const Maps& m, const Params& p, cudaStream_t stream) {
 
 // Dynamic shared memory of kernel 0 (dq) or 1 (dkdv); 0 for a shape the
 // route does not take.
+inline int instance(int hd, int hd_v) {  // launch<>'s index: 0..3 the {64, 128}², 4 (192, 128)
+  return hd == 192 ? 4 : (hd == 128) * 2 + (hd_v == 128);
+}
+
 inline int smem_bytes(int kernel, int hd, int hd_v) {
   if (!dims_ok(hd, hd_v)) return 0;
-  const int i = (hd == 128) * 2 + (hd_v == 128);
-  const int dq[4] = {DqCfg<64, 64>::kSmem, DqCfg<64, 128>::kSmem, DqCfg<128, 64>::kSmem,
-                     DqCfg<128, 128>::kSmem};
-  const int kv[4] = {DkdvCfg<64, 64>::kSmem, DkdvCfg<64, 128>::kSmem, DkdvCfg<128, 64>::kSmem,
-                     DkdvCfg<128, 128>::kSmem};
-  return kernel == 0 ? dq[i] : kv[i];
+  const int dq[5] = {DqCfg<64, 64>::kSmem, DqCfg<64, 128>::kSmem, DqCfg<128, 64>::kSmem,
+                     DqCfg<128, 128>::kSmem, DqCfg<192, 128>::kSmem};
+  const int kv[5] = {DkdvCfg<64, 64>::kSmem, DkdvCfg<64, 128>::kSmem, DkdvCfg<128, 64>::kSmem,
+                     DkdvCfg<128, 128>::kSmem, DkdvCfg<192, 128>::kSmem};
+  return kernel == 0 ? dq[instance(hd, hd_v)] : kv[instance(hd, hd_v)];
 }
 
 }  // namespace tc
@@ -1032,7 +1067,7 @@ extern "C" int flash_attention_bwd_tc_plan(int kernel, int B, int S, int T, int 
   return cudaSuccess;
 }
 
-// bf16 only, hd and hd_v in {64, 128}; every base 16-byte aligned and every
+// bf16 only, (hd, hd_v) in {64, 128}² or (192, 128); every base 16-byte aligned and every
 // stride of an axis longer than 1 a multiple of 8 elements (the wrapper's
 // route rule). strides (elements): q (b, s, k, g), k (b, t, k), v (b, t, k),
 // out (b, s, k, g), dout (b, s, k, g): 18 values, a length-1 axis's set to
@@ -1101,11 +1136,11 @@ extern "C" int flash_attention_bwd_tc(int device, const void* q, const void* k, 
   if (r == CUDA_SUCCESS) r = tc::encode(enc, &m.v, kBf16, v, 4, v_dims, v_str, box);
   if (r != CUDA_SUCCESS) return tc::kTensorMapError + (int)r;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int which = (hd == 128) * 2 + (hd_v == 128);
-  switch (which) {
+  switch (tc::instance(hd, hd_v)) {
     case 0: return tc::launch<64, 64>(m, p, st);
     case 1: return tc::launch<64, 128>(m, p, st);
     case 2: return tc::launch<128, 64>(m, p, st);
-    default: return tc::launch<128, 128>(m, p, st);
+    case 3: return tc::launch<128, 128>(m, p, st);
+    default: return tc::launch<192, 128>(m, p, st);
   }
 }

@@ -35,8 +35,9 @@ call, counted as one launch of ``KERNEL_BWD``, for float32 or bfloat16
 operands with hd, hd_v ≤ 256, G ≤ 64; the plain version
 (``ref.flash_attention_bwd_ref``) on the CPU. :func:`_route_bwd` picks the
 kernels from the tensors alone, before the launch: ``"tensor_core"`` (bf16
-``wgmma`` + TMA) takes bfloat16 q, k, v, out and dout with hd and hd_v in
-{64, 128} that TMA takes, ``"fma"`` (float32 FMAs) every other call;
+``wgmma`` + TMA) takes bfloat16 q, k, v, out and dout with (hd, hd_v) in
+``BWD_TC_HEAD_DIMS`` ({64, 128}², and MLA's (192, 128)) that TMA takes,
+``"fma"`` (float32 FMAs) every other call;
 ``KERNEL_BWD.route_launches`` counts each route's launches, and a failed
 launch raises on either route, never falling back. :func:`bwd_tc_plan`
 mirrors the tensor-core route's launch plan (the C source's
@@ -78,7 +79,7 @@ ROUTES = ("tensor_core", "tf32x3", "fma")
 KERNEL.route_launches.update({route: 0 for route in ROUTES})
 BWD_ROUTES = ("tensor_core", "fma")
 KERNEL_BWD.route_launches.update({route: 0 for route in BWD_ROUTES})
-BWD_TC_HEAD_DIMS = (64, 128)
+BWD_TC_HEAD_DIMS = ((64, 64), (64, 128), (128, 64), (128, 128), (192, 128))  # (hd, hd_v)
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64
 TF32X3_HEAD_DIMS = (64, 128)
@@ -262,8 +263,8 @@ def _route_bwd(q, k, v, out, dout) -> str:
     """``"tensor_core"`` or ``"fma"``: which backward kernels take the call,
     from the tensors alone (dtypes, head dims, alignment and strides)."""
     xs = (q, k, v, out, dout)
-    if ({x.dtype for x in xs} == {torch.bfloat16} and q.shape[-1] in BWD_TC_HEAD_DIMS
-            and v.shape[-1] in BWD_TC_HEAD_DIMS and all(_tma_ok(x) for x in xs)):
+    if ({x.dtype for x in xs} == {torch.bfloat16}
+            and (q.shape[-1], v.shape[-1]) in BWD_TC_HEAD_DIMS and all(_tma_ok(x) for x in xs)):
         return "tensor_core"
     return "fma"
 
@@ -290,8 +291,11 @@ def bwd_tc_smem(kernel: str, hd: int, hd_v: int) -> int:
     kq, ko = hd // 64 * _TC_BLOCK, hd_v // 64 * _TC_BLOCK
     if kernel == "dq":  # each warpgroup's q, dout and out; the K/V ring
         return TC_WARPGROUPS * (kq + 2 * ko) + TC_STAGES * (kq + ko) + _TC_BARRIERS
-    # each warpgroup's K and V; the q/dout ring and its lse·log2(e) and D slices
-    return (TC_WARPGROUPS + TC_STAGES) * (kq + ko) + TC_STAGES * 2 * TC_TILE * 4 + _TC_BARRIERS
+    # each warpgroup's K and V; the q/dout ring and its lse·log2(e) and D
+    # slices; a float32 accumulator of dk's columns past 128 a warpgroup (hd 192)
+    dk_shared = max(hd - 128, 0) // 2 * 128 * 4
+    return ((TC_WARPGROUPS + TC_STAGES) * (kq + ko) + TC_STAGES * 2 * TC_TILE * 4
+            + TC_WARPGROUPS * dk_shared + _TC_BARRIERS)
 
 
 def bwd_tc_plan(kernel: str, b: int, s: int, t: int, kh: int, g: int, hd: int,
@@ -299,7 +303,7 @@ def bwd_tc_plan(kernel: str, b: int, s: int, t: int, kh: int, g: int, hd: int,
     """The tensor-core backward's launch of ``kernel`` ("dq" or "dkdv"), as
     the C source plans it (``flash_attention_bwd_tc_plan``, held equal on
     the card); None for a shape the route does not take."""
-    if hd not in BWD_TC_HEAD_DIMS or hd_v not in BWD_TC_HEAD_DIMS or min(b, s, t, kh, g) < 1:
+    if (hd, hd_v) not in BWD_TC_HEAD_DIMS or min(b, s, t, kh, g) < 1:
         return None
     n_qt = -(-s // TC_TILE)
     if kernel == "dq":  # TC_WARPGROUPS (position slab, head) slabs a block

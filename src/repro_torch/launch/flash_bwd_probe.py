@@ -8,19 +8,20 @@ runs the same checks as part of phase 3, and times the backward in phase 5).
 Builds the kernels and prints the backward source's ptxas report (registers,
 spills, shared memory) and the count of ``HGMMA`` instructions in each of its
 kernels (``cuobjdump -sass``). Then, on each case of :data:`CASES` (the
-training paths' shapes, llama3.2-3b's and granite-moe-1b-a400m's, float32,
+training paths' shapes, llama3.2-3b's and granite-moe-1b-a400m's, deepseek's
+MLA (hd 192, hd_v 128, K = H, G = 1) at S = T = 1,000, float32,
 head dims 64 / 192 with hd_v 128 / 256, G of 1, 3, 8 and 64, non-causal,
 ragged S and T, ``kv_len < T`` and ``kv_len = 0``), the forward kernel's ``out`` and ``lse`` go into the backward on every
 route that takes the case (the ``fma`` route takes all; ``tensor_core`` the
-bf16 cases at hd, hd_v in {64, 128}, ``ops._route_bwd``), whose dq, dk and dv
+bf16 cases at (hd, hd_v) in ``ops.BWD_TC_HEAD_DIMS``, ``ops._route_bwd``), whose dq, dk and dv
 are held to the plain version on the same inputs in float64 and in their
 own dtype and, where both routes ran, to each other (:func:`check_case`,
 tolerances there); a ``kv_len = 0`` case must give exactly zero gradients.
 Three more runs of each training shape give the same bits. Every forward
 route's lse is held to the float64 plain lse (:func:`check_lse`). Last, the
-backward at the training shape on each route over 10 launches with CUDA
-events, and the split of its device time between the dq and dkdv kernels
-from ``torch.profiler``. Exits 1 if a check fails, 2 without a card.
+backward at llama3.2-3b's and deepseek-v2-236b's training shapes on each
+route over 10 launches with CUDA events, and the split of its device time
+between the dq and dkdv kernels from ``torch.profiler``. Exits 1 if a check fails, 2 without a card.
 """
 
 from __future__ import annotations
@@ -42,9 +43,11 @@ from repro_torch.kernels.flash_attention import ops
 BF16, F32 = torch.bfloat16, torch.float32
 TRAINING = (1, 4096, 4096, 8, 3, 128, 128, True, None, BF16)  # llama3.2-3b, train_4k
 MOE_TRAINING = (1, 4096, 4096, 8, 2, 64, 64, True, None, BF16)  # granite-moe-1b-a400m
+MLA_TRAINING = (1, 4096, 4096, 128, 1, 192, 128, True, None, BF16)  # deepseek-v2-236b's MLA
 CASES: Dict[str, Tuple] = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype)
     "training path": TRAINING,
     "granite training path": MOE_TRAINING,
+    "deepseek MLA training path": (1, 1000, 1000, 4, 1, 192, 128, True, None, BF16),
     "float32 S=T=1000": (1, 1000, 1000, 2, 3, 128, 128, True, None, F32),
     "hd=64": (2, 200, 200, 2, 3, 64, 64, True, None, BF16),
     "hd=256": (1, 300, 300, 2, 2, 256, 256, True, None, BF16),
@@ -264,10 +267,12 @@ def hgmma_counts() -> Dict[str, int]:
     return counts
 
 
-def time_training_shape(gen: torch.Generator, log: Callable[[str], None] = print) -> Dict:
-    """The backward at the training shape on each route: ms a launch from
-    CUDA events, and the dq / dkdv split from the profiler."""
-    b, s, t, kh, g, hd, hd_v, causal, _, dtype = TRAINING
+def time_training_shape(gen: torch.Generator, log: Callable[[str], None] = print,
+                        shape: Tuple = TRAINING) -> Dict:
+    """The backward at a training shape (``TRAINING`` or ``MLA_TRAINING``)
+    on each route: ms a launch from CUDA events, and the dq / dkdv split
+    from the profiler."""
+    b, s, t, kh, g, hd, hd_v, causal, _, dtype = shape
     q, k, v, dout = operands(gen, b, s, t, kh, g, hd, hd_v, dtype)
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     timed = {}
@@ -279,7 +284,7 @@ def time_training_shape(gen: torch.Generator, log: Callable[[str], None] = print
             if bwd_part(key):
                 split[bwd_part(key)] += part_ms
         timed[route] = {"ms": ms, **{f"{part}_ms": x for part, x in split.items()}}
-        log(f"  training shape [{route}]: backward {ms:.4f} ms a launch (events); profiler: "
+        log(f"  training shape {(b, s, t, kh, g, hd, hd_v)} [{route}]: backward {ms:.4f} ms a launch (events); profiler: "
             f"dq kernel {split['dq']:.4f} ms, dkdv kernel {split['dkdv']:.4f} ms")
     timed["forward_lse_ms"] = event_ms(lambda: flash_attention(q, k, v, return_lse=True))
     timed["forward_ms"] = event_ms(lambda: flash_attention(q, k, v))
@@ -309,7 +314,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for label, case in CASES.items():
         failed += not check_case(gen, label, case, log)[2]
         torch.cuda.empty_cache()
-    time_training_shape(gen, log)
+    for shape in (TRAINING, MLA_TRAINING):
+        time_training_shape(gen, log, shape)
+        torch.cuda.empty_cache()
     print(f"flash_bwd_probe: {'FAIL' if failed else 'ok'}", flush=True)
     return 1 if failed else 0
 

@@ -5,16 +5,21 @@
         --prompt-len 4096 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --reduced \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4 \\
+        --batch 2 --prompt-len 4096 --gen 16
 
 The port of ``repro/launch/serve.py:25``, with its flags plus ``--device``
-(default ``cuda``; with no card visible it raises) and ``--dtype`` (the
+(default ``cuda``; with no card visible it raises), ``--dtype`` (the
 weights' and activations' dtype, default the config's: bfloat16 at full
-width, float32 under ``--reduced``). Weights are random, drawn from
+width, float32 under ``--reduced``) and ``--layers`` (cut the depth, the
+width unchanged, as ``launch/train.py``'s; 0 keeps the config's: a 236 B
+deepseek-v2 is served on one card only so cut). Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` (other numbers than the reference's
 ``jax.random`` draws), then the prompt from the same generator;
-``max_len = prompt_len + gen``. The dense and MoE families (see
+``max_len = prompt_len + gen``. The dense and MoE families, GQA or MLA (see
 :mod:`repro_torch.models.lm.model`; ``--arch granite-moe-1b-a400m``, whose
-decode runs ``cfg.moe_decode_impl``'s MoE). A prompt longer than the config's
+decode runs ``cfg.moe_decode_impl``'s MoE; ``--arch deepseek-v2-236b``,
+MLA, whose decode attends over the absorbed latent cache). A prompt longer than the config's
 ``attn_chunk`` (1,024) runs every layer's prefill attention through the
 flash kernel; decode attends over the cache with the einsum path. Each
 timed stage ends with ``torch.cuda.synchronize()`` on the card.
@@ -48,6 +53,7 @@ def parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--dtype", default=None, choices=sorted(DTYPES),
                     help="weights and activations (default: the config's)")
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth (0 = the config's)")
     return ap.parse_args(argv)
 
 
@@ -59,6 +65,8 @@ def setup(args: argparse.Namespace) -> Tuple[ModelConfig, mdl.LM, torch.Tensor]:
         cfg = reduced(cfg)
     if args.dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=args.dtype, param_dtype=args.dtype)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = mdl.init_params(cfg, generator=gen, device=device)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,

@@ -2,14 +2,16 @@
 
 The counterpart of ``repro/models/lm/model.py`` for the families whose every
 layer is ``attn + mlp`` (dense) or ``attn + moe`` (MoE, after an optional
-dense prefix of ``moe.first_dense`` layers). The reference runs each layer
+dense prefix of ``moe.first_dense`` layers), the attention GQA or, under
+``cfg.mla`` (deepseek-v2), MLA (``mla + mlp``, ``mla + moe``). The reference runs each layer
 group as a ``lax.scan`` over stacked parameters; the port keeps
 ``layer_specs`` and ``layer_groups`` as they are (pure data) and runs a
 Python loop over an ``nn.ModuleList`` of :class:`Block`, each built for its
 layer's spec. The three execution paths share the block: ``forward`` (the
 whole sequence, also the training path), ``prefill`` (forward plus each
-layer's KV cache, padded to ``max_len``) and ``decode_step`` (one token
-against the caches, which it updates in place). An MoE block's FFN is
+layer's cache, padded to ``max_len``: k/v for GQA, the latents ``c_kv`` and
+``k_rope`` for MLA) and ``decode_step`` (one token against the caches, which
+it updates in place; MLA in its absorbed form). An MoE block's FFN is
 :func:`repro_torch.models.lm.moe.moe_forward` in forward and prefill, and in
 decode (``MoE.decode``) the one ``cfg.moe_decode_impl`` names
 (``"dispatch"``, the default, or ``"gather"``); ``forward`` returns the sum
@@ -24,7 +26,7 @@ training step holds one layer's activations at a time. ``"none"`` runs
 plain; ``"dots"`` (save the matrix products' outputs), which no config
 sets, raises.
 
-A config of another family or with other layers (MLA, Mamba-2, hybrid,
+A config of another family or with other layers (Mamba-2, hybrid,
 encoder–decoder, image tokens) raises ``NotImplementedError``: those come
 in later slices (ROADMAP Queue 1 item 11) and never run on a substitute.
 """
@@ -69,6 +71,7 @@ class GroupSpec:
 
 DENSE = LayerSpec(mixer="attn", ffn="mlp")
 MOE = LayerSpec(mixer="attn", ffn="moe")
+SUPPORTED = (DENSE, MOE, LayerSpec(mixer="mla", ffn="mlp"), LayerSpec(mixer="mla", ffn="moe"))
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -111,19 +114,19 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless every layer of ``cfg`` is ``attn + mlp`` or ``attn + moe``
-    with nothing else (a dense prefix before MoE layers included)."""
+    (either attention GQA or MLA) with nothing else (a dense prefix before
+    MoE layers included)."""
     extras = [name for name, on in (
-        ("mla", cfg.mla is not None), ("ssm", cfg.ssm is not None),
-        ("hybrid", cfg.hybrid is not None),
+        ("ssm", cfg.ssm is not None), ("hybrid", cfg.hybrid is not None),
         ("encoder layers", cfg.num_encoder_layers > 0),
         ("image tokens", cfg.num_image_tokens > 0),
     ) if on]
-    odd = sorted({f"{s.mixer}+{s.ffn}" for s in layer_specs(cfg) if s not in (DENSE, MOE)})
+    odd = sorted({f"{s.mixer}+{s.ffn}" for s in layer_specs(cfg) if s not in SUPPORTED})
     if extras or odd:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) needs {', '.join(extras + odd)}; the port runs the "
-            "dense family (attn+mlp) and MoE (attn+moe) only so far, the rest is ROADMAP "
-            "Queue 1 item 11"
+            "dense family (attn+mlp) and MoE (attn+moe), with GQA or MLA attention, only so "
+            "far, the rest is ROADMAP Queue 1 item 11"
         )
 
 
@@ -138,8 +141,9 @@ class RMSNorm(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: x + attn(ln1(x)), then + ffn(ln2(·)), the FFN an ``mlp``
-    or a ``moe`` as ``spec.ffn`` says."""
+    """One layer: x + attn(ln1(x)), then + ffn(ln2(·)), the attention
+    :class:`~repro_torch.models.lm.attention.GQA` or ``MLA`` as
+    ``spec.mixer`` says, the FFN an ``mlp`` or a ``moe`` as ``spec.ffn``."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec = DENSE, *, generator=None,
                  device=None):
@@ -147,7 +151,8 @@ class Block(nn.Module):
         self.spec = spec
         dtype = dtype_of(cfg.param_dtype)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
-        self.attn = attn.GQA(cfg, generator=generator, device=device)
+        mixer = attn.MLA if spec.mixer == "mla" else attn.GQA
+        self.attn = mixer(cfg, generator=generator, device=device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         if spec.ffn == "moe":
             self.moe = moe_lib.MoE(cfg, generator=generator, device=device)
@@ -172,19 +177,13 @@ class Block(nn.Module):
         self, x: torch.Tensor, positions: torch.Tensor, max_len: int
     ) -> Tuple[torch.Tensor, attn.Cache]:
         """Forward + this layer's cache, zero beyond the prompt up to ``max_len``."""
-        b, s, _ = x.shape
-        q, k, v = attn._project_qkv(self.attn, self.ln1(x), positions)
-        out = attn.sdpa(self.attn.cfg, q, k, v, causal=True)
-        x = x + out.reshape(b, s, -1) @ self.attn.w_o.to(x.dtype)
-        cache = attn.init_gqa_cache(self.attn.cfg, b, max_len, k.dtype, device=k.device)
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
-        return self.ffn(x)[0], cache
+        h, cache = self.attn.prefill(self.ln1(x), positions, max_len)
+        return self.ffn(x + h)[0], cache
 
     def decode(
         self, x: torch.Tensor, cache: attn.Cache, position: int
     ) -> Tuple[torch.Tensor, attn.Cache]:
-        h, cache = attn.gqa_decode(self.attn, self.ln1(x), cache, position)
+        h, cache = self.attn.decode(self.ln1(x), cache, position)
         return self.ffn(x + h, decode=True)[0], cache
 
 
@@ -267,9 +266,11 @@ def forward(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 def init_caches(
     cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype, device=None
 ) -> Caches:
-    """One (B, max_len, K, hd) k/v pair per layer."""
+    """One cache a layer: a (B, max_len, K, hd) k/v pair (GQA), or MLA's
+    latents ``c_kv`` (B, max_len, kv_lora) and ``k_rope`` (B, max_len, rope)."""
     check_supported(cfg)
-    return [attn.init_gqa_cache(cfg, batch, max_len, dtype, device) for _ in range(cfg.num_layers)]
+    return [(attn.init_mla_cache if spec.mixer == "mla" else attn.init_gqa_cache)(
+        cfg, batch, max_len, dtype, device) for spec in layer_specs(cfg)]
 
 
 def prefill(model: LM, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Caches]:

@@ -1115,7 +1115,7 @@ def test_a_queued_chunk_is_not_overwritten_by_later_chunks(cuda_device):
 # its route; kv_len = 0 gives exactly zero gradients on both.
 FLASH_BWD_CASES = ["hd=64", "float32 S=T=1000", "hd=192 hd_v=128", "G=8",
                    "non-causal kv_len=777 T=1000", "kv_len=17 hd=36 hd_v=20", "kv_len=0",
-                   "granite training path"]
+                   "granite training path", "deepseek MLA training path"]
 
 
 @pytest.mark.parametrize("label", FLASH_BWD_CASES)
@@ -1174,7 +1174,7 @@ def test_flash_bwd_tc_plan_is_the_sources_and_refusals_raise(cuda_device):
                         assert want.smem <= 232_448
     kernel = kernels.KERNELS["flash_attention_bwd"]
     gen = torch.Generator(device=cuda_device).manual_seed(7)
-    for hd, dtype, exc in ((192, torch.bfloat16, RuntimeError), (128, torch.float32, TypeError)):
+    for hd, dtype, exc in ((96, torch.bfloat16, RuntimeError), (128, torch.float32, TypeError)):
         q, k, v, dout = (x.to(dtype) for x in _bwd_inputs(gen, cuda_device, hd))
         out, lse = flash_attention(q, k, v, return_lse=True)
         before = dict(kernel.route_launches)

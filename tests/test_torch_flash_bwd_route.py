@@ -2,7 +2,8 @@
 
 ``ops._route_bwd`` picks the backward's kernels from the tensors alone,
 before the launch: ``"tensor_core"`` (bf16 ``wgmma`` + TMA) for bfloat16 q,
-k, v, out and dout with hd and hd_v in {64, 128} that a tensor map takes,
+k, v, out and dout with (hd, hd_v) in {64, 128}² or MLA's (192, 128) that
+a tensor map takes,
 ``"fma"`` (float32 FMAs) for every other call. ``ops.bwd_tc_plan`` mirrors
 the C source's launch plan (blocks, threads, dynamic shared memory and
 scratch of the dq and dkdv kernels; held equal to
@@ -47,6 +48,8 @@ def _route_case(name):
         return _operands(64, 128)
     if name == "bf16 hd 128 hd_v 64":
         return _operands(128, 64)
+    if name == "bf16 MLA hd 192 hd_v 128":  # nope ⊕ rope against v, K = H, G = 1
+        return _operands(192, 128, g=1)
     if name == "the model's strided query view":  # q of a fused q|k|v projection, reshaped
         qkv = torch.zeros((1, 8, 2 * 3 + 2 * 2, 128), dtype=BF16)
         return qkv[:, :, :6].reshape(1, 8, 2, 3, 128), qkv[:, :, 6:8], qkv[:, :, 8:], out, dout
@@ -72,6 +75,7 @@ ROUTE_CASES = {
     "bf16 hd 64": "tensor_core",
     "bf16 hd 64 hd_v 128": "tensor_core",
     "bf16 hd 128 hd_v 64": "tensor_core",
+    "bf16 MLA hd 192 hd_v 128": "tensor_core",
     "the model's strided query view": "tensor_core",
     "float32": "fma",
     "bf16 out, float32 dout": "fma",
@@ -93,9 +97,12 @@ def test_route_rule(name):
 # (hd, hd_v) -> dynamic shared bytes of the dq and dkdv kernels: the dq
 # kernel's two slabs of q, dout and out and its two-stage K/V ring; the dkdv
 # kernel's two K and V tiles, its two-stage q/dout ring and their lse and D
-# slices; 40 bytes of mbarriers and 1,024 of alignment slack each
+# slices, and at hd 192 its accumulator of dk's last 64 columns (64 rows ×
+# 64 float32 a warpgroup); 40 bytes of mbarriers and 1,024 of alignment
+# slack each
 SMEM = {(64, 64): (82_984, 67_624), (64, 128): (132_136, 100_392),
-        (128, 64): (115_752, 100_392), (128, 128): (164_904, 133_160)}
+        (128, 64): (115_752, 100_392), (128, 128): (164_904, 133_160),
+        (192, 128): (197_672, 198_696)}
 
 
 @pytest.mark.parametrize("hd,hd_v", sorted(SMEM))
@@ -122,7 +129,20 @@ def test_plan_at_the_training_shape():
     assert ops.bwd_tc_plan("dkdv", 2, 1000, 1000, 2, 3, 64, 64).blocks == 32
 
 
-@pytest.mark.parametrize("hd,hd_v", [(32, 32), (36, 20), (192, 128), (128, 256), (256, 256),
+def test_plan_at_deepseeks_training_shape():
+    """MLA at deepseek-v2-236b: B=1, S=T=4,096, K=H=128, G=1, (hd, hd_v) =
+    (192, 128). The dq kernel's 64 position slabs, two a block, and the dkdv
+    kernel's 32 kv blocks, for each of the 128 heads; 197,672 and 198,696
+    shared bytes a block (the dkdv kernel's 32,768 of them a float32
+    accumulator of dk's 64 rope columns for each consumer warpgroup), both
+    under the card's 232,448."""
+    assert ops.bwd_tc_plan("dq", 1, 4096, 4096, 128, 1, 192, 128) == \
+        ops.BwdPlan(4096, 384, 197_672, 1_048_576)
+    assert ops.bwd_tc_plan("dkdv", 1, 4096, 4096, 128, 1, 192, 128) == \
+        ops.BwdPlan(4096, 384, 198_696, 1_048_576)
+
+
+@pytest.mark.parametrize("hd,hd_v", [(32, 32), (36, 20), (192, 192), (128, 256), (256, 256),
                                      (96, 128)])
 def test_plan_refuses_what_the_route_does_not_take(hd, hd_v):
     assert ops.bwd_tc_plan("dq", 1, 100, 100, 2, 3, hd, hd_v) is None
