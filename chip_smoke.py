@@ -158,9 +158,11 @@ a non-zero exit:
               dropped), 4d's tolerances, differing top-6 sets counted; (b)
               one full-width block's gradients (the dense layer 0) through
               the kernels against the einsum attention's, float32 and bf16;
-              (c) ``train.main --layers 1`` at batch 1 x 4,096: adamw 2
-              steps at the reference's rate (a reading) and 3 at ``--lr
-              3e-5`` (the first lowers the loss), epmcmc 2 chains 3 steps,
+              (c) ``train.main --layers 1`` at batch 1 x 4,096: adamw 3
+              steps at the reference's rate (its losses a reading), then
+              one ``lm_steps.train_step`` at 3e-5 on the same model and
+              batches, which lowers the loss on batches 0 and 1
+              (``adam_probe.first_step``), epmcmc 2 chains 3 steps,
               launches exact as 4i's (the backward at (192, 128) on
               ``tensor_core``);
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
@@ -194,7 +196,7 @@ a non-zero exit:
               tensor-core design's 7-product bound and the float32 FMA
               bound) and the forward there with and without lse, at the
               three training shapes (llama's, granite's, deepseek's MLA;
-              SDPA's kernels named, or its refusal printed);
+              SDPA's kernels named);
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -1495,12 +1497,13 @@ def mla_phase(dev, kernels, lm_config):
     the dense layer 0, its gradients through the kernels against the einsum
     path's (``block_grads``). (c) Training, ``train.main --layers 1`` (the
     dense layer: 1.39 B parameters) at batch 1 × 4,096, bf16, remat full,
-    the config's bf16 optimizer state: adamw 2 steps at the reference's rate,
-    3e-4 (a reading: its first step raises the loss at this depth), then 3
-    steps at 3e-5 (the first lowers the loss); epmcmc 2 chains × 1 layer 3
-    steps, burn-in 1, then the parametric
-    combine; flash 2 forward + 1 backward a layer a chain a step, all
-    ``tensor_core`` (the backward at (192, 128)). Peak memory, reckoned: adamw
+    the config's bf16 optimizer state: adamw 3 steps at the reference's rate,
+    3e-4 (its losses a reading: the first step raises the loss at this
+    depth), then one ``lm_steps.train_step`` at 3e-5 on the same model and
+    batches, which must lower the loss on batches 0 and 1; epmcmc 2 chains
+    × 1 layer 3 steps, burn-in 1, then the parametric combine; flash 2
+    forward + 1 backward a layer a chain a step, all ``tensor_core`` (the
+    backward at (192, 128)). Peak memory, reckoned: adamw
     holds p, g, μ and ν at 2 B each (11.1 GB) and AdamW's float32
     temporaries over its largest leaf, the embedding or the head (524 M
     elements, 2.1 GB each, ~6 alive: 12.6 GB), and the loss's (1, 4,096,
@@ -1516,7 +1519,7 @@ def mla_phase(dev, kernels, lm_config):
     route forward and backward, the record printed)."""
     import torch
 
-    from repro_torch.launch import serve
+    from repro_torch.launch import adam_probe, serve
     from repro_torch.models.lm import model as lm_model
     from repro_torch.models.lm import moe as moe_lib
     from repro_torch.models.lm import steps as lm_steps
@@ -1635,20 +1638,28 @@ def mla_phase(dev, kernels, lm_config):
         return train_run(kernels, cfg, base, label, argv, layers=1, chains=chains,
                          steps=steps, totals=totals, record=record)
 
-    # adamw at the reference's 3e-4, a reading (printed, not gated): at this
-    # one-layer depth its first step, which moves nearly every weight by the
-    # rate, raises the loss while the gradients hold to the einsum path's in
-    # (b); then the gated run at 3e-5, one step ten times smaller
-    out = run("(c) adamw 1 layer, lr 3e-4 (a reading)", ["--mode", "adamw", "--steps", "2"],
-              chains=1, steps=2)
-    record["adamw_lr3e-4_losses"] = [float(x) for x in out["losses"]]
+    # adamw at the reference's 3e-4: launches, time and memory; its losses a
+    # reading, not gated
+    out = run("(c) adamw 1 layer", ["--mode", "adamw", "--steps", "3"], chains=1, steps=3)
+    record["adamw_losses"] = [float(x) for x in out["losses"]]
     del out
     torch.cuda.empty_cache()
-    out = run("(c) adamw 1 layer, lr 3e-5", ["--mode", "adamw", "--steps", "3", "--lr", "3e-5"],
-              chains=1, steps=3)
-    if not out["losses"][1] < out["losses"][0]:
-        raise AssertionError(f"(c) adamw: the first step did not lower the loss: {out['losses']}")
-    del out
+    # the descent check: one lm_steps.train_step at 3e-5 on the model and
+    # batches train.main draws, the loss on batches 0 and 1 before and after.
+    # Not at 3e-4: Adam's first step is about rate·sign(g) on every weight,
+    # and at one layer that raises the loss (12.06 -> 28.27), most of it from
+    # the dense MLP (that part's step alone: batch 1's loss 12.06 -> 30.49);
+    # llama3.2-3b's at one layer too (12.37 -> 21.99); a plain gradient step
+    # of length 0.1 lowers both (adam_probe, PERF.md §6 PR 27, NVIDIA H100
+    # 80GB HBM3, 700.00 W)
+    descent = adam_probe.first_step(dataclasses.replace(cfg, num_layers=1), 3e-5, device=dev)
+    print(f"  (c) adamw first step at 3e-5 (lm_steps.train_step on batch 0): loss batch 0 "
+          f"{descent['before'][0]:.4f} -> {descent['after'][0]:.4f}, batch 1 "
+          f"{descent['before'][1]:.4f} -> {descent['after'][1]:.4f}", flush=True)
+    if not all(a < b for a, b in zip(descent["after"], descent["before"])):
+        raise AssertionError(f"(c) adamw: the first step at 3e-5 did not lower the loss: "
+                             f"{descent}")
+    record["adamw_first_step_3e-5"] = descent
     torch.cuda.empty_cache()
     label = "(c) epmcmc 2 chains x 1 layer"
     out = run(label, ["--mode", "epmcmc", "--steps", "3", "--burn-in", "1", "--chains", "2"],
@@ -1690,9 +1701,8 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
     dq and dkdv kernels (``torch.profiler``); the plain version (float32
     arithmetic); autograd of PyTorch's scaled_dot_product_attention's
     backward on the same tensors (the library yardstick; the port never
-    calls it; the kernels it ran named, or its refusal of the shape printed
-    in place of a time); and the forward with and without lse. Bound: the
-    backward's products, 2·(3·hd + 2·hd_v) flop per visible pair
+    calls it; the kernels it ran named); and the forward with and without
+    lse. Bound: the backward's products, 2·(3·hd + 2·hd_v) flop per visible pair
     (FlashAttention-2's five: S, dq and dk over hd, dP and dv over hd_v;
     2.5 times the forward's at hd = hd_v), over the bf16 tensor-core rate,
     against q, k, v, out, dout and lse read once and dq, dk, dv written
@@ -1738,23 +1748,17 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
     qh = q.reshape(B, S, K * G, hd).transpose(1, 2).detach().requires_grad_()
     kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (k, v))
     gout = dout.reshape(B, S, K * G, hd_v).transpose(1, 2)
-    lib_ms, backend = None, ""
     try:
-        try:
-            o = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
-            how = "enable_gqa"
-            lib_run = lambda: torch.autograd.grad(o, (qh, kh, vh), gout, retain_graph=True)  # noqa: E731
-        except TypeError:  # an older PyTorch: repeat the KV heads for it
-            kr, vr = (x.detach().repeat_interleave(G, dim=1).requires_grad_() for x in (kh, vh))
-            o = sdpa(qh, kr, vr, is_causal=True)
-            how = "KV heads repeated"
-            lib_run = lambda: torch.autograd.grad(o, (qh, kr, vr), gout, retain_graph=True)  # noqa: E731
-        lib_ms, _ = device_ms(lib_run, iters=10)
-        backend = sdpa_kernels(lib_run)
-        lib_text = f"{lib_ms * 1e3:.2f} us (kernels: {backend})"
-    except RuntimeError as exc:  # the library refuses the shape: a reading, not a fault
-        o = lib_run = None
-        how, lib_text = "refused", f"refused: {str(exc).splitlines()[0][:160]}"
+        o = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+        how = "enable_gqa"
+        lib_run = lambda: torch.autograd.grad(o, (qh, kh, vh), gout, retain_graph=True)  # noqa: E731
+    except TypeError:  # an older PyTorch: repeat the KV heads for it
+        kr, vr = (x.detach().repeat_interleave(G, dim=1).requires_grad_() for x in (kh, vh))
+        o = sdpa(qh, kr, vr, is_causal=True)
+        how = "KV heads repeated"
+        lib_run = lambda: torch.autograd.grad(o, (qh, kr, vr), gout, retain_graph=True)  # noqa: E731
+    lib_ms, _ = device_ms(lib_run, iters=10)
+    backend = sdpa_kernels(lib_run)
     # q, out, dout, k, v and lse read once; dq, dk, dv written once
     nbytes = 2 * (B * S * K * G * (hd + 2 * hd_v) + B * S * K * (hd + hd_v)) + 4 * B * S * K * G \
         + 2 * (B * S * K * G * hd + B * S * K * (hd + hd_v))
@@ -1771,7 +1775,8 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
           f"{tc['dkdv_ms'] * 1e3:.2f} us), fma route {fma_ms * 1e3:.2f} us (dq "
           f"{fm['dq_ms'] * 1e3:.2f} us, dkdv {fm['dkdv_ms'] * 1e3:.2f} us), plain "
           f"{plain * 1e3:.2f} us, scaled_dot_product_attention backward ({how}) "
-          f"{lib_text}, bound {bound * 1e3:.2f} us by {bound_by} at the bf16 "
+          f"{lib_ms * 1e3:.2f} us (kernels: {backend}), bound {bound * 1e3:.2f} us by "
+          f"{bound_by} at the bf16 "
           f"tensor-core rate ({flops:.4e} flop, {nbytes / 1e6:.1f} MB; the tensor-core design's "
           f"7 products {design * 1e3:.2f} us; {bound32 * 1e3:.2f} us at the float32 FMA rate); "
           f"the forward at this shape {fwd_ms * 1e3:.2f} us without lse, "
@@ -1779,7 +1784,7 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
     row = {"name": "flash_attention_bwd", "ms": ms, "cold_ms": cold, "host_ms": host,
            "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
            "bound_ms_design": design, "bound_ms_float32": bound32, "library_ms": lib_ms,
-           "library_kernels": backend if lib_ms is not None else lib_text,
+           "library_kernels": backend,
            "split_ms": split["tensor_core"],
            "fma_route": {"ms": fma_ms, "host_ms": fma_host, "split_ms": split["fma"]},
            "forward_ms": fwd_ms, "forward_lse_ms": fwd_lse_ms,
@@ -2483,8 +2488,10 @@ def main() -> int:
     # q·kᵀ and S·v, which a wrong descriptor or fragment cannot pass). Shapes:
     # the serving path's prefill (llama3.2-3b: 8 KV heads of 3 query heads,
     # hd 128, S = T = 4096, causal) in bf16 and float32, granite-moe-1b-a400m's
-    # (8 KV heads of 2, hd 64, S = T = 4096, at its training batch of 1), the
-    # reference tests'
+    # (8 KV heads of 2, hd 64, S = T = 4096, at its training batch of 1),
+    # deepseek-v2-236b's MLA prefill (128 KV heads of 1, hd 192, hd_v 128, S =
+    # T = 4096, B = 2) in bf16 and float32 (the plain versions a slice of heads
+    # at a time, flash_bwd_probe.plain_by_heads), the reference tests'
     # GQA / hd_v≠hd and ragged non-causal shapes, MLA's hd 192 with hd_v 128,
     # a kv_len inside the causal reach, and every row masked (kv_len 0: zeros,
     # no NaN), all of which but the serving path take the FMA route in
@@ -2493,8 +2500,9 @@ def main() -> int:
     # 128), q as the model's (B,S,H,hd) view into a fused projection, and
     # operands the tensor maps cannot take (a base 2 or 4 bytes off 16, a
     # bf16 row stride of 132), which go to the FMA route. Each case checks
-    # which route's count rose; the serving and granite path cases give the
-    # same bits in three more runs.
+    # which route's count rose; the serving, granite and deepseek path cases
+    # give the same bits in three more runs.
+    from repro_torch.launch.flash_bwd_probe import plain_by_heads
     from repro_torch.launch.flash_probe import check_tile as flash_check_tile
 
     flash_kernel = kernels.KERNELS["flash_attention"]
@@ -2508,6 +2516,8 @@ def main() -> int:
         "serving path float32": (2, 4096, 4096, 8, 3, 128, 128, True, None, f32),
         "granite path": (1, 4096, 4096, 8, 2, 64, 64, True, None, bf16),
         "granite path float32": (1, 4096, 4096, 8, 2, 64, 64, True, None, f32),
+        "deepseek path": (2, 4096, 4096, 128, 1, 192, 128, True, None, bf16),
+        "deepseek path float32": (2, 4096, 4096, 128, 1, 192, 128, True, None, f32),
         "GQA hd_v=16": (2, 128, 128, 2, 2, 32, 16, True, None, f32),
         "ragged non-causal S=100 T=160": (1, 100, 160, 1, 4, 16, 16, False, None, f32),
         "MLA hd=192 hd_v=128": (1, 300, 300, 4, 1, 192, 128, True, None, bf16),
@@ -2578,11 +2588,12 @@ def main() -> int:
         is32 = dtype == f32
         tag = f"flash_attention [{route}] {label} {(b, s, t, kh, g, hd, hd_v)} causal={causal} " \
               f"kv_len={kv_len} {str(dtype).split('.')[-1]}"
-        e64 = check_close(f"{tag} vs float64 plain", out, flash_attention_ref(
-            q.double(), k.double(), v.double(), causal=causal, kv_len=kv_len),
-            rtol=2e-5 if is32 else 1e-2, atol=2e-5 if is32 else 1e-2)
+        e64 = check_close(f"{tag} vs float64 plain", out, plain_by_heads(
+            flash_attention_ref, q.double(), k.double(), v.double(), causal=causal,
+            kv_len=kv_len), rtol=2e-5 if is32 else 1e-2, atol=2e-5 if is32 else 1e-2)
         e32 = check_close(f"{tag} vs {'float32' if is32 else 'bfloat16'} plain", out,
-                          flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len),
+                          plain_by_heads(flash_attention_ref, q, k, v, causal=causal,
+                                         kv_len=kv_len),
                           rtol=1e-4 if is32 else 1e-2, atol=1e-4 if is32 else 1e-2)
         errs["flash_attention"] = max(errs.get("flash_attention", 0.0), e64)
         err32["flash_attention"] = max(err32.get("flash_attention", 0.0), e32)
@@ -2605,7 +2616,8 @@ def main() -> int:
     # against the plain version in float64 and in the case's dtype (float32
     # 2e-4, bf16 2e-2, of max|g| plus as much of |g|: P and dS round to bf16
     # in the kernel), at the training shape (B=1, S=T=4096, K=8, G=3, hd=128,
-    # bf16, causal, three more runs the same bits), float32, hd 64 and 256,
+    # bf16, causal, three more runs the same bits; granite's and deepseek's
+    # too), float32, hd 64 and 256,
     # hd 192 with hd_v 128, G 1, 8 and 64, non-causal, ragged S and T,
     # kv_len < T and kv_len = 0 (exactly zero gradients); one launch a call,
     # counted on its route. Every case runs on the FMA route, and those that

@@ -8,15 +8,17 @@ runs the same checks as part of phase 3, and times the backward in phase 5).
 Builds the kernels and prints the backward source's ptxas report (registers,
 spills, shared memory) and the count of ``HGMMA`` instructions in each of its
 kernels (``cuobjdump -sass``). Then, on each case of :data:`CASES` (the
-training paths' shapes, llama3.2-3b's and granite-moe-1b-a400m's, deepseek's
-MLA (hd 192, hd_v 128, K = H, G = 1) at S = T = 1,000, float32,
+training paths' shapes, llama3.2-3b's, granite-moe-1b-a400m's and
+deepseek-v2-236b's MLA (hd 192, hd_v 128, K = H = 128, G = 1), the MLA
+dims at K 4, S = T = 1,000 too, float32,
 head dims 64 / 192 with hd_v 128 / 256, G of 1, 3, 8 and 64, non-causal,
 ragged S and T, ``kv_len < T`` and ``kv_len = 0``), the forward kernel's ``out`` and ``lse`` go into the backward on every
 route that takes the case (the ``fma`` route takes all; ``tensor_core`` the
 bf16 cases at (hd, hd_v) in ``ops.BWD_TC_HEAD_DIMS``, ``ops._route_bwd``), whose dq, dk and dv
 are held to the plain version on the same inputs in float64 and in their
 own dtype and, where both routes ran, to each other (:func:`check_case`,
-tolerances there); a ``kv_len = 0`` case must give exactly zero gradients.
+tolerances there; the plain versions a slice of heads at a time,
+:func:`plain_by_heads`); a ``kv_len = 0`` case must give exactly zero gradients.
 Three more runs of each training shape give the same bits. Every forward
 route's lse is held to the float64 plain lse (:func:`check_lse`). Last, the
 backward at llama3.2-3b's and deepseek-v2-236b's training shapes on each
@@ -47,6 +49,7 @@ MLA_TRAINING = (1, 4096, 4096, 128, 1, 192, 128, True, None, BF16)  # deepseek-v
 CASES: Dict[str, Tuple] = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype)
     "training path": TRAINING,
     "granite training path": MOE_TRAINING,
+    "deepseek training path": MLA_TRAINING,
     "deepseek MLA training path": (1, 1000, 1000, 4, 1, 192, 128, True, None, BF16),
     "float32 S=T=1000": (1, 1000, 1000, 2, 3, 128, 128, True, None, F32),
     "hd=64": (2, 200, 200, 2, 3, 64, 64, True, None, BF16),
@@ -65,6 +68,8 @@ CASES: Dict[str, Tuple] = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len,
     "float32 kv_len=0": (1, 65, 65, 1, 5, 8, 8, True, 0, F32),
 }
 LAUNCHES = 10
+# score entries (B·K·G·S·T) a plain call holds at once: 4.3 GB a tensor in float64
+PLAIN_ELEMENTS = 1 << 29
 
 # Tolerances, each against the plain version on the same inputs (the kernel
 # forward's out and lse included), as |got − want| ≤ tol·max|want| + tol·|want|
@@ -91,6 +96,21 @@ def _close(got: torch.Tensor, want: torch.Tensor, tol: float) -> Tuple[float, bo
     limit = tol * float(want.abs().max()) + tol * want.abs()
     return float(err.max()) if err.numel() else 0.0, bool(torch.isfinite(got).all()) and bool(
         (err <= limit).all())
+
+
+def plain_by_heads(fn: Callable, *xs: torch.Tensor, **kw):
+    """``fn``, a plain version, on ``xs`` a slice of kv heads at a time (axis 2
+    of every operand), its results joined on that axis: the same values, as
+    heads do not mix, in the card's memory at deepseek's 128 heads, where
+    one (B, K, G, S, T) float64 score tensor at B = 2, S = T = 4,096 is 34 GB."""
+    b, s, kh, g = xs[0].shape[:4]
+    step = max(1, PLAIN_ELEMENTS // (b * g * s * xs[1].shape[1]))
+    if step >= kh:
+        return fn(*xs, **kw)
+    parts = [fn(*(x[:, :, i:i + step] for x in xs), **kw) for i in range(0, kh, step)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=2)
+    return tuple(torch.cat(p, dim=2) for p in zip(*parts))
 
 
 def routes_of(q, k, v, out, dout) -> Tuple[str, ...]:
@@ -120,9 +140,11 @@ def check_case(gen: torch.Generator, label: str, case: Tuple,
     b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype = case
     q, k, v, dout = operands(gen, b, s, t, kh, g, hd, hd_v, dtype)
     out, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len, return_lse=True)
-    want64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, lse, dout)),
-                                     causal=causal, kv_len=kv_len)
-    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, kv_len=kv_len)
+    want64 = plain_by_heads(flash_attention_bwd_ref,
+                            *(x.double() for x in (q, k, v, out, lse, dout)),
+                            causal=causal, kv_len=kv_len)
+    want = plain_by_heads(flash_attention_bwd_ref, q, k, v, out, lse, dout, causal=causal,
+                          kv_len=kv_len)
     tol, name = TOL[dtype], str(dtype).split('.')[-1]
     e64 = e32 = 0.0
     all_ok, results = True, {}
@@ -157,7 +179,7 @@ def check_case(gen: torch.Generator, label: str, case: Tuple,
         all_ok = all_ok and ok
         log(f"  flash_attention_bwd {label}: tensor_core vs fma max_abs_err={worst:.3e} "
             f"{'ok' if ok else 'FAIL'}")
-    if all_ok and case in (TRAINING, MOE_TRAINING):  # deterministic: no float atomics
+    if all_ok and case in (TRAINING, MOE_TRAINING, MLA_TRAINING):  # deterministic: no float atomics
         got = results[routes_of(q, k, v, out, dout)[0]]
         again = [flash_attention_bwd(q, k, v, out, lse, dout, causal=causal) for _ in range(3)]
         all_ok = all(torch.equal(x, y) for run in again for x, y in zip(run, got))

@@ -18,10 +18,9 @@ replays the exact stream. Checkpoints go through the port's async
 :class:`~repro_torch.checkpoint.Checkpointer` every ``--ckpt-every`` steps
 with the chains' generator states, and ``--resume`` restarts from the
 newest one bit for bit (the chain count must be the checkpoint's). Beyond
-the reference's flags: ``--device`` (``cuda`` unless ``cpu``),
-``--layers`` (cut the depth, the width unchanged; 0 keeps the config's)
-and ``--lr`` (AdamW's rate under ``--mode adamw``; the reference's fixed
-3e-4 by default). The dense and MoE families, GQA or MLA
+the reference's flags: ``--device`` (``cuda`` unless ``cpu``) and
+``--layers`` (cut the depth, the width unchanged; 0 keeps the config's).
+The dense and MoE families, GQA or MLA
 (``check_supported``): ``--arch granite-moe-1b-a400m`` and ``--arch
 deepseek-v2-236b`` train with the MoE aux loss in the total; other archs
 raise.
@@ -66,7 +65,6 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="tokens per data shard N_m (0 = batch*seq*100)")
     ap.add_argument("--reduced", action="store_true", help="CPU smoke config")
     ap.add_argument("--layers", type=int, default=0, help="cut the depth (0 = the config's)")
-    ap.add_argument("--lr", type=float, default=3e-4, help="AdamW's rate (--mode adamw)")
     ap.add_argument("--mesh", default="host", choices=["host", "pod", "multipod"])
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -210,7 +208,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         for step in range(start_step, args.steps):
             batch = stream.batch(step)
             t0 = time.perf_counter()
-            model, opt, metrics = lm_steps.train_step(model, opt, batch, cfg, lr=args.lr)
+            model, opt, metrics = lm_steps.train_step(model, opt, batch, cfg)
             _sync(device)
             step_s.append(time.perf_counter() - t0)
             losses.append(metrics["loss"].float().cpu())

@@ -12,8 +12,10 @@ scratch of the dq and dkdv kernels; held equal to
 of its loops. Here, on the CPU: the rule on each kind of operand, the
 plan's shared memory within the card's 232,448 bytes a block, and the
 pairs exactly those that hold a visible position under the plain
-version's mask (``ref._mask``), each once. The kernels themselves run only
-on the card (``tests/test_torch_cuda.py``).
+version's mask (``ref._mask``), each once; and the card checks' plain
+versions taken a slice of heads at a time (``flash_bwd_probe.plain_by_heads``)
+equal to the whole call. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import pytest
@@ -21,7 +23,11 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
-from repro_torch.kernels.flash_attention.ref import _mask
+from repro_torch.kernels.flash_attention.ref import (
+    _mask,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
 from repro_torch.models.lm import flash as model_flash
 from test_torch_threads import pin_torch_threads
 
@@ -211,3 +217,28 @@ def test_model_backward_hands_the_kernel_a_dout_tma_takes(monkeypatch):
     model_flash.flash_attention(q, k, v).sum().backward()
     assert seen == [(True, True, "tensor_core")]
     assert all(x.grad is not None and bool(torch.isfinite(x.grad.float()).all()) for x in (q, k, v))
+
+
+@pytest.mark.parametrize("kv_len", [None, 5])
+@pytest.mark.parametrize("plain", ["forward", "backward"])
+def test_plain_by_heads_equals_the_whole_call(monkeypatch, plain, kv_len):
+    """Five kv heads in slices of two (the limit cut to two heads' scores)
+    give the whole call's out, or dq, dk and dv, in float64."""
+    from repro_torch.launch import flash_bwd_probe as probe
+
+    gen = torch.Generator().manual_seed(5)
+    b, s, kh, g, hd, hd_v = 2, 9, 5, 3, 12, 8
+    q, k = torch.randn((b, s, kh, g, hd), generator=gen), torch.randn((b, s, kh, hd), generator=gen)
+    v = torch.randn((b, s, kh, hd_v), generator=gen)
+    xs = tuple(x.double() for x in (q, k, v))
+    fn = flash_attention_ref
+    if plain == "backward":
+        out, lse = flash_attention_ref(*xs, kv_len=kv_len, return_lse=True)
+        xs += (out, lse, torch.randn((b, s, kh, g, hd_v), generator=gen).double())
+        fn = flash_attention_bwd_ref
+    want = fn(*xs, kv_len=kv_len)
+    monkeypatch.setattr(probe, "PLAIN_ELEMENTS", 2 * b * g * s * s)
+    got = probe.plain_by_heads(fn, *xs, kv_len=kv_len)
+    for a, w in zip(*((got, want) if plain == "backward" else ((got,), (want,)))):
+        assert a.shape == w.shape
+        torch.testing.assert_close(a, w, rtol=1e-12, atol=1e-12)
