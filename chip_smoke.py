@@ -111,7 +111,8 @@ a non-zero exit:
               draws, interrupted and resumed bitwise; (c) 4g's eight cells
               through ``run_matrix(backend="mesh_fanout")``, every row 4g's;
               (d) ``python -m repro_torch.api.launch`` in 1 and 2 processes
-              on cuda:0 (a ``TCPStore`` on a free local port), logreg/MALA
+              on cuda:0, the two launches at once (a ``TCPStore`` on a free
+              local port), logreg/MALA
               and Poisson/Gibbs: the 2-process ``online`` samples bitwise the
               1-process ones, each rank's bytes through the store exactly
               its moments and acceptance rates; the walls of every part;
@@ -165,6 +166,23 @@ a non-zero exit:
               (``adam_probe.first_step``), epmcmc 2 chains 3 steps,
               launches exact as 4i's (the backward at (192, 128) on
               ``tensor_core``);
+4l. ssm     — the ssm family at mamba2-130m's full width (24 layers, d 768,
+              d_inner 1,536, 24 SSM heads of 64, d_state 128, chunk 256),
+              attention-free, so every kernel's launch count stays 0 but
+              (d)'s one generic ``img_log_weights`` (weierstrass): (a)
+              ``serve.main`` at B=2, prompt 4,096, 16 generated, bf16 and
+              float32, cold and warm, the cache's bytes a sequence, the
+              decode-vs-forward invariant (forward's sequence padded to
+              whole chunks; 4d's tolerances); (b) ``long_500k``, B=1,
+              prompt 524,288: prefill s, decode ms a token, peak memory,
+              per layer ``ssm_state_after``'s state against the chunk
+              recurrence in float64, the first decoded token's logits
+              against the chunked forward's (a reading beside (a)'s bf16
+              tolerance); (c) ``train.main`` at batch 8 x 4,096: adamw 4
+              steps, one ``train_step`` at 3e-5 lowering the loss, epmcmc 4
+              chains x 24 layers, sgd 2 chains; (d) ``lm_bayes_sgld.main
+              (["--full-width"])`` on the reference's model: the (4, 40, 768)
+              history, the restored Welford count exact, finite draws;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
@@ -212,6 +230,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and float32 rate
 # outside the tensor cores; the bound of a kernel is the larger of
@@ -316,8 +335,11 @@ CPU_L2_OTHER = {
 DEGENERATE = {"gmm rwmh": ("parametric", "semiparametric")}
 
 
+T_IMPORT = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_IMPORT:.1f} s)", flush=True)
 
 
 def check_close(label, got, want, *, rtol, atol):
@@ -815,15 +837,22 @@ def launch_ranks(root: str, args, nproc: int, out_dir: str):
 
 def forward_tail(model, out):
     """forward(prompt + generated[:-1])'s logits at the positions whose next
-    token a serving run chose (prefill's last, then each decode), float32."""
+    token a serving run chose (prefill's last, then each decode), float32;
+    for a Mamba-2 model the sequence padded to whole SSD chunks first."""
     import torch
 
     from repro_torch.models.lm import model as lm_model
 
     seq = torch.cat([out["prompt"], out["tokens"][:, :-1]], dim=1)
+    n = seq.shape[1]
+    ssm = model.cfg.ssm
+    if ssm is not None and n > ssm.chunk and n % ssm.chunk:
+        # the chunked SSD takes whole chunks: pad with token 0 to the next
+        # one; the model is causal, so the first n positions are unchanged
+        seq = torch.cat([seq, seq.new_zeros((seq.shape[0], -n % ssm.chunk))], dim=1)
     with torch.inference_mode():
         logits, _ = lm_model.forward(model, seq)
-        tail = logits[:, -out["tokens"].shape[1]:].to(torch.float32, copy=True)
+        tail = logits[:, n - out["tokens"].shape[1]:n].to(torch.float32, copy=True)
     del logits
     torch.cuda.empty_cache()
     return tail
@@ -982,10 +1011,12 @@ def step_split(out, cfg, argv, dev, sync):
     return fwd_bwd, time.perf_counter() - t0 - fwd_bwd
 
 
-def train_run(kernels, cfg, base, label, argv, *, layers, chains, steps, totals, record):
+def train_run(kernels, cfg, base, label, argv, *, layers, chains, steps, totals, record,
+              attention_layers=None):
     """``train.main(base + argv)`` with the counts reset: flash launches exact
-    (2 forward, by the remat recompute, and 1 backward a layer a chain a
-    step, every one on the bf16 tensor-core routes), losses finite, an
+    (2 forward, by the remat recompute, and 1 backward an attention layer
+    (``attention_layers``, all ``layers`` unless given: 0 for Mamba-2) a
+    chain a step, every one on the bf16 tensor-core routes), losses finite, an
     epmcmc run's parametric product finite; one more step split
     (``step_split``); s a step and peak memory printed. Adds the run's
     launches to ``totals`` (by kernel, the forward's by route, the
@@ -1006,7 +1037,7 @@ def train_run(kernels, cfg, base, label, argv, *, layers, chains, steps, totals,
     wall = time.perf_counter() - t0
     counts, routes = kernels.launch_counts(), dict(fwd_kernel.route_launches)
     routes_bwd = dict(bwd_kernel.route_launches)
-    calls = layers * chains * steps
+    calls = (layers if attention_layers is None else attention_layers) * chains * steps
     want = {n: {"flash_attention": 2 * calls, "flash_attention_bwd": calls}.get(n, 0)
             for n in counts}
     if (counts != want or routes.get("tensor_core") != 2 * calls
@@ -1679,6 +1710,297 @@ def mla_phase(dev, kernels, lm_config):
     return launches_serve, routes_serve, launches_train, routes_train, routes_train_bwd, record
 
 
+def chunk_state(xs, b_, dt, a_log_param, cfg, dtype):
+    """The recurrent state after the last chunk, by the chunked forward's
+    own decomposition (cumulative decays within a chunk, the chunk
+    summaries, then the chunks' recurrence) in ``dtype``, from
+    ``_project``'s outputs ``xs`` (B, S, d_inner), ``b_`` (B, S, N) and
+    ``dt`` (B, S, H). float32 runs the recurrence chunk after chunk, as the
+    forward does; float64 sums each chunk's decay to the end as the exp of a
+    suffix sum of the chunks' log decays (2,048 terms at 524,288: exact to
+    float64 rounding), the reference the two float32 forms are held to."""
+    import torch
+
+    b, seq, n_heads = dt.shape
+    hd, n = cfg.ssm.head_dim, cfg.ssm.d_state
+    q = min(cfg.ssm.chunk, seq)
+    chunks = seq // q
+    dtc = dt.to(dtype).reshape(b, chunks, q, n_heads)
+    cum = torch.cumsum(-torch.exp(a_log_param.to(dtype)) * dtc, dim=2)
+    scale = torch.exp(cum[:, :, -1:] - cum) * dtc
+    summary = torch.einsum("blqhd,blqn->blhdn",
+                           xs.to(dtype).reshape(b, chunks, q, n_heads, hd) * scale[..., None],
+                           b_.to(dtype).reshape(b, chunks, q, n))
+    log_total = cum[:, :, -1]  # (B, L, H)
+    del dtc, cum, scale
+    if dtype == torch.float64:
+        after = torch.flip(torch.cumsum(torch.flip(log_total, [1]), 1), [1]) - log_total
+        return torch.einsum("blh,blhdn->bhdn", torch.exp(after), summary)
+    total = torch.exp(log_total)
+    h = torch.zeros((b, n_heads, hd, n), dtype=dtype, device=dt.device)
+    for i in range(chunks):
+        h = h * total[:, i, :, None, None] + summary[:, i]
+    return h
+
+
+def ssm_phase(dev, kernels, lm_config):
+    """Phase 4l: the ssm family at mamba2-130m's full width (24 layers, d
+    768, d_inner 1,536, 24 SSM heads of 64, d_state 128, chunk 256, d_conv 4,
+    tied vocab 50,280: 129.0 M parameters; random weights from the seed).
+    Attention-free: no kernel of the port lies on the model's path, and
+    every kernel's launch count stays 0 through (a)–(c); (d)'s combination
+    stage launches ``img_log_weights`` once (weierstrass, generic route). (a) Serving,
+    ``serve.main`` at B = 2 × 4,096 + 16 in bf16 and float32: cold and warm
+    prefill s and decode ms a token, the cache's bytes a sequence (conv
+    windows and the recurrent state, the same at every length), and the
+    decode-vs-forward invariant on forward's sequence padded to whole chunks:
+    float32 within 2e-3, bf16 within twice bf16's own error (4d's rule).
+    (b) ``long_500k``, B = 1 × 524,288 + 16, bf16: prefill s, decode ms a
+    token, peak ``max_memory_allocated``; per layer, the largest gap of
+    ``ssm_state_after``'s h (one float32 cumsum over the prompt, the
+    reference's arithmetic) from the chunk recurrence's state in float64,
+    relative to the latter's largest entry, beside the float32 chunk
+    recurrence's gap (the forward's own order), all from the same
+    ``_project`` outputs; and the first decoded token's logits against the
+    chunked forward's at position 524,288 (prompt + that token padded to
+    524,544, the head at two positions), beside the prefill's against
+    position 524,287. Gated: finite logits; the gap is a reading, set beside
+    (a)'s bf16 tolerance. (c) Training, ``train.main`` at batch 8 × 4,096
+    (``train_4k``'s batch of 256 cut to 8), bf16, remat full: adamw 4 steps
+    at the reference's 3e-4 (its losses a reading), then one
+    ``lm_steps.train_step`` at 3e-5 that must lower the loss on batches 0
+    and 1 (``adam_probe.first_step``); epmcmc 4 chains × 24 layers 3 steps,
+    burn-in 1; sgd 2 chains 2 steps; s a step split into forward + backward
+    and the rest, peak memory. (d) The EP-MCMC driver at the reference's
+    model, ``lm_bayes_sgld.main(["--full-width"])`` (4 chains, batch 4, seq
+    128, 60 steps, burn-in 20): the (4, 40, 768) history, the restored
+    step-50 Welford count exactly 30 a chain, finite combined draws.
+    Returns (the bf16 serving run's launches, the training runs' launches,
+    the driver's launches, the record printed)."""
+    import torch
+
+    from repro_torch.launch import adam_probe, lm_bayes_sgld, serve
+    from repro_torch.models.lm import mamba2 as m2
+    from repro_torch.models.lm import model as lm_model
+    from repro_torch.models.lm import steps as lm_steps
+
+    arch = "mamba2-130m"
+    phase(f"4l ssm: {arch} full width (24 layers, d 768, d_inner 1536, 24 heads of 64, "
+          "d_state 128, chunk 256): serve B=2 S=4096 (bf16, float32), long_500k B=1 S=524288, "
+          "train batch 8 x 4096, lm_bayes_sgld --full-width")
+    cfg = lm_config(arch)
+    gen_len, record = 16, {}
+
+    def idle(label):
+        counts = kernels.launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"{label} launched {counts}: no kernel lies on the ssm path")
+        return counts
+
+    def serve_argv(batch, prompt_len, dtype):
+        return ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len), "--gen",
+                str(gen_len), "--seed", "0", "--dtype", dtype]
+
+    part_s, t_part = {}, time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        part_s[name] = time.perf_counter() - t_part
+        print(f"  ({name}) took {part_s[name]:.1f} s", flush=True)
+        t_part = time.perf_counter()
+
+    # (a) serving at 4,096: the CLI's run cold, then the same weights warm
+    outs, models = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        argv = serve_argv(2, 4096, dtype)
+        kernels.reset_launches()
+        out = serve.main(argv)
+        torch.cuda.synchronize()
+        counts = idle(f"(a) serve {dtype}")
+        if dtype == "bfloat16":
+            launches_serve = counts
+        tokens = out["tokens"]
+        if tokens.shape != (2, gen_len) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"(a) serve {dtype}: tokens {tuple(tokens.shape)} out of range")
+        _, model, prompt = serve.setup(serve.parse(argv))
+        if not torch.equal(prompt, out["prompt"]):
+            raise AssertionError("serve.setup drew another prompt from the same seed")
+        warm = serve.generate(model, prompt, gen_len)
+        if not torch.equal(warm["tokens"], tokens):
+            raise AssertionError(f"(a) serve {dtype}: a warm run generated other tokens")
+        state = lm_steps.serve_prefill(model, {"tokens": prompt}, 4096 + gen_len)
+        cache_bytes = sum(c.nbytes() for c in state.caches) // 2
+        print(f"  (a) serve {dtype}: prefill_s={out['prefill_s']:.4f} decode_ms_per_tok="
+              f"{out['decode_s_per_tok'] * 1e3:.3f} (warm {warm['prefill_s']:.4f} s, "
+              f"{warm['decode_s_per_tok'] * 1e3:.3f} ms, the same tokens); cache "
+              f"{cache_bytes} bytes a sequence ({cache_bytes / 1e6:.2f} MB: conv windows and "
+              f"h, the same at every length); launches {json.dumps(counts)}", flush=True)
+        record[f"serve_{dtype}"] = {
+            "prefill_s": out["prefill_s"], "decode_s_per_tok": out["decode_s_per_tok"],
+            "warm_prefill_s": warm["prefill_s"], "warm_decode_s_per_tok": warm["decode_s_per_tok"],
+            "cache_bytes_per_sequence": cache_bytes}
+        outs[dtype], models[dtype] = out, model
+        del state, warm
+    gap32 = invariant("(a) float32 decode vs forward (padded to whole chunks)", outs["float32"],
+                      forward_tail(models["float32"], outs["float32"]), 2e-3)
+    fwd16 = forward_tail(models["bfloat16"], outs["bfloat16"])
+    dev16 = float((fwd16 - forward_tail(models["float32"], outs["bfloat16"])).abs().max())
+    print(f"  (a) bfloat16 forward vs float32 forward on the same tokens: max |diff| = "
+          f"{dev16:.4e}", flush=True)
+    tol16 = 2.0 * dev16
+    gap16 = invariant("(a) bfloat16 decode vs forward (padded to whole chunks)",
+                      outs["bfloat16"], fwd16, tol16)
+    record["invariant_gap"] = {"float32": gap32, "bfloat16": gap16}
+    record["bfloat16_vs_float32"] = dev16
+    del outs, models, fwd16
+    torch.cuda.empty_cache()
+    part_done("a")
+
+    # (b) long_500k: the CLI's run, then per-layer state gaps and the first
+    # decoded token against the chunked forward, on the same weights
+    prompt_len = 524_288
+    argv = serve_argv(1, prompt_len, "bfloat16")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    out = serve.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    idle("(b) long_500k serve")
+    if not bool(torch.isfinite(out["logits"]).all()):
+        raise AssertionError("(b) long_500k: the logits are not all finite")
+    cache_bytes = sum(c.nbytes() for c in lm_model.init_caches(cfg, 1, 1, torch.bfloat16,
+                                                                device=dev))
+    print(f"  (b) long_500k serve bf16, B=1 x {prompt_len} + {gen_len}: prefill_s="
+          f"{out['prefill_s']:.4f} decode_ms_per_tok={out['decode_s_per_tok'] * 1e3:.3f}; peak "
+          f"max_memory_allocated {peak / 1e9:.2f} GB; cache {cache_bytes} bytes (as at 4,096)",
+          flush=True)
+    _, model, prompt = serve.setup(serve.parse(argv))
+    if not torch.equal(prompt, out["prompt"]):
+        raise AssertionError("serve.setup drew another prompt from the same seed")
+    pad = -(prompt_len + 1) % cfg.ssm.chunk
+    seq = torch.cat([prompt, out["tokens"][:, :1], prompt.new_zeros((1, pad))], dim=1)
+    after, chunked = [], []
+    with torch.inference_mode():
+        h, positions = lm_model._inputs_to_h(model, seq)
+        for block in model.blocks:
+            x = block.ln1(h)[:, :prompt_len]
+            h_after = m2.ssm_state_after(block.mamba, x).h
+            _, xs, b_, _, dt = m2._project(block.mamba, x)
+            del x
+            h64 = chunk_state(xs, b_, dt, block.mamba.A_log, cfg, torch.float64)
+            h32 = chunk_state(xs, b_, dt, block.mamba.A_log, cfg, torch.float32)
+            del xs, b_, dt
+            top = float(h64.abs().max())
+            after.append(float((h_after.double() - h64).abs().max()) / top)
+            chunked.append(float((h32.double() - h64).abs().max()) / top)
+            del h_after, h64, h32
+            h, _ = block(h, positions)
+        head = model.head(h[:, prompt_len - 1:prompt_len + 1]).float()
+    del h
+    torch.cuda.empty_cache()
+    gap_first = float((out["logits"][:, 1] - head[:, 1]).abs().max())
+    gap_prefill = float((out["logits"][:, 0] - head[:, 0]).abs().max())
+    print("  (b) per layer, max |h - h64| / max |h64| against the chunk recurrence in float64: "
+          f"ssm_state_after (one float32 cumsum over the prompt) "
+          f"{json.dumps([float(f'{g:.4e}') for g in after])}; the float32 chunk recurrence "
+          f"{json.dumps([float(f'{g:.4e}') for g in chunked])}", flush=True)
+    passes = gap_first > tol16
+    print(f"  (b) the first decoded token's logits vs the chunked forward's at position "
+          f"{prompt_len} (the sequence padded to {seq.shape[1]}): max |diff| = {gap_first:.4e}; "
+          f"the prefill's vs position {prompt_len - 1}: {gap_prefill:.4e}; (a)'s bf16 tolerance "
+          f"at 4,096 {tol16:.4e}: the gap "
+          + ("passes it (a property of the reference's ssm_state_after: ROADMAP Queue 3)"
+             if passes else "lies within it"), flush=True)
+    record["long_500k"] = {
+        "prefill_s": out["prefill_s"], "decode_s_per_tok": out["decode_s_per_tok"],
+        "peak_gb": peak / 1e9, "cache_bytes": cache_bytes,
+        "state_gap_ssm_state_after": after, "state_gap_chunked_float32": chunked,
+        "first_token_logit_gap": gap_first, "prefill_logit_gap": gap_prefill,
+        "tolerance_at_4096": tol16}
+    del out, model, prompt, seq, head
+    torch.cuda.empty_cache()
+    part_done("b")
+
+    # (c) training at batch 8 x 4,096
+    launches_train = {name: 0 for name in kernels.KERNELS}
+    totals = (launches_train, {r: 0 for r in kernels.KERNELS["flash_attention"].route_launches},
+              {r: 0 for r in kernels.KERNELS["flash_attention_bwd"].route_launches})
+    base = ["--arch", arch, "--batch", "8", "--seq", "4096", "--log-every", "1", "--seed", "0"]
+
+    def run(label, argv, *, chains, steps):
+        out = train_run(kernels, cfg, base, label, argv, layers=cfg.num_layers, chains=chains,
+                        steps=steps, totals=totals, record=record, attention_layers=0)
+        idle(label)
+        return out
+
+    out = run("(c) adamw", ["--mode", "adamw", "--steps", "4"], chains=1, steps=4)
+    record["adamw_losses"] = [float(x) for x in out["losses"]]
+    del out
+    torch.cuda.empty_cache()
+    descent = adam_probe.first_step(cfg, 3e-5, batch=8, seq=4096, device=dev)
+    print(f"  (c) adamw first step at 3e-5 (lm_steps.train_step on batch 0): loss batch 0 "
+          f"{descent['before'][0]:.4f} -> {descent['after'][0]:.4f}, batch 1 "
+          f"{descent['before'][1]:.4f} -> {descent['after'][1]:.4f}", flush=True)
+    if not all(a < b for a, b in zip(descent["after"], descent["before"])):
+        raise AssertionError(f"(c) adamw: the first step at 3e-5 did not lower the loss: "
+                             f"{descent}")
+    record["adamw_first_step_3e-5"] = descent
+    torch.cuda.empty_cache()
+    label = "(c) epmcmc 4 chains x 24 layers"
+    out = run(label, ["--mode", "epmcmc", "--steps", "3", "--burn-in", "1", "--chains", "4"],
+              chains=4, steps=3)
+    count, finite = out["welford_count"], out["combined_finite"]
+    print(f"  {label}: Welford count {count}, combine_parametric_diag over "
+          f"{out['combined_dims']} dims finite {finite}", flush=True)
+    if count != [2.0] * 4 or not finite:
+        raise AssertionError(f"{label}: Welford count {count} (want 2 a chain), combined "
+                             f"finite {finite}")
+    del out
+    torch.cuda.empty_cache()
+    run("(c) sgd 2 chains", ["--mode", "sgd", "--steps", "2", "--chains", "2"], chains=2, steps=2)
+    torch.cuda.empty_cache()
+    part_done("c")
+
+    # (d) the EP-MCMC driver on the reference's own model
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = lm_bayes_sgld.main(["--full-width"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the LM's chains launch nothing; the combination stage's weierstrass
+    # runs the IMG log-weight kernel once on its generic route (the final
+    # states, as on the MCMC paths)
+    counts = kernels.launch_counts()
+    routes = dict(kernels.KERNELS["img_log_weights"].route_launches)
+    want = {name: int(name == "img_log_weights") for name in counts}
+    if counts != want or routes.get("generic") != 1:
+        raise AssertionError(f"(d) lm_bayes_sgld launched {counts} (img_log_weights by route "
+                             f"{routes}), expected one generic img_log_weights launch")
+    launches_driver = counts
+    history, restored = res["history"], res["restored"]
+    finite = bool(torch.isfinite(res["combined"].samples).all())
+    print(f"  (d) lm_bayes_sgld --full-width ({arch}, 4 chains, batch 4 x 128, 60 steps, burn-in "
+          f"20): history {tuple(history.shape)}, restored step {res['restored_step']} with "
+          f"Welford counts {restored.m_count.tolist()}, combined draws "
+          f"{tuple(res['combined'].samples.shape)} finite {finite}; wall {wall:.2f} s; "
+          f"launches {json.dumps(counts)}, img_log_weights by route {json.dumps(routes)}",
+          flush=True)
+    if (tuple(history.shape) != (4, 40, 768) or res["restored_step"] != 50
+            or restored.m_count.tolist() != [30.0] * 4 or not finite):
+        raise AssertionError("(d) lm_bayes_sgld: history, restore or combination wrong")
+    record["lm_bayes_sgld_wall_s"] = wall
+    del res, history, restored
+    torch.cuda.empty_cache()
+    part_done("d")
+    record["part_s"] = part_s
+    print(f"  4l launches: serve {json.dumps(launches_serve)}; train "
+          f"{json.dumps(launches_train)}; lm_bayes_sgld {json.dumps(launches_driver)}",
+          flush=True)
+    print(f"  ssm {json.dumps(record)}", flush=True)
+    return launches_serve, launches_train, launches_driver, record
+
+
 def sdpa_kernels(fn) -> str:
     """The device kernels one call of ``fn`` (a ``scaled_dot_product_attention``
     call) spends most time in, by the profiler: which backend PyTorch took
@@ -1946,20 +2268,24 @@ def multi_device_phase(dev, kernels, img_kernel, online_kernel, *, paper_theta, 
           f"{mres_f.collectives_checked}; wall_s={walls['c']:.3f} (4g's batched sweep beside "
           "it in that phase)", flush=True)
 
-    # (d) the launch: 1 and then 2 processes on cuda:0
+    # (d) the launch: 1 and 2 processes on cuda:0, the two launches at once
     root = os.path.dirname(os.path.realpath(__file__))
     for label, spec in (("PAPER_SPEC", PAPER_SPEC), ("POISSON_SPEC", POISSON_SPEC)):
         args = ["--model", spec.model, "--sampler", spec.resolved_sampler(), "--combiner",
                 "online", "--M", str(spec.M), "--T", str(spec.T), "--warmup", str(spec.warmup),
                 "--step", str(spec.step_size), "--n", str(spec.n), "--seed", str(spec.seed),
                 "--stream-every", "120"]
-        with tempfile.TemporaryDirectory() as out:
-            t0 = time.perf_counter()
-            (one,) = launch_ranks(root, args, 1, out)
-            walls[f"d_{label}_1"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            ranks = launch_ranks(root, args, 2, out)
-            walls[f"d_{label}_2"] = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as out, ThreadPoolExecutor(2) as pool:
+            # the 1-process and the 2-process launch at once: three processes
+            # on the card, each its own chains; their walls are read together
+            def timed(nproc):
+                t0 = time.perf_counter()
+                records = launch_ranks(root, args, nproc, out)
+                walls[f"d_{label}_{nproc}"] = time.perf_counter() - t0
+                return records
+
+            runs = [pool.submit(timed, nproc) for nproc in (1, 2)]
+            (one,), ranks = (r.result() for r in runs)
         d = len(one["combined"]["online"]["mean"])
         per = spec.M // 2
         want_bytes = npz_bytes((per,), (per, d), (per, d, d)) + npz_bytes((per,))
@@ -3224,6 +3550,9 @@ def main() -> int:
     (launches_mla_serve, routes_mla_serve, launches_mla_train, routes_mla_train,
      routes_mla_train_bwd, mla_record) = mla_phase(dev, kernels, lm_config)
     torch.cuda.empty_cache()
+    launches_ssm_serve, launches_ssm_train, launches_ssm_driver, _ = ssm_phase(dev, kernels,
+                                                                               lm_config)
+    torch.cuda.empty_cache()
 
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
@@ -3607,7 +3936,10 @@ def main() -> int:
                                  "serve_moe": launches_moe_serve[name],
                                  "train_moe": launches_moe_train[name],
                                  "serve_mla": launches_mla_serve[name],
-                                 "train_mla": launches_mla_train[name]},
+                                 "train_mla": launches_mla_train[name],
+                                 "serve_ssm": launches_ssm_serve[name],
+                                 "train_ssm": launches_ssm_train[name],
+                                 "lm_bayes_sgld": launches_ssm_driver[name]},
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]

@@ -28,10 +28,18 @@ Chains split over devices (``mesh_shape``; one CUDA device a group unless
     Pipeline(dataclasses.replace(spec, mesh_shape=(2, 1)), devices=("cuda:0", "cuda:1")).run()
 
 and over processes, ``python -m repro_torch.api.launch`` (:func:`run_launch`).
+
+Every name of ``repro.api``'s ``__all__`` is here but two, which the port
+does not port: ``make_shard_sampler`` returns a pure one-shard function
+for ``vmap`` or ``shard_map`` to drive, and ``VmapChunkBackend`` is the
+vmapped chunk program. The port batches the chains by construction: the
+counterparts are :func:`make_shard_kernel` with :func:`run_shard_chain`, and
+``BatchedChunkBackend`` (:func:`get_chunk_backend`'s default).
 """
 
 from repro_torch.api.backends import (  # noqa: F401
     BackendId,
+    ChunkBackend,
     MeshChunkBackend,
     get_chunk_backend,
     resolve_mesh_devices,
@@ -59,7 +67,17 @@ from repro_torch.api.streaming import (  # noqa: F401
     fused_fold,
     stream_sample,
 )
+from repro_torch.api.sampling import (  # noqa: F401
+    SampleResult,
+    ShardKernel,
+    groundtruth_chain,
+    make_shard_kernel,
+    run_shard_chain,
+    sample_subposteriors,
+)
 from repro_torch.api.spec import RunSpec  # noqa: F401
+
+NOT_PORTED = ("make_shard_sampler", "VmapChunkBackend")  # see the module docstring
 
 
 def __getattr__(name):

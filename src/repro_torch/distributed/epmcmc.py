@@ -50,6 +50,7 @@ The combination and the checks of the MCMC pipeline:
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -151,15 +152,25 @@ def _neg_logpost_and_grads(
     gradient comes from autograd, the prior's, θ/(σ²·M) in float32 cast to
     the parameter's dtype, in closed form and added in that dtype, as the
     reference's cotangents add: autograd of the prior would keep a float32
-    copy of every parameter for the backward (12.8 GB at llama3.2-3b)."""
+    copy of every parameter for the backward (12.8 GB at llama3.2-3b). The
+    prior's Σθ² sums the leaves' norms squared."""
     params = dict(model.named_parameters())
     total, _ = steps.loss_fn(model, cfg, batch)
-    grads = torch.autograd.grad(shard_tokens * total, list(params.values()))
+    grads = dict(zip(params, torch.autograd.grad(shard_tokens * total, list(params.values()))))
+    prior = 1.0 / (PRIOR_SIGMA**2 * num_shards)
+    norms, out = [], {}
     with torch.no_grad():
-        sq = sum((p.float() ** 2).sum() for p in params.values())
+        for names in leaf_groups(params):
+            p32 = [params[n].float() for n in names]
+            norms += torch._foreach_norm(p32)
+            scaled = torch._foreach_mul(p32, prior)
+            del p32
+            out.update(zip(names, torch._foreach_add([grads.pop(n) for n in names],
+                                                     [t.to(params[n].dtype)
+                                                      for n, t in zip(names, scaled)])))
+            del scaled
+        sq = torch.stack(norms).square().sum()
         value = shard_tokens * total.detach() + sq / (2.0 * PRIOR_SIGMA**2) / num_shards
-        prior = 1.0 / (PRIOR_SIGMA**2 * num_shards)
-        out = {n: g + (p.float() * prior).to(g.dtype) for (n, p), g in zip(params.items(), grads)}
     return value, out
 
 
@@ -167,20 +178,47 @@ def _chain_batch(batch: Dict[str, torch.Tensor], c: int) -> Dict[str, torch.Tens
     return {k: v[c] for k, v in batch.items()}
 
 
+# elements a group of leaves holds at most, so that a foreach pass over it
+# keeps a few float32 temporaries of 256 MB alive (a larger leaf goes alone)
+GROUP_NUMEL = 1 << 26
+
+
+def leaf_groups(tensors: Tensors, *, lead: int = 0) -> List[List[str]]:
+    """The names of ``tensors`` in order, cut into runs of at most
+    ``GROUP_NUMEL`` elements (a larger leaf alone; ``lead`` leading axes, a
+    chain axis, not counted): the lists the chains' elementwise updates hand
+    to one ``torch._foreach_*`` call each, a few launches a run where a loop
+    over leaves launches a few a leaf (Mamba-2's 16 leaves a layer made that
+    loop the host's largest cost of a step)."""
+    groups: List[List[str]] = []
+    size = GROUP_NUMEL
+    for name, t in tensors.items():
+        n = math.prod(t.shape[lead:])
+        if size + n > GROUP_NUMEL:
+            groups.append([])
+            size = 0
+        groups[-1].append(name)
+        size += n
+    return groups
+
+
 @torch.no_grad()
 def _welford(state: EpmcmcState, c: int, take: bool) -> None:
     """Fold chain ``c``'s θ into its running moments, in place (a no-op
-    before burn-in ends, where the reference adds zeros)."""
+    before burn-in ends, where the reference adds zeros): per leaf, δ = θ −
+    mean, mean += δ / n, var += δ·(θ − mean), by foreach passes."""
     if not take:
         return
     state.m_count[c] += 1.0
     n = state.m_count[c]
-    for name, p in state.params.items():
-        p32 = p[c].float()
-        mean, var = state.m_mean[name][c], state.m_var[name][c]
-        delta = p32 - mean
-        mean += delta / n
-        var += delta * (p32 - mean)
+    for names in leaf_groups(state.m_mean, lead=1):
+        p32 = [state.params[k][c].float() for k in names]
+        means = [state.m_mean[k][c] for k in names]
+        delta = torch._foreach_sub(p32, means)
+        torch._foreach_add_(means, torch._foreach_div(delta, n))
+        torch._foreach_mul_(delta, torch._foreach_sub(p32, means))
+        torch._foreach_add_([state.m_var[k][c] for k in names], delta)
+        del p32, delta
 
 
 def epmcmc_step(
@@ -215,22 +253,41 @@ def epmcmc_step(
                                              num_shards=num_shards, shard_tokens=shard_tokens)
         del model
         with torch.no_grad():
-            sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-            for name, g in grads.items():
-                p, v = state.params[name][c], state.v[name][c]
-                g32 = g.float()
-                sq += (g32 * g32).sum()
-                v.mul_(rmsprop_decay).add_((1 - rmsprop_decay) * torch.square(g32))
-                precond = 1.0 / (torch.sqrt(v) + rmsprop_eps)
-                new = p.float() - 0.5 * step_size * precond * g32
+            norms = []
+            for names in leaf_groups(grads):
+                ps = [state.params[n][c] for n in names]
+                vs = [state.v[n][c] for n in names]
+                g32 = [grads.pop(n).float() for n in names]
+                norms += torch._foreach_norm(g32)
+                # v = decay·v + (1 − decay)·g²; G = 1/(√v + ε)
+                g2 = torch._foreach_mul(g32, g32)
+                torch._foreach_mul_(g2, 1 - rmsprop_decay)
+                torch._foreach_mul_(vs, rmsprop_decay)
+                torch._foreach_add_(vs, g2)
+                del g2
+                precond = torch._foreach_sqrt(vs)
+                torch._foreach_add_(precond, rmsprop_eps)
+                torch._foreach_reciprocal_(precond)
+                # θ − (ε/2)·G·g, then + √(ε·G·T)·ξ, ξ drawn leaf by leaf
+                drift = torch._foreach_mul(precond, 0.5 * step_size)
+                torch._foreach_mul_(drift, g32)
+                del g32
+                new = torch._foreach_sub([p.float() for p in ps], drift)
+                del drift
                 if temperature:
-                    xi = noise[c][name] if noise is not None else torch.randn(
+                    xi = [noise[c][n] if noise is not None else torch.randn(
                         p.shape, generator=state.gens[c], dtype=torch.float32, device=p.device)
-                    new += torch.sqrt(step_size * precond * temperature) * xi
-                p.copy_(new)
-            del grads
+                        for n, p in zip(names, ps)]
+                    torch._foreach_mul_(precond, step_size)
+                    torch._foreach_mul_(precond, temperature)
+                    torch._foreach_sqrt_(precond)
+                    torch._foreach_mul_(precond, xi)
+                    torch._foreach_add_(new, precond)
+                    del xi
+                torch._foreach_copy_(ps, new)
+                del new, precond
             losses.append(loss)
-            gnorms.append(torch.sqrt(sq))
+            gnorms.append(torch.stack(norms).square().sum().sqrt())
         _welford(state, c, take)
     # NB: metrics stay PER-CHAIN, as in the reference (no reduction over chains)
     metrics = {"loss_per_chain": torch.stack(losses), "gnorm_per_chain": torch.stack(gnorms)}

@@ -45,8 +45,12 @@ def _weight(a: Any) -> torch.Tensor:
     return torch.tensor(a)
 
 
+MAMBA_LEAVES = ("w_z", "w_x", "w_B", "w_C", "w_dt", "conv_x", "conv_B", "conv_C", "conv_bias_x",
+                "conv_bias_B", "conv_bias_C", "A_log", "dt_bias", "D", "norm", "w_out")
+
+
 def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]:
-    """How ``repro``'s LM pytree (dense and MoE, GQA or MLA) maps onto the port's parameter names:
+    """How ``repro``'s LM pytree (dense and MoE, GQA or MLA; ssm) maps onto the port's parameter names:
     ``(port name, reference path, layer index into a stacked leaf or None)``
     in the port's ``named_parameters`` order.
 
@@ -63,6 +67,11 @@ def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]
     reference (``params["g0"]["l0"]["attn"]["w_dq"]``, no ``"w"`` level):
     ``w_dq``, ``q_norm``, ``w_uq`` (or ``w_q`` when ``q_lora_rank`` is 0),
     ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``, ``w_o``, as ``blocks.i.attn.*``.
+    A Mamba-2 layer (the ssm family: ``ln1`` and ``mamba``, no ``ln2`` and
+    no FFN) keeps bare arrays too (``params["g0"]["l0"]["mamba"]["w_z"]``,
+    stacked (L, ...) in the family's one group): ``w_z w_x w_B w_C w_dt
+    conv_x conv_B conv_C conv_bias_x conv_bias_B conv_bias_C A_log dt_bias D
+    norm w_out``, as ``blocks.i.mamba.*``.
     """
     from repro_torch.models.lm import model as mdl
 
@@ -78,6 +87,11 @@ def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]
                 idx = r if group.repeat > 1 else None
                 prefix = f"blocks.{layer}."
                 out.append((prefix + "ln1.scale", base + ("ln1", "scale"), idx))
+                if group.specs[li].mixer == "mamba":  # bare arrays, no ln2, no FFN
+                    for w in MAMBA_LEAVES:
+                        out.append((prefix + f"mamba.{w}", base + ("mamba", w), idx))
+                    layer += 1
+                    continue
                 if group.specs[li].mixer == "mla":  # bare arrays, no "w" level
                     q = ("w_dq", "q_norm", "w_uq") if cfg.mla.q_lora_rank else ("w_q",)
                     for w in q + ("w_dkv", "kv_norm", "w_uk", "w_uv", "w_o"):
@@ -151,9 +165,11 @@ def from_reference_lm_params(
     device: str | torch.device | None = None,
 ):
     """``repro``'s LM ``init_params`` pytree (numpy leaves) as the port's
-    model (the dense and MoE families, GQA or MLA; the map is :func:`reference_lm_leaves`).
-    Every tensor is cast to ``cfg.param_dtype``; the numbers are the
-    reference's."""
+    model (the dense and MoE families, GQA or MLA, and the ssm family; the
+    map is :func:`reference_lm_leaves`). Every tensor takes its port
+    parameter's dtype: ``cfg.param_dtype``, float32 for Mamba-2's ``A_log``,
+    ``dt_bias`` and ``D`` (float32 in the reference too); the numbers are
+    the reference's."""
     from repro_torch.models.lm import model as mdl
 
     device = resolve_device(device)
@@ -184,23 +200,25 @@ def from_reference_epmcmc_state(
     """``repro``'s stacked ``EpmcmcState`` (numpy leaves: ``params``, ``v``,
     ``step``, ``key``, ``m_count``, ``m_mean``, ``m_var``) as the port's
     :class:`~repro_torch.distributed.epmcmc.EpmcmcState` on ``device``:
-    parameters in ``cfg.param_dtype``, accumulators float32. The chains'
+    each parameter in its port parameter's dtype (``cfg.param_dtype``;
+    float32 for Mamba-2's ``A_log``, ``dt_bias`` and ``D``), accumulators
+    float32. The chains'
     JAX keys do not carry over: the port's chain ``c`` gets a generator
     seeded from ``(seed, c)`` (feed the reference's noise through
     ``epmcmc_step(noise=)`` to compare the two)."""
     from repro_torch.distributed.epmcmc import EpmcmcState, chain_generators
-    from repro_torch.models.lm.layers import dtype_of
+    from repro_torch.models.lm import model as mdl
 
     device = resolve_device(device)
-    pdtype = dtype_of(cfg.param_dtype)
+    pdtype = {n: p.dtype for n, p in mdl.init_params(cfg, device="meta").named_parameters()}
 
-    def tree(t, dtype):
-        return {n: _weight(a).to(device=device, dtype=dtype)
+    def tree(t, dtype=None):
+        return {n: _weight(a).to(device=device, dtype=dtype or pdtype[n])
                 for n, a in from_reference_lm_tree(t, cfg, lead=1).items()}
 
     m_count = torch.tensor(np.asarray(state.m_count, dtype=np.float32), device=device)
     return EpmcmcState(
-        params=tree(state.params, pdtype),
+        params=tree(state.params),
         v=tree(state.v, torch.float32),
         step=int(np.asarray(state.step)),
         gens=chain_generators(seed, int(m_count.shape[0]), device),

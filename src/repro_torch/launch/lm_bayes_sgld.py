@@ -4,12 +4,13 @@ The port of ``examples/lm_bayes_sgld.py``, the LM-scale face of the paper:
 M independent pSGLD chains, each on a disjoint token shard with the
 1/M-weighted prior (Eq. 2.1), no cross-chain step during sampling, streaming
 Welford moments per chain and the parametric (BvM, diagonal) combination at
-the end, plus checkpoint and restart. The reference runs mamba2-130m, whose
-Mamba-2 blocks the port has not yet (ROADMAP Queue 1 item 11.4); this driver
-runs llama3.2-3b, reduced by default (``--full-width`` for the real widths,
+the end, plus checkpoint and restart. It runs the reference's model,
+mamba2-130m (Mamba-2 blocks, 24 layers, d 768, 129.0 M parameters a chain),
+reduced by default (4 layers, d 128; ``--full-width`` for the real widths,
 on the card). On the card unless told otherwise::
 
     PYTHONPATH=src python -m repro_torch.launch.lm_bayes_sgld --device cpu [--steps 60]
+    PYTHONPATH=src python -m repro_torch.launch.lm_bayes_sgld --full-width
 
 After burn-in every step's final-norm vector of each chain
 (``gather_subset_samples``) joins a (C, T, d_sub) history that the exact
@@ -53,7 +54,7 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
-    cfg = get_config("llama3_2_3b")
+    cfg = get_config("mamba2_130m")
     if not args.full_width:
         cfg = reduced(cfg)
     C = args.chains

@@ -110,6 +110,28 @@ def profiled(fn) -> Tuple[Any, dict]:
     }
 
 
+def by_operator(fn) -> Tuple[Any, dict]:
+    """``fn()`` under a profile that records the host's operators too (which
+    costs host time, so no wall is reported): its result, the device ms of
+    the operators that took the most (self time: the kernels each launched
+    itself), and of every ``record_function`` range named ``ssd.*``
+    (inclusive: every kernel launched inside it; the Mamba-2 SSD's
+    ``ssd.decay``, ``ssd.products``, ``ssd.chunk_scan``)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    ops = sorted((e for e in events if e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:TOP_KERNELS]
+    return result, {
+        "device_ms_by_operator": [{"name": e.key[:80], "count": e.count,
+                                   "device_ms": e.self_device_time_total / 1e3} for e in ops],
+        "device_ms_by_range": {e.key: {"count": e.count, "device_ms": e.device_time_total / 1e3}
+                               for e in events if e.key.startswith("ssd.")},
+    }
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_combiner_option(ap)

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch llama3.2-3b \\
         --batch 2 --prompt-len 4096 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-130m \\
+        --batch 2 --prompt-len 4096 --gen 16
 
 Takes ``repro_torch.launch.serve``'s flags. Builds the model and prompt from
 the seed, runs prefill + greedy decode once to warm up, once unprofiled, then
@@ -9,8 +11,11 @@ profiles the prefill and the decode steps in two windows (CUDA activity
 only), and prints one JSON line: the card, the config, the unprofiled stage
 times, and for each window its wall seconds, the device time summed over
 kernels, the device's busy and idle shares of the window's wall time, and
-the kernels that took the most device time with their launch counts. The
-prompt must be longer than the config's ``attn_chunk`` for the prefill to
+the kernels that took the most device time with their launch counts, and
+the device time by operator and by the Mamba-2 SSD's ranges from a third
+run of each under a profile that records the host's operators too
+(``profile_pipeline.by_operator``; its wall is not reported). The prompt
+must be longer than the config's ``attn_chunk`` for an attention prefill to
 reach the flash kernel.
 """
 
@@ -23,7 +28,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.launch import serve
-from repro_torch.launch.profile_pipeline import profiled
+from repro_torch.launch.profile_pipeline import by_operator, profiled
 from repro_torch.models.lm import steps as lm_steps
 
 
@@ -42,14 +47,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             state, _ = lm_steps.serve_decode_step(model, state)
 
     _, decode_window = profiled(lambda: decode(state))
+    del state
+    state, prefill_ops = by_operator(
+        lambda: lm_steps.serve_prefill(model, {"tokens": prompt}, max_len))
+    _, decode_ops = by_operator(lambda: decode(state))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "arch": cfg.name, "dtype": cfg.dtype, "batch": args.batch,
         "prompt_len": args.prompt_len, "gen": args.gen,
         "unprofiled": {"prefill_s": timed["prefill_s"],
                        "decode_s_per_tok": timed["decode_s_per_tok"]},
-        "prefill": prefill,
-        "decode": dict(decode_window, steps=args.gen - 1),
+        "prefill": dict(prefill, **prefill_ops),
+        "decode": dict(decode_window, steps=args.gen - 1, **decode_ops),
     }))
     return 0
 

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train --arch granite-moe-1b-a400m \\
         --batch 1 --seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch mamba2-130m \\
+        --batch 8 --seq 4096
 
 ``launch/train.py``'s adamw mode on the card at the config's full depth
 (random weights and AdamW state from seed 0, the token stream of seed 0,
@@ -14,7 +16,8 @@ only. Prints one JSON line: the card, the config, the first step's seconds
 and its top operators by host time, and for each window its wall seconds,
 the device time summed over kernels, the device's busy and idle shares of
 the window's wall time and the kernels that took the most device time,
-with, for the forward + backward, the device time by operator from a second
+with, for the forward + backward, the device time by operator and by the
+Mamba-2 SSD's ranges (``profile_pipeline.by_operator``) from a second
 profile that records the host's operators too (which costs host time, so
 its wall is not reported).
 """
@@ -33,7 +36,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import kernels
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenStream
-from repro_torch.launch.profile_pipeline import profiled
+from repro_torch.launch.profile_pipeline import by_operator, profiled
 from repro_torch.models.lm import steps as lm_steps
 from repro_torch.optim import adamw_update
 
@@ -84,18 +87,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     grads, fb_window = profiled(fwd_bwd)
     _, update_window = profiled(lambda: adamw_update(params, grads, opt))
     del grads
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as op_prof:
-        grads = fwd_bwd()
-        torch.cuda.synchronize()
+    grads, by_op = by_operator(fwd_bwd)
     del grads
-    by_op = [{"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3}
-             for e in _rows(op_prof, "self_device_time_total", torch.autograd.DeviceType.CPU)]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "arch": cfg.name, "layers": cfg.num_layers,
         "dtype": cfg.dtype, "remat": cfg.remat, "batch": args.batch, "seq": args.seq,
         "build_s": build_s, "first_step_s": first_s, "first_step_top_host_ops": cold_ops,
-        "forward_backward": dict(fb_window, device_ms_by_operator=by_op),
+        "forward_backward": dict(fb_window, **by_op),
         "update": update_window,
         "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }))

@@ -7,6 +7,9 @@
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4 \\
         --batch 2 --prompt-len 4096 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --batch 1 \\
+        --prompt-len 524288 --gen 16
 
 The port of ``repro/launch/serve.py:25``, with its flags plus ``--device``
 (default ``cuda``; with no card visible it raises), ``--dtype`` (the
@@ -19,9 +22,13 @@ deepseek-v2 is served on one card only so cut). Weights are random, drawn from
 ``max_len = prompt_len + gen``. The dense and MoE families, GQA or MLA (see
 :mod:`repro_torch.models.lm.model`; ``--arch granite-moe-1b-a400m``, whose
 decode runs ``cfg.moe_decode_impl``'s MoE; ``--arch deepseek-v2-236b``,
-MLA, whose decode attends over the absorbed latent cache). A prompt longer than the config's
-``attn_chunk`` (1,024) runs every layer's prefill attention through the
-flash kernel; decode attends over the cache with the einsum path. Each
+MLA, whose decode attends over the absorbed latent cache), and the ssm
+family (``--arch mamba2-130m``: the chunked SSD in prefill, one recurrent
+step a token in decode, no kernel of the port's; the prompt must divide
+into SSD chunks, ``mamba2.check_seq``, and ``long_500k``'s 524,288 tokens
+do). A prompt longer than the config's ``attn_chunk`` (1,024) runs every
+attention layer's prefill through the flash kernel; decode attends over the
+cache with the einsum path. Each
 timed stage ends with ``torch.cuda.synchronize()`` on the card.
 """
 
@@ -36,6 +43,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ALIASES, get_config
+from repro_torch.models.lm import mamba2
 from repro_torch.models.lm import model as mdl
 from repro_torch.models.lm import steps as lm_steps
 from repro_torch.models.lm.config import ModelConfig, reduced
@@ -67,6 +75,8 @@ def setup(args: argparse.Namespace) -> Tuple[ModelConfig, mdl.LM, torch.Tensor]:
         cfg = dataclasses.replace(cfg, dtype=args.dtype, param_dtype=args.dtype)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if cfg.ssm is not None:
+        mamba2.check_seq(cfg, args.prompt_len)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = mdl.init_params(cfg, generator=gen, device=device)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,

@@ -20,13 +20,16 @@ with the chains' generator states, and ``--resume`` restarts from the
 newest one bit for bit (the chain count must be the checkpoint's). Beyond
 the reference's flags: ``--device`` (``cuda`` unless ``cpu``) and
 ``--layers`` (cut the depth, the width unchanged; 0 keeps the config's).
-The dense and MoE families, GQA or MLA
+The dense and MoE families, GQA or MLA, and the ssm family
 (``check_supported``): ``--arch granite-moe-1b-a400m`` and ``--arch
-deepseek-v2-236b`` train with the MoE aux loss in the total; other archs
-raise.
+deepseek-v2-236b`` train with the MoE aux loss in the total, ``--arch
+mamba2-130m`` (Mamba-2 blocks; ``--seq`` a multiple of the SSD chunk, 256,
+or shorter) with none; other archs raise.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch llama3_2_3b --reduced --mode epmcmc --steps 30 --batch 4 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --mode adamw \\
+        --batch 8 --seq 4096 --steps 4
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from repro_torch.checkpoint import Checkpointer, latest_step, restore
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenStream
 from repro_torch.distributed import epmcmc
+from repro_torch.models.lm import mamba2
 from repro_torch.models.lm import model as mdl
 from repro_torch.models.lm import steps as lm_steps
 from repro_torch.models.lm.config import reduced
@@ -145,6 +149,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg = reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if cfg.ssm is not None:
+        mamba2.check_seq(cfg, args.seq)
     n_chains = args.chains or max(epmcmc.num_chains(), 1)
     shard_tokens = args.shard_tokens or float(args.batch * args.seq * 100)
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None

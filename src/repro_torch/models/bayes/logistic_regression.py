@@ -77,6 +77,18 @@ def log_lik(theta: torch.Tensor, data: Data) -> torch.Tensor:
     return logreg_loglik(X, s, theta.reshape(G, d, 1))[:, 0].reshape(batch)
 
 
+def predictive_accuracy(
+    betas: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *, chunk: int = 1024
+) -> torch.Tensor:
+    """§8.1.2 posterior-predictive classification accuracy: P(y|x) ≈ (1/S)
+    Σ_s σ(xᵀβ_s) over the draws ``betas`` (S, d), the argmax class
+    predicted; ``x`` (n, d) scored ``chunk`` rows at a time, ``y`` in {0, 1}.
+    Returns the share predicted right, a float32 scalar."""
+    probs = torch.cat([torch.sigmoid(x[i:i + chunk] @ betas.T).mean(dim=1)
+                       for i in range(0, x.shape[0], chunk)])
+    return ((probs > 0.5).float() == y).float().mean()
+
+
 registry.register_model(
     registry.BayesModel(
         name="logreg",

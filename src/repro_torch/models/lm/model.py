@@ -1,17 +1,21 @@
-"""Model assembly of the dense and MoE LM families: forward, prefill and decode.
+"""Model assembly of the dense, MoE and ssm LM families: forward, prefill and decode.
 
 The counterpart of ``repro/models/lm/model.py`` for the families whose every
-layer is ``attn + mlp`` (dense) or ``attn + moe`` (MoE, after an optional
+layer is ``attn + mlp`` (dense), ``attn + moe`` (MoE, after an optional
 dense prefix of ``moe.first_dense`` layers), the attention GQA or, under
-``cfg.mla`` (deepseek-v2), MLA (``mla + mlp``, ``mla + moe``). The reference runs each layer
+``cfg.mla`` (deepseek-v2), MLA (``mla + mlp``, ``mla + moe``), or
+``mamba + none`` (the ssm family, mamba2-130m: Mamba-2 blocks with no FFN,
+hence no ``ln2``, as the reference builds them). The reference runs each layer
 group as a ``lax.scan`` over stacked parameters; the port keeps
 ``layer_specs`` and ``layer_groups`` as they are (pure data) and runs a
 Python loop over an ``nn.ModuleList`` of :class:`Block`, each built for its
 layer's spec. The three execution paths share the block: ``forward`` (the
 whole sequence, also the training path), ``prefill`` (forward plus each
-layer's cache, padded to ``max_len``: k/v for GQA, the latents ``c_kv`` and
-``k_rope`` for MLA) and ``decode_step`` (one token against the caches, which
-it updates in place; MLA in its absorbed form). An MoE block's FFN is
+layer's cache: k/v for GQA and the latents ``c_kv`` and ``k_rope`` for MLA,
+padded to ``max_len``; for Mamba-2 the conv windows and the recurrent state,
+:class:`repro_torch.models.lm.mamba2.SSMCache`, the same size at any length)
+and ``decode_step`` (one token against the caches, which it updates in
+place; MLA in its absorbed form, Mamba-2 one recurrent step). An MoE block's FFN is
 :func:`repro_torch.models.lm.moe.moe_forward` in forward and prefill, and in
 decode (``MoE.decode``) the one ``cfg.moe_decode_impl`` names
 (``"dispatch"``, the default, or ``"gather"``); ``forward`` returns the sum
@@ -19,28 +23,30 @@ of the blocks' aux losses, as the reference's ``_run_groups`` does.
 
 Remat: the reference wraps each layer group's period in ``jax.checkpoint``
 under ``cfg.remat="full"`` (``_maybe_remat``, :303), the default of every
-config. ``forward`` does the same per block with ``torch.utils.checkpoint``
-(non-reentrant) while autograd records: a block's activations are
-recomputed in the backward, so the flash forward runs twice a layer and a
-training step holds one layer's activations at a time. ``"none"`` runs
-plain; ``"dots"`` (save the matrix products' outputs), which no config
-sets, raises.
+config. ``forward`` does the same per block while autograd records
+(:class:`_Remat`): a block's forward runs without recording, its input
+alone kept, and the backward runs it again recording and takes its
+gradients from that, so the flash forward (or the SSD) runs twice a layer
+and a training step holds one layer's activations at a time.
+``"none"`` runs plain; ``"dots"`` (save the matrix products' outputs), which
+no config sets, raises.
 
-A config of another family or with other layers (Mamba-2, hybrid,
-encoder–decoder, image tokens) raises ``NotImplementedError``: those come
-in later slices (ROADMAP Queue 1 item 11) and never run on a substitute.
+A config of another family or with other layers (hybrid, encoder–decoder,
+image tokens) raises ``NotImplementedError``: those come in later slices
+(ROADMAP Queue 1 item 11) and never run on a substitute.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.autograd.function import once_differentiable
 
 from repro_torch.models.lm import attention as attn
+from repro_torch.models.lm import mamba2 as m2
 from repro_torch.models.lm import moe as moe_lib
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.layers import (
@@ -53,7 +59,8 @@ from repro_torch.models.lm.layers import (
     rmsnorm,
 )
 
-Caches = List[attn.Cache]
+Cache = Union[attn.Cache, m2.SSMCache]
+Caches = List[Cache]
 
 
 class LayerSpec(NamedTuple):
@@ -71,7 +78,9 @@ class GroupSpec:
 
 DENSE = LayerSpec(mixer="attn", ffn="mlp")
 MOE = LayerSpec(mixer="attn", ffn="moe")
-SUPPORTED = (DENSE, MOE, LayerSpec(mixer="mla", ffn="mlp"), LayerSpec(mixer="mla", ffn="moe"))
+MAMBA = LayerSpec(mixer="mamba", ffn="none")
+SUPPORTED = (DENSE, MOE, LayerSpec(mixer="mla", ffn="mlp"), LayerSpec(mixer="mla", ffn="moe"),
+             MAMBA)
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -115,9 +124,9 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless every layer of ``cfg`` is ``attn + mlp`` or ``attn + moe``
     (either attention GQA or MLA) with nothing else (a dense prefix before
-    MoE layers included)."""
+    MoE layers included), or every layer ``mamba + none`` (the ssm family)."""
     extras = [name for name, on in (
-        ("ssm", cfg.ssm is not None), ("hybrid", cfg.hybrid is not None),
+        ("hybrid", cfg.hybrid is not None),
         ("encoder layers", cfg.num_encoder_layers > 0),
         ("image tokens", cfg.num_image_tokens > 0),
     ) if on]
@@ -125,8 +134,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if extras or odd:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) needs {', '.join(extras + odd)}; the port runs the "
-            "dense family (attn+mlp) and MoE (attn+moe), with GQA or MLA attention, only so "
-            "far, the rest is ROADMAP Queue 1 item 11"
+            "dense family (attn+mlp), MoE (attn+moe), with GQA or MLA attention, and the ssm "
+            "family (mamba+none) only so far, the rest is ROADMAP Queue 1 item 11"
         )
 
 
@@ -141,9 +150,11 @@ class RMSNorm(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: x + attn(ln1(x)), then + ffn(ln2(·)), the attention
-    :class:`~repro_torch.models.lm.attention.GQA` or ``MLA`` as
-    ``spec.mixer`` says, the FFN an ``mlp`` or a ``moe`` as ``spec.ffn``."""
+    """One layer. An attention block: x + attn(ln1(x)), then + ffn(ln2(·)),
+    the attention :class:`~repro_torch.models.lm.attention.GQA` or ``MLA``
+    as ``spec.mixer`` says, the FFN an ``mlp`` or a ``moe`` as ``spec.ffn``.
+    A Mamba-2 block (``mixer="mamba"``, ``ffn="none"``): x + mamba(ln1(x)),
+    with no ``ln2`` and no FFN."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec = DENSE, *, generator=None,
                  device=None):
@@ -151,8 +162,13 @@ class Block(nn.Module):
         self.spec = spec
         dtype = dtype_of(cfg.param_dtype)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
-        mixer = attn.MLA if spec.mixer == "mla" else attn.GQA
-        self.attn = mixer(cfg, generator=generator, device=device)
+        if spec.mixer == "mamba":
+            self.mamba = m2.Mamba2(cfg, generator=generator, device=device)
+        else:
+            mixer = attn.MLA if spec.mixer == "mla" else attn.GQA
+            self.attn = mixer(cfg, generator=generator, device=device)
+        if spec.ffn == "none":
+            return
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         if spec.ffn == "moe":
             self.moe = moe_lib.MoE(cfg, generator=generator, device=device)
@@ -161,8 +177,10 @@ class Block(nn.Module):
 
     def ffn(self, x: torch.Tensor, decode: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """x + ffn(ln2(x)), and the MoE aux loss (None for an mlp); ``decode``
+        """x + ffn(ln2(x)), and the MoE aux loss (None for an mlp or none); ``decode``
         runs the MoE's decode-time form (:meth:`repro_torch.models.lm.moe.MoE.decode`)."""
+        if self.spec.ffn == "none":
+            return x, None
         if self.spec.ffn == "moe":
             y, aux = (self.moe.decode if decode else self.moe)(self.ln2(x))
             return x + y, aux
@@ -170,27 +188,39 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(the block's output, its aux loss: None for an mlp block)."""
+        """(the block's output, its aux loss: None unless an MoE block)."""
+        if self.spec.mixer == "mamba":
+            return self.ffn(x + self.mamba(self.ln1(x)))
         return self.ffn(x + self.attn(self.ln1(x), positions))
 
     def prefill(
         self, x: torch.Tensor, positions: torch.Tensor, max_len: int
-    ) -> Tuple[torch.Tensor, attn.Cache]:
-        """Forward + this layer's cache, zero beyond the prompt up to ``max_len``."""
-        h, cache = self.attn.prefill(self.ln1(x), positions, max_len)
+    ) -> Tuple[torch.Tensor, Cache]:
+        """Forward + this layer's cache: an attention cache zero beyond the
+        prompt up to ``max_len``; Mamba-2's state after the prompt (the
+        chunked forward, then ``ssm_state_after``, as the reference)."""
+        h_in = self.ln1(x)
+        if self.spec.mixer == "mamba":
+            h = self.mamba(h_in)
+            cache = m2.ssm_state_after(self.mamba, h_in)
+        else:
+            h, cache = self.attn.prefill(h_in, positions, max_len)
         return self.ffn(x + h)[0], cache
 
     def decode(
-        self, x: torch.Tensor, cache: attn.Cache, position: int
-    ) -> Tuple[torch.Tensor, attn.Cache]:
-        h, cache = self.attn.decode(self.ln1(x), cache, position)
+        self, x: torch.Tensor, cache: Cache, position: int
+    ) -> Tuple[torch.Tensor, Cache]:
+        if self.spec.mixer == "mamba":
+            h, cache = m2.mamba2_decode(self.mamba, self.ln1(x), cache)
+        else:
+            h, cache = self.attn.decode(self.ln1(x), cache, position)
         return self.ffn(x + h, decode=True)[0], cache
 
 
 class LM(nn.Module):
     """The LM: ``embed`` (V, d), ``blocks`` (one a layer, each built for its
     ``layer_specs`` entry), ``final_norm``, and ``lm_head`` (d, V) unless
-    ``cfg.tie_embeddings`` (then the head is ``embed.T``)."""
+    ``cfg.tie_embeddings`` (then the head is ``embed.T``, as mamba2-130m's)."""
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
@@ -222,7 +252,8 @@ def init_params(
     """The model with weights drawn from ``generator`` (zeros without one, to be
     loaded), as the reference's ``init_params`` draws them: N(0, 1)·d_in^-½
     projections, N(0, 0.02²) embedding, unit norms, all cast to
-    ``cfg.param_dtype``. Other numbers than the reference's: another generator."""
+    ``cfg.param_dtype`` (Mamba-2's ``A_log``, ``dt_bias`` and ``D`` float32).
+    Other numbers than the reference's: another generator."""
     return LM(cfg, generator=generator, device=device)
 
 
@@ -244,6 +275,44 @@ def _remat(cfg: ModelConfig) -> bool:
     )
 
 
+class _Remat(torch.autograd.Function):
+    """One block, rematerialized: the forward runs ``block(h, positions)``
+    without recording and keeps h; the backward runs it again recording
+    and returns the gradients of h and of the block's parameters (its
+    inputs here, after h and positions) from that run. The recorded run
+    computes what the first computed (a block draws no random numbers), so
+    the gradients are the un-rematerialized ones. Unlike
+    ``torch.utils.checkpoint`` (non-reentrant), the first run records no
+    graph and packs no saved tensors, host work that sets the time of a
+    small-batch, host-bound step. Returns the block's output and its aux
+    loss (a zero for a block without one)."""
+
+    @staticmethod
+    def forward(ctx, block, h, positions, *params):
+        ctx.block = block
+        ctx.save_for_backward(h, positions)
+        with torch.no_grad():
+            out, aux = block(h, positions)
+        ctx.has_aux = aux is not None
+        return out, aux if ctx.has_aux else torch.zeros((), dtype=torch.float32, device=out.device)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_out, d_aux):
+        h, positions = ctx.saved_tensors
+        with torch.enable_grad():
+            x = h.detach().requires_grad_(ctx.needs_input_grad[1])
+            out, aux = ctx.block(x, positions)
+            outs, grads = [out], [d_out]
+            if ctx.has_aux:
+                outs.append(aux)
+                grads.append(d_aux)
+            wrt = ([x] if x.requires_grad else []) + list(ctx.block.parameters())
+            got = list(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+        d_h = got.pop(0) if x.requires_grad else None
+        return (None, d_h, None, *got)
+
+
 def forward(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits (B, S, V), aux loss): the MoE blocks' aux losses summed, 0 for
     the dense family."""
@@ -251,12 +320,11 @@ def forward(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     h, positions = _inputs_to_h(model, tokens)
     auxes = []
     for block in model.blocks:
-        if remat:  # a block draws no random numbers: no RNG state to stash
-            h, aux = checkpoint(block, h, positions, use_reentrant=False,
-                                preserve_rng_state=False)
+        if remat:
+            h, aux = _Remat.apply(block, h, positions, *block.parameters())
         else:
             h, aux = block(h, positions)
-        if aux is not None:
+        if block.spec.ffn == "moe":
             auxes.append(aux)
     aux = torch.stack(auxes).sum() if auxes else torch.zeros((), dtype=torch.float32,
                                                                device=h.device)
@@ -266,16 +334,24 @@ def forward(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 def init_caches(
     cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype, device=None
 ) -> Caches:
-    """One cache a layer: a (B, max_len, K, hd) k/v pair (GQA), or MLA's
-    latents ``c_kv`` (B, max_len, kv_lora) and ``k_rope`` (B, max_len, rope)."""
+    """One cache a layer: a (B, max_len, K, hd) k/v pair (GQA), MLA's
+    latents ``c_kv`` (B, max_len, kv_lora) and ``k_rope`` (B, max_len, rope),
+    or Mamba-2's :class:`~repro_torch.models.lm.mamba2.SSMCache` (no
+    ``max_len``: the same size at any length)."""
     check_supported(cfg)
-    return [(attn.init_mla_cache if spec.mixer == "mla" else attn.init_gqa_cache)(
-        cfg, batch, max_len, dtype, device) for spec in layer_specs(cfg)]
+
+    def one(spec):
+        if spec.mixer == "mamba":
+            return m2.init_mamba2_cache(cfg, batch, dtype, device)
+        init = attn.init_mla_cache if spec.mixer == "mla" else attn.init_gqa_cache
+        return init(cfg, batch, max_len, dtype, device)
+
+    return [one(spec) for spec in layer_specs(cfg)]
 
 
 def prefill(model: LM, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Caches]:
     """Run the prompt: (last-token logits (B, 1, V), caches). The reference also
-    returns the encoder memory, which neither family has."""
+    returns the encoder memory, which none of the port's families has."""
     h, positions = _inputs_to_h(model, tokens)
     caches = []
     for block in model.blocks:

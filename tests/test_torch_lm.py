@@ -245,7 +245,8 @@ def test_serve_steps_are_greedy_and_match_decode_step():
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).family != "dense"
-                                  and a not in ("granite_moe_1b", "deepseek_v2_236b")])
+                                  and a not in ("granite_moe_1b", "deepseek_v2_236b",
+                                                "mamba2_130m")])
 def test_non_dense_config_raises(arch):
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
