@@ -181,8 +181,28 @@ a non-zero exit:
               tolerance); (c) ``train.main`` at batch 8 x 4,096: adamw 4
               steps, one ``train_step`` at 3e-5 lowering the loss, epmcmc 4
               chains x 24 layers, sgd 2 chains; (d) ``lm_bayes_sgld.main
-              (["--full-width"])`` on the reference's model: the (4, 40, 768)
-              history, the restored Welford count exact, finite draws;
+              (["--full-width", "--steps", "30", "--burn-in", "10"])`` on the
+              reference's model (its 60 steps cut to 30 to keep the script
+              within half its limit): the (4, 20, 768) history, the
+              restored Welford count exact, finite draws;
+4m. hybrid  — jamba-1.5-large-398b at full width, layers 0-4 of its period
+              (mamba+mlp, mamba+moe, mamba+mlp, mamba+moe, attn+mlp: 23.99 B
+              parameters, all 16 experts): (a) ``serve.main --layers 5``
+              bf16 at B=2 x 4,096 and B=1 x 32,768, cold and warm, one flash
+              launch a prefill (``tensor_core``), peak memory, the caches'
+              bytes, the dropped share; the decode-vs-forward invariant at
+              capacity factor 8, float32 at 2 layers and bf16 at 5; (b)
+              layer 4's block gradients through the kernels (G 8); (c)
+              layer 1's block (mamba+moe) forward + backward in bf16; (d)
+              ``train.main --layers 1``: adamw 3 steps and one at 3e-5
+              lowering the loss, epmcmc 1 chain;
+4n. encdec  — whisper-base whole: (a) ``serve.main`` B=2 x 4,096, bf16 and
+              float32, 12 flash launches a prefill (6 non-causal at the
+              encoder's 1,500 frames, 6 causal), the invariant with frames
+              from the seed; (b) an encoder and a decoder block's gradients
+              (the memory's too); (c) ``lm_steps.train_step`` at B=4 x
+              4,096 with frames, 18 forward and 12 backward flash launches a
+              step; (d) ``train.main`` adamw and epmcmc 2 chains on tokens;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
@@ -202,7 +222,11 @@ a non-zero exit:
               shape (G = 2, hd 64) bf16 at B=2 and B=1 and ``tf32x3`` at
               B=2, and at deepseek-v2-236b's MLA shape (K = 128, G = 1, hd
               192, hd_v 128) bf16 at B=2 and B=1 and the FMA route in
-              float32 at B=2 (SDPA's kernels named); the
+              float32 at B=2 (SDPA's kernels named), and at
+              jamba-1.5-large-398b's layer 4 (K = 8, G = 8, hd 128) bf16 at
+              B=2 and B=1 and ``tf32x3`` at B=2, and at whisper-base's
+              encoder (K = 8, G = 1, hd 64, S = T = 1,500, non-causal) bf16
+              at B=2 and B=4 and ``tf32x3`` at B=2; the
               KDE kernel's bound the largest of its bytes, its three TF32
               passes on the tensor cores and its exps on the MUFU;
               ``flash_attention_bwd`` at the training shape (the bf16
@@ -213,8 +237,9 @@ a non-zero exit:
               bound of the work at the bf16 tensor-core rate, the
               tensor-core design's 7-product bound and the float32 FMA
               bound) and the forward there with and without lse, at the
-              three training shapes (llama's, granite's, deepseek's MLA;
-              SDPA's kernels named);
+              training shapes (llama's, granite's, deepseek's MLA, jamba's
+              layer 4 and whisper's encoder, non-causal at B=4; SDPA's
+              kernels named);
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -222,6 +247,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -837,8 +863,9 @@ def launch_ranks(root: str, args, nproc: int, out_dir: str):
 
 def forward_tail(model, out):
     """forward(prompt + generated[:-1])'s logits at the positions whose next
-    token a serving run chose (prefill's last, then each decode), float32;
-    for a Mamba-2 model the sequence padded to whole SSD chunks first."""
+    token a serving run chose (prefill's last, then each decode), float32,
+    with the run's encoder frames (an encoder–decoder); for a model with
+    Mamba-2 layers the sequence padded to whole SSD chunks first."""
     import torch
 
     from repro_torch.models.lm import model as lm_model
@@ -851,7 +878,7 @@ def forward_tail(model, out):
         # one; the model is causal, so the first n positions are unchanged
         seq = torch.cat([seq, seq.new_zeros((seq.shape[0], -n % ssm.chunk))], dim=1)
     with torch.inference_mode():
-        logits, _ = lm_model.forward(model, seq)
+        logits, _ = lm_model.forward(model, seq, enc_frames=out.get("enc_frames"))
         tail = logits[:, n - out["tokens"].shape[1]:n].to(torch.float32, copy=True)
     del logits
     torch.cuda.empty_cache()
@@ -982,7 +1009,7 @@ def step_split(out, cfg, argv, dev, sync):
         sync()
         t0 = time.perf_counter()
         total, _ = lm_steps.loss_fn(model, cfg, b)
-        grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+        grads = lm_steps.grads_of(total, params)
         sync()
         t1 = time.perf_counter()
         adamw_update(params, grads, opt)
@@ -1120,23 +1147,25 @@ def resume_run(kernels, run_argv):
     return same, largest, counts, by_route
 
 
-def block_grads(dev, kernels, cfg, label, *, spec=None):
+def block_grads(dev, kernels, cfg, label, *, spec=None, seq=4096):
     """One block (``spec``: the config's first layer's by default), x +
-    attn(ln1(x)) then + ffn(ln2(·)), at batch 1 x 4,096, loss Σ r·out with r
-    fixed: its gradients (input and every weight) through the kernels against
-    the same block whose attention is the einsum path (softmax materialized,
-    autograd through it). Float32 (the float32 forward route, the FMA
-    backward) within 1e-3 of each gradient's max, bf16 (both tensor-core
-    routes) within 5e-2 (the two paths round P and the attention output to
-    bf16 in other places); one flash launch each way. Returns each dtype's
-    worst relative error."""
+    attn(ln1(x)) then + ffn(ln2(·)), at batch 1 x ``seq``, loss Σ r·out with
+    r fixed: its gradients (input and every weight) through the kernels
+    against the same block whose attention is the einsum path (softmax
+    materialized, autograd through it). A block with cross-attention
+    (``spec.cross``) attends to a memory (1, ``cfg.encoder_seq``, d) drawn
+    with h, whose gradient is compared too. Float32 (the float32 forward
+    route, the FMA backward) within 1e-3 of each gradient's max, bf16 (both
+    tensor-core routes) within 5e-2 (the two paths round P and the attention
+    output to bf16 in other places); one flash launch each way (causal or
+    not as ``spec.causal``). Returns each dtype's worst relative error."""
     import torch
 
     from repro_torch.models.lm import model as lm_model
 
     spec = lm_model.layer_specs(cfg)[0] if spec is None else spec
     bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
-    pos = torch.arange(4096, device=dev)[None]
+    pos = torch.arange(seq, device=dev)[None]
     worst_by_dtype = {}
     for dtype_name, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
         c = dataclasses.replace(cfg, dtype=dtype_name, param_dtype=dtype_name)
@@ -1145,13 +1174,16 @@ def block_grads(dev, kernels, cfg, label, *, spec=None):
         plain = lm_model.Block(dataclasses.replace(c, attn_impl="einsum"), spec, device=dev)
         plain.load_state_dict(block.state_dict())
         dtype = block.attn.w_o.dtype
-        h = torch.randn((1, 4096, c.d_model), generator=gen, device=dev).to(dtype)
-        r = torch.randn((1, 4096, c.d_model), generator=gen, device=dev)
+        h = torch.randn((1, seq, c.d_model), generator=gen, device=dev).to(dtype)
+        r = torch.randn((1, seq, c.d_model), generator=gen, device=dev)
+        mem = torch.randn((1, c.encoder_seq, c.d_model), generator=gen, device=dev).to(
+            dtype) if spec.cross else None
 
         def grads(b):
             x = h.clone().requires_grad_()
-            loss = (b(x, pos)[0].float() * r).sum()
-            return torch.autograd.grad(loss, [x, *b.parameters()])
+            m = None if mem is None else mem.clone().requires_grad_()
+            loss = (b(x, pos, m)[0].float() * r).sum()
+            return torch.autograd.grad(loss, [x, *([] if m is None else [m]), *b.parameters()])
 
         kernels.reset_launches()
         got = grads(block)
@@ -1163,12 +1195,14 @@ def block_grads(dev, kernels, cfg, label, *, spec=None):
             raise AssertionError(f"{label} ({dtype_name}) launched {counts}, the backward "
                                  f"by route {bwd_kernel.route_launches} (want one {bwd_route})")
         want = grads(plain)
-        names = ["x", *(n for n, _ in block.named_parameters())]
+        names = ["x", *([] if mem is None else ["memory"]),
+                 *(n for n, _ in block.named_parameters())]
         rel = {n: float((a.double() - b.double()).abs().max() / b.double().abs().max())
                for n, a, b in zip(names, got, want)}
         worst = max(rel, key=rel.get)
         ok = all(torch.isfinite(a).all() for a in got) and rel[worst] <= tol
-        attn_errs = ", ".join(f"{n} {e:.3e}" for n, e in rel.items() if n.startswith("attn."))
+        attn_errs = ", ".join(f"{n} {e:.3e}" for n, e in rel.items()
+                              if n.startswith(("attn.", "cross.", "memory")))
         print(f"  {label} {dtype_name}: gradients through the kernels vs the einsum "
               f"attention's: worst {worst} {rel[worst]:.3e} of its max (tol {tol:g}), x "
               f"{rel['x']:.3e}, {attn_errs}; launches flash_attention 1, "
@@ -1772,9 +1806,11 @@ def ssm_phase(dev, kernels, lm_config):
     and 1 (``adam_probe.first_step``); epmcmc 4 chains × 24 layers 3 steps,
     burn-in 1; sgd 2 chains 2 steps; s a step split into forward + backward
     and the rest, peak memory. (d) The EP-MCMC driver at the reference's
-    model, ``lm_bayes_sgld.main(["--full-width"])`` (4 chains, batch 4, seq
-    128, 60 steps, burn-in 20): the (4, 40, 768) history, the restored
-    step-50 Welford count exactly 30 a chain, finite combined draws.
+    model, ``lm_bayes_sgld.main(["--full-width", ...])`` (4 chains, batch 4,
+    seq 128; its default 60 steps and burn-in 20 cut to 30 and 10, which
+    took the script from ~594 s to within its 600 s budget once 4m and 4n
+    were added): the (4, 20, 768) history, the restored step-25 Welford
+    count exactly 15 a chain, finite combined draws.
     Returns (the bf16 serving run's launches, the training runs' launches,
     the driver's launches, the record printed)."""
     import torch
@@ -1965,7 +2001,7 @@ def ssm_phase(dev, kernels, lm_config):
     # (d) the EP-MCMC driver on the reference's own model
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = lm_bayes_sgld.main(["--full-width"])
+    res = lm_bayes_sgld.main(["--full-width", "--steps", "30", "--burn-in", "10"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # the LM's chains launch nothing; the combination stage's weierstrass
@@ -1980,14 +2016,14 @@ def ssm_phase(dev, kernels, lm_config):
     launches_driver = counts
     history, restored = res["history"], res["restored"]
     finite = bool(torch.isfinite(res["combined"].samples).all())
-    print(f"  (d) lm_bayes_sgld --full-width ({arch}, 4 chains, batch 4 x 128, 60 steps, burn-in "
-          f"20): history {tuple(history.shape)}, restored step {res['restored_step']} with "
+    print(f"  (d) lm_bayes_sgld --full-width ({arch}, 4 chains, batch 4 x 128, 30 steps, burn-in "
+          f"10): history {tuple(history.shape)}, restored step {res['restored_step']} with "
           f"Welford counts {restored.m_count.tolist()}, combined draws "
           f"{tuple(res['combined'].samples.shape)} finite {finite}; wall {wall:.2f} s; "
           f"launches {json.dumps(counts)}, img_log_weights by route {json.dumps(routes)}",
           flush=True)
-    if (tuple(history.shape) != (4, 40, 768) or res["restored_step"] != 50
-            or restored.m_count.tolist() != [30.0] * 4 or not finite):
+    if (tuple(history.shape) != (4, 20, 768) or res["restored_step"] != 25
+            or restored.m_count.tolist() != [15.0] * 4 or not finite):
         raise AssertionError("(d) lm_bayes_sgld: history, restore or combination wrong")
     record["lm_bayes_sgld_wall_s"] = wall
     del res, history, restored
@@ -2001,6 +2037,480 @@ def ssm_phase(dev, kernels, lm_config):
     return launches_serve, launches_train, launches_driver, record
 
 
+def serve_run(kernels, fwd_kernel, label, argv, *, flash, route, vocab):
+    """``serve.main(argv)`` with the counts reset and the peak memory
+    tracked: exactly ``flash`` flash_attention launches, all on ``route``,
+    and nothing else launched; the tokens in the vocabulary. Returns (its
+    dict, the launches, the flash launches by route, the peak bytes)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    out = serve.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts, routes = kernels.launch_counts(), dict(fwd_kernel.route_launches)
+    want = {name: (flash if name == "flash_attention" else 0) for name in counts}
+    want_routes = {r: (flash if r == route else 0) for r in routes}
+    print(f"  {label}: prefill_s={out['prefill_s']:.4f} decode_ms_per_tok="
+          f"{out['decode_s_per_tok'] * 1e3:.3f} peak max_memory_allocated {peak / 1e9:.2f} GB "
+          f"launches={json.dumps(counts)}, flash_attention by route {json.dumps(routes)}",
+          flush=True)
+    if counts != want or routes != want_routes:
+        raise AssertionError(f"{label} launched {counts}, by route {routes}; expected {want}, "
+                             f"by route {want_routes}")
+    tokens = out["tokens"]
+    if not bool(((tokens >= 0) & (tokens < vocab)).all()) or not bool(
+            torch.isfinite(out["logits"]).all()):
+        raise AssertionError(f"{label}: a token outside the vocabulary or a logit not finite")
+    return out, counts, routes, peak
+
+
+def cache_bytes(caches) -> int:
+    """Bytes of a serving state's caches: k/v dicts and Mamba-2 states alike."""
+    return sum(c.nbytes() if hasattr(c, "nbytes") else
+               sum(t.numel() * t.element_size() for t in c.values()) for c in caches)
+
+
+def hybrid_phase(dev, kernels, lm_config):
+    """Phase 4m: the hybrid family at jamba-1.5-large-398b's full width (d
+    8,192; GQA 64 heads on 8 kv heads of 128, so flash at K = 8, G = 8;
+    Mamba-2 d_inner 16,384, 256 SSM heads of 64, d_state 128, chunk 128,
+    head blocks of 16; d_ff 24,576; 16 experts top-2 at d_ff 24,576, groups
+    of 256, capacity factor 1.25; vocab 65,536, untied; random weights from
+    the seed), its depth cut to the period's first five layers (l0
+    mamba+mlp, l1 mamba+moe, l2 mamba+mlp, l3 mamba+moe, l4 attn+mlp: every
+    kind of block the period has, all 16 experts; 23.99 B parameters, 47.98
+    GB in bf16; one period of 8 is ~90 GB, over the card's 80). No two
+    full-width models are held at once. (a) Serving, ``serve.main --layers
+    5`` in bf16 at B = 2 × 4,096 + 16 (then the same weights warm: the cache's
+    bytes, one GQA layer and four SSM states, and the share of (token, slot)
+    pairs the prefill dropped) and at B = 1 × 32,768 + 16 (Jamba's
+    ``max_seq_len``, ``prefill_32k``'s length; reckoned peak ~66 GB: the
+    weights and four (16, 128, 44, 24,576) bf16 MoE hiddens of 4.4 GB): one
+    flash launch a prefill (layer 4), ``tensor_core``, nothing else; cold
+    and warm prefill s, decode ms a token, peak memory. The decode-vs-forward
+    invariant at capacity factor 8 (``moe._capacity`` 260 ≥ a group's 256
+    tokens: nothing dropped), prompt 1,152 (nine SSD chunks, over
+    ``attn_chunk``) + 16: float32 at 2 layers (l0–l1, 12.15 B parameters,
+    48.6 GB) within 2e-3; bf16 at 5 layers within twice bf16's own error
+    (4d's rule), that error read as the bf16 forward against the same
+    model's forward with float32 activations (its bf16 weights upcast one
+    product at a time: a float32 copy, 96 GB, does not fit). (b) Layer 4's
+    block (attn+mlp at full width) gradients through the kernels against
+    the einsum attention's (``block_grads``), float32 and bf16. (c) Layer
+    1's block (mamba+moe, 10.1 B parameters) forward + backward in bf16 at
+    1 × 4,096: gradients finite, seconds and peak memory; nothing launched.
+    Its float32 twin (40.5 GB of weights, as much again of gradients) does
+    not fit. (d) ``train.main --layers 1`` (l0, mamba+mlp: 2.08 B
+    parameters) at batch 1 × 4,096, bf16, remat full, the config's bf16
+    optimizer state: adamw 3 steps at 3e-4 (reckoned peak ~32 GB: p, g, μ, ν
+    16.6 GB and AdamW's float32 temporaries over the 536.9 M-element
+    embedding and head), then one ``lm_steps.train_step`` at 3e-5 that must
+    lower the loss on batches 0 and 1; epmcmc 1 chain 2 steps (two chains
+    reckon ~75 GB). No flash on that layer. Returns (the 4,096 serving run's
+    launches, its flash launches by route, the training runs' launches,
+    their flash launches by route forward and backward, the record)."""
+    import torch
+
+    from repro_torch.launch import adam_probe, serve
+    from repro_torch.models.lm import model as lm_model
+    from repro_torch.models.lm import moe as moe_lib
+
+    arch = "jamba-1.5-large-398b"
+    phase(f"4m hybrid: {arch} full width, layers 0-4 (d 8192, 256 SSM heads, GQA K 8 G 8, "
+          "16 experts top-2): serve B=2 S=4096 and B=1 S=32768 (bf16), the invariant, block "
+          "gradients, train 1 layer batch 1 x 4096")
+    cfg = dataclasses.replace(lm_config(arch), num_layers=5)
+    gen_len, layers, record = 16, 5, {}
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
+    k_top, e = cfg.moe.top_k, cfg.moe.num_experts
+    part_s, t_part = {}, time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        part_s[name] = time.perf_counter() - t_part
+        print(f"  ({name}) took {part_s[name]:.1f} s", flush=True)
+        t_part = time.perf_counter()
+
+    def serve_argv(batch, prompt_len):
+        return ["--arch", arch, "--layers", str(layers), "--batch", str(batch), "--prompt-len",
+                str(prompt_len), "--gen", str(gen_len), "--seed", "0"]
+
+    # (a) serving: the CLI's runs cold, then each on the same weights warm
+    for batch, prompt_len in ((2, 4096), (1, 32_768)):
+        label = f"(a) serve bf16 B={batch} x {prompt_len}"
+        argv = serve_argv(batch, prompt_len)
+        out, counts, routes, peak = serve_run(kernels, fwd_kernel, label, argv, flash=1,
+                                              route="tensor_core", vocab=cfg.vocab_size)
+        if prompt_len == 4096:
+            launches_serve, routes_serve = counts, routes
+        _, model, prompt = serve.setup(serve.parse(argv))
+        if not torch.equal(prompt, out["prompt"]):
+            raise AssertionError("serve.setup drew another prompt from the same seed")
+        torch.cuda.reset_peak_memory_stats(dev)
+        warm = serve.generate(model, prompt, gen_len)
+        warm_peak = torch.cuda.max_memory_allocated(dev)
+        if not torch.equal(warm["tokens"], out["tokens"]):
+            raise AssertionError(f"{label}: a warm run generated other tokens")
+        kept = torch.zeros((), dtype=torch.float64, device=dev)
+
+        def count_kept(i, x):
+            p = moe_lib.plan(model.blocks[i].moe, x)
+            kept.add_(p.dispatch.reshape(-1, e * p.dispatch.shape[-1])[:p.n].sum())
+
+        hooks = moe_taps(model, count_kept)
+        state = lm_steps_prefill(model, prompt, prompt_len + gen_len)
+        for h in hooks:
+            h.remove()
+        dropped = 1.0 - float(kept) / (batch * prompt_len * k_top * len(hooks))
+        nbytes = cache_bytes(state.caches)
+        cap = moe_lib._capacity(cfg, cfg.moe.group_size)
+        print(f"  {label}, warm: prefill_s={warm['prefill_s']:.4f} decode_ms_per_tok="
+              f"{warm['decode_s_per_tok'] * 1e3:.3f}, the same tokens, peak {warm_peak / 1e9:.2f} "
+              f"GB; caches {nbytes} bytes (one GQA layer's k, v at {prompt_len + gen_len} "
+              f"positions and four SSM states); the prefill dropped {dropped:.6%} of its "
+              f"{batch * prompt_len * k_top * len(hooks)} (token, slot) pairs (capacity {cap} a "
+              f"group of {cfg.moe.group_size})", flush=True)
+        record[f"serve_B{batch}_S{prompt_len}"] = {
+            "prefill_s": out["prefill_s"], "decode_s_per_tok": out["decode_s_per_tok"],
+            "warm_prefill_s": warm["prefill_s"], "warm_decode_s_per_tok": warm["decode_s_per_tok"],
+            "peak_gb": peak / 1e9, "warm_peak_gb": warm_peak / 1e9, "cache_bytes": nbytes,
+            "dropped_share": dropped}
+        del model, state, out, prompt, warm
+        torch.cuda.empty_cache()
+    part_done("a serve")
+
+    # (a) the invariant at capacity factor 8, the weights of the seed (the
+    # model, then the prompt, from one generator)
+    inv_prompt = 1152
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    cap8 = moe_lib._capacity(cfg8, cfg.moe.group_size)
+    if cap8 < cfg.moe.group_size:
+        raise AssertionError(f"capacity {cap8} at factor 8 drops tokens of a group of "
+                             f"{cfg.moe.group_size}")
+
+    def setup8(dtype, n_layers):
+        c = dataclasses.replace(cfg8, num_layers=n_layers, dtype=dtype, param_dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = lm_model.init_params(c, generator=gen, device=dev)
+        prompt = torch.randint(0, c.vocab_size, (2, inv_prompt), generator=gen, device=dev)
+        return model, dict(serve.generate(model, prompt, gen_len), prompt=prompt)
+
+    model, out = setup8("float32", 2)
+    gap32 = invariant("(a) capacity 8, float32, 2 layers: decode vs forward", out,
+                      forward_tail(model, out), 2e-3)
+    del model, out
+    torch.cuda.empty_cache()
+    model, out = setup8("bfloat16", layers)
+    fwd16 = forward_tail(model, out)
+    model.cfg = dataclasses.replace(model.cfg, dtype="float32")  # float32 activations
+    dev16 = float((fwd16 - forward_tail(model, out)).abs().max())
+    model.cfg = dataclasses.replace(model.cfg, dtype="bfloat16")
+    print(f"  (a) capacity 8, bf16, {layers} layers: bf16 forward vs float32 activations on the "
+          f"same weights and tokens: max |diff| = {dev16:.4e}", flush=True)
+    gap16 = invariant(f"(a) capacity 8, bf16, {layers} layers: decode vs forward", out, fwd16,
+                      2.0 * dev16)
+    record["capacity8"] = {"invariant_gap": {"float32": gap32, "bfloat16": gap16},
+                           "bfloat16_vs_float32_activations": dev16}
+    del model, out, fwd16
+    torch.cuda.empty_cache()
+    part_done("a invariant")
+
+    # (b) layer 4's block, attn + mlp, flash at G 8
+    record["block_grad_rel_err"] = block_grads(dev, kernels, cfg, "(b) layer 4 (attn+mlp)",
+                                               spec=lm_model.layer_specs(cfg)[4])
+    part_done("b")
+
+    # (c) layer 1's block, mamba + moe, bf16
+    c16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="bfloat16")
+    spec1 = lm_model.layer_specs(cfg)[1]
+    gen = torch.Generator(device=dev).manual_seed(37)
+    block = lm_model.Block(c16, spec1, generator=gen, device=dev)
+    h = torch.randn((1, 4096, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    r = torch.randn((1, 4096, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(4096, device=dev)[None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    x = h.clone().requires_grad_()
+    y, aux = block(x, pos)
+    grads = torch.autograd.grad((y.float() * r).sum() + aux, [x, *block.parameters()])
+    torch.cuda.synchronize()
+    secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    counts = kernels.launch_counts()
+    print(f"  (c) layer 1 (mamba+moe, {sum(p.numel() for p in block.parameters()) / 1e9:.2f} B "
+          f"parameters) bf16 forward + backward at 1 x 4096: {secs:.4f} s, peak "
+          f"{peak / 1e9:.2f} GB, {len(grads)} gradients finite {finite}; launches "
+          f"{json.dumps(counts)}", flush=True)
+    if not finite or any(counts.values()):
+        raise AssertionError(f"(c) layer 1: gradients finite {finite}, launches {counts}")
+    record["mamba_moe_block"] = {"fwd_bwd_s": secs, "peak_gb": peak / 1e9}
+    del block, h, r, x, y, aux, grads
+    torch.cuda.empty_cache()
+    part_done("c")
+
+    # (d) training at 1 layer
+    launches_train = {name: 0 for name in kernels.KERNELS}
+    routes_train = {route: 0 for route in fwd_kernel.route_launches}
+    routes_train_bwd = {route: 0 for route in bwd_kernel.route_launches}
+    totals = (launches_train, routes_train, routes_train_bwd)
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    base = ["--arch", arch, "--batch", "1", "--seq", "4096", "--log-every", "1", "--seed", "0",
+            "--layers", "1"]
+
+    def run(label, argv, *, chains, steps):
+        return train_run(kernels, cfg1, base, label, argv, layers=1, chains=chains,
+                         steps=steps, totals=totals, record=record, attention_layers=0)
+
+    out = run("(d) adamw 1 layer", ["--mode", "adamw", "--steps", "3"], chains=1, steps=3)
+    record["adamw_losses"] = [float(x) for x in out["losses"]]
+    del out
+    torch.cuda.empty_cache()
+    descent = adam_probe.first_step(cfg1, 3e-5, device=dev)
+    print(f"  (d) adamw first step at 3e-5 (lm_steps.train_step on batch 0): loss batch 0 "
+          f"{descent['before'][0]:.4f} -> {descent['after'][0]:.4f}, batch 1 "
+          f"{descent['before'][1]:.4f} -> {descent['after'][1]:.4f}", flush=True)
+    if not all(a < b for a, b in zip(descent["after"], descent["before"])):
+        raise AssertionError(f"(d) adamw: the first step at 3e-5 did not lower the loss: "
+                             f"{descent}")
+    record["adamw_first_step_3e-5"] = descent
+    torch.cuda.empty_cache()
+    label = "(d) epmcmc 1 chain x 1 layer"
+    out = run(label, ["--mode", "epmcmc", "--steps", "2", "--chains", "1"], chains=1, steps=2)
+    if not out["combined_finite"]:
+        raise AssertionError(f"{label}: the combined moments are not finite")
+    del out
+    torch.cuda.empty_cache()
+    part_done("d")
+    record["part_s"] = part_s
+    print(f"  4m launches: serve (B=2 x 4096) {json.dumps(launches_serve)}; train "
+          f"{json.dumps(launches_train)}", flush=True)
+    print(f"  hybrid {json.dumps(record)}", flush=True)
+    return launches_serve, routes_serve, launches_train, routes_train, routes_train_bwd, record
+
+
+def lm_steps_prefill(model, prompt, max_len, enc_frames=None):
+    """``lm_steps.serve_prefill`` on ``serve``'s batch for the prompt."""
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import steps as lm_steps
+
+    return lm_steps.serve_prefill(model, serve.serve_batch(model.cfg, prompt, enc_frames),
+                                  max_len)
+
+
+def encdec_phase(dev, kernels, lm_config):
+    """Phase 4n: the encoder–decoder family, whisper-base whole (6 encoder
+    layers over its 1,500 frames, 6 decoder layers with cross-attention; d
+    512, 8 heads of 64, MHA so flash at K = 8, G = 1; d_ff 2,048; vocab
+    51,865, untied; 109.7 M parameters; random weights from the seed). The
+    encoder's self-attention is non-causal at S = T = 1,500 (> ``attn_chunk``,
+    so flash, with a 28-row tail tile), the decoder's causal at the prompt's
+    length; cross-attention is the einsum path, as the reference's. (a)
+    Serving, ``serve.main`` at B = 2 × 4,096 + 16 (the encoder fed zero
+    frames, as the reference's CLI) in bf16 (``tensor_core``) and float32
+    (``tf32x3``): 12 flash launches a prefill (6 non-causal at 1,500, 6
+    causal at 4,096), nothing else; cold and warm prefill s, decode ms a
+    token, the cache's bytes. The decode-vs-forward invariant with frames
+    drawn from the seed (so the encoder does real work): float32 within
+    2e-3, bf16 within twice bf16's own error (4d's rule). (b) One encoder
+    block (non-causal, 1 × 1,500) and one decoder block (causal, 1 × 4,096,
+    cross-attending to a memory of 1,500, the memory's gradient compared
+    too): gradients through the kernels against the einsum attention's. (c)
+    ``lm_steps.train_step`` (adamw) at B = 4 × 4,096 with frames (4, 1,500,
+    512) drawn from the seed: flash launches by route and direction, 18
+    forward (6 encoder, not rematerialized, and the decoder's 6 twice) and 12
+    backward a step, all ``tensor_core``; losses finite, the encoder's
+    weights moved. (d) ``train.main`` on tokens alone (the reference's
+    driver), batch 4 × 4,096: adamw 3 steps and epmcmc 2 chains 3 steps,
+    burn-in 1; flash 2 forward and 1 backward a decoder layer a chain a
+    step. Returns (the bf16 serving run's launches, each serving run's flash
+    launches by route, the training runs' launches, their flash launches by
+    route forward and backward, the record)."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import model as lm_model
+    from repro_torch.models.lm import steps as lm_steps
+
+    arch = "whisper-base"
+    phase(f"4n encdec: {arch} whole (6 + 6 layers, d 512, 8 heads of 64, encoder 1500 frames "
+          "non-causal): serve B=2 S=4096 (bf16, float32), the invariant, block gradients, "
+          "train B=4 x 4096")
+    cfg = lm_config(arch)
+    gen_len, record, routes_serve = 16, {}, {}
+    n_enc, n_dec = cfg.num_encoder_layers, cfg.num_layers
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
+
+    def serve_argv(dtype):
+        return ["--arch", arch, "--batch", "2", "--prompt-len", "4096", "--gen", str(gen_len),
+                "--seed", "0", "--dtype", dtype]
+
+    # (a) the CLI's runs, then the same weights warm and the cache's bytes
+    for dtype, route in (("bfloat16", "tensor_core"), ("float32", "tf32x3")):
+        label = f"(a) serve {dtype}"
+        with flash_calls() as calls:
+            out, counts, routes, _ = serve_run(kernels, fwd_kernel, label, serve_argv(dtype),
+                                               flash=n_enc + n_dec, route=route,
+                                               vocab=cfg.vocab_size)
+        want_calls = sorted([(2, 1500, 1500, False)] * n_enc + [(2, 4096, 4096, True)] * n_dec)
+        if sorted(calls) != want_calls:
+            raise AssertionError(f"{label}: flash calls {calls}, want {want_calls}")
+        routes_serve[dtype] = routes
+        if dtype == "bfloat16":
+            launches_serve = counts
+        _, model, prompt = serve.setup(serve.parse(serve_argv(dtype)))
+        warm = serve.generate(model, prompt, gen_len)
+        if not torch.equal(warm["tokens"], out["tokens"]):
+            raise AssertionError(f"{label}: a warm run generated other tokens")
+        state = lm_steps_prefill(model, prompt, 4096 + gen_len)
+        nbytes = cache_bytes(state.caches)
+        print(f"  {label}, warm: prefill_s={warm['prefill_s']:.4f} decode_ms_per_tok="
+              f"{warm['decode_s_per_tok'] * 1e3:.3f}, the same tokens; flash calls "
+              f"{n_enc} x (B, S, T) = (2, 1500, 1500) non-causal and {n_dec} x (2, 4096, 4096) "
+              f"causal; caches {nbytes} bytes, memory {tuple(state.memory.shape)}", flush=True)
+        record[f"serve_{dtype}"] = {
+            "prefill_s": out["prefill_s"], "decode_s_per_tok": out["decode_s_per_tok"],
+            "warm_prefill_s": warm["prefill_s"], "warm_decode_s_per_tok": warm["decode_s_per_tok"],
+            "cache_bytes": nbytes}
+        del model, state, out, warm
+        torch.cuda.empty_cache()
+
+    # (a) the invariant, frames from the seed
+    def setup(dtype):
+        c = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = lm_model.init_params(c, generator=gen, device=dev)
+        prompt = torch.randint(0, c.vocab_size, (2, 4096), generator=gen, device=dev)
+        frames = torch.randn((2, c.encoder_seq, c.d_model), generator=gen, device=dev)
+        return model, dict(serve.generate(model, prompt, gen_len, enc_frames=frames),
+                           prompt=prompt)
+
+    model32, out32 = setup("float32")
+    gap32 = invariant("(a) float32 decode vs forward (frames from the seed)", out32,
+                      forward_tail(model32, out32), 2e-3)
+    model16, out16 = setup("bfloat16")
+    if not torch.equal(out16["enc_frames"], out32["enc_frames"]):
+        raise AssertionError("(a) the two dtypes drew other frames")
+    fwd16 = forward_tail(model16, out16)
+    dev16 = float((fwd16 - forward_tail(model32, out16)).abs().max())
+    print(f"  (a) bfloat16 forward vs float32 forward on the same tokens and frames: max |diff| "
+          f"= {dev16:.4e}", flush=True)
+    gap16 = invariant("(a) bfloat16 decode vs forward (frames from the seed)", out16, fwd16,
+                      2.0 * dev16)
+    record["invariant_gap"] = {"float32": gap32, "bfloat16": gap16}
+    record["bfloat16_vs_float32"] = dev16
+    del model32, out32, model16, out16, fwd16
+    torch.cuda.empty_cache()
+
+    # (b) an encoder block and a decoder block
+    record["encoder_block_grad_rel_err"] = block_grads(
+        dev, kernels, cfg, "(b) encoder block (non-causal, 1 x 1500)", spec=lm_model.ENCODER,
+        seq=cfg.encoder_seq)
+    record["decoder_block_grad_rel_err"] = block_grads(
+        dev, kernels, cfg, "(b) decoder block (causal, cross-attention to 1500 frames)",
+        spec=lm_model.DECODER)
+
+    # (c) lm_steps.train_step at B = 4 x 4,096 with frames
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, opt = lm_steps.init_train_state(gen, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4097), generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "enc_frames": torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                       device=dev)}
+    start = model.encoder[0].attn.w_q.detach().clone()
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for step in range(3):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, metrics = lm_steps.train_step(model, opt, batch, cfg)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        counts = kernels.launch_counts()
+        routes, routes_bwd = dict(fwd_kernel.route_launches), dict(bwd_kernel.route_launches)
+        want_fwd, want_bwd = n_enc + 2 * n_dec, n_enc + n_dec
+        if (counts["flash_attention"] != want_fwd or counts["flash_attention_bwd"] != want_bwd
+                or routes.get("tensor_core") != want_fwd
+                or routes_bwd != {"tensor_core": want_bwd, "fma": 0}
+                or any(n for k, n in counts.items() if not k.startswith("flash"))):
+            raise AssertionError(f"(c) train_step launched {counts}, forward by route {routes}, "
+                                 f"backward by route {routes_bwd}; want {want_fwd} forward and "
+                                 f"{want_bwd} backward, all tensor_core")
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = float((model.encoder[0].attn.w_q.detach().float() - start.float()).abs().max())
+    print(f"  (c) lm_steps.train_step adamw B=4 x 4096 with frames (4, 1500, 512): loss by step "
+          f"{json.dumps([round(x, 4) for x in losses])}, s a step "
+          f"{json.dumps([round(t, 4) for t in step_s])}, peak {peak / 1e9:.2f} GB; each step "
+          f"flash_attention {want_fwd} ({n_enc} encoder, {n_dec} x 2 decoder), "
+          f"flash_attention_bwd {want_bwd}, all tensor_core; the encoder's w_q moved by "
+          f"{moved:.3e}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or moved == 0.0:
+        raise AssertionError(f"(c) train_step: losses {losses}, the encoder moved {moved}")
+    record["train_step_frames"] = {"losses": losses, "step_s": step_s, "peak_gb": peak / 1e9,
+                                   "flash_attention_per_step": want_fwd,
+                                   "flash_attention_bwd_per_step": want_bwd}
+    del model, opt, batch, tokens, start
+    torch.cuda.empty_cache()
+
+    # (d) train.main on tokens alone
+    launches_train = {name: 0 for name in kernels.KERNELS}
+    routes_train = {route: 0 for route in fwd_kernel.route_launches}
+    routes_train_bwd = {route: 0 for route in bwd_kernel.route_launches}
+    totals = (launches_train, routes_train, routes_train_bwd)
+    base = ["--arch", arch, "--batch", "4", "--seq", "4096", "--log-every", "1", "--seed", "0"]
+
+    def run(label, argv, *, chains, steps):
+        return train_run(kernels, cfg, base, label, argv, layers=n_dec, chains=chains,
+                         steps=steps, totals=totals, record=record)
+
+    out = run("(d) adamw", ["--mode", "adamw", "--steps", "3"], chains=1, steps=3)
+    del out
+    torch.cuda.empty_cache()
+    label = "(d) epmcmc 2 chains"
+    out = run(label, ["--mode", "epmcmc", "--steps", "3", "--burn-in", "1", "--chains", "2"],
+              chains=2, steps=3)
+    if out["welford_count"] != [2.0, 2.0] or not out["combined_finite"]:
+        raise AssertionError(f"{label}: Welford count {out['welford_count']}, combined finite "
+                             f"{out['combined_finite']}")
+    del out
+    torch.cuda.empty_cache()
+    print(f"  4n launches: serve (bf16) {json.dumps(launches_serve)}; train "
+          f"{json.dumps(launches_train)}, flash_attention by route {json.dumps(routes_train)}, "
+          f"flash_attention_bwd by route {json.dumps(routes_train_bwd)}", flush=True)
+    print(f"  encdec {json.dumps(record)}", flush=True)
+    return launches_serve, routes_serve, launches_train, routes_train, routes_train_bwd, record
+
+
+@contextlib.contextmanager
+def flash_calls():
+    """A list of (B, S, T, causal), one a call the model makes to flash
+    (``attention.flash_attention``) inside the block."""
+    from repro_torch.models.lm import attention
+
+    flash, calls = attention.flash_attention, []
+
+    def watch(q, k, v, causal=True, *args):
+        calls.append((q.shape[0], q.shape[1], k.shape[1], bool(causal)))
+        return flash(q, k, v, causal, *args)
+
+    attention.flash_attention = watch
+    try:
+        yield calls
+    finally:
+        attention.flash_attention = flash
+
+
 def sdpa_kernels(fn) -> str:
     """The device kernels one call of ``fn`` (a ``scaled_dot_product_attention``
     call) spends most time in, by the profiler: which backend PyTorch took
@@ -2012,11 +2522,13 @@ def sdpa_kernels(fn) -> str:
     return "; ".join(f"{name[:90]} {ms * 1e3:.1f} us" for name, ms in split[:2])
 
 
-def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
+def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None, B=1, S=4096, causal=True):
     """Phase 5's flash_attention_bwd row at a training shape (B=1, S=T=4096,
     bf16, causal; llama3.2-3b's K=8, G=3, hd=hd_v=128 by default,
-    granite-moe-1b-a400m's K=8, G=2, hd=64 and deepseek-v2-236b's MLA, K=128,
-    G=1, hd=192, hd_v=128, too): the bf16 tensor-core route
+    granite-moe-1b-a400m's K=8, G=2, hd=64, deepseek-v2-236b's MLA, K=128,
+    G=1, hd=192, hd_v=128, jamba-1.5-large-398b's K=8, G=8, hd=128, and
+    whisper-base's encoder, B=4, S=T=1,500, K=8, G=1, hd=64, non-causal,
+    too): the bf16 tensor-core route
     (the one the path takes) warm, with a cold L2 and its host enqueue; the
     FMA route on the same tensors (``ops._launch_bwd(route="fma")``, the
     first design, which float32 still takes); each route's split between its
@@ -2041,18 +2553,19 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
     )
     from repro_torch.launch.flash_bwd_probe import bwd_part, kernel_split_ms
 
-    B, S = 1, 4096
     hd_v = hd if hd_v is None else hd_v
+    mode = "causal" if causal else "non-causal"
     q = torch.randn((B, S, K, G, hd), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((B, S, K, hd_v), generator=gen, device=dev).to(torch.bfloat16)
     dout = torch.randn((B, S, K, G, hd_v), generator=gen, device=dev).to(torch.bfloat16)
-    out, lse = flash_attention(q, k, v, return_lse=True)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     if ops._route_bwd(q, k, v, out, dout) != "tensor_core":
         raise AssertionError("flash_attention_bwd: the training shape is not on the tensor-core "
                              "route")
-    run = lambda: flash_attention_bwd(q, k, v, out, lse, dout)  # noqa: E731
-    run_fma = lambda: ops._launch_bwd(q, k, v, out, lse, dout, True, S, route="fma")  # noqa: E731
+    run = lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)  # noqa: E731
+    run_fma = lambda: ops._launch_bwd(q, k, v, out, lse, dout, causal, S,  # noqa: E731
+                                      route="fma")
     ms, host = device_ms(run, iters=10)
     cold, _ = device_ms(run, iters=5, flush=flush)
     fma_ms, fma_host = device_ms(run_fma, iters=10)
@@ -2063,20 +2576,22 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
             if bwd_part(key):
                 parts[bwd_part(key)] += part_ms
         split[route] = {f"{part}_ms": x for part, x in parts.items()}
-    plain, _ = device_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout), iters=1)
-    fwd_ms, _ = device_ms(lambda: flash_attention(q, k, v), iters=10)
-    fwd_lse_ms, _ = device_ms(lambda: flash_attention(q, k, v, return_lse=True), iters=10)
+    plain, _ = device_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal),
+                         iters=1)
+    fwd_ms, _ = device_ms(lambda: flash_attention(q, k, v, causal=causal), iters=10)
+    fwd_lse_ms, _ = device_ms(lambda: flash_attention(q, k, v, causal=causal, return_lse=True),
+                              iters=10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh = q.reshape(B, S, K * G, hd).transpose(1, 2).detach().requires_grad_()
     kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (k, v))
     gout = dout.reshape(B, S, K * G, hd_v).transpose(1, 2)
     try:
-        o = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+        o = sdpa(qh, kh, vh, is_causal=causal, enable_gqa=True)
         how = "enable_gqa"
         lib_run = lambda: torch.autograd.grad(o, (qh, kh, vh), gout, retain_graph=True)  # noqa: E731
     except TypeError:  # an older PyTorch: repeat the KV heads for it
         kr, vr = (x.detach().repeat_interleave(G, dim=1).requires_grad_() for x in (kh, vh))
-        o = sdpa(qh, kr, vr, is_causal=True)
+        o = sdpa(qh, kr, vr, is_causal=causal)
         how = "KV heads repeated"
         lib_run = lambda: torch.autograd.grad(o, (qh, kr, vr), gout, retain_graph=True)  # noqa: E731
     lib_ms, _ = device_ms(lib_run, iters=10)
@@ -2084,13 +2599,13 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
     # q, out, dout, k, v and lse read once; dq, dk, dv written once
     nbytes = 2 * (B * S * K * G * (hd + 2 * hd_v) + B * S * K * (hd + hd_v)) + 4 * B * S * K * G \
         + 2 * (B * S * K * G * hd + B * S * K * (hd + hd_v))
-    pairs = B * K * G * S * (S + 1) // 2  # visible (query, kv) pairs
+    pairs = B * K * G * (S * (S + 1) // 2 if causal else S * S)  # visible (query, kv) pairs
     flops = 2 * (3 * hd + 2 * hd_v) * pairs  # S, dq, dk at hd; dP, dv at hd_v
     bound, bound_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
     design, _ = least_ms(nbytes, flops + 2 * (hd + hd_v) * pairs, peak=BF16_FLOPS)
     bound32, _ = least_ms(nbytes, flops)
     tc, fm = split["tensor_core"], split["fma"]
-    print(f"  flash_attention_bwd B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} causal bf16: "
+    print(f"  flash_attention_bwd B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} {mode} bf16: "
           f"tensor_core "
           f"route {ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue "
           f"{host * 1e3:.2f} us/call; profiler: dq {tc['dq_ms'] * 1e3:.2f} us, dkdv "
@@ -2110,7 +2625,7 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None):
            "split_ms": split["tensor_core"],
            "fma_route": {"ms": fma_ms, "host_ms": fma_host, "split_ms": split["fma"]},
            "forward_ms": fwd_ms, "forward_lse_ms": fwd_lse_ms,
-           "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} causal bfloat16"}
+           "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} {mode} bfloat16"}
     del q, k, v, dout, out, lse, qh, kh, vh, gout, o, lib_run
     torch.cuda.empty_cache()
     return row
@@ -2817,7 +3332,10 @@ def main() -> int:
     # (8 KV heads of 2, hd 64, S = T = 4096, at its training batch of 1),
     # deepseek-v2-236b's MLA prefill (128 KV heads of 1, hd 192, hd_v 128, S =
     # T = 4096, B = 2) in bf16 and float32 (the plain versions a slice of heads
-    # at a time, flash_bwd_probe.plain_by_heads), the reference tests'
+    # at a time, flash_bwd_probe.plain_by_heads), jamba-1.5-large-398b's layer
+    # 4 (8 KV heads of 8, hd 128, S = T = 4096, B = 2, causal) and
+    # whisper-base's encoder (8 KV heads of 1, hd 64, S = T = 1500, a 28-row
+    # tail tile, B = 2, non-causal) in bf16 and float32, the reference tests'
     # GQA / hd_v≠hd and ragged non-causal shapes, MLA's hd 192 with hd_v 128,
     # a kv_len inside the causal reach, and every row masked (kv_len 0: zeros,
     # no NaN), all of which but the serving path take the FMA route in
@@ -2844,6 +3362,10 @@ def main() -> int:
         "granite path float32": (1, 4096, 4096, 8, 2, 64, 64, True, None, f32),
         "deepseek path": (2, 4096, 4096, 128, 1, 192, 128, True, None, bf16),
         "deepseek path float32": (2, 4096, 4096, 128, 1, 192, 128, True, None, f32),
+        "jamba path": (2, 4096, 4096, 8, 8, 128, 128, True, None, bf16),
+        "jamba path float32": (2, 4096, 4096, 8, 8, 128, 128, True, None, f32),
+        "whisper encoder path": (2, 1500, 1500, 8, 1, 64, 64, False, None, bf16),
+        "whisper encoder path float32": (2, 1500, 1500, 8, 1, 64, 64, False, None, f32),
         "GQA hd_v=16": (2, 128, 128, 2, 2, 32, 16, True, None, f32),
         "ragged non-causal S=100 T=160": (1, 100, 160, 1, 4, 16, 16, False, None, f32),
         "MLA hd=192 hd_v=128": (1, 300, 300, 4, 1, 192, 128, True, None, bf16),
@@ -2927,7 +3449,8 @@ def main() -> int:
         if kv_len == 0 and not bool((out == 0).all()):
             raise AssertionError(f"flash_attention [{route}]: a fully masked row is not zero")
         if "path" in label:  # each tensor-core route is deterministic
-            if not all(torch.equal(out, flash_attention(q, k, v)) for _ in range(3)):
+            if not all(torch.equal(out, flash_attention(q, k, v, causal=causal, kv_len=kv_len))
+                       for _ in range(3)):
                 raise AssertionError(f"flash_attention [{route}]: three runs of one input differ")
             print(f"  flash_attention [{route}] {label}: three more runs, the same bits",
                   flush=True)
@@ -3553,6 +4076,12 @@ def main() -> int:
     launches_ssm_serve, launches_ssm_train, launches_ssm_driver, _ = ssm_phase(dev, kernels,
                                                                                lm_config)
     torch.cuda.empty_cache()
+    (launches_hybrid_serve, routes_hybrid_serve, launches_hybrid_train, routes_hybrid_train,
+     routes_hybrid_train_bwd, hybrid_record) = hybrid_phase(dev, kernels, lm_config)
+    torch.cuda.empty_cache()
+    (launches_encdec_serve, routes_encdec_serve, launches_encdec_train, routes_encdec_train,
+     routes_encdec_train_bwd, encdec_record) = encdec_phase(dev, kernels, lm_config)
+    torch.cuda.empty_cache()
 
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
@@ -3823,7 +4352,7 @@ def main() -> int:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_rows = {}
     misaligned = "float32 B=2 q 4 bytes off 16"
-    for label, B, dtype, route, (K, G, hd, hd_v) in (
+    for label, B, dtype, route, shape in (
             ("bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 3, 128, 128)),
             ("bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 3, 128, 128)),
             ("float32 B=2", 2, torch.float32, "tf32x3", (8, 3, 128, 128)),
@@ -3833,8 +4362,18 @@ def main() -> int:
             ("granite float32 B=2", 2, torch.float32, "tf32x3", (8, 2, 64, 64)),
             ("deepseek bf16 B=2", 2, torch.bfloat16, "tensor_core", (128, 1, 192, 128)),
             ("deepseek bf16 B=1", 1, torch.bfloat16, "tensor_core", (128, 1, 192, 128)),
-            ("deepseek float32 B=2", 2, torch.float32, "fma", (128, 1, 192, 128))):
-        S = 4096
+            ("deepseek float32 B=2", 2, torch.float32, "fma", (128, 1, 192, 128)),
+            ("jamba bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 8, 128, 128)),
+            ("jamba bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 8, 128, 128)),
+            ("jamba float32 B=2", 2, torch.float32, "tf32x3", (8, 8, 128, 128)),
+            ("whisper encoder bf16 B=2", 2, torch.bfloat16, "tensor_core",
+             (8, 1, 64, 64, 1500, False)),
+            ("whisper encoder bf16 B=4", 4, torch.bfloat16, "tensor_core",
+             (8, 1, 64, 64, 1500, False)),
+            ("whisper encoder float32 B=2", 2, torch.float32, "tf32x3",
+             (8, 1, 64, 64, 1500, False))):
+        K, G, hd, hd_v, S, causal = shape + (4096, True)[len(shape) - 4:]
+        mode = "causal" if causal else "non-causal"
         if label == misaligned:
             flat = torch.randn((B * S * K * G * hd + 1,), generator=gen, device=dev)
             q = flat[1:].view(B, S, K, G, hd)
@@ -3843,7 +4382,7 @@ def main() -> int:
         k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
         v = torch.randn((B, S, K, hd_v), generator=gen, device=dev).to(dtype)
         nbytes = q.element_size() * (B * S * K * G * (hd + hd_v) + B * S * K * (hd + hd_v))
-        flops = 2 * (hd + hd_v) * B * K * G * S * (S + 1) // 2
+        flops = 2 * (hd + hd_v) * B * K * G * (S * (S + 1) // 2 if causal else S * S)
         bound32, _ = least_ms(nbytes, flops)  # the float32 FMA rate
         if route == "tensor_core":
             bound, bound_by = least_ms(nbytes, flops, peak=BF16_FLOPS)
@@ -3851,7 +4390,7 @@ def main() -> int:
             bound, bound_by = least_ms(nbytes, 3 * flops, peak=TF32_FLOPS)
         else:
             bound, bound_by = least_ms(nbytes, flops)
-        run = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        run = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
         routes = dict(flash_kernel.route_launches)
         ms, host = device_ms(run, iters=10)
         cold, _ = device_ms(run, iters=5, flush=flush)
@@ -3861,25 +4400,26 @@ def main() -> int:
         if label != misaligned:
             qh, kh_, vh = q.reshape(B, S, K * G, hd).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             try:
-                sdpa(qh[:, :, :8], kh_[:, :, :8], vh[:, :, :8], is_causal=True, enable_gqa=True)
-                lib_run = lambda: sdpa(qh, kh_, vh, is_causal=True, enable_gqa=True)  # noqa: E731
+                sdpa(qh[:, :, :8], kh_[:, :, :8], vh[:, :, :8], is_causal=causal, enable_gqa=True)
+                lib_run = lambda: sdpa(qh, kh_, vh, is_causal=causal, enable_gqa=True)  # noqa: E731
                 how = "enable_gqa"
             except TypeError:  # an older PyTorch: repeat the KV heads for it
                 k_rep, v_rep = kh_.repeat_interleave(G, dim=1), vh.repeat_interleave(G, dim=1)
-                lib_run = lambda: sdpa(qh, k_rep, v_rep, is_causal=True)  # noqa: E731
+                lib_run = lambda: sdpa(qh, k_rep, v_rep, is_causal=causal)  # noqa: E731
                 how = "KV heads repeated"
             # a reading only: in bf16 the library and the kernel round P alike
-            lib_gap = float((flash_attention(q, k, v).float()
+            lib_gap = float((flash_attention(q, k, v, causal=causal).float()
                              - lib_run().transpose(1, 2).reshape(B, S, K, G, hd_v).float()).abs().max())
             lib_ms, lib_host = device_ms(lib_run, iters=20)
             if label.startswith("deepseek"):  # which backend takes hd 192 with hd_v 128
                 how += f"; kernels: {sdpa_kernels(lib_run)}"
             # one plain call behind the sleep: it is ~10 launches over GBs of scores
-            plain, plain_host = device_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=1)
+            plain, plain_host = device_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                                          iters=1)
             del qh, kh_, vh, lib_run
         rate = {"tensor_core": "bf16 tensor-core", "tf32x3": "TF32 tensor-core (three passes)",
                 "fma": "float32 FMA"}[route]
-        print(f"  flash_attention [{route}] B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} causal "
+        print(f"  flash_attention [{route}] B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} {mode} "
               f"{label}: "
               f"kernel {ms * 1e3:.2f} us (cold L2 {cold * 1e3:.2f} us; host enqueue "
               f"{host * 1e3:.2f} us/call), plain {plain * 1e3:.2f} us, "
@@ -3891,7 +4431,7 @@ def main() -> int:
                              "host_ms": host, "plain_ms": plain, "bound_ms": bound,
                              "bound_by": bound_by, "bound_ms_float32": bound32,
                              "library_ms": lib_ms,
-                             "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} causal "
+                             "shape": f"B={B} K={K} G={G} S=T={S} hd={hd} hd_v={hd_v} {mode} "
                                       f"{str(dtype).split('.')[-1]}"}
         del q, k, v
         torch.cuda.empty_cache()
@@ -3901,15 +4441,22 @@ def main() -> int:
                      tf32x3_route={key: flash_rows["float32 B=2"][key] for key in keys + ("shape",)},
                      fma_route={key: flash_rows["float32 B=2 q 4 bytes off 16"][key]
                                 for key in keys + ("shape",)},
-                     **{f"at_{arch}": {label: {key: flash_rows[f"{arch} {label}"][key]
-                                               for key in keys + ("shape",)}
-                                       for label in ("bf16 B=2", "bf16 B=1", "float32 B=2")}
-                        for arch in ("granite", "deepseek")})
+                     **{f"at_{arch.replace(' ', '_')}": {
+                         label: {key: flash_rows[f"{arch} {label}"][key]
+                                 for key in keys + ("shape",)} for label in labels}
+                        for arch, labels in (
+                            ("granite", ("bf16 B=2", "bf16 B=1", "float32 B=2")),
+                            ("deepseek", ("bf16 B=2", "bf16 B=1", "float32 B=2")),
+                            ("jamba", ("bf16 B=2", "bf16 B=1", "float32 B=2")),
+                            ("whisper encoder", ("bf16 B=2", "bf16 B=4", "float32 B=2")))})
     rows.append(flash_row)
     bwd_row = flash_bwd_timing(dev, gen, flush)
-    bwd_row["at_granite"] = flash_bwd_timing(dev, gen, flush, K=8, G=2, hd=64)
-    bwd_row["at_deepseek"] = flash_bwd_timing(dev, gen, flush, K=128, G=1, hd=192, hd_v=128)
-    del bwd_row["at_granite"]["name"], bwd_row["at_deepseek"]["name"]
+    for arch, kw in (("granite", dict(K=8, G=2, hd=64)),
+                     ("deepseek", dict(K=128, G=1, hd=192, hd_v=128)),
+                     ("jamba", dict(K=8, G=8, hd=128)),
+                     ("whisper_encoder", dict(K=8, G=1, hd=64, B=4, S=1500, causal=False))):
+        bwd_row[f"at_{arch}"] = flash_bwd_timing(dev, gen, flush, **kw)
+        del bwd_row[f"at_{arch}"]["name"]
     rows.append(bwd_row)
 
     phase("6 summary")
@@ -3939,7 +4486,11 @@ def main() -> int:
                                  "train_mla": launches_mla_train[name],
                                  "serve_ssm": launches_ssm_serve[name],
                                  "train_ssm": launches_ssm_train[name],
-                                 "lm_bayes_sgld": launches_ssm_driver[name]},
+                                 "lm_bayes_sgld": launches_ssm_driver[name],
+                                 "serve_hybrid": launches_hybrid_serve[name],
+                                 "train_hybrid": launches_hybrid_train[name],
+                                 "serve_encdec": launches_encdec_serve[name],
+                                 "train_encdec": launches_encdec_train[name]},
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]
@@ -3956,17 +4507,26 @@ def main() -> int:
                                           "train_moe": routes_moe_train,
                                           "serve_mla_bfloat16": routes_mla_serve["bfloat16"],
                                           "serve_mla_float32": routes_mla_serve["float32"],
-                                          "train_mla": routes_mla_train}
+                                          "train_mla": routes_mla_train,
+                                          "serve_hybrid_bfloat16": routes_hybrid_serve,
+                                          "train_hybrid": routes_hybrid_train,
+                                          "serve_encdec_bfloat16": routes_encdec_serve["bfloat16"],
+                                          "serve_encdec_float32": routes_encdec_serve["float32"],
+                                          "train_encdec": routes_encdec_train}
             entry["max_abs_err_by_route"] = flash_err64
             entry["lse_max_abs_err"] = lse_err
         if name == "flash_attention_bwd":  # the training runs' launches, by route
             entry["launches_by_route"] = {"train": routes_train_bwd,
                                           "train_moe": routes_moe_train_bwd,
-                                          "train_mla": routes_mla_train_bwd}
+                                          "train_mla": routes_mla_train_bwd,
+                                          "train_hybrid": routes_hybrid_train_bwd,
+                                          "train_encdec": routes_encdec_train_bwd}
             entry["max_abs_err_by_route"] = bwd_err64
             entry["train"] = train_record
             entry["moe"] = moe_record
             entry["mla"] = mla_record
+            entry["hybrid"] = hybrid_record
+            entry["encdec"] = encdec_record
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

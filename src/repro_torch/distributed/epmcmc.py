@@ -156,7 +156,7 @@ def _neg_logpost_and_grads(
     prior's Σθ² sums the leaves' norms squared."""
     params = dict(model.named_parameters())
     total, _ = steps.loss_fn(model, cfg, batch)
-    grads = dict(zip(params, torch.autograd.grad(shard_tokens * total, list(params.values()))))
+    grads = steps.grads_of(shard_tokens * total, params)
     prior = 1.0 / (PRIOR_SIGMA**2 * num_shards)
     norms, out = [], {}
     with torch.no_grad():

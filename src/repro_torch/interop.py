@@ -49,29 +49,73 @@ MAMBA_LEAVES = ("w_z", "w_x", "w_B", "w_C", "w_dt", "conv_x", "conv_B", "conv_C"
                 "conv_bias_B", "conv_bias_C", "A_log", "dt_bias", "D", "norm", "w_out")
 
 
+def _gqa_leaves(cfg, prefix: str, base: Tuple[str, ...], idx: Optional[int]):
+    """A GQA (or cross-attention) module's weights, each under a ``"w"`` (and
+    bias ``"b"``) level in the reference."""
+    out = [(prefix + w, base + (w, "w"), idx) for w in ("w_q", "w_k", "w_v", "w_o")]
+    if cfg.qkv_bias:
+        out += [(prefix + f"b_{w[-1]}", base + (w, "b"), idx) for w in ("w_q", "w_k", "w_v")]
+    return out
+
+
+def _block_leaves(cfg, spec, prefix: str, base: Tuple[str, ...], idx: Optional[int]):
+    """One block's leaves in the port's order: ln1, the mixer, the
+    cross-attention and ``ln_cross`` (``spec.cross``), then ``ln2`` and the
+    FFN unless ``spec.ffn`` is ``"none"``."""
+    out = [(prefix + "ln1.scale", base + ("ln1", "scale"), idx)]
+    if spec.mixer == "mamba":  # bare arrays
+        out += [(prefix + f"mamba.{w}", base + ("mamba", w), idx) for w in MAMBA_LEAVES]
+    elif spec.mixer == "mla":  # bare arrays, no "w" level
+        q = ("w_dq", "q_norm", "w_uq") if cfg.mla.q_lora_rank else ("w_q",)
+        out += [(prefix + f"attn.{w}", base + ("attn", w), idx)
+                for w in q + ("w_dkv", "kv_norm", "w_uk", "w_uv", "w_o")]
+    else:
+        out += _gqa_leaves(cfg, prefix + "attn.", base + ("attn",), idx)
+    if spec.cross:
+        out.append((prefix + "ln_cross.scale", base + ("ln_cross", "scale"), idx))
+        out += _gqa_leaves(cfg, prefix + "cross.", base + ("cross",), idx)
+    if spec.ffn == "none":
+        return out
+    out.append((prefix + "ln2.scale", base + ("ln2", "scale"), idx))
+    if spec.ffn == "moe":
+        out.append((prefix + "moe.router", base + ("moe", "router"), idx))
+        subtrees = ["experts"] + (["shared"] if cfg.moe.num_shared_experts else [])
+        out += [(prefix + f"moe.{sub}.{w}", base + ("moe", sub, w), idx)
+                for sub in subtrees for w in ("w_gate", "w_up", "w_down")]
+    else:
+        out += [(prefix + f"mlp.{w}", base + ("mlp", w), idx)
+                for w in ("w_gate", "w_up", "w_down")]
+    return out
+
+
 def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]:
-    """How ``repro``'s LM pytree (dense and MoE, GQA or MLA; ssm) maps onto the port's parameter names:
+    """How ``repro``'s LM pytree maps onto the port's parameter names:
     ``(port name, reference path, layer index into a stacked leaf or None)``
     in the port's ``named_parameters`` order.
 
     The reference stacks the layers of a group on a leading axis
     (``params["g0"]["l0"]["attn"]["w_q"]["w"]`` is (L, d, H·hd) for L > 1,
-    see ``layer_groups``); each layer's slice is ``blocks[i]``. Weights keep
-    the reference's ``x @ w`` layout, (d_in, d_out), so nothing is
-    transposed: ``w_q/w_k/w_v/w_o`` (and biases ``b_q/b_k/b_v``),
-    ``w_gate/w_up/w_down``, the norms' ``scale``, ``embed`` (V, d) and, when
-    untied, ``lm_head`` (d, V). An MoE layer's ``moe.router`` (d, E),
-    ``moe.experts.w_*`` ((E, d, f) and (E, f, d); a stacked leaf is (L, E,
-    d, f)) and ``moe.shared.w_*`` take the same paths in the reference's
-    ``moe`` subtree. An MLA layer's attention weights are bare arrays in the
-    reference (``params["g0"]["l0"]["attn"]["w_dq"]``, no ``"w"`` level):
-    ``w_dq``, ``q_norm``, ``w_uq`` (or ``w_q`` when ``q_lora_rank`` is 0),
-    ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``, ``w_o``, as ``blocks.i.attn.*``.
-    A Mamba-2 layer (the ssm family: ``ln1`` and ``mamba``, no ``ln2`` and
-    no FFN) keeps bare arrays too (``params["g0"]["l0"]["mamba"]["w_z"]``,
-    stacked (L, ...) in the family's one group): ``w_z w_x w_B w_C w_dt
-    conv_x conv_B conv_C conv_bias_x conv_bias_B conv_bias_C A_log dt_bias D
-    norm w_out``, as ``blocks.i.mamba.*``.
+    see ``layer_groups``; a hybrid's one group stacks its periods, so layer
+    ``r·period + i`` is ``params["g0"][f"l{i}"]``'s slice r); each layer is
+    ``blocks[i]``. Weights keep the reference's ``x @ w`` layout, (d_in,
+    d_out), so nothing is transposed: ``w_q/w_k/w_v/w_o`` (and biases
+    ``b_q/b_k/b_v``), ``w_gate/w_up/w_down``, the norms' ``scale``,
+    ``embed`` (V, d) and, when untied, ``lm_head`` (d, V). An MoE layer's
+    ``moe.router`` (d, E), ``moe.experts.w_*`` ((E, d, f) and (E, f, d); a
+    stacked leaf is (L, E, d, f)) and ``moe.shared.w_*`` take the same paths
+    in the reference's ``moe`` subtree. An MLA layer's attention weights are
+    bare arrays in the reference (``params["g0"]["l0"]["attn"]["w_dq"]``, no
+    ``"w"`` level): ``w_dq``, ``q_norm``, ``w_uq`` (or ``w_q`` when
+    ``q_lora_rank`` is 0), ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``,
+    ``w_o``, as ``blocks.i.attn.*``. A Mamba-2 layer's mixer keeps bare
+    arrays too (``params["g0"]["l0"]["mamba"]["w_z"]``): ``w_z w_x w_B w_C
+    w_dt conv_x conv_B conv_C conv_bias_x conv_bias_B conv_bias_C A_log
+    dt_bias D norm w_out``, as ``blocks.i.mamba.*``; in the ssm family it has
+    no ``ln2`` and no FFN, in the hybrid its ``ln2`` and ``mlp`` or ``moe``
+    follow. An encoder–decoder's decoder layer adds ``ln_cross`` and
+    ``cross.w_{q,k,v,o}`` (the ``"w"`` level, GQA's); its encoder is
+    ``params["encoder"]["l0"][…]``, every leaf stacked (L_enc, …), as
+    ``encoder.j.*``, then ``enc_norm``.
     """
     from repro_torch.models.lm import model as mdl
 
@@ -82,38 +126,14 @@ def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]
     layer = 0
     for gi, group in enumerate(mdl.layer_groups(cfg)):
         for r in range(group.repeat):
-            for li in range(len(group.specs)):
-                base = (f"g{gi}", f"l{li}")
-                idx = r if group.repeat > 1 else None
-                prefix = f"blocks.{layer}."
-                out.append((prefix + "ln1.scale", base + ("ln1", "scale"), idx))
-                if group.specs[li].mixer == "mamba":  # bare arrays, no ln2, no FFN
-                    for w in MAMBA_LEAVES:
-                        out.append((prefix + f"mamba.{w}", base + ("mamba", w), idx))
-                    layer += 1
-                    continue
-                if group.specs[li].mixer == "mla":  # bare arrays, no "w" level
-                    q = ("w_dq", "q_norm", "w_uq") if cfg.mla.q_lora_rank else ("w_q",)
-                    for w in q + ("w_dkv", "kv_norm", "w_uk", "w_uv", "w_o"):
-                        out.append((prefix + f"attn.{w}", base + ("attn", w), idx))
-                else:
-                    for w in ("w_q", "w_k", "w_v", "w_o"):
-                        out.append((prefix + f"attn.{w}", base + ("attn", w, "w"), idx))
-                    if cfg.qkv_bias:
-                        for w in ("w_q", "w_k", "w_v"):
-                            out.append((prefix + f"attn.b_{w[-1]}", base + ("attn", w, "b"),
-                                        idx))
-                out.append((prefix + "ln2.scale", base + ("ln2", "scale"), idx))
-                if group.specs[li].ffn == "moe":
-                    out.append((prefix + "moe.router", base + ("moe", "router"), idx))
-                    subtrees = ["experts"] + (["shared"] if cfg.moe.num_shared_experts else [])
-                    for sub in subtrees:
-                        for w in ("w_gate", "w_up", "w_down"):
-                            out.append((prefix + f"moe.{sub}.{w}", base + ("moe", sub, w), idx))
-                else:
-                    for w in ("w_gate", "w_up", "w_down"):
-                        out.append((prefix + f"mlp.{w}", base + ("mlp", w), idx))
+            for li, spec in enumerate(group.specs):
+                out += _block_leaves(cfg, spec, f"blocks.{layer}.", (f"g{gi}", f"l{li}"),
+                                     r if group.repeat > 1 else None)
                 layer += 1
+    for j in range(cfg.num_encoder_layers):
+        out += _block_leaves(cfg, mdl.ENCODER, f"encoder.{j}.", ("encoder", "l0"), j)
+    if cfg.num_encoder_layers:
+        out.append(("enc_norm.scale", ("enc_norm", "scale"), None))
     return out
 
 
@@ -165,8 +185,8 @@ def from_reference_lm_params(
     device: str | torch.device | None = None,
 ):
     """``repro``'s LM ``init_params`` pytree (numpy leaves) as the port's
-    model (the dense and MoE families, GQA or MLA, and the ssm family; the
-    map is :func:`reference_lm_leaves`). Every tensor takes its port
+    model (every family the port runs; the map is
+    :func:`reference_lm_leaves`). Every tensor takes its port
     parameter's dtype: ``cfg.param_dtype``, float32 for Mamba-2's ``A_log``,
     ``dt_bias`` and ``D`` (float32 in the reference too); the numbers are
     the reference's."""

@@ -76,7 +76,7 @@ def first_step(cfg: ModelConfig, lr: float, *, seed: int = 0, batch: int = 1, se
             p.copy_(drawn[n])
     del stepped
     total = lm_steps.loss_fn(model, cfg, b0)[0]
-    grads = torch.autograd.grad(total, list(params.values()))
+    grads = list(lm_steps.grads_of(total, params).values())
     norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
     out["gradient"] = {"norm": norm}
     with torch.no_grad():

@@ -8,8 +8,10 @@ runs the same checks as part of phase 3, and times the backward in phase 5).
 Builds the kernels and prints the backward source's ptxas report (registers,
 spills, shared memory) and the count of ``HGMMA`` instructions in each of its
 kernels (``cuobjdump -sass``). Then, on each case of :data:`CASES` (the
-training paths' shapes, llama3.2-3b's, granite-moe-1b-a400m's and
-deepseek-v2-236b's MLA (hd 192, hd_v 128, K = H = 128, G = 1), the MLA
+training paths' shapes, llama3.2-3b's, granite-moe-1b-a400m's,
+deepseek-v2-236b's MLA (hd 192, hd_v 128, K = H = 128, G = 1),
+jamba-1.5-large-398b's layer 4 (G = 8) and whisper-base's encoder
+(non-causal, S = T = 1,500), the last two in float32 too, the MLA
 dims at K 4, S = T = 1,000 too, float32,
 head dims 64 / 192 with hd_v 128 / 256, G of 1, 3, 8 and 64, non-causal,
 ragged S and T, ``kv_len < T`` and ``kv_len = 0``), the forward kernel's ``out`` and ``lse`` go into the backward on every
@@ -46,10 +48,17 @@ BF16, F32 = torch.bfloat16, torch.float32
 TRAINING = (1, 4096, 4096, 8, 3, 128, 128, True, None, BF16)  # llama3.2-3b, train_4k
 MOE_TRAINING = (1, 4096, 4096, 8, 2, 64, 64, True, None, BF16)  # granite-moe-1b-a400m
 MLA_TRAINING = (1, 4096, 4096, 128, 1, 192, 128, True, None, BF16)  # deepseek-v2-236b's MLA
+HYBRID_TRAINING = (1, 4096, 4096, 8, 8, 128, 128, True, None, BF16)  # jamba's layer 4
+ENCODER_TRAINING = (2, 1500, 1500, 8, 1, 64, 64, False, None, BF16)  # whisper-base's encoder
+PATHS = (TRAINING, MOE_TRAINING, MLA_TRAINING, HYBRID_TRAINING, ENCODER_TRAINING)
 CASES: Dict[str, Tuple] = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype)
     "training path": TRAINING,
     "granite training path": MOE_TRAINING,
     "deepseek training path": MLA_TRAINING,
+    "jamba training path": HYBRID_TRAINING,
+    "jamba training path float32": HYBRID_TRAINING[:-1] + (F32,),
+    "whisper encoder training path": ENCODER_TRAINING,
+    "whisper encoder training path float32": ENCODER_TRAINING[:-1] + (F32,),
     "deepseek MLA training path": (1, 1000, 1000, 4, 1, 192, 128, True, None, BF16),
     "float32 S=T=1000": (1, 1000, 1000, 2, 3, 128, 128, True, None, F32),
     "hd=64": (2, 200, 200, 2, 3, 64, 64, True, None, BF16),
@@ -179,7 +188,7 @@ def check_case(gen: torch.Generator, label: str, case: Tuple,
         all_ok = all_ok and ok
         log(f"  flash_attention_bwd {label}: tensor_core vs fma max_abs_err={worst:.3e} "
             f"{'ok' if ok else 'FAIL'}")
-    if all_ok and case in (TRAINING, MOE_TRAINING, MLA_TRAINING):  # deterministic: no float atomics
+    if all_ok and case in PATHS:  # deterministic: no float atomics
         got = results[routes_of(q, k, v, out, dout)[0]]
         again = [flash_attention_bwd(q, k, v, out, lse, dout, causal=causal) for _ in range(3)]
         all_ok = all(torch.equal(x, y) for run in again for x, y in zip(run, got))

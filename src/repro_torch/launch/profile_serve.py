@@ -4,6 +4,10 @@
         --batch 2 --prompt-len 4096 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-130m \\
         --batch 2 --prompt-len 4096 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch jamba-1.5-large-398b \\
+        --layers 5 --batch 2 --prompt-len 4096 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch whisper-base \\
+        --batch 2 --prompt-len 4096 --gen 16
 
 Takes ``repro_torch.launch.serve``'s flags. Builds the model and prompt from
 the seed, runs prefill + greedy decode once to warm up, once unprofiled, then
@@ -16,7 +20,8 @@ the device time by operator and by the Mamba-2 SSD's ranges from a third
 run of each under a profile that records the host's operators too
 (``profile_pipeline.by_operator``; its wall is not reported). The prompt
 must be longer than the config's ``attn_chunk`` for an attention prefill to
-reach the flash kernel.
+reach the flash kernel. An encoder–decoder config is fed ``serve``'s zero
+frames, and its prefill window includes the encoder.
 """
 
 from __future__ import annotations
@@ -38,9 +43,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if prompt.device.type != "cuda":
         raise RuntimeError("profile_serve measures the card; run it on cuda")
     max_len = args.prompt_len + args.gen
+    batch = serve.serve_batch(cfg, prompt)
     serve.generate(model, prompt, args.gen)  # warm-up: allocator, cuBLAS handles, kernel build
     timed = serve.generate(model, prompt, args.gen)
-    state, prefill = profiled(lambda: lm_steps.serve_prefill(model, {"tokens": prompt}, max_len))
+    state, prefill = profiled(lambda: lm_steps.serve_prefill(model, batch, max_len))
 
     def decode(state):
         for _ in range(args.gen - 1):
@@ -48,12 +54,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     _, decode_window = profiled(lambda: decode(state))
     del state
-    state, prefill_ops = by_operator(
-        lambda: lm_steps.serve_prefill(model, {"tokens": prompt}, max_len))
+    state, prefill_ops = by_operator(lambda: lm_steps.serve_prefill(model, batch, max_len))
     _, decode_ops = by_operator(lambda: decode(state))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "arch": cfg.name, "dtype": cfg.dtype, "batch": args.batch,
+        "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": args.batch,
         "prompt_len": args.prompt_len, "gen": args.gen,
         "unprofiled": {"prefill_s": timed["prefill_s"],
                        "decode_s_per_tok": timed["decode_s_per_tok"]},

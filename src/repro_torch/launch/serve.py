@@ -10,6 +10,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --batch 1 \\
         --prompt-len 524288 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --reduced \\
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --layers 5 \\
+        --batch 2 --prompt-len 4096 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --batch 2 \\
+        --prompt-len 4096 --gen 16
 
 The port of ``repro/launch/serve.py:25``, with its flags plus ``--device``
 (default ``cuda``; with no card visible it raises), ``--dtype`` (the
@@ -26,10 +33,16 @@ MLA, whose decode attends over the absorbed latent cache), and the ssm
 family (``--arch mamba2-130m``: the chunked SSD in prefill, one recurrent
 step a token in decode, no kernel of the port's; the prompt must divide
 into SSD chunks, ``mamba2.check_seq``, and ``long_500k``'s 524,288 tokens
-do). A prompt longer than the config's ``attn_chunk`` (1,024) runs every
-attention layer's prefill through the flash kernel; decode attends over the
-cache with the einsum path. Each
-timed stage ends with ``torch.cuda.synchronize()`` on the card.
+do), the hybrid (``--arch jamba-1.5-large-398b``, Mamba-2 and GQA layers with
+MLPs and MoEs; the SSD's chunk check too; served on one card with
+``--layers 5``, the first five layers of its period, every kind it has) and
+the encoder–decoder (``--arch whisper-base``: as the reference's CLI, the
+encoder is fed zero frames (B, ``encoder_seq``, d), its memory kept for every
+decode step's cross-attention). A prompt longer than the config's
+``attn_chunk`` (1,024) runs every attention layer's prefill through the
+flash kernel (Whisper's encoder at its 1,500 frames too, non-causal);
+decode attends over the cache with the einsum path. Each timed stage ends
+with ``torch.cuda.synchronize()`` on the card.
 """
 
 from __future__ import annotations
@@ -89,17 +102,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: mdl.LM, prompt: torch.Tensor, gen: int) -> dict:
+def serve_batch(cfg: ModelConfig, prompt: torch.Tensor,
+                enc_frames: Optional[torch.Tensor] = None) -> dict:
+    """The prefill's batch: the prompt, and for an encoder–decoder config
+    ``enc_frames``, zeros (B, ``cfg.encoder_seq``, d) unless given (the
+    reference's CLI feeds zeros)."""
+    batch = {"tokens": prompt}
+    if cfg.num_encoder_layers:
+        batch["enc_frames"] = enc_frames if enc_frames is not None else torch.zeros(
+            (prompt.shape[0], cfg.encoder_seq, cfg.d_model), device=prompt.device)
+    return batch
+
+
+def generate(model: mdl.LM, prompt: torch.Tensor, gen: int, *,
+             enc_frames: Optional[torch.Tensor] = None) -> dict:
     """Prefill, then ``gen - 1`` greedy decode steps: ``gen`` tokens a row.
 
     Returns ``tokens`` (B, gen), ``logits`` (B, gen, V) float32 (row t chose
-    token t), ``prefill_s`` and ``decode_s_per_tok``.
+    token t), ``prefill_s``, ``decode_s_per_tok`` and ``enc_frames`` (the
+    encoder's input, :func:`serve_batch`; None without an encoder).
     """
     device = prompt.device
     max_len = prompt.shape[1] + gen
+    batch = serve_batch(model.cfg, prompt, enc_frames)
     _sync(device)
     t0 = time.perf_counter()
-    state = lm_steps.serve_prefill(model, {"tokens": prompt}, max_len)
+    state = lm_steps.serve_prefill(model, batch, max_len)
     _sync(device)
     t1 = time.perf_counter()
     tokens, logits = [state.last_token], [state.logits]
@@ -114,6 +142,7 @@ def generate(model: mdl.LM, prompt: torch.Tensor, gen: int) -> dict:
         "logits": torch.cat(logits, dim=1).float(),
         "prefill_s": t1 - t0,
         "decode_s_per_tok": (t2 - t1) / max(gen - 1, 1),
+        "enc_frames": batch.get("enc_frames"),
     }
 
 

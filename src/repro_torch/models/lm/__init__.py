@@ -1,4 +1,4 @@
-"""The LM sidecar's dense and MoE families: config, layers, attention, MoE, model, loss, train and serve steps."""
+"""The LM sidecar: config, layers, attention, MoE, Mamba-2, model, loss, train and serve steps."""
 
 from repro_torch.models.lm.config import (  # noqa: F401
     HybridConfig,

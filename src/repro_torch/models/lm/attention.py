@@ -1,6 +1,6 @@
-"""GQA and MLA attention of the LM: prefill through flash, decode through einsum.
+"""GQA, MLA and cross-attention of the LM: prefill through flash, decode through einsum.
 
-The counterpart of the GQA and MLA parts of ``repro/models/lm/attention.py``:
+The counterpart of ``repro/models/lm/attention.py``:
 
 - ``gqa_forward``: full-sequence attention (forward and prefill). ``sdpa``
   keeps the reference's dispatch exactly: flash when ``cfg.attn_impl ==
@@ -38,8 +38,15 @@ when ``q_lora_rank`` is 0; ``w_dkv`` (d, kv_lora + rope), ``kv_norm``
 (kv_lora), ``w_uk`` (kv_lora, H·nope), ``w_uv`` (kv_lora, H·v), ``w_o``
 (H·v, d). The reference keeps them as bare arrays (no ``"w"`` level).
 
-Each class's ``prefill`` (the forward plus the layer's cache, padded to
-``max_len``) and ``decode`` (one token against it) are what a
+Cross-attention (Whisper's decoder, the reference's ``init_cross`` and
+``cross_forward``): :class:`Cross` holds GQA's weights; ``cross_forward``
+takes q from the decoder's x and k, v from the encoder's ``memory`` (B,
+T_enc, d) on every call, prefill and each decode step alike, with no RoPE
+and no mask, through the einsum path (the reference calls
+``_einsum_attention`` there, never flash).
+
+Each self-attention class's ``prefill`` (the forward plus the layer's cache,
+padded to ``max_len``) and ``decode`` (one token against it) are what a
 :class:`~repro_torch.models.lm.model.Block` calls.
 """
 
@@ -191,6 +198,28 @@ def gqa_decode(
         q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), causal=False, kv_valid_len=valid_len
     )
     return out.reshape(b, 1, -1) @ attn.w_o.to(x.dtype), cache
+
+
+class Cross(GQA):
+    """One decoder layer's cross-attention weights: GQA's (the reference's
+    ``init_cross`` is ``init_gqa``), applied by :func:`cross_forward`."""
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        return cross_forward(self, x, memory)
+
+
+def cross_forward(attn: GQA, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    """Attention of x (B, S, d) onto ``memory`` (B, T_enc, d): no RoPE, no
+    mask, the einsum path."""
+    cfg = attn.cfg
+    b, s, _ = x.shape
+    t = memory.shape[1]
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = linear(x, attn.w_q, attn.b_q).reshape(b, s, h, hd)
+    k = linear(memory, attn.w_k, attn.b_k).reshape(b, t, kh, hd)
+    v = linear(memory, attn.w_v, attn.b_v).reshape(b, t, kh, hd)
+    out = _einsum_attention(q, k, v, causal=False)
+    return out.reshape(b, s, -1) @ attn.w_o.to(x.dtype)
 
 
 class MLA(nn.Module):

@@ -5,8 +5,8 @@ Pure data, copied whole from ``repro/models/lm/config.py`` so that
 reference to the digit. One dataclass describes dense GQA transformers, MoE
 (incl. MLA), Mamba-2 SSD, hybrid (Jamba) interleaves, encoder–decoder
 (Whisper) and VLM-stub (LLaVA) backbones; ``repro_torch/configs/<arch>.py``
-instantiate it with the exact assigned numbers. The port runs the dense
-and MoE families (:mod:`repro_torch.models.lm.model`); the other fields are
+instantiate it with the exact assigned numbers. The port runs every family
+but the image-token one (:mod:`repro_torch.models.lm.model`); its fields are
 kept so that every config loads and counts its parameters as in the
 reference.
 """

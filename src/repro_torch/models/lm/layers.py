@@ -35,10 +35,11 @@ def init_linear(
     dtype: torch.dtype = torch.bfloat16,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """(d_in, d_out) weight, N(0, 1) · d_in^-½ drawn in float32, then cast."""
+    """(d_in, d_out) weight, N(0, 1) · d_in^-½ drawn in float32, then cast
+    (scaled in place: one float32 temporary, not two)."""
     scale = (1.0 / d_in) ** 0.5 if scale is None else scale
     w = torch.randn((d_in, d_out), generator=generator, device=device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def trainable(t: torch.Tensor) -> nn.Parameter:
@@ -116,7 +117,7 @@ def init_embed(
     dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     w = torch.randn((vocab, d), generator=generator, device=device, dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:

@@ -1,21 +1,34 @@
-"""Model assembly of the dense, MoE and ssm LM families: forward, prefill and decode.
+"""Model assembly of the LM families: forward, prefill and decode.
 
-The counterpart of ``repro/models/lm/model.py`` for the families whose every
-layer is ``attn + mlp`` (dense), ``attn + moe`` (MoE, after an optional
-dense prefix of ``moe.first_dense`` layers), the attention GQA or, under
-``cfg.mla`` (deepseek-v2), MLA (``mla + mlp``, ``mla + moe``), or
-``mamba + none`` (the ssm family, mamba2-130m: Mamba-2 blocks with no FFN,
-hence no ``ln2``, as the reference builds them). The reference runs each layer
-group as a ``lax.scan`` over stacked parameters; the port keeps
-``layer_specs`` and ``layer_groups`` as they are (pure data) and runs a
-Python loop over an ``nn.ModuleList`` of :class:`Block`, each built for its
-layer's spec. The three execution paths share the block: ``forward`` (the
-whole sequence, also the training path), ``prefill`` (forward plus each
-layer's cache: k/v for GQA and the latents ``c_kv`` and ``k_rope`` for MLA,
-padded to ``max_len``; for Mamba-2 the conv windows and the recurrent state,
+The counterpart of ``repro/models/lm/model.py`` for every family but the
+image-token one (vlm): the dense family (every layer ``attn + mlp``), MoE
+(``attn + moe`` after an optional dense prefix of ``moe.first_dense``
+layers), the attention GQA or, under ``cfg.mla`` (deepseek-v2), MLA; the ssm
+family (``mamba + none``, mamba2-130m: Mamba-2 blocks with no FFN, hence no
+``ln2``, as the reference builds them); the hybrid (Jamba's period of
+``cfg.hybrid.period`` layers: GQA at ``attn_index``, Mamba-2 elsewhere, each
+followed by an MLP, or an MoE where ``layer % moe_every == moe_offset``); and
+the encoder–decoder (Whisper: ``cfg.num_encoder_layers`` non-causal ``attn +
+mlp`` blocks over the frame embeddings, then ``enc_norm``; every decoder
+block a causal ``attn + mlp`` with cross-attention onto that memory between
+the two). The reference runs each layer group as a ``lax.scan`` over
+stacked parameters; the port keeps ``layer_specs`` and ``layer_groups`` as
+they are (pure data) and runs a Python loop over an ``nn.ModuleList`` of
+:class:`Block`, each built for its ``layer_specs`` entry. Nothing is built
+from ``layer_groups``, so a depth the reference's period assert refuses
+(jamba cut to 5 of its 8-layer period, to fit one card) builds and runs.
+The three execution paths share the block: ``forward`` (the whole
+sequence, also the training path), ``prefill`` (forward plus each layer's
+cache: k/v for GQA and the latents ``c_kv`` and ``k_rope`` for MLA, padded
+to ``max_len``; for Mamba-2 the conv windows and the recurrent state,
 :class:`repro_torch.models.lm.mamba2.SSMCache`, the same size at any length)
 and ``decode_step`` (one token against the caches, which it updates in
-place; MLA in its absorbed form, Mamba-2 one recurrent step). An MoE block's FFN is
+place; MLA in its absorbed form, Mamba-2 one recurrent step). The encoder
+runs once a prompt: ``forward`` and ``prefill`` take ``enc_frames`` (B,
+T_enc, d) and encode them, ``prefill`` returns the memory, and
+``decode_step`` takes it back (cross-attention projects its k and v again
+every step, as the reference's does). Without frames a decoder block skips
+its cross-attention, as the reference's blocks do. An MoE block's FFN is
 :func:`repro_torch.models.lm.moe.moe_forward` in forward and prefill, and in
 decode (``MoE.decode``) the one ``cfg.moe_decode_impl`` names
 (``"dispatch"``, the default, or ``"gather"``); ``forward`` returns the sum
@@ -24,16 +37,18 @@ of the blocks' aux losses, as the reference's ``_run_groups`` does.
 Remat: the reference wraps each layer group's period in ``jax.checkpoint``
 under ``cfg.remat="full"`` (``_maybe_remat``, :303), the default of every
 config. ``forward`` does the same per block while autograd records
-(:class:`_Remat`): a block's forward runs without recording, its input
+(:class:`_Remat`): a block's forward runs without recording, its inputs
 alone kept, and the backward runs it again recording and takes its
 gradients from that, so the flash forward (or the SSD) runs twice a layer
-and a training step holds one layer's activations at a time.
+and a training step holds one layer's activations at a time. The
+gradients are those of the reference's per-period checkpoint. The encoder
+is not rematerialized (the reference's ``_encode`` is not checkpointed).
 ``"none"`` runs plain; ``"dots"`` (save the matrix products' outputs), which
 no config sets, raises.
 
-A config of another family or with other layers (hybrid, encoder–decoder,
-image tokens) raises ``NotImplementedError``: those come in later slices
-(ROADMAP Queue 1 item 11) and never run on a substitute.
+A config with image tokens (vlm, LLaVA) raises ``NotImplementedError``: it
+comes in a later slice (ROADMAP Queue 1 item 11) and never runs on a
+substitute.
 """
 
 from __future__ import annotations
@@ -79,8 +94,11 @@ class GroupSpec:
 DENSE = LayerSpec(mixer="attn", ffn="mlp")
 MOE = LayerSpec(mixer="attn", ffn="moe")
 MAMBA = LayerSpec(mixer="mamba", ffn="none")
+DECODER = LayerSpec(mixer="attn", ffn="mlp", cross=True)  # Whisper's decoder block
+ENCODER = LayerSpec(mixer="attn", ffn="mlp", causal=False)  # the reference's enc_spec
 SUPPORTED = (DENSE, MOE, LayerSpec(mixer="mla", ffn="mlp"), LayerSpec(mixer="mla", ffn="moe"),
-             MAMBA)
+             MAMBA, LayerSpec(mixer="mamba", ffn="mlp"), LayerSpec(mixer="mamba", ffn="moe"),
+             DECODER)
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -122,20 +140,17 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer of ``cfg`` is ``attn + mlp`` or ``attn + moe``
-    (either attention GQA or MLA) with nothing else (a dense prefix before
-    MoE layers included), or every layer ``mamba + none`` (the ssm family)."""
-    extras = [name for name, on in (
-        ("hybrid", cfg.hybrid is not None),
-        ("encoder layers", cfg.num_encoder_layers > 0),
-        ("image tokens", cfg.num_image_tokens > 0),
-    ) if on]
-    odd = sorted({f"{s.mixer}+{s.ffn}" for s in layer_specs(cfg) if s not in SUPPORTED})
+    """Raise unless every layer of ``cfg`` is one :data:`SUPPORTED` spec and
+    the config has no image tokens: the dense, MoE, ssm, hybrid and
+    encoder–decoder families."""
+    extras = ["image tokens"] if cfg.num_image_tokens > 0 else []
+    odd = sorted({f"{s.mixer}+{s.ffn}" + ("+cross" if s.cross else "")
+                  for s in layer_specs(cfg) if s not in SUPPORTED})
     if extras or odd:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) needs {', '.join(extras + odd)}; the port runs the "
-            "dense family (attn+mlp), MoE (attn+moe), with GQA or MLA attention, and the ssm "
-            "family (mamba+none) only so far, the rest is ROADMAP Queue 1 item 11"
+            "dense, MoE (GQA or MLA), ssm, hybrid and encoder-decoder families so far, the "
+            "rest is ROADMAP Queue 1 item 11"
         )
 
 
@@ -150,11 +165,14 @@ class RMSNorm(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer. An attention block: x + attn(ln1(x)), then + ffn(ln2(·)),
-    the attention :class:`~repro_torch.models.lm.attention.GQA` or ``MLA``
-    as ``spec.mixer`` says, the FFN an ``mlp`` or a ``moe`` as ``spec.ffn``.
-    A Mamba-2 block (``mixer="mamba"``, ``ffn="none"``): x + mamba(ln1(x)),
-    with no ``ln2`` and no FFN."""
+    """One layer: x + mixer(ln1(x)), then (``spec.cross``, given a memory)
+    + cross(ln_cross(·), memory), then + ffn(ln2(·)). The mixer is
+    :class:`~repro_torch.models.lm.attention.GQA` (causal unless
+    ``spec.causal`` is False: the encoder's), ``MLA`` or Mamba-2 as
+    ``spec.mixer`` says; the cross-attention
+    :class:`~repro_torch.models.lm.attention.Cross`; the FFN an ``mlp``, a
+    ``moe`` or, with ``ffn="none"`` (the ssm family), nothing and no
+    ``ln2``."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec = DENSE, *, generator=None,
                  device=None):
@@ -167,6 +185,9 @@ class Block(nn.Module):
         else:
             mixer = attn.MLA if spec.mixer == "mla" else attn.GQA
             self.attn = mixer(cfg, generator=generator, device=device)
+        if spec.cross:
+            self.ln_cross = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+            self.cross = attn.Cross(cfg, generator=generator, device=device)
         if spec.ffn == "none":
             return
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
@@ -186,15 +207,28 @@ class Block(nn.Module):
             return x + y, aux
         return x + self.mlp(self.ln2(x)), None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
+    def mix_memory(self, x: torch.Tensor, memory: Optional[torch.Tensor]) -> torch.Tensor:
+        """x + cross(ln_cross(x), memory); x itself without cross-attention or memory."""
+        if not self.spec.cross or memory is None:
+            return x
+        return x + self.cross(self.ln_cross(x), memory)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                memory: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(the block's output, its aux loss: None unless an MoE block)."""
+        h = self.ln1(x)
         if self.spec.mixer == "mamba":
-            return self.ffn(x + self.mamba(self.ln1(x)))
-        return self.ffn(x + self.attn(self.ln1(x), positions))
+            h = self.mamba(h)
+        elif self.spec.causal:
+            h = self.attn(h, positions)
+        else:
+            h = self.attn(h, positions, causal=False)
+        return self.ffn(self.mix_memory(x + h, memory))
 
     def prefill(
-        self, x: torch.Tensor, positions: torch.Tensor, max_len: int
+        self, x: torch.Tensor, positions: torch.Tensor, max_len: int,
+        memory: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Cache]:
         """Forward + this layer's cache: an attention cache zero beyond the
         prompt up to ``max_len``; Mamba-2's state after the prompt (the
@@ -205,22 +239,25 @@ class Block(nn.Module):
             cache = m2.ssm_state_after(self.mamba, h_in)
         else:
             h, cache = self.attn.prefill(h_in, positions, max_len)
-        return self.ffn(x + h)[0], cache
+        return self.ffn(self.mix_memory(x + h, memory))[0], cache
 
     def decode(
-        self, x: torch.Tensor, cache: Cache, position: int
+        self, x: torch.Tensor, cache: Cache, position: int,
+        memory: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Cache]:
         if self.spec.mixer == "mamba":
             h, cache = m2.mamba2_decode(self.mamba, self.ln1(x), cache)
         else:
             h, cache = self.attn.decode(self.ln1(x), cache, position)
-        return self.ffn(x + h, decode=True)[0], cache
+        return self.ffn(self.mix_memory(x + h, memory), decode=True)[0], cache
 
 
 class LM(nn.Module):
     """The LM: ``embed`` (V, d), ``blocks`` (one a layer, each built for its
     ``layer_specs`` entry), ``final_norm``, and ``lm_head`` (d, V) unless
-    ``cfg.tie_embeddings`` (then the head is ``embed.T``, as mamba2-130m's)."""
+    ``cfg.tie_embeddings`` (then the head is ``embed.T``, as mamba2-130m's);
+    with ``cfg.num_encoder_layers``, ``encoder`` (that many :data:`ENCODER`
+    blocks) and ``enc_norm``."""
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
@@ -239,6 +276,10 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, spec, generator=generator, device=device) for spec in layer_specs(cfg)
         )
+        if cfg.num_encoder_layers:
+            self.encoder = nn.ModuleList(Block(cfg, ENCODER, generator=generator, device=device)
+                                         for _ in range(cfg.num_encoder_layers))
+            self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         h = self.final_norm(h)
@@ -257,10 +298,26 @@ def init_params(
     return LM(cfg, generator=generator, device=device)
 
 
+def _positions(h: torch.Tensor) -> torch.Tensor:
+    return torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+
+
 def _inputs_to_h(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     h = embed_lookup(model.embed, tokens, dtype_of(model.cfg.dtype))
-    positions = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
-    return h, positions
+    return h, _positions(h)
+
+
+def _encode(model: LM, enc_frames: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The encoder's memory (B, T_enc, d) from frame embeddings (B, T_enc, d)
+    cast to ``cfg.dtype``, positions ``arange(T_enc)``; None for a config
+    without an encoder or a call without frames."""
+    if not model.cfg.num_encoder_layers or enc_frames is None:
+        return None
+    x = enc_frames.to(dtype_of(model.cfg.dtype))
+    positions = _positions(x)
+    for block in model.encoder:
+        x, _ = block(x, positions)
+    return model.enc_norm(x)
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -276,10 +333,12 @@ def _remat(cfg: ModelConfig) -> bool:
 
 
 class _Remat(torch.autograd.Function):
-    """One block, rematerialized: the forward runs ``block(h, positions)``
-    without recording and keeps h; the backward runs it again recording
-    and returns the gradients of h and of the block's parameters (its
-    inputs here, after h and positions) from that run. The recorded run
+    """One block, rematerialized: the forward runs ``block(h, positions,
+    memory)`` without recording and keeps h and memory; the backward runs it
+    again recording and returns the gradients of h, of memory (a decoder
+    block's cross-attention input: the encoder trains through it) and of
+    the block's parameters (its inputs here, after h, positions and
+    memory) from that run. The recorded run
     computes what the first computed (a block draws no random numbers), so
     the gradients are the un-rematerialized ones. Unlike
     ``torch.utils.checkpoint`` (non-reentrant), the first run records no
@@ -288,42 +347,50 @@ class _Remat(torch.autograd.Function):
     loss (a zero for a block without one)."""
 
     @staticmethod
-    def forward(ctx, block, h, positions, *params):
+    def forward(ctx, block, h, positions, memory, *params):
         ctx.block = block
-        ctx.save_for_backward(h, positions)
+        ctx.save_for_backward(h, positions, memory)
         with torch.no_grad():
-            out, aux = block(h, positions)
+            out, aux = block(h, positions, memory)
         ctx.has_aux = aux is not None
         return out, aux if ctx.has_aux else torch.zeros((), dtype=torch.float32, device=out.device)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, d_out, d_aux):
-        h, positions = ctx.saved_tensors
+        h, positions, memory = ctx.saved_tensors
         with torch.enable_grad():
             x = h.detach().requires_grad_(ctx.needs_input_grad[1])
-            out, aux = ctx.block(x, positions)
+            mem = None if memory is None else memory.detach().requires_grad_(
+                ctx.needs_input_grad[3])
+            out, aux = ctx.block(x, positions, mem)
             outs, grads = [out], [d_out]
             if ctx.has_aux:
                 outs.append(aux)
                 grads.append(d_aux)
-            wrt = ([x] if x.requires_grad else []) + list(ctx.block.parameters())
-            got = list(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+            inputs = [t for t in (x, mem) if t is not None and t.requires_grad]
+            got = list(torch.autograd.grad(outs, inputs + list(ctx.block.parameters()), grads,
+                                           allow_unused=True))
         d_h = got.pop(0) if x.requires_grad else None
-        return (None, d_h, None, *got)
+        d_mem = got.pop(0) if mem is not None and mem.requires_grad else None
+        return (None, d_h, None, d_mem, *got)
 
 
-def forward(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, S, V), aux loss): the MoE blocks' aux losses summed, 0 for
-    the dense family."""
+def forward(
+    model: LM, tokens: torch.Tensor, *, enc_frames: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits (B, S, V), aux loss): the MoE blocks' aux losses summed, 0
+    without MoE blocks. ``enc_frames`` (B, T_enc, d): the encoder's input
+    (encoder–decoder configs; ignored by the others, as in the reference)."""
     remat = _remat(model.cfg) and torch.is_grad_enabled()
+    memory = _encode(model, enc_frames)
     h, positions = _inputs_to_h(model, tokens)
     auxes = []
     for block in model.blocks:
         if remat:
-            h, aux = _Remat.apply(block, h, positions, *block.parameters())
+            h, aux = _Remat.apply(block, h, positions, memory, *block.parameters())
         else:
-            h, aux = block(h, positions)
+            h, aux = block(h, positions, memory)
         if block.spec.ffn == "moe":
             auxes.append(aux)
     aux = torch.stack(auxes).sum() if auxes else torch.zeros((), dtype=torch.float32,
@@ -349,15 +416,18 @@ def init_caches(
     return [one(spec) for spec in layer_specs(cfg)]
 
 
-def prefill(model: LM, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Caches]:
-    """Run the prompt: (last-token logits (B, 1, V), caches). The reference also
-    returns the encoder memory, which none of the port's families has."""
+def prefill(
+    model: LM, tokens: torch.Tensor, max_len: int, *, enc_frames: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, Caches, Optional[torch.Tensor]]:
+    """Run the prompt: (last-token logits (B, 1, V), caches, the encoder's
+    memory: None without an encoder or frames), as the reference's."""
+    memory = _encode(model, enc_frames)
     h, positions = _inputs_to_h(model, tokens)
     caches = []
     for block in model.blocks:
-        h, cache = block.prefill(h, positions, max_len)
+        h, cache = block.prefill(h, positions, max_len, memory)
         caches.append(cache)
-    return model.head(h[:, -1:]), caches
+    return model.head(h[:, -1:]), caches, memory
 
 
 def decode_step(
@@ -365,9 +435,11 @@ def decode_step(
     token: torch.Tensor,  # (B, 1) the token generated at `position` - 1
     caches: Caches,
     position: int,  # write index into the caches
+    *,
+    memory: Optional[torch.Tensor] = None,  # prefill's encoder memory
 ) -> Tuple[torch.Tensor, Caches]:
     """One decode step → (logits (B, 1, V), the caches, updated in place)."""
     h = embed_lookup(model.embed, token, dtype_of(model.cfg.dtype))
     for block, cache in zip(model.blocks, caches):
-        h, _ = block.decode(h, cache, position)
+        h, _ = block.decode(h, cache, position, memory)
     return model.head(h), caches

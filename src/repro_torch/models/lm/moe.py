@@ -52,12 +52,13 @@ def _expert_param(
     e: int, d_in: int, d_out: int, *, generator: Optional[torch.Generator], device,
     dtype: torch.dtype,
 ) -> nn.Parameter:
-    """An (E, d_in, d_out) stack, N(0, 1)·d_in^-½ drawn in float32 then cast;
+    """An (E, d_in, d_out) stack, N(0, 1)·d_in^-½ drawn in float32 then cast
+    (scaled in place: jamba's (16, 8,192, 24,576) is 12.9 GB in float32);
     zeros without a generator."""
     if generator is None:
         return trainable(torch.zeros((e, d_in, d_out), dtype=dtype, device=device))
     w = torch.randn((e, d_in, d_out), generator=generator, device=device, dtype=torch.float32)
-    return trainable((w * (1.0 / d_in) ** 0.5).to(dtype))
+    return trainable(w.mul_((1.0 / d_in) ** 0.5).to(dtype))
 
 
 class Experts(nn.Module):

@@ -8,14 +8,17 @@ The counterpart of ``repro/models/lm/steps.py``:
   EP-MCMC (pSGLD subposterior) step lives in :mod:`repro_torch.distributed.
   epmcmc` and reuses the same loss. The model is an ``nn.Module`` and
   ``train_step`` updates its parameters in place, where the reference maps
-  a parameter pytree to a new one.
+  a parameter pytree to a new one. A parameter the loss does not reach (an
+  encoder–decoder's encoder and cross-attention, trained on a batch without
+  ``enc_frames``) gets a zero gradient, as ``jax.grad`` gives it, so AdamW's
+  moments and weight decay still move it (:func:`grads_of`).
 - ``serve_prefill`` (:82) and ``serve_decode_step`` (:108), each run under
-  ``torch.inference_mode()``.
+  ``torch.inference_mode()``; the state carries the encoder's memory.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,17 +36,23 @@ def loss_fn(
     model: mdl.LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, {"ce", "z_loss", "moe_aux"}): ``moe_aux`` is the forward's
-    summed MoE aux loss (0 for the dense family), weighted by
-    ``MOE_AUX_COEFF`` in the total. The port's families have no image or
-    audio inputs."""
+    summed MoE aux loss (0 without MoE blocks), weighted by ``MOE_AUX_COEFF``
+    in the total. ``batch["enc_frames"]``, when present, feeds an
+    encoder–decoder's encoder."""
     del cfg  # the model carries it
-    logits, moe_aux = mdl.forward(model, batch["tokens"])
+    logits, moe_aux = mdl.forward(model, batch["tokens"], enc_frames=batch.get("enc_frames"))
     labels = batch.get("labels")
     if labels is None:
         labels = shift_labels(batch["tokens"])
     ce, zl = cross_entropy(logits, labels, z_loss_coeff=Z_LOSS_COEFF)
     total = ce + zl + MOE_AUX_COEFF * moe_aux
     return total, {"ce": ce, "z_loss": zl, "moe_aux": moe_aux}
+
+
+def grads_of(total: torch.Tensor, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``{name: d total / d param}``, zeros for a parameter ``total`` does not reach."""
+    return dict(zip(params, torch.autograd.grad(total, list(params.values()), allow_unused=True,
+                                                materialize_grads=True)))
 
 
 def train_step(
@@ -57,7 +66,7 @@ def train_step(
     ``(model, opt_state, metrics)`` with ``metrics["loss"]`` the total."""
     params = dict(model.named_parameters())
     total, metrics = loss_fn(model, cfg, batch)
-    grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+    grads = grads_of(total, params)
     _, opt_state = adamw_update(params, grads, opt_state, lr=lr)
     metrics = {k: v.detach() for k, v in dict(metrics, loss=total).items()}
     return model, opt_state, metrics
@@ -85,19 +94,23 @@ class DecodeState(NamedTuple):
     # (B, 1, V): the logits that chose last_token; the reference's state
     # keeps none, so a caller that wants the prefill's must run it again
     logits: torch.Tensor
+    memory: Optional[torch.Tensor] = None  # the encoder's output (encoder–decoder)
 
 
 @torch.inference_mode()
 def serve_prefill(model: mdl.LM, batch: Dict[str, torch.Tensor], max_len: int) -> DecodeState:
     tokens = batch["tokens"]
-    logits, caches = mdl.prefill(model, tokens, max_len)
+    logits, caches, memory = mdl.prefill(model, tokens, max_len,
+                                         enc_frames=batch.get("enc_frames"))
     token = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    return DecodeState(caches=caches, position=tokens.shape[1], last_token=token, logits=logits)
+    return DecodeState(caches=caches, position=tokens.shape[1], last_token=token, logits=logits,
+                       memory=memory)
 
 
 @torch.inference_mode()
 def serve_decode_step(model: mdl.LM, state: DecodeState) -> Tuple[DecodeState, torch.Tensor]:
     """Greedy one-token step; returns (new state, logits (B, 1, V))."""
-    logits, caches = mdl.decode_step(model, state.last_token, state.caches, state.position)
+    logits, caches = mdl.decode_step(model, state.last_token, state.caches, state.position,
+                                     memory=state.memory)
     token = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    return DecodeState(caches, state.position + 1, token, logits), logits
+    return DecodeState(caches, state.position + 1, token, logits, state.memory), logits

@@ -774,6 +774,8 @@ def test_stream_combine_fused_and_subscriber_agree_on_card(cuda_device):
 # add), bfloat16 within 1e-2 as well (both round the same float32 value to
 # bfloat16; they differ by at most one spacing). In float32 the shapes with
 # hd, hd_v in {64, 128} take the "tf32x3" route, the others the FMA route.
+# The plain versions run a slice of kv heads at a time
+# (``flash_bwd_probe.plain_by_heads``: the same values, in the card's memory).
 FLASH_SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal, kv_len
     (2, 4096, 4096, 8, 3, 128, 128, True, None),  # the serving path (llama3.2-3b prefill)
     (1, 128, 128, 1, 1, 32, 32, True, None),  # tests/test_flash_kernel.py's four
@@ -794,6 +796,8 @@ FLASH_SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal, kv_len
     (1, 200, 1000, 2, 3, 128, 128, False, 777),  # non-causal kv_len < T
     (1, 130, 130, 2, 3, 128, 128, True, 0),  # kv_len 0 at hd 128: every row exactly 0
     (1, 4096, 4096, 8, 2, 64, 64, True, None),  # granite-moe-1b-a400m's prefill and training
+    (2, 4096, 4096, 8, 8, 128, 128, True, None),  # jamba-1.5-large-398b's layer 4 prefill
+    (2, 1500, 1500, 8, 1, 64, 64, False, None),  # whisper-base's encoder: 1,500 frames, non-causal
 ]
 
 
@@ -844,8 +848,11 @@ def test_flash_kernel_matches_plain(cuda_device, b, s, t, kh, g, hd, hd_v, causa
     assert kernel.route_launches == dict(routes, **{route: routes[route] + 1})
     assert out.shape == (b, s, kh, g, hd_v) and out.dtype == dtype
     assert bool(torch.isfinite(out).all())
-    want64 = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal, kv_len=kv_len)
-    want32 = flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+    from repro_torch.launch.flash_bwd_probe import plain_by_heads
+
+    want64 = plain_by_heads(flash_attention_ref, q.double(), k.double(), v.double(),
+                            causal=causal, kv_len=kv_len)
+    want32 = plain_by_heads(flash_attention_ref, q, k, v, causal=causal, kv_len=kv_len)
     if dtype == torch.float32:
         torch.testing.assert_close(out.double(), want64, rtol=2e-5, atol=2e-5)
         torch.testing.assert_close(out, want32, rtol=1e-4, atol=1e-4)
@@ -1115,7 +1122,9 @@ def test_a_queued_chunk_is_not_overwritten_by_later_chunks(cuda_device):
 # its route; kv_len = 0 gives exactly zero gradients on both.
 FLASH_BWD_CASES = ["hd=64", "float32 S=T=1000", "hd=192 hd_v=128", "G=8",
                    "non-causal kv_len=777 T=1000", "kv_len=17 hd=36 hd_v=20", "kv_len=0",
-                   "granite training path", "deepseek MLA training path"]
+                   "granite training path", "deepseek MLA training path",
+                   "jamba training path", "whisper encoder training path",
+                   "whisper encoder training path float32"]
 
 
 @pytest.mark.parametrize("label", FLASH_BWD_CASES)

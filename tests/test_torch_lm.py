@@ -172,7 +172,7 @@ def test_prefill_and_decode_match_reference_float32(arch):
     tok = _tokens(cfg, PROMPT + GEN)
     want, caches, _ = ref_mdl.prefill(params, ref_cfg, jnp.asarray(tok[:, :PROMPT]), PROMPT + GEN)
     with torch.no_grad():
-        got, tc = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + GEN)
+        got, tc, _ = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + GEN)
     assert got.shape == (B, 1, cfg.vocab_size) and len(tc) == cfg.num_layers
     assert tc[0]["k"].shape == (B, PROMPT + GEN, cfg.num_kv_heads, cfg.head_dim)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-4, atol=1e-4)
@@ -205,7 +205,7 @@ def test_prefill_plus_decode_equals_forward():
     tok = torch.from_numpy(_tokens(cfg, PROMPT + GEN, seed=3))
     with torch.no_grad():
         full, _ = mdl.forward(model, tok)
-        last, caches = mdl.prefill(model, tok[:, :PROMPT], PROMPT + GEN)
+        last, caches, _ = mdl.prefill(model, tok[:, :PROMPT], PROMPT + GEN)
         got = [last[:, 0]]
         for i in range(GEN - 1):
             logits, caches = mdl.decode_step(model, tok[:, PROMPT + i:PROMPT + i + 1], caches,
@@ -220,7 +220,7 @@ def test_prefill_and_decode_match_reference_bfloat16():
     tok = _tokens(cfg, PROMPT + 2, seed=7)
     want, caches, _ = ref_mdl.prefill(params, ref_cfg, jnp.asarray(tok[:, :PROMPT]), PROMPT + 2)
     with torch.no_grad():
-        got, tc = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + 2)
+        got, tc, _ = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + 2)
     assert got.dtype == torch.bfloat16 and tc[0]["k"].dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=5e-2, atol=5e-2)
     want, _ = ref_mdl.decode_step(params, ref_cfg, jnp.asarray(tok[:, PROMPT:PROMPT + 1]), caches,
@@ -237,7 +237,7 @@ def test_serve_steps_are_greedy_and_match_decode_step():
     assert state.position == PROMPT and state.last_token.shape == (B, 1)
     assert torch.equal(state.last_token[:, 0], state.logits[:, -1].argmax(-1))
     with torch.no_grad():
-        want, _ = mdl.prefill(model, tok, PROMPT + 3)
+        want, _, _ = mdl.prefill(model, tok, PROMPT + 3)
     assert torch.equal(state.logits, want)
     nxt, logits = steps.serve_decode_step(model, state)
     assert nxt.position == PROMPT + 1
@@ -246,7 +246,8 @@ def test_serve_steps_are_greedy_and_match_decode_step():
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).family != "dense"
                                   and a not in ("granite_moe_1b", "deepseek_v2_236b",
-                                                "mamba2_130m")])
+                                                "mamba2_130m", "jamba_1_5_large",
+                                                "whisper_base")])
 def test_non_dense_config_raises(arch):
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):

@@ -335,7 +335,7 @@ def test_forward_prefill_and_decode_match_reference_float32():
     want, caches, _ = _ref_prefill(params, ref_cfg, jnp.asarray(tok[:, :PROMPT]), PROMPT + GEN)
     with torch.no_grad():
         got_fwd, aux = mdl.forward(model, torch.from_numpy(tok[:, :PROMPT]))
-        got, tc = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + GEN)
+        got, tc, _ = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + GEN)
     assert float(aux) == 0.0
     _close(got_fwd, want_fwd)
     _close(got, want)
@@ -360,7 +360,7 @@ def test_forward_and_prefill_match_reference_bfloat16():
     want, caches, _ = _ref_prefill(params, ref_cfg, jnp.asarray(tok), 34)
     with torch.no_grad():
         got_fwd, _ = mdl.forward(model, torch.from_numpy(tok))
-        got, tc = mdl.prefill(model, torch.from_numpy(tok), 34)
+        got, tc, _ = mdl.prefill(model, torch.from_numpy(tok), 34)
     assert got.dtype == torch.bfloat16 and tc[0].x.dtype == torch.bfloat16
     assert tc[0].h.dtype == torch.float32
     _close(got_fwd, want_fwd, 5e-2)
@@ -378,7 +378,7 @@ def test_decode_equals_the_chunked_forward():
     padded = torch.cat([tok, torch.zeros((B, 64 - PROMPT - GEN), dtype=tok.dtype)], dim=1)
     with torch.no_grad():
         full, _ = mdl.forward(model, padded)
-        last, caches = mdl.prefill(model, tok[:, :PROMPT], PROMPT + GEN)
+        last, caches, _ = mdl.prefill(model, tok[:, :PROMPT], PROMPT + GEN)
         got = [last[:, 0]]
         for i in range(GEN - 1):
             logits, caches = mdl.decode_step(model, tok[:, PROMPT + i:PROMPT + i + 1], caches,

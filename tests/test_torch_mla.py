@@ -196,7 +196,7 @@ def test_prefill_and_decode_match_reference_float32(q_lora):
     tok = _tokens(cfg, PROMPT + GEN, seed=2)
     want, caches, _ = ref_mdl.prefill(params, ref_cfg, jnp.asarray(tok[:, :PROMPT]), PROMPT + GEN)
     with torch.no_grad():
-        got, tc = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + GEN)
+        got, tc, _ = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + GEN)
     m = cfg.mla
     assert tuple(tc[0]["c_kv"].shape) == (B, PROMPT + GEN, m.kv_lora_rank)
     assert tuple(tc[0]["k_rope"].shape) == (B, PROMPT + GEN, m.rope_head_dim)
@@ -245,7 +245,7 @@ def test_prefill_and_decode_match_reference_bfloat16():
                                        PROMPT + 2)
     want, caches, _ = ref_mdl.prefill(params, ref_cfg, jnp.asarray(tok[:, :PROMPT]), PROMPT + 2)
     with torch.no_grad():
-        got, tc = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + 2)
+        got, tc, _ = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + 2)
     assert got.dtype == torch.bfloat16 and tc[0]["c_kv"].dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), _f32(want), rtol=5e-2, atol=5e-2)
     for key in ("c_kv", "k_rope"):  # layer 0's: the one both compute from the same input
@@ -273,7 +273,7 @@ def test_absorbed_decode_equals_the_expanded_forward():
     tok = torch.from_numpy(_tokens(cfg, PROMPT + GEN, seed=6))
     with torch.no_grad():
         full, _ = mdl.forward(model, tok)
-        last, caches = mdl.prefill(model, tok[:, :PROMPT], PROMPT + GEN)
+        last, caches, _ = mdl.prefill(model, tok[:, :PROMPT], PROMPT + GEN)
         got = [last[:, 0]]
         for i in range(GEN - 1):
             logits, caches = mdl.decode_step(model, tok[:, PROMPT + i:PROMPT + i + 1], caches,

@@ -326,7 +326,7 @@ def test_prefill_and_decode_match_reference_float32(impl):
     tok = _tokens(cfg, PROMPT + GEN, seed=2)
     want, caches, _ = ref_mdl.prefill(params, ref_cfg, jnp.asarray(tok[:, :PROMPT]), PROMPT + GEN)
     with torch.no_grad():
-        got, tc = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + GEN)
+        got, tc, _ = mdl.prefill(model, torch.from_numpy(tok[:, :PROMPT]), PROMPT + GEN)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
     for i in range(GEN):  # teacher forcing: both fed the same tokens
         pos = PROMPT + i
@@ -425,7 +425,7 @@ def test_prefill_plus_decode_equals_forward():
     tok = torch.from_numpy(_tokens(cfg, PROMPT + GEN, seed=8))
     with torch.no_grad():
         full, _ = mdl.forward(model, tok)
-        last, caches = mdl.prefill(model, tok[:, :PROMPT], PROMPT + GEN)
+        last, caches, _ = mdl.prefill(model, tok[:, :PROMPT], PROMPT + GEN)
         got = [last[:, 0]]
         for i in range(GEN - 1):
             logits, caches = mdl.decode_step(model, tok[:, PROMPT + i:PROMPT + i + 1], caches,

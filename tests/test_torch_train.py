@@ -504,7 +504,8 @@ def test_train_cli_sgd_runs_and_others_raise():
     out = train.main(BASE + ["--mode", "sgd", "--chains", "2", "--steps", "2"])
     assert len(out["losses"]) == 2 and out["losses"][0].shape == (2,)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        train.main(["--device", "cpu", "--arch", "jamba-1.5-large", "--reduced", "--steps", "1"])
+        train.main(["--device", "cpu", "--arch", "llava-next-mistral-7b", "--reduced", "--steps",
+                    "1"])
     with pytest.raises(NotImplementedError, match="11.10"):
         train.main(BASE + ["--mesh", "pod"])
 
