@@ -203,6 +203,19 @@ a non-zero exit:
               (the memory's too); (c) ``lm_steps.train_step`` at B=4 x
               4,096 with frames, 18 forward and 12 backward flash launches a
               step; (d) ``train.main`` adamw and epmcmc 2 chains on tokens;
+4o. vlm     — llava-next-mistral-7b at full width, its attention over 576
+              image + 4,096 token positions (G = 4, a causal tail tile):
+              (a) ``serve.main`` bf16 at 32 layers, B=2 x 4,096 + 16 (zero
+              images, 32 flash launches a prefill), then the same weights
+              with images from the seed against forward within twice bf16's
+              own error, and float32 at 4 layers (``tf32x3``) within 2e-3;
+              (b) at 16 layers, batch 1, images: the gradients (32 forward
+              and 16 backward flash launches), ``img_proj``'s nonzero,
+              ``error_feedback_update`` at rank 8 on them, one
+              ``train_step`` at 3e-5 lowering the loss; (c) ``train.main
+              --layers 16`` adamw on tokens; (d) qwen1.5-4b whole, bf16
+              serving (40 flash launches at K = 20, G = 1) and 4d's
+              invariant;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
@@ -226,7 +239,10 @@ a non-zero exit:
               jamba-1.5-large-398b's layer 4 (K = 8, G = 8, hd 128) bf16 at
               B=2 and B=1 and ``tf32x3`` at B=2, and at whisper-base's
               encoder (K = 8, G = 1, hd 64, S = T = 1,500, non-causal) bf16
-              at B=2 and B=4 and ``tf32x3`` at B=2; the
+              at B=2 and B=4 and ``tf32x3`` at B=2, and at
+              llava-next-mistral-7b's (K = 8, G = 4, hd 128, S = T = 4,672)
+              bf16 at B=2 and B=1 and ``tf32x3`` at B=2, and at qwen1.5-4b's
+              (K = 20, G = 1, hd 128) bf16 at B=2; the
               KDE kernel's bound the largest of its bytes, its three TF32
               passes on the tensor cores and its exps on the MUFU;
               ``flash_attention_bwd`` at the training shape (the bf16
@@ -238,8 +254,8 @@ a non-zero exit:
               tensor-core design's 7-product bound and the float32 FMA
               bound) and the forward there with and without lse, at the
               training shapes (llama's, granite's, deepseek's MLA, jamba's
-              layer 4 and whisper's encoder, non-causal at B=4; SDPA's
-              kernels named);
+              layer 4, whisper's encoder, non-causal at B=4, and llava's;
+              SDPA's kernels named);
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -864,8 +880,10 @@ def launch_ranks(root: str, args, nproc: int, out_dir: str):
 def forward_tail(model, out):
     """forward(prompt + generated[:-1])'s logits at the positions whose next
     token a serving run chose (prefill's last, then each decode), float32,
-    with the run's encoder frames (an encoder–decoder); for a model with
-    Mamba-2 layers the sequence padded to whole SSD chunks first."""
+    with the run's encoder frames (an encoder–decoder) or image prefix (a
+    vlm: its positions come first, so the tail is counted from the end);
+    for a model with Mamba-2 layers the sequence padded to whole SSD chunks
+    first."""
     import torch
 
     from repro_torch.models.lm import model as lm_model
@@ -878,7 +896,9 @@ def forward_tail(model, out):
         # one; the model is causal, so the first n positions are unchanged
         seq = torch.cat([seq, seq.new_zeros((seq.shape[0], -n % ssm.chunk))], dim=1)
     with torch.inference_mode():
-        logits, _ = lm_model.forward(model, seq, enc_frames=out.get("enc_frames"))
+        logits, _ = lm_model.forward(model, seq, enc_frames=out.get("enc_frames"),
+                                     img_embeds=out.get("img_embeds"))
+        n += logits.shape[1] - seq.shape[1]  # the image prefix's positions
         tail = logits[:, n - out["tokens"].shape[1]:n].to(torch.float32, copy=True)
     del logits
     torch.cuda.empty_cache()
@@ -1918,7 +1938,7 @@ def ssm_phase(dev, kernels, lm_config):
     seq = torch.cat([prompt, out["tokens"][:, :1], prompt.new_zeros((1, pad))], dim=1)
     after, chunked = [], []
     with torch.inference_mode():
-        h, positions = lm_model._inputs_to_h(model, seq)
+        h, positions, _ = lm_model._inputs_to_h(model, seq)
         for block in model.blocks:
             x = block.ln1(h)[:, :prompt_len]
             h_after = m2.ssm_state_after(block.mamba, x).h
@@ -2490,6 +2510,322 @@ def encdec_phase(dev, kernels, lm_config):
           f"flash_attention_bwd by route {json.dumps(routes_train_bwd)}", flush=True)
     print(f"  encdec {json.dumps(record)}", flush=True)
     return launches_serve, routes_serve, launches_train, routes_train, routes_train_bwd, record
+
+
+# the training depth of 4o: 4i's llama3.2-3b adamw step peaked at 48.87 GB
+# for 3.21 B parameters on an H100 (15.2 B a parameter: bf16 weights and
+# gradients, float32 AdamW moments), so 16 of llava's 32 layers (3.76 B)
+# come to ~57 GB, the full 32 (7.25 B) to ~110
+VLM_TRAIN_LAYERS = 16
+
+
+def vlm_phase(dev, kernels, lm_config):
+    """Phase 4o: the vlm family, llava-next-mistral-7b (Mistral-7B's backbone:
+    32 dense layers, d 4,096, GQA 32/8 heads of 128 so flash at K = 8, G = 4,
+    d_ff 14,336, vocab 32,000, untied; 576 image positions from the stub
+    vision tower's (B, 576, 1,024) embeddings through ``img_proj``; 7.25 B
+    parameters, random weights from the seed), and qwen1.5-4b, a dense config
+    never run on the card before (40 layers, d 2,560, 20 heads MHA so G = 1,
+    ``qkv_bias``, vocab 151,936; 3.95 B). Every llava attention runs over
+    576 + 4,096 = 4,672 positions, causal, a tail tile of 64 rows.
+    (a) ``serve.main`` bf16 at B = 2 × 4,096 + 16, whole depth, zero images
+    (the reference's CLI): 32 flash launches a prefill, all ``tensor_core``,
+    the caches 576 + 4,096 + 16 long; the same weights with images drawn
+    from the seed (bf16, not zeros: a zero prefix is zero after RMSNorm),
+    warm, held to forward over prefix + prompt + generated (prefill's last
+    logits at position 4,671, the first decoded token's at 4,672, …) within
+    twice bf16's own error (4d's rule: the bf16 forward against the float32
+    model of the same draws); float32 at 4 layers through the CLI (4
+    ``tf32x3`` launches at the new shape) and its invariant with images
+    within 2e-3. (b) ``lm_steps`` at ``VLM_TRAIN_LAYERS`` layers, batch 1 ×
+    4,096 + 576 images, the batch built from ``data.make_batch_specs``: the
+    loss and its gradients (32 forward and 16 backward flash launches, all
+    ``tensor_core``), ``img_proj``'s gradient nonzero;
+    ``error_feedback_update`` at rank 8 on that gradient tree (the (4,096,
+    14,336) MLP leaf's ratio r(n + m)/(n·m), the tree's time, the residual's
+    norm against the gradient's); one ``train_step`` at 3e-5 that must lower
+    the loss on the stepped batch; the peak memory of each part. (c)
+    ``train.main --layers 16`` adamw 3 steps on tokens (the reference's
+    training CLI feeds no images). (d) qwen1.5-4b: ``serve.main`` bf16 at B = 2 ×
+    4,096 + 16, 40 flash launches a prefill (K = 20, G = 1), 4d's
+    invariant. Returns (llava's bf16 serving launches, qwen's, each serving
+    run's flash launches by route, the training runs' launches, their flash
+    launches by route forward and backward, the record)."""
+    import torch
+
+    from repro_torch.data import make_batch_specs
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import model as lm_model
+    from repro_torch.models.lm import steps as lm_steps
+    from repro_torch.models.lm.config import VISION_WIDTH
+    from repro_torch.optim import adamw_init, error_feedback_update, init_error_feedback
+
+    arch = "llava-next-mistral-7b"
+    phase(f"4o vlm: {arch} full width (32 layers, d 4096, GQA K 8 G 4, 576 image positions): "
+          f"serve B=2 S=576+4096 bf16, float32 at 4 layers, train at {VLM_TRAIN_LAYERS} layers, "
+          "compression; qwen1.5-4b serve")
+    cfg = lm_config(arch)
+    n_img, n_layers, prompt_len, gen_len = cfg.num_image_tokens, cfg.num_layers, 4096, 16
+    seq = n_img + prompt_len
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
+    record, routes_serve = {}, {}
+
+    def serve_argv(name, dtype, layers=0):
+        return ["--arch", name, "--batch", "2", "--prompt-len", str(prompt_len), "--gen",
+                str(gen_len), "--seed", "0", "--dtype", dtype, "--layers", str(layers)]
+
+    def images(batch, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn((batch, n_img, VISION_WIDTH), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def serve_cli(label, argv, *, layers, route, length, vocab):
+        """``serve_run`` with every flash call (2, length, length, causal)."""
+        with flash_calls() as calls:
+            out, counts, routes, peak = serve_run(kernels, fwd_kernel, label, argv, flash=layers,
+                                                  route=route, vocab=vocab)
+        if calls != [(2, length, length, True)] * layers:
+            raise AssertionError(f"{label}: flash calls {sorted(set(calls))} x {len(calls)}, "
+                                 f"want {layers} x (2, {length}, {length}, True)")
+        return out, counts, routes, peak
+
+    def stage_gaps(label, out, fwd):
+        """The gaps of prefill's last logits and of the first decoded token's."""
+        gaps = [float((out["logits"][:, i] - fwd[:, i]).abs().max()) for i in (0, 1)]
+        print(f"  {label}: prefill's last logits (position {seq - 1}) vs forward "
+              f"{gaps[0]:.4e}; the first decoded token's (position {seq}) {gaps[1]:.4e}",
+              flush=True)
+        return gaps
+
+    # (a) the CLI, bf16, whole depth, zero images
+    out, launches_serve, routes_serve["bfloat16"], peak = serve_cli(
+        "(a) serve bfloat16, 32 layers, zero images (serve.main)",
+        serve_argv(arch, "bfloat16"), layers=n_layers, route="tensor_core", length=seq,
+        vocab=cfg.vocab_size)
+    if out["max_len"] != seq + gen_len or tuple(out["img_embeds"].shape) != (2, n_img,
+                                                                            VISION_WIDTH):
+        raise AssertionError(f"(a) caches {out['max_len']} long, images "
+                             f"{tuple(out['img_embeds'].shape)}")
+    record["serve_bfloat16"] = {"prefill_s": out["prefill_s"],
+                                "decode_s_per_tok": out["decode_s_per_tok"],
+                                "peak_gb": peak / 1e9}
+    del out
+    torch.cuda.empty_cache()
+
+    # (a) the same weights with images from the seed, warm; the invariant
+    _, model16, prompt = serve.setup(serve.parse(serve_argv(arch, "bfloat16")))
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    out16 = dict(serve.generate(model16, prompt, gen_len, img_embeds=images(2, 1)),
+                 prompt=prompt)
+    torch.cuda.synchronize()
+    if kernels.launch_counts()["flash_attention"] != n_layers:
+        raise AssertionError(f"(a) generate launched {kernels.launch_counts()}")
+    warm_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  (a) bfloat16 with images from the seed, warm: prefill_s={out16['prefill_s']:.4f} "
+          f"decode_ms_per_tok={out16['decode_s_per_tok'] * 1e3:.3f} peak "
+          f"{warm_peak / 1e9:.2f} GB", flush=True)
+    fwd16 = forward_tail(model16, out16)
+    _, model32, prompt32 = serve.setup(serve.parse(serve_argv(arch, "float32")))
+    if not torch.equal(prompt32, prompt):
+        raise AssertionError("(a) the float32 setup drew another prompt")
+    dev16 = float((fwd16 - forward_tail(model32, out16)).abs().max())
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  (a) bfloat16 forward vs float32 forward (the same draws) on the same tokens and "
+          f"images: max |diff| = {dev16:.4e}", flush=True)
+    gap16 = invariant("(a) bfloat16 decode vs forward (images from the seed)", out16, fwd16,
+                      2.0 * dev16)
+    first16 = stage_gaps("(a) bfloat16", out16, fwd16)
+    record["serve_bfloat16"].update(
+        warm_prefill_s=out16["prefill_s"], warm_decode_s_per_tok=out16["decode_s_per_tok"],
+        warm_peak_gb=warm_peak / 1e9, invariant_gap=gap16, bfloat16_vs_float32=dev16,
+        prefill_and_first_decode_gap=first16)
+    del model16, out16, fwd16
+    torch.cuda.empty_cache()
+
+    # (a) float32 at 4 layers: the tf32x3 route at 4,672
+    out, _, routes_serve["float32"], _ = serve_cli(
+        "(a) serve float32, 4 layers, zero images (serve.main)",
+        serve_argv(arch, "float32", 4), layers=4, route="tf32x3", length=seq,
+        vocab=cfg.vocab_size)
+    del out
+    _, model32, prompt = serve.setup(serve.parse(serve_argv(arch, "float32", 4)))
+    out32 = dict(serve.generate(model32, prompt, gen_len, img_embeds=images(2, 2)),
+                 prompt=prompt)
+    fwd32 = forward_tail(model32, out32)
+    gap32 = invariant("(a) float32 at 4 layers decode vs forward (images from the seed)",
+                      out32, fwd32, 2e-3)
+    record["serve_float32_4_layers"] = {
+        "prefill_s": out32["prefill_s"], "decode_s_per_tok": out32["decode_s_per_tok"],
+        "invariant_gap": gap32, "prefill_and_first_decode_gap": stage_gaps(
+            "(a) float32 at 4 layers", out32, fwd32)}
+    del model32, out32, fwd32
+    torch.cuda.empty_cache()
+
+    # (b) lm_steps at VLM_TRAIN_LAYERS layers with images
+    cfg_t = dataclasses.replace(cfg, num_layers=VLM_TRAIN_LAYERS)
+    launches_train = {name: 0 for name in kernels.KERNELS}
+    routes_train = {route: 0 for route in fwd_kernel.route_launches}
+    routes_train_bwd = {route: 0 for route in bwd_kernel.route_launches}
+
+    def count_train(label, *, forward, backward):
+        """The flash launches since the last reset: ``forward`` and
+        ``backward`` of them, all on the tensor-core routes, nothing else;
+        added to the training totals."""
+        counts = kernels.launch_counts()
+        routes, routes_bwd = dict(fwd_kernel.route_launches), dict(bwd_kernel.route_launches)
+        if (counts["flash_attention"] != forward or counts["flash_attention_bwd"] != backward
+                or routes.get("tensor_core") != forward
+                or routes_bwd != {"tensor_core": backward, "fma": 0}
+                or any(n for k, n in counts.items() if not k.startswith("flash"))):
+            raise AssertionError(f"{label} launched {counts}, forward by route {routes}, "
+                                 f"backward by route {routes_bwd}; want {forward} forward and "
+                                 f"{backward} backward, all tensor_core")
+        for name in counts:
+            launches_train[name] += counts[name]
+        for rt in routes:
+            routes_train[rt] += routes[rt]
+        for rt in routes_bwd:
+            routes_train_bwd[rt] += routes_bwd[rt]
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = lm_model.init_params(cfg_t, generator=gen, device=dev)
+    specs = make_batch_specs(cfg_t, 1, prompt_len)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len + 1), generator=gen, device=dev,
+                           dtype=specs["tokens"].dtype)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "img_embeds": torch.randn(specs["img_embeds"].shape, generator=gen,
+                                       device=dev).to(specs["img_embeds"].dtype)}
+    if {k: (tuple(t.shape), t.dtype) for k, t in batch.items()} != {
+            k: (tuple(t.shape), t.dtype) for k, t in specs.items()}:
+        raise AssertionError(f"(b) the batch is not make_batch_specs': {specs}")
+    n_params = sum(p.numel() for p in model.parameters())
+    params = dict(model.named_parameters())
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total, _ = lm_steps.loss_fn(model, cfg_t, batch)
+    grads = lm_steps.grads_of(total, params)
+    loss = float(total.detach())
+    torch.cuda.synchronize()
+    fwd_bwd_s, grads_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev)
+    count_train("(b) loss_fn + gradients", forward=2 * VLM_TRAIN_LAYERS,
+                backward=VLM_TRAIN_LAYERS)
+    img_norm = float(grads["img_proj"].float().norm())
+    print(f"  (b) {VLM_TRAIN_LAYERS} layers ({n_params / 1e9:.2f} B parameters), batch 1 x "
+          f"({n_img} image + {prompt_len} token positions) from make_batch_specs: loss "
+          f"{loss:.4f}, forward + backward {fwd_bwd_s:.4f} s, peak "
+          f"{grads_peak / 1e9:.2f} GB, |grad img_proj| {img_norm:.4e}; flash_attention "
+          f"{2 * VLM_TRAIN_LAYERS}, flash_attention_bwd {VLM_TRAIN_LAYERS}, all tensor_core",
+          flush=True)
+    if not (math.isfinite(loss) and math.isfinite(img_norm) and img_norm > 0):
+        raise AssertionError(f"(b) loss {loss}, img_proj's gradient norm {img_norm}")
+    del total
+
+    # (b) error feedback at rank 8 on that gradient tree
+    torch.cuda.reset_peak_memory_stats(dev)
+    err = init_error_feedback(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sent, new_err = error_feedback_update(torch.Generator(device=dev).manual_seed(3), grads,
+                                          err, rank=8)
+    torch.cuda.synchronize()
+    compress_s, compress_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev)
+    leaf = "blocks.0.mlp.w_gate"
+    n, m = grads[leaf].shape
+    ratio = 8 * (n + m) / (n * m)
+
+    def norm(tree, names):
+        return math.sqrt(sum(float(tree[k].float().norm()) ** 2 for k in names))
+
+    compressed = [k for k, g in grads.items() if g.ndim >= 2 and min(g.shape[-2:]) > 8]
+    leaf_rel = norm(new_err, [leaf]) / norm(grads, [leaf])
+    tree_rel = norm(new_err, list(grads)) / norm(grads, list(grads))
+    finite = all(bool(torch.isfinite(t).all()) for d in (sent, new_err) for t in d.values())
+    print(f"  (b) error_feedback_update rank 8 on the gradient tree ({len(compressed)} of "
+          f"{len(grads)} leaves compressed): {compress_s:.4f} s, peak "
+          f"{compress_peak / 1e9:.2f} GB; the {leaf} leaf {(n, m)}: r(n + m)/(n m) = "
+          f"{ratio:.6f}, |residual| / |gradient| = {leaf_rel:.4f}; the whole tree "
+          f"{tree_rel:.4f}", flush=True)
+    if not finite or not 0.0 < leaf_rel < 1.0:
+        raise AssertionError(f"(b) compression: finite {finite}, residual share {leaf_rel}")
+    record["compression"] = {"s": compress_s, "peak_gb": compress_peak / 1e9,
+                             "mlp_leaf_ratio": ratio, "mlp_leaf_residual_share": leaf_rel,
+                             "tree_residual_share": tree_rel, "leaves": len(grads),
+                             "compressed": len(compressed)}
+    del err, sent, new_err, grads
+    torch.cuda.empty_cache()
+
+    # (b) one train_step at 3e-5 on the same batch lowers its loss
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = adamw_init(params)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, opt, metrics = lm_steps.train_step(model, opt, batch, cfg_t, lr=3e-5)
+    torch.cuda.synchronize()
+    step_s, step_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev)
+    count_train("(b) train_step", forward=2 * VLM_TRAIN_LAYERS, backward=VLM_TRAIN_LAYERS)
+    with torch.no_grad():
+        after = float(lm_steps.loss_fn(model, cfg_t, batch)[0])
+    before = float(metrics["loss"])
+    print(f"  (b) train_step adamw at 3e-5 with images: loss {before:.4f} -> {after:.4f} on "
+          f"the stepped batch, {step_s:.4f} s, peak {step_peak / 1e9:.2f} GB", flush=True)
+    if not after < before:
+        raise AssertionError(f"(b) one step at 3e-5 did not lower the loss: {before} -> {after}")
+    record["train_step_images"] = {
+        "layers": VLM_TRAIN_LAYERS, "params_b": n_params / 1e9, "forward_backward_s": fwd_bwd_s,
+        "grads_peak_gb": grads_peak / 1e9, "img_proj_grad_norm": img_norm, "step_s": step_s,
+        "step_peak_gb": step_peak / 1e9, "loss_before": before, "loss_after": after}
+    del model, opt, metrics, params, batch, tokens
+    torch.cuda.empty_cache()
+
+    # (c) train.main on tokens alone
+    base = ["--arch", arch, "--layers", str(VLM_TRAIN_LAYERS), "--batch", "1", "--seq",
+            str(prompt_len), "--log-every", "1", "--seed", "0"]
+    out = train_run(kernels, cfg, base, "(c) adamw on tokens (train.main)",
+                    ["--mode", "adamw", "--steps", "3"], layers=VLM_TRAIN_LAYERS, chains=1,
+                    steps=3, totals=(launches_train, routes_train, routes_train_bwd),
+                    record=record)
+    del out
+    torch.cuda.empty_cache()
+
+    # (d) qwen1.5-4b, whole, bf16
+    qwen = "qwen1.5-4b"
+    qcfg = lm_config(qwen)
+    out16, launches_qwen, routes_serve["qwen_bfloat16"], peak = serve_cli(
+        f"(d) {qwen} serve bfloat16, 40 layers (serve.main)", serve_argv(qwen, "bfloat16"),
+        layers=qcfg.num_layers, route="tensor_core", length=prompt_len, vocab=qcfg.vocab_size)
+    _, model16, _ = serve.setup(serve.parse(serve_argv(qwen, "bfloat16")))
+    fwd16 = forward_tail(model16, out16)
+    _, model32, _ = serve.setup(serve.parse(serve_argv(qwen, "float32")))
+    dev16 = float((fwd16 - forward_tail(model32, out16)).abs().max())
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  (d) {qwen} bfloat16 forward vs float32 forward on the same tokens: max |diff| = "
+          f"{dev16:.4e}", flush=True)
+    gapq = invariant(f"(d) {qwen} bfloat16 decode vs forward", out16, fwd16, 2.0 * dev16)
+    warm = serve.generate(model16, out16["prompt"], gen_len)
+    if not torch.equal(warm["tokens"], out16["tokens"]):
+        raise AssertionError(f"(d) {qwen}: a warm run generated other tokens")
+    print(f"  (d) {qwen} warm: prefill_s={warm['prefill_s']:.4f} decode_ms_per_tok="
+          f"{warm['decode_s_per_tok'] * 1e3:.3f}, the same tokens", flush=True)
+    record["qwen_serve_bfloat16"] = {
+        "prefill_s": out16["prefill_s"], "decode_s_per_tok": out16["decode_s_per_tok"],
+        "warm_prefill_s": warm["prefill_s"], "warm_decode_s_per_tok": warm["decode_s_per_tok"],
+        "peak_gb": peak / 1e9, "invariant_gap": gapq, "bfloat16_vs_float32": dev16}
+    del model16, out16, fwd16, warm
+    torch.cuda.empty_cache()
+    print(f"  4o launches: serve (bf16) {json.dumps(launches_serve)}, qwen "
+          f"{json.dumps(launches_qwen)}; train {json.dumps(launches_train)}, flash_attention by "
+          f"route {json.dumps(routes_train)}, flash_attention_bwd by route "
+          f"{json.dumps(routes_train_bwd)}", flush=True)
+    print(f"  vlm {json.dumps(record)}", flush=True)
+    return (launches_serve, launches_qwen, routes_serve, launches_train, routes_train,
+            routes_train_bwd, record)
 
 
 @contextlib.contextmanager
@@ -3335,7 +3671,10 @@ def main() -> int:
     # at a time, flash_bwd_probe.plain_by_heads), jamba-1.5-large-398b's layer
     # 4 (8 KV heads of 8, hd 128, S = T = 4096, B = 2, causal) and
     # whisper-base's encoder (8 KV heads of 1, hd 64, S = T = 1500, a 28-row
-    # tail tile, B = 2, non-causal) in bf16 and float32, the reference tests'
+    # tail tile, B = 2, non-causal) in bf16 and float32, llava-next-mistral-7b's
+    # (8 KV heads of 4, hd 128, S = T = 576 + 4096 = 4672, a 64-row causal
+    # tail tile, B = 2) in bf16 and float32, qwen1.5-4b's (20 KV heads of 1,
+    # hd 128, S = T = 4096, B = 2) in bf16, the reference tests'
     # GQA / hd_v≠hd and ragged non-causal shapes, MLA's hd 192 with hd_v 128,
     # a kv_len inside the causal reach, and every row masked (kv_len 0: zeros,
     # no NaN), all of which but the serving path take the FMA route in
@@ -3366,6 +3705,9 @@ def main() -> int:
         "jamba path float32": (2, 4096, 4096, 8, 8, 128, 128, True, None, f32),
         "whisper encoder path": (2, 1500, 1500, 8, 1, 64, 64, False, None, bf16),
         "whisper encoder path float32": (2, 1500, 1500, 8, 1, 64, 64, False, None, f32),
+        "llava path": (2, 4672, 4672, 8, 4, 128, 128, True, None, bf16),
+        "llava path float32": (2, 4672, 4672, 8, 4, 128, 128, True, None, f32),
+        "qwen path": (2, 4096, 4096, 20, 1, 128, 128, True, None, bf16),
         "GQA hd_v=16": (2, 128, 128, 2, 2, 32, 16, True, None, f32),
         "ragged non-causal S=100 T=160": (1, 100, 160, 1, 4, 16, 16, False, None, f32),
         "MLA hd=192 hd_v=128": (1, 300, 300, 4, 1, 192, 128, True, None, bf16),
@@ -4082,6 +4424,9 @@ def main() -> int:
     (launches_encdec_serve, routes_encdec_serve, launches_encdec_train, routes_encdec_train,
      routes_encdec_train_bwd, encdec_record) = encdec_phase(dev, kernels, lm_config)
     torch.cuda.empty_cache()
+    (launches_vlm_serve, launches_qwen_serve, routes_vlm_serve, launches_vlm_train,
+     routes_vlm_train, routes_vlm_train_bwd, vlm_record) = vlm_phase(dev, kernels, lm_config)
+    torch.cuda.empty_cache()
 
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
@@ -4371,7 +4716,11 @@ def main() -> int:
             ("whisper encoder bf16 B=4", 4, torch.bfloat16, "tensor_core",
              (8, 1, 64, 64, 1500, False)),
             ("whisper encoder float32 B=2", 2, torch.float32, "tf32x3",
-             (8, 1, 64, 64, 1500, False))):
+             (8, 1, 64, 64, 1500, False)),
+            ("llava bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 4, 128, 128, 4672, True)),
+            ("llava bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 4, 128, 128, 4672, True)),
+            ("llava float32 B=2", 2, torch.float32, "tf32x3", (8, 4, 128, 128, 4672, True)),
+            ("qwen bf16 B=2", 2, torch.bfloat16, "tensor_core", (20, 1, 128, 128))):
         K, G, hd, hd_v, S, causal = shape + (4096, True)[len(shape) - 4:]
         mode = "causal" if causal else "non-causal"
         if label == misaligned:
@@ -4448,13 +4797,16 @@ def main() -> int:
                             ("granite", ("bf16 B=2", "bf16 B=1", "float32 B=2")),
                             ("deepseek", ("bf16 B=2", "bf16 B=1", "float32 B=2")),
                             ("jamba", ("bf16 B=2", "bf16 B=1", "float32 B=2")),
-                            ("whisper encoder", ("bf16 B=2", "bf16 B=4", "float32 B=2")))})
+                            ("whisper encoder", ("bf16 B=2", "bf16 B=4", "float32 B=2")),
+                            ("llava", ("bf16 B=2", "bf16 B=1", "float32 B=2")),
+                            ("qwen", ("bf16 B=2",)))})
     rows.append(flash_row)
     bwd_row = flash_bwd_timing(dev, gen, flush)
     for arch, kw in (("granite", dict(K=8, G=2, hd=64)),
                      ("deepseek", dict(K=128, G=1, hd=192, hd_v=128)),
                      ("jamba", dict(K=8, G=8, hd=128)),
-                     ("whisper_encoder", dict(K=8, G=1, hd=64, B=4, S=1500, causal=False))):
+                     ("whisper_encoder", dict(K=8, G=1, hd=64, B=4, S=1500, causal=False)),
+                     ("llava", dict(K=8, G=4, hd=128, S=4672))):
         bwd_row[f"at_{arch}"] = flash_bwd_timing(dev, gen, flush, **kw)
         del bwd_row[f"at_{arch}"]["name"]
     rows.append(bwd_row)
@@ -4490,7 +4842,10 @@ def main() -> int:
                                  "serve_hybrid": launches_hybrid_serve[name],
                                  "train_hybrid": launches_hybrid_train[name],
                                  "serve_encdec": launches_encdec_serve[name],
-                                 "train_encdec": launches_encdec_train[name]},
+                                 "train_encdec": launches_encdec_train[name],
+                                 "serve_vlm": launches_vlm_serve[name],
+                                 "train_vlm": launches_vlm_train[name],
+                                 "serve_qwen": launches_qwen_serve[name]},
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]
@@ -4512,7 +4867,11 @@ def main() -> int:
                                           "train_hybrid": routes_hybrid_train,
                                           "serve_encdec_bfloat16": routes_encdec_serve["bfloat16"],
                                           "serve_encdec_float32": routes_encdec_serve["float32"],
-                                          "train_encdec": routes_encdec_train}
+                                          "train_encdec": routes_encdec_train,
+                                          "serve_vlm_bfloat16": routes_vlm_serve["bfloat16"],
+                                          "serve_vlm_float32": routes_vlm_serve["float32"],
+                                          "train_vlm": routes_vlm_train,
+                                          "serve_qwen_bfloat16": routes_vlm_serve["qwen_bfloat16"]}
             entry["max_abs_err_by_route"] = flash_err64
             entry["lse_max_abs_err"] = lse_err
         if name == "flash_attention_bwd":  # the training runs' launches, by route
@@ -4520,13 +4879,15 @@ def main() -> int:
                                           "train_moe": routes_moe_train_bwd,
                                           "train_mla": routes_mla_train_bwd,
                                           "train_hybrid": routes_hybrid_train_bwd,
-                                          "train_encdec": routes_encdec_train_bwd}
+                                          "train_encdec": routes_encdec_train_bwd,
+                                          "train_vlm": routes_vlm_train_bwd}
             entry["max_abs_err_by_route"] = bwd_err64
             entry["train"] = train_record
             entry["moe"] = moe_record
             entry["mla"] = mla_record
             entry["hybrid"] = hybrid_record
             entry["encdec"] = encdec_record
+            entry["vlm"] = vlm_record
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

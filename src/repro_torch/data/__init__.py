@@ -1,5 +1,4 @@
-"""Data of the LM's training path: the deterministic synthetic token stream
-(``make_batch_specs`` of the reference belongs with the dry run, ROADMAP
-Queue 1 item 11.10)."""
+"""Data of the LM's training path: the deterministic synthetic token stream,
+and one batch's meta-device stand-ins (``make_batch_specs``)."""
 
-from repro_torch.data.tokens import TokenStream  # noqa: F401
+from repro_torch.data.tokens import TokenStream, make_batch_specs  # noqa: F401

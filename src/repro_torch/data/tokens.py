@@ -8,6 +8,9 @@ resume and each EP-MCMC chain reads its own shard. Tokens are
 CPU seeded by a hash of ``(seed, shard_index, step)``, the same on every
 device, then move to the stream's device: they are not JAX's
 ``fold_in`` draws, so the two packages' streams share the law, not the bits.
+:func:`make_batch_specs` gives one training batch's stand-ins on the meta
+device (shapes and dtypes, no memory), the counterpart of the reference's
+``jax.ShapeDtypeStruct`` specs.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Dict
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.lm.config import VISION_WIDTH
+from repro_torch.models.lm.layers import dtype_of
 
 
 def seed_of(*parts) -> int:
@@ -55,3 +60,24 @@ class TokenStream:
         u = torch.rand((self.batch_size, self.seq_len + 1), generator=gen, dtype=torch.float32)
         tokens = (u**4 * (self.vocab_size - 1)).long().to(self.device)
         return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def make_batch_specs(
+    cfg, batch_size: int, seq_len: int, *, dtype: torch.dtype = torch.int32
+) -> Dict[str, torch.Tensor]:
+    """Meta-device stand-ins for one training batch of ``cfg``: ``tokens``
+    and ``labels`` (batch_size, seq_len) in ``dtype``, and the modality
+    stubs' inputs where the config has them, in ``cfg.dtype``:
+    ``enc_frames`` (batch_size, ``cfg.encoder_seq``, d) for an
+    encoder–decoder, ``img_embeds`` (batch_size, ``cfg.num_image_tokens``,
+    ``VISION_WIDTH``) for a vlm; the reference's shapes and dtypes."""
+    meta = dict(device="meta")
+    specs = {"tokens": torch.empty((batch_size, seq_len), dtype=dtype, **meta),
+             "labels": torch.empty((batch_size, seq_len), dtype=dtype, **meta)}
+    if cfg.num_encoder_layers:
+        specs["enc_frames"] = torch.empty((batch_size, cfg.encoder_seq, cfg.d_model),
+                                          dtype=dtype_of(cfg.dtype), **meta)
+    if cfg.num_image_tokens:
+        specs["img_embeds"] = torch.empty((batch_size, cfg.num_image_tokens, VISION_WIDTH),
+                                          dtype=dtype_of(cfg.dtype), **meta)
+    return specs

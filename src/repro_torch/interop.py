@@ -115,13 +115,16 @@ def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]
     follow. An encoder–decoder's decoder layer adds ``ln_cross`` and
     ``cross.w_{q,k,v,o}`` (the ``"w"`` level, GQA's); its encoder is
     ``params["encoder"]["l0"][…]``, every leaf stacked (L_enc, …), as
-    ``encoder.j.*``, then ``enc_norm``.
+    ``encoder.j.*``, then ``enc_norm``. A vlm's ``img_proj``
+    (``VISION_WIDTH``, d) is ``params["img_proj"]``, a bare array.
     """
     from repro_torch.models.lm import model as mdl
 
     out = [("embed", ("embed",), None)]
     if not cfg.tie_embeddings:
         out.append(("lm_head", ("lm_head",), None))
+    if cfg.num_image_tokens:
+        out.append(("img_proj", ("img_proj",), None))
     out.append(("final_norm.scale", ("final_norm", "scale"), None))
     layer = 0
     for gi, group in enumerate(mdl.layer_groups(cfg)):

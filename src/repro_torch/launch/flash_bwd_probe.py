@@ -10,8 +10,10 @@ spills, shared memory) and the count of ``HGMMA`` instructions in each of its
 kernels (``cuobjdump -sass``). Then, on each case of :data:`CASES` (the
 training paths' shapes, llama3.2-3b's, granite-moe-1b-a400m's,
 deepseek-v2-236b's MLA (hd 192, hd_v 128, K = H = 128, G = 1),
-jamba-1.5-large-398b's layer 4 (G = 8) and whisper-base's encoder
-(non-causal, S = T = 1,500), the last two in float32 too, the MLA
+jamba-1.5-large-398b's layer 4 (G = 8), whisper-base's encoder
+(non-causal, S = T = 1,500), the last two in float32 too, and
+llava-next-mistral-7b's (G = 4, S = T = 576 + 4,096 = 4,672: a causal tail
+tile), the MLA
 dims at K 4, S = T = 1,000 too, float32,
 head dims 64 / 192 with hd_v 128 / 256, G of 1, 3, 8 and 64, non-causal,
 ragged S and T, ``kv_len < T`` and ``kv_len = 0``), the forward kernel's ``out`` and ``lse`` go into the backward on every
@@ -50,7 +52,9 @@ MOE_TRAINING = (1, 4096, 4096, 8, 2, 64, 64, True, None, BF16)  # granite-moe-1b
 MLA_TRAINING = (1, 4096, 4096, 128, 1, 192, 128, True, None, BF16)  # deepseek-v2-236b's MLA
 HYBRID_TRAINING = (1, 4096, 4096, 8, 8, 128, 128, True, None, BF16)  # jamba's layer 4
 ENCODER_TRAINING = (2, 1500, 1500, 8, 1, 64, 64, False, None, BF16)  # whisper-base's encoder
-PATHS = (TRAINING, MOE_TRAINING, MLA_TRAINING, HYBRID_TRAINING, ENCODER_TRAINING)
+# llava-next-mistral-7b: 576 image positions + 4,096 tokens, a causal tail tile of 64 rows
+VLM_TRAINING = (1, 4672, 4672, 8, 4, 128, 128, True, None, BF16)
+PATHS = (TRAINING, MOE_TRAINING, MLA_TRAINING, HYBRID_TRAINING, ENCODER_TRAINING, VLM_TRAINING)
 CASES: Dict[str, Tuple] = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len, dtype)
     "training path": TRAINING,
     "granite training path": MOE_TRAINING,
@@ -59,6 +63,7 @@ CASES: Dict[str, Tuple] = {  # label: (b, s, t, kh, g, hd, hd_v, causal, kv_len,
     "jamba training path float32": HYBRID_TRAINING[:-1] + (F32,),
     "whisper encoder training path": ENCODER_TRAINING,
     "whisper encoder training path float32": ENCODER_TRAINING[:-1] + (F32,),
+    "G=4 S=T=4672 causal": VLM_TRAINING,
     "deepseek MLA training path": (1, 1000, 1000, 4, 1, 192, 128, True, None, BF16),
     "float32 S=T=1000": (1, 1000, 1000, 2, 3, 128, 128, True, None, F32),
     "hd=64": (2, 200, 200, 2, 3, 64, 64, True, None, BF16),

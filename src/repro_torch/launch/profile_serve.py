@@ -21,7 +21,8 @@ run of each under a profile that records the host's operators too
 (``profile_pipeline.by_operator``; its wall is not reported). The prompt
 must be longer than the config's ``attn_chunk`` for an attention prefill to
 reach the flash kernel. An encoder–decoder config is fed ``serve``'s zero
-frames, and its prefill window includes the encoder.
+frames, and its prefill window includes the encoder; a vlm config ``serve``'s
+zero image embeddings, the prefix in the caches' length (``serve.cache_len``).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg, model, prompt = serve.setup(args)
     if prompt.device.type != "cuda":
         raise RuntimeError("profile_serve measures the card; run it on cuda")
-    max_len = args.prompt_len + args.gen
+    max_len = serve.cache_len(cfg, args.prompt_len, args.gen)
     batch = serve.serve_batch(cfg, prompt)
     serve.generate(model, prompt, args.gen)  # warm-up: allocator, cuBLAS handles, kernel build
     timed = serve.generate(model, prompt, args.gen)

@@ -17,6 +17,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --batch 2 \\
         --prompt-len 4096 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --reduced \\
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --batch 2 \\
+        --prompt-len 4096 --gen 16
 
 The port of ``repro/launch/serve.py:25``, with its flags plus ``--device``
 (default ``cuda``; with no card visible it raises), ``--dtype`` (the
@@ -26,7 +30,8 @@ width unchanged, as ``launch/train.py``'s; 0 keeps the config's: a 236 B
 deepseek-v2 is served on one card only so cut). Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` (other numbers than the reference's
 ``jax.random`` draws), then the prompt from the same generator;
-``max_len = prompt_len + gen``. The dense and MoE families, GQA or MLA (see
+``max_len = prompt_len + gen`` (+ the image prefix, :func:`cache_len`).
+The dense and MoE families, GQA or MLA (see
 :mod:`repro_torch.models.lm.model`; ``--arch granite-moe-1b-a400m``, whose
 decode runs ``cfg.moe_decode_impl``'s MoE; ``--arch deepseek-v2-236b``,
 MLA, whose decode attends over the absorbed latent cache), and the ssm
@@ -38,7 +43,10 @@ MLPs and MoEs; the SSD's chunk check too; served on one card with
 ``--layers 5``, the first five layers of its period, every kind it has) and
 the encoder–decoder (``--arch whisper-base``: as the reference's CLI, the
 encoder is fed zero frames (B, ``encoder_seq``, d), its memory kept for every
-decode step's cross-attention). A prompt longer than the config's
+decode step's cross-attention) and the vlm (``--arch llava-next-mistral-7b``:
+as the reference's CLI, zero image embeddings (B, ``num_image_tokens``,
+``VISION_WIDTH``) go through ``img_proj`` before the prompt, so prefill
+runs 576 positions more and decode starts after them). A prompt longer than the config's
 ``attn_chunk`` (1,024) runs every attention layer's prefill through the
 flash kernel (Whisper's encoder at its 1,500 frames too, non-causal);
 decode attends over the cache with the einsum path. Each timed stage ends
@@ -59,7 +67,7 @@ from repro_torch.configs import ALIASES, get_config
 from repro_torch.models.lm import mamba2
 from repro_torch.models.lm import model as mdl
 from repro_torch.models.lm import steps as lm_steps
-from repro_torch.models.lm.config import ModelConfig, reduced
+from repro_torch.models.lm.config import VISION_WIDTH, ModelConfig, reduced
 from repro_torch.models.lm.layers import DTYPES
 
 
@@ -103,28 +111,43 @@ def _sync(device: torch.device) -> None:
 
 
 def serve_batch(cfg: ModelConfig, prompt: torch.Tensor,
-                enc_frames: Optional[torch.Tensor] = None) -> dict:
-    """The prefill's batch: the prompt, and for an encoder–decoder config
-    ``enc_frames``, zeros (B, ``cfg.encoder_seq``, d) unless given (the
-    reference's CLI feeds zeros)."""
+                enc_frames: Optional[torch.Tensor] = None,
+                img_embeds: Optional[torch.Tensor] = None) -> dict:
+    """The prefill's batch: the prompt; for an encoder–decoder config
+    ``enc_frames``, zeros (B, ``cfg.encoder_seq``, d) unless given; for a
+    vlm config ``img_embeds``, zeros (B, ``cfg.num_image_tokens``,
+    ``VISION_WIDTH``) unless given (the reference's CLI feeds zeros to both)."""
     batch = {"tokens": prompt}
     if cfg.num_encoder_layers:
         batch["enc_frames"] = enc_frames if enc_frames is not None else torch.zeros(
             (prompt.shape[0], cfg.encoder_seq, cfg.d_model), device=prompt.device)
+    if cfg.num_image_tokens:
+        batch["img_embeds"] = img_embeds if img_embeds is not None else torch.zeros(
+            (prompt.shape[0], cfg.num_image_tokens, VISION_WIDTH), device=prompt.device)
     return batch
 
 
+def cache_len(cfg: ModelConfig, prompt_len: int, gen: int) -> int:
+    """The caches' length for a prompt and ``gen`` tokens: a vlm's image
+    prefix (always fed, :func:`serve_batch`) takes ``cfg.num_image_tokens``
+    positions before them, as the reference's ``max_len``."""
+    return prompt_len + gen + cfg.num_image_tokens
+
+
 def generate(model: mdl.LM, prompt: torch.Tensor, gen: int, *,
-             enc_frames: Optional[torch.Tensor] = None) -> dict:
+             enc_frames: Optional[torch.Tensor] = None,
+             img_embeds: Optional[torch.Tensor] = None) -> dict:
     """Prefill, then ``gen - 1`` greedy decode steps: ``gen`` tokens a row.
 
     Returns ``tokens`` (B, gen), ``logits`` (B, gen, V) float32 (row t chose
-    token t), ``prefill_s``, ``decode_s_per_tok`` and ``enc_frames`` (the
-    encoder's input, :func:`serve_batch`; None without an encoder).
+    token t), ``prefill_s``, ``decode_s_per_tok``, ``max_len`` (the caches'
+    length, :func:`cache_len`), ``enc_frames`` and ``img_embeds`` (the
+    encoder's input and the image prefix, :func:`serve_batch`; None for a
+    config without them).
     """
     device = prompt.device
-    max_len = prompt.shape[1] + gen
-    batch = serve_batch(model.cfg, prompt, enc_frames)
+    max_len = cache_len(model.cfg, prompt.shape[1], gen)
+    batch = serve_batch(model.cfg, prompt, enc_frames, img_embeds)
     _sync(device)
     t0 = time.perf_counter()
     state = lm_steps.serve_prefill(model, batch, max_len)
@@ -142,7 +165,9 @@ def generate(model: mdl.LM, prompt: torch.Tensor, gen: int, *,
         "logits": torch.cat(logits, dim=1).float(),
         "prefill_s": t1 - t0,
         "decode_s_per_tok": (t2 - t1) / max(gen - 1, 1),
+        "max_len": max_len,
         "enc_frames": batch.get("enc_frames"),
+        "img_embeds": batch.get("img_embeds"),
     }
 
 

@@ -20,16 +20,17 @@ with the chains' generator states, and ``--resume`` restarts from the
 newest one bit for bit (the chain count must be the checkpoint's). Beyond
 the reference's flags: ``--device`` (``cuda`` unless ``cpu``) and
 ``--layers`` (cut the depth, the width unchanged; 0 keeps the config's).
-The dense, MoE (GQA or MLA), ssm, hybrid and encoder–decoder families
-(``check_supported``): ``--arch granite-moe-1b-a400m``, ``--arch
+Every family (``check_supported``): ``--arch granite-moe-1b-a400m``, ``--arch
 deepseek-v2-236b`` and ``--arch jamba-1.5-large-398b`` (Mamba-2, GQA and MoE
 layers; ``--layers 1`` on one card) train with the MoE aux loss in the
 total, ``--arch mamba2-130m`` (Mamba-2 blocks) with none; a config with
 Mamba-2 layers takes a ``--seq`` that is a multiple of the SSD chunk (256,
 jamba's 128) or shorter. ``--arch whisper-base`` trains on tokens alone, as
 the reference's driver does: its encoder and cross-attention get zero
-gradients, which AdamW's moments and weight decay still step. Image-token
-archs raise.
+gradients, which AdamW's moments and weight decay still step. ``--arch
+llava-next-mistral-7b`` trains on tokens alone too, as the reference's
+training CLI feeds no images: ``img_proj`` gets a zero gradient (``--layers 16``
+on one card).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch llama3_2_3b --reduced --mode epmcmc --steps 30 --batch 4 --seq 128
@@ -39,6 +40,8 @@ archs raise.
         --mode adamw --batch 1 --seq 4096 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch whisper-base \\
         --reduced --mode adamw --steps 3 --batch 2 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llava-next-mistral-7b \\
+        --layers 16 --mode adamw --batch 1 --seq 4096 --steps 3
 """
 
 from __future__ import annotations

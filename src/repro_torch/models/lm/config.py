@@ -6,9 +6,7 @@ reference to the digit. One dataclass describes dense GQA transformers, MoE
 (incl. MLA), Mamba-2 SSD, hybrid (Jamba) interleaves, encoder–decoder
 (Whisper) and VLM-stub (LLaVA) backbones; ``repro_torch/configs/<arch>.py``
 instantiate it with the exact assigned numbers. The port runs every family
-but the image-token one (:mod:`repro_torch.models.lm.model`); its fields are
-kept so that every config loads and counts its parameters as in the
-reference.
+(:mod:`repro_torch.models.lm.model`).
 """
 
 from __future__ import annotations
@@ -17,6 +15,12 @@ import dataclasses
 from typing import Literal, Optional, Tuple
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
+
+# The stub vision tower's output width: a vlm batch's ``img_embeds`` are
+# (B, num_image_tokens, VISION_WIDTH), which ``img_proj`` maps to d_model
+# (the reference writes 1024 at ``models/lm/model.py:291``,
+# ``data/tokens.py:70`` and ``launch/serve.py:53``).
+VISION_WIDTH = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,7 +230,7 @@ def _count_params(cfg: ModelConfig, active_only: bool) -> int:
         # decoder cross-attention (one per decoder layer)
         total += cfg.num_layers * (_attn_params(cfg) + cfg.d_model)
     if cfg.num_image_tokens:
-        total += 1024 * d  # img_proj from the stub vision-tower width
+        total += VISION_WIDTH * d  # img_proj from the stub vision-tower width
     return int(total)
 
 

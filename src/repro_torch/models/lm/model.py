@@ -1,18 +1,21 @@
 """Model assembly of the LM families: forward, prefill and decode.
 
-The counterpart of ``repro/models/lm/model.py`` for every family but the
-image-token one (vlm): the dense family (every layer ``attn + mlp``), MoE
-(``attn + moe`` after an optional dense prefix of ``moe.first_dense``
-layers), the attention GQA or, under ``cfg.mla`` (deepseek-v2), MLA; the ssm
-family (``mamba + none``, mamba2-130m: Mamba-2 blocks with no FFN, hence no
-``ln2``, as the reference builds them); the hybrid (Jamba's period of
+The counterpart of ``repro/models/lm/model.py`` for every family: the
+dense family (every layer ``attn + mlp``), MoE (``attn + moe`` after an
+optional dense prefix of ``moe.first_dense`` layers), the attention GQA
+or, under ``cfg.mla`` (deepseek-v2), MLA; the ssm family (``mamba +
+none``, mamba2-130m: Mamba-2 blocks with no FFN, hence no ``ln2``, as the
+reference builds them); the hybrid (Jamba's period of
 ``cfg.hybrid.period`` layers: GQA at ``attn_index``, Mamba-2 elsewhere, each
 followed by an MLP, or an MoE where ``layer % moe_every == moe_offset``); and
 the encoder–decoder (Whisper: ``cfg.num_encoder_layers`` non-causal ``attn +
 mlp`` blocks over the frame embeddings, then ``enc_norm``; every decoder
 block a causal ``attn + mlp`` with cross-attention onto that memory between
-the two). The reference runs each layer group as a ``lax.scan`` over
-stacked parameters; the port keeps ``layer_specs`` and ``layer_groups`` as
+the two); and the vlm (LLaVA: dense blocks behind an image prefix, the
+stub vision tower's ``img_embeds`` (B, n_img, ``VISION_WIDTH``) through
+``img_proj`` and put before the token embeddings, :func:`_inputs_to_h`).
+The reference runs each layer group as a ``lax.scan`` over stacked
+parameters; the port keeps ``layer_specs`` and ``layer_groups`` as
 they are (pure data) and runs a Python loop over an ``nn.ModuleList`` of
 :class:`Block`, each built for its ``layer_specs`` entry. Nothing is built
 from ``layer_groups``, so a depth the reference's period assert refuses
@@ -46,9 +49,12 @@ is not rematerialized (the reference's ``_encode`` is not checkpointed).
 ``"none"`` runs plain; ``"dots"`` (save the matrix products' outputs), which
 no config sets, raises.
 
-A config with image tokens (vlm, LLaVA) raises ``NotImplementedError``: it
-comes in a later slice (ROADMAP Queue 1 item 11) and never runs on a
-substitute.
+The image prefix: ``forward`` and ``prefill`` take ``img_embeds`` (a vlm
+config; ignored by the others and absent from a token-only batch, as in
+the reference). The prefix and the text are one causal sequence, positions
+``arange`` over both, no query offset and no padding, so every flash row
+sees a kv position. A caller sizes the caches for prefix + prompt + the
+tokens to generate.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from torch.autograd.function import once_differentiable
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import mamba2 as m2
 from repro_torch.models.lm import moe as moe_lib
-from repro_torch.models.lm.config import ModelConfig
+from repro_torch.models.lm.config import VISION_WIDTH, ModelConfig
 from repro_torch.models.lm.layers import (
     MLP,
     dtype_of,
@@ -140,18 +146,14 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer of ``cfg`` is one :data:`SUPPORTED` spec and
-    the config has no image tokens: the dense, MoE, ssm, hybrid and
-    encoder–decoder families."""
-    extras = ["image tokens"] if cfg.num_image_tokens > 0 else []
+    """Raise unless every layer of ``cfg`` is one :data:`SUPPORTED` spec: the
+    dense, vlm, MoE, ssm, hybrid and encoder–decoder families, every config
+    the repo has."""
     odd = sorted({f"{s.mixer}+{s.ffn}" + ("+cross" if s.cross else "")
                   for s in layer_specs(cfg) if s not in SUPPORTED})
-    if extras or odd:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) needs {', '.join(extras + odd)}; the port runs the "
-            "dense, MoE (GQA or MLA), ssm, hybrid and encoder-decoder families so far, the "
-            "rest is ROADMAP Queue 1 item 11"
-        )
+    if odd:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) needs {', '.join(odd)}, which no "
+                                  "block of the port builds")
 
 
 class RMSNorm(nn.Module):
@@ -257,7 +259,8 @@ class LM(nn.Module):
     ``layer_specs`` entry), ``final_norm``, and ``lm_head`` (d, V) unless
     ``cfg.tie_embeddings`` (then the head is ``embed.T``, as mamba2-130m's);
     with ``cfg.num_encoder_layers``, ``encoder`` (that many :data:`ENCODER`
-    blocks) and ``enc_norm``."""
+    blocks) and ``enc_norm``; with ``cfg.num_image_tokens``, ``img_proj``
+    (``VISION_WIDTH``, d), drawn last."""
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
@@ -280,6 +283,9 @@ class LM(nn.Module):
             self.encoder = nn.ModuleList(Block(cfg, ENCODER, generator=generator, device=device)
                                          for _ in range(cfg.num_encoder_layers))
             self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        if cfg.num_image_tokens:
+            self.img_proj = linear_param(VISION_WIDTH, cfg.d_model, generator=generator,
+                                         device=device, dtype=dtype)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         h = self.final_norm(h)
@@ -302,9 +308,22 @@ def _positions(h: torch.Tensor) -> torch.Tensor:
     return torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
 
 
-def _inputs_to_h(model: LM, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    h = embed_lookup(model.embed, tokens, dtype_of(model.cfg.dtype))
-    return h, _positions(h)
+def _inputs_to_h(
+    model: LM, tokens: torch.Tensor, img_embeds: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """(h, positions, n_prefix): the token embeddings in ``cfg.dtype``, after
+    the image prefix ``img_embeds @ img_proj`` (both cast to ``cfg.dtype``
+    before the product, as the reference's ``_inputs_to_h``) when the config
+    has image tokens and the call gives embeddings; positions ``arange`` over
+    the whole sequence."""
+    compute = dtype_of(model.cfg.dtype)
+    h = embed_lookup(model.embed, tokens, compute)
+    n_prefix = 0
+    if model.cfg.num_image_tokens and img_embeds is not None:
+        vis = img_embeds.to(compute) @ model.img_proj.to(compute)
+        h = torch.cat([vis, h], dim=1)
+        n_prefix = img_embeds.shape[1]
+    return h, _positions(h), n_prefix
 
 
 def _encode(model: LM, enc_frames: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -377,14 +396,17 @@ class _Remat(torch.autograd.Function):
 
 
 def forward(
-    model: LM, tokens: torch.Tensor, *, enc_frames: Optional[torch.Tensor] = None
+    model: LM, tokens: torch.Tensor, *, img_embeds: Optional[torch.Tensor] = None,
+    enc_frames: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, S, V), aux loss): the MoE blocks' aux losses summed, 0
-    without MoE blocks. ``enc_frames`` (B, T_enc, d): the encoder's input
-    (encoder–decoder configs; ignored by the others, as in the reference)."""
+    """(logits (B, n_prefix + S, V), aux loss): the MoE blocks' aux losses
+    summed, 0 without MoE blocks. ``img_embeds`` (B, n_img, ``VISION_WIDTH``):
+    the image prefix (vlm configs); ``enc_frames`` (B, T_enc, d): the
+    encoder's input (encoder–decoder configs); each ignored by the other
+    configs, as in the reference."""
     remat = _remat(model.cfg) and torch.is_grad_enabled()
     memory = _encode(model, enc_frames)
-    h, positions = _inputs_to_h(model, tokens)
+    h, positions, _ = _inputs_to_h(model, tokens, img_embeds)
     auxes = []
     for block in model.blocks:
         if remat:
@@ -417,12 +439,15 @@ def init_caches(
 
 
 def prefill(
-    model: LM, tokens: torch.Tensor, max_len: int, *, enc_frames: Optional[torch.Tensor] = None
+    model: LM, tokens: torch.Tensor, max_len: int, *,
+    img_embeds: Optional[torch.Tensor] = None, enc_frames: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Caches, Optional[torch.Tensor]]:
-    """Run the prompt: (last-token logits (B, 1, V), caches, the encoder's
-    memory: None without an encoder or frames), as the reference's."""
+    """Run the prompt (after its image prefix, given ``img_embeds``): (last-token
+    logits (B, 1, V), caches of ``max_len`` positions, the prefix's included,
+    the encoder's memory: None without an encoder or frames), as the
+    reference's."""
     memory = _encode(model, enc_frames)
-    h, positions = _inputs_to_h(model, tokens)
+    h, positions, _ = _inputs_to_h(model, tokens, img_embeds)
     caches = []
     for block in model.blocks:
         h, cache = block.prefill(h, positions, max_len, memory)

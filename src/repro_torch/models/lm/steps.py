@@ -10,10 +10,13 @@ The counterpart of ``repro/models/lm/steps.py``:
   ``train_step`` updates its parameters in place, where the reference maps
   a parameter pytree to a new one. A parameter the loss does not reach (an
   encoder–decoder's encoder and cross-attention, trained on a batch without
-  ``enc_frames``) gets a zero gradient, as ``jax.grad`` gives it, so AdamW's
-  moments and weight decay still move it (:func:`grads_of`).
+  ``enc_frames``; a vlm's ``img_proj`` on one without ``img_embeds``) gets a
+  zero gradient, as ``jax.grad`` gives it, so AdamW's moments and weight
+  decay still move it (:func:`grads_of`). A batch with ``img_embeds`` has
+  its prefix's logits sliced off before the loss (no next-token loss there).
 - ``serve_prefill`` (:82) and ``serve_decode_step`` (:108), each run under
-  ``torch.inference_mode()``; the state carries the encoder's memory.
+  ``torch.inference_mode()``; the state carries the encoder's memory, and
+  its position counts a vlm's image prefix.
 """
 
 from __future__ import annotations
@@ -38,12 +41,15 @@ def loss_fn(
     """(total loss, {"ce", "z_loss", "moe_aux"}): ``moe_aux`` is the forward's
     summed MoE aux loss (0 without MoE blocks), weighted by ``MOE_AUX_COEFF``
     in the total. ``batch["enc_frames"]``, when present, feeds an
-    encoder–decoder's encoder."""
-    del cfg  # the model carries it
-    logits, moe_aux = mdl.forward(model, batch["tokens"], enc_frames=batch.get("enc_frames"))
+    encoder–decoder's encoder; ``batch["img_embeds"]`` a vlm's image prefix,
+    whose ``cfg.num_image_tokens`` positions carry no loss."""
+    logits, moe_aux = mdl.forward(model, batch["tokens"], img_embeds=batch.get("img_embeds"),
+                                  enc_frames=batch.get("enc_frames"))
     labels = batch.get("labels")
     if labels is None:
         labels = shift_labels(batch["tokens"])
+    if cfg.num_image_tokens and "img_embeds" in batch:
+        logits = logits[:, cfg.num_image_tokens:]
     ce, zl = cross_entropy(logits, labels, z_loss_coeff=Z_LOSS_COEFF)
     total = ce + zl + MOE_AUX_COEFF * moe_aux
     return total, {"ce": ce, "z_loss": zl, "moe_aux": moe_aux}
@@ -101,9 +107,11 @@ class DecodeState(NamedTuple):
 def serve_prefill(model: mdl.LM, batch: Dict[str, torch.Tensor], max_len: int) -> DecodeState:
     tokens = batch["tokens"]
     logits, caches, memory = mdl.prefill(model, tokens, max_len,
+                                         img_embeds=batch.get("img_embeds"),
                                          enc_frames=batch.get("enc_frames"))
     token = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    return DecodeState(caches=caches, position=tokens.shape[1], last_token=token, logits=logits,
+    seq = tokens.shape[1] + (model.cfg.num_image_tokens if "img_embeds" in batch else 0)
+    return DecodeState(caches=caches, position=seq, last_token=token, logits=logits,
                        memory=memory)
 
 

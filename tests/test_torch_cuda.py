@@ -798,6 +798,8 @@ FLASH_SHAPES = [  # b, s, t, kh, g, hd, hd_v, causal, kv_len
     (1, 4096, 4096, 8, 2, 64, 64, True, None),  # granite-moe-1b-a400m's prefill and training
     (2, 4096, 4096, 8, 8, 128, 128, True, None),  # jamba-1.5-large-398b's layer 4 prefill
     (2, 1500, 1500, 8, 1, 64, 64, False, None),  # whisper-base's encoder: 1,500 frames, non-causal
+    (2, 4672, 4672, 8, 4, 128, 128, True, None),  # llava-next-mistral-7b: 576 + 4,096, G = 4
+    (2, 4096, 4096, 20, 1, 128, 128, True, None),  # qwen1.5-4b's prefill: MHA, 20 heads
 ]
 
 
@@ -1124,7 +1126,7 @@ FLASH_BWD_CASES = ["hd=64", "float32 S=T=1000", "hd=192 hd_v=128", "G=8",
                    "non-causal kv_len=777 T=1000", "kv_len=17 hd=36 hd_v=20", "kv_len=0",
                    "granite training path", "deepseek MLA training path",
                    "jamba training path", "whisper encoder training path",
-                   "whisper encoder training path float32"]
+                   "whisper encoder training path float32", "G=4 S=T=4672 causal"]
 
 
 @pytest.mark.parametrize("label", FLASH_BWD_CASES)
@@ -1287,3 +1289,40 @@ def test_moe_zero_router_ties_go_to_the_lower_expert_on_card(cuda_device):
     probs = torch.full((64, cfg.moe.num_experts), 1.0 / cfg.moe.num_experts, device=cuda_device)
     assert moe_lib.top_k(probs, 3)[1].tolist() == [[0, 1, 2]] * 64
 
+
+
+def test_compress_lowrank_on_card_matches_cpu(cuda_device):
+    """``compress_lowrank`` and ``error_feedback_update`` on the card against
+    the same calls on the CPU, the same ``q0``: P Qᵀ and the residual within
+    float32 rounding (1e-5 of max|g|; cuBLAS and cuSOLVER sum in other
+    orders than the CPU's LAPACK), a bf16 leaf within one bf16 rounding,
+    P up to its columns' signs."""
+    from repro_torch.optim import compress_lowrank, decompress_lowrank, error_feedback_update
+
+    gen = torch.Generator().manual_seed(5)
+    g = torch.randn((512, 384), generator=gen)
+    q0 = torch.randn((384, 8), generator=gen)
+    pair, resid = compress_lowrank(None, g, 8, q0=q0)
+    card, card_resid = compress_lowrank(None, g.to(cuda_device), 8, q0=q0.to(cuda_device))
+    scale = float(g.abs().max())
+    torch.testing.assert_close(decompress_lowrank(card, g.shape).cpu(),
+                               decompress_lowrank(pair, g.shape), rtol=1e-5, atol=1e-5 * scale)
+    torch.testing.assert_close(card_resid.cpu(), resid, rtol=1e-5, atol=1e-5 * scale)
+    signs = torch.sign((card.p.cpu() * pair.p).sum(0))
+    torch.testing.assert_close(card.p.cpu() * signs, pair.p, rtol=1e-4, atol=1e-4)
+    grads = {"w": g, "b16": torch.randn((256, 128), generator=gen).bfloat16(),
+             "v": torch.randn((64,), generator=gen)}
+    err = {n: 0.1 * torch.randn(t.shape, generator=gen) for n, t in grads.items()}
+    proj = {"w": q0, "b16": torch.randn((128, 8), generator=gen)}
+    want_out, want_err = error_feedback_update(None, grads, err, 8, q0=proj)
+    out, new_err = error_feedback_update(
+        None, {n: t.to(cuda_device) for n, t in grads.items()},
+        {n: t.to(cuda_device) for n, t in err.items()}, 8,
+        q0={n: t.to(cuda_device) for n, t in proj.items()})
+    for n in grads:
+        tol = 2 ** -8 if n == "b16" else 1e-5
+        s = float(want_out[n].float().abs().max())
+        assert out[n].dtype == grads[n].dtype and new_err[n].dtype == torch.float32
+        torch.testing.assert_close(out[n].cpu().float(), want_out[n].float(), rtol=tol,
+                                   atol=tol * s)
+        torch.testing.assert_close(new_err[n].cpu(), want_err[n], rtol=tol, atol=tol * s)

@@ -244,16 +244,19 @@ def test_serve_steps_are_greedy_and_match_decode_step():
     assert torch.equal(nxt.last_token[:, 0], logits[:, -1].argmax(-1))
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).family != "dense"
-                                  and a not in ("granite_moe_1b", "deepseek_v2_236b",
-                                                "mamba2_130m", "jamba_1_5_large",
-                                                "whisper_base")])
-def test_non_dense_config_raises(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        mdl.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        mdl.init_caches(cfg, 1, 8, torch.float32, device="cpu")
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).family == "vlm"])
+def test_vlm_config_builds_with_the_references_count(arch):
+    """llava-next-mistral-7b, the last family the port refused, builds at full
+    width and depth on the meta device (no memory), ``img_proj`` (1,024, d)
+    included: 7,245,926,400 parameters, the reference's count; its caches
+    build too."""
+    cfg = get_config(arch)
+    mdl.check_supported(cfg)
+    model = mdl.init_params(cfg, device="meta")
+    n = sum(p.numel() for p in model.parameters())
+    assert n == cfg.param_count() == ref_get_config(arch).param_count() == 7_245_926_400
+    assert tuple(model.img_proj.shape) == (1024, cfg.d_model)
+    assert len(mdl.init_caches(reduced(cfg), 1, 8, torch.float32, device="cpu")) == 4
 
 
 def test_moe_config_builds_and_counts_as_the_reference():

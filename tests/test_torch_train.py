@@ -501,11 +501,16 @@ def test_train_cli_epmcmc_resumes_bit_for_bit(tmp_path):
 
 
 def test_train_cli_sgd_runs_and_others_raise():
+    """sgd runs; the vlm arch trains a reduced step on tokens alone (the
+    reference's training CLI feeds no images: ``img_proj`` steps on a zero
+    gradient); ``--mesh pod`` raises."""
     out = train.main(BASE + ["--mode", "sgd", "--chains", "2", "--steps", "2"])
     assert len(out["losses"]) == 2 and out["losses"][0].shape == (2,)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        train.main(["--device", "cpu", "--arch", "llava-next-mistral-7b", "--reduced", "--steps",
-                    "1"])
+    vlm = train.main(["--device", "cpu", "--arch", "llava-next-mistral-7b", "--reduced",
+                      "--mode", "adamw", "--steps", "1", "--batch", "2", "--seq", "32"])
+    assert len(vlm["losses"]) == 1 and np.isfinite(vlm["loss"])
+    model, opt = vlm["state"]
+    assert float(opt.mu["img_proj"].abs().max()) == 0.0 and opt.count == 1
     with pytest.raises(NotImplementedError, match="11.10"):
         train.main(BASE + ["--mesh", "pod"])
 
