@@ -216,6 +216,15 @@ a non-zero exit:
               --layers 16`` adamw on tokens; (d) qwen1.5-4b whole, bf16
               serving (40 flash launches at K = 20, G = 1) and 4d's
               invariant;
+4p. sharded — placements on a real ``DeviceMesh`` of one rank (``nccl``,
+              world 1): (a) ``build_cell("llama3.2-3b", "train_4k", mesh,
+              batch=1)``, its dry-run estimate on meta, then one placed
+              ``train_step`` and a second from interop's weights against two
+              unplaced steps (both losses and the parameters after each step
+              bit for bit), 56 + 28 ``tensor_core`` flash launches a step, s a step
+              beside 4i's, ``max_memory_allocated`` beside the estimate; (b)
+              a placed ``epmcmc_step`` (``state_specs``, ``batch_spec``) at
+              4i(d)'s reduced config, bit for bit the unplaced one;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
@@ -2967,6 +2976,237 @@ def flash_bwd_timing(dev, gen, flush, *, K=8, G=3, hd=128, hd_v=None, B=1, S=409
     return row
 
 
+def sharded_phase(dev, kernels, lm_config, train_record):
+    """Phase 4p: placements on a real DeviceMesh of one rank (an ``nccl``
+    group of world 1 over a ``HashStore``, ``launch.mesh.make_host_mesh``).
+    (a) One ``train_step`` of ``build_cell("llama3.2-3b", "train_4k",
+    mesh, batch=1)``: full width (28 layers, d 3,072), batch 1 x 4,096, bf16,
+    remat full. The dry run's estimate first: the same plan on the meta
+    device under ``launch.op_stats`` (peak live bytes, flops). Then the
+    weights from the seed, carried through ``interop`` (the reference's
+    pytree of numpy arrays, then ``from_reference_lm_params_placed``: the
+    plan's specs placed by ``distribute_model``), against two unplaced
+    ``lm_steps.train_step`` (4i's) from the same weights and batches: both
+    steps' losses and every parameter after each step bit for bit, else the
+    run fails naming the leaf and its largest difference. The first Adam
+    step moves every element by ±lr whatever the gradient's size, so it is
+    the second step's parameters that show an error in the placed backward;
+    flash launches by route exact, 56 forward and 28 backward a step, all
+    ``tensor_core``; each path's second step timed beside 4i's;
+    ``max_memory_allocated`` of the placed step beside the estimate. (b)
+    One ``epmcmc_step`` of 4i(d)'s reduced config (4 layers, d 128,
+    float32, 4 chains, seq 1,088 > attn_chunk, the FMA routes) with
+    ``place_state`` (``state_specs``) and ``place_batch`` (``batch_spec``)
+    on the same mesh against the unplaced step: parameters, moments and the
+    per-chain loss bit for bit. Returns (the placed runs' launches, the
+    forward's by route, the backward's by route, the record): the unplaced
+    runs' launches are checked and left out."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import interop
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import epmcmc
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import op_stats
+    from repro_torch.launch.input_specs import build_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import model as lm_model
+    from repro_torch.models.lm import steps as lm_steps
+    from repro_torch.models.lm.config import reduced
+    from repro_torch.optim import adamw_init
+
+    arch = "llama3.2-3b"
+    phase(f"4p sharded: a 1 x 1 DeviceMesh (nccl, world 1); {arch} train_4k at batch 1 placed "
+          "against 4i's unplaced step; the dry run's estimate; a placed epmcmc_step")
+    torch.cuda.set_device(dev)
+    mesh = make_host_mesh("cuda")
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
+    launches = {n: 0 for n in kernels.KERNELS}
+    routes = {rt: 0 for rt in fwd_kernel.route_launches}
+    routes_bwd = {rt: 0 for rt in bwd_kernel.route_launches}
+    record = {}
+
+    def tally(label, want_fwd, want_bwd, route, *, placed):
+        counts = kernels.launch_counts()
+        fr, br = dict(fwd_kernel.route_launches), dict(bwd_kernel.route_launches)
+        want = {n: {"flash_attention": want_fwd, "flash_attention_bwd": want_bwd}.get(n, 0)
+                for n in counts}
+        if counts != want or fr.get(route) != want_fwd or br.get(route) != want_bwd:
+            raise AssertionError(f"{label}: launched {counts} (forward by route {fr}, backward "
+                                 f"{br}), want {want_fwd} and {want_bwd} on {route}")
+        if not placed:
+            return fr, br
+        for n in counts:
+            launches[n] += counts[n]
+        for rt in fr:
+            routes[rt] += fr[rt]
+        for rt in br:
+            routes_bwd[rt] += br[rt]
+        return fr, br
+
+    # (a) the plan, the dry run's estimate on the meta device
+    cfg = lm_config(arch)
+    plan = build_cell(arch, "train_4k", mesh, batch=1)
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        _, est = op_stats.analyze(plan.fn, *plan.args)
+    est_s = time.perf_counter() - t0
+    p_spec = plan.in_specs[0]
+    del plan
+    print(f"  (a) dry run of the placed plan on meta: {est_s:.1f} s; per device "
+          f"{est.flops:.4e} flop, arguments {est.argument_bytes / 1e9:.2f} GB, peak "
+          f"{est.peak_bytes / 1e9:.2f} GB, collectives {est.collective_count}", flush=True)
+
+    # the weights from the seed, in the reference's layout (numpy), and 4i's unplaced step
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = lm_model.init_params(cfg, generator=gen, device=dev)
+    t0 = time.perf_counter()
+    tree = interop.to_reference_lm_grads(dict(model.named_parameters()), cfg)
+    host_s = time.perf_counter() - t0
+    batch = TokenStream(cfg.vocab_size, 1, 4096, seed=0, device=dev).batch(0)
+    batch2 = TokenStream(cfg.vocab_size, 1, 4096, seed=0, device=dev).batch(1)
+    opt = adamw_init(dict(model.named_parameters()))
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain_args = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    opt, met = lm_steps.train_step(model, opt, batch, cfg)[1:]  # the model itself not kept
+    torch.cuda.synchronize()
+    plain_first = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated(dev)
+    tally("(a) unplaced step", 56, 28, "tensor_core", placed=False)
+    plain_loss = float(met["loss"])
+    after = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    met2 = lm_steps.train_step(model, opt, batch2, cfg)[2]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    tally("(a) unplaced second step", 56, 28, "tensor_core", placed=False)
+    plain_loss2 = float(met2["loss"])
+    after2 = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    del model, opt, met, met2
+    torch.cuda.empty_cache()
+
+    # the placed plan: interop's weights placed by the plan's specs
+    t0 = time.perf_counter()
+    placed = interop.from_reference_lm_params_placed(tree, cfg, mesh, device=dev, specs=p_spec)
+    load_s = time.perf_counter() - t0
+    del tree
+    opt = adamw_init(dict(placed.named_parameters()))
+    pbatch = shd.distribute_tree(batch, mesh, shd.batch_specs(cfg, mesh, batch))
+    pbatch2 = shd.distribute_tree(batch2, mesh, shd.batch_specs(cfg, mesh, batch2))
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    placed_args = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    opt, met = lm_steps.train_step(placed, opt, pbatch, cfg)[1:]
+    torch.cuda.synchronize()
+    placed_first = time.perf_counter() - t0
+    placed_peak = torch.cuda.max_memory_allocated(dev)
+    fr, br = tally("(a) placed step", 56, 28, "tensor_core", placed=True)
+    loss = float(met["loss"].full_tensor())
+
+    def differing_elements(label, want_by_name):
+        """The placed parameters against the unplaced ones, bit for bit."""
+        differing, total = 0, 0
+        for name, p in placed.named_parameters():
+            got, want = p.detach().full_tensor(), want_by_name[name].to(dev)
+            diff = (got.float() - want.float()).abs()
+            n, total = int((diff > 0).sum()), total + diff.numel()
+            if n:
+                raise AssertionError(f"(a) {label}: {n} of {diff.numel()} elements of {name} "
+                                     f"differ from the unplaced step's, the largest by "
+                                     f"{float(diff.max()):.3e}")
+            differing += n
+        return differing, total
+
+    differing, total = differing_elements("placed step", after)
+    del after
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    met2 = lm_steps.train_step(placed, opt, pbatch2, cfg)[2]
+    torch.cuda.synchronize()
+    placed_s = time.perf_counter() - t0
+    tally("(a) placed second step", 56, 28, "tensor_core", placed=True)
+    loss2 = float(met2["loss"].full_tensor())
+    differing2, _ = differing_elements("placed second step", after2)
+    del after2
+    if not math.isfinite(loss) or (loss, loss2) != (plain_loss, plain_loss2):
+        raise AssertionError(f"(a) placed losses {loss!r}, {loss2!r} against the unplaced "
+                             f"{plain_loss!r}, {plain_loss2!r}")
+    four_i = train_record.get("(b) adamw 28 layers", {}).get("step_s", [])
+    print(f"  (a) placed train_step: losses {loss!r}, {loss2!r} vs unplaced {plain_loss!r}, "
+          f"{plain_loss2!r} (equal); parameters after each of two steps: {differing} and "
+          f"{differing2} of {total} elements differ (bit for bit)"
+          + f"; flash launches by route forward {json.dumps(fr)}, backward {json.dumps(br)} "
+          f"a step; s a step placed {placed_first:.4f} (first), {placed_s:.4f} (second) vs "
+          f"unplaced {plain_first:.4f}, {plain_s:.4f} vs 4i's "
+          f"{json.dumps([round(t, 4) for t in four_i])}; max_memory_allocated placed "
+          f"{placed_peak / 1e9:.2f} GB (unplaced {plain_peak / 1e9:.2f}), above the arguments "
+          f"allocated before the step {(placed_peak - placed_args) / 1e9:.2f} GB (unplaced "
+          f"{(plain_peak - plain_args) / 1e9:.2f}) vs the dry run's peak "
+          f"{est.peak_bytes / 1e9:.2f} GB, above its arguments "
+          f"{(est.peak_bytes - est.argument_bytes) / 1e9:.2f} GB; weights to the host "
+          f"{host_s:.1f} s, back and placed {load_s:.1f} s", flush=True)
+    record["train"] = {"loss": loss, "unplaced_loss": plain_loss, "loss2": loss2,
+                       "unplaced_loss2": plain_loss2, "bitwise": True,
+                       "params_differing": [differing, differing2], "params_total": total,
+                       "step_s": [placed_first, placed_s],
+                       "unplaced_step_s": [plain_first, plain_s], "step_s_4i": four_i,
+                       "peak_gb": placed_peak / 1e9, "unplaced_peak_gb": plain_peak / 1e9,
+                       "step_gb": (placed_peak - placed_args) / 1e9,
+                       "unplaced_step_gb": (plain_peak - plain_args) / 1e9,
+                       "estimate_peak_gb": est.peak_bytes / 1e9,
+                       "estimate_argument_gb": est.argument_bytes / 1e9,
+                       "estimate_flops": est.flops, "estimate_s": est_s}
+    del placed, opt, met, met2, pbatch, pbatch2
+    torch.cuda.empty_cache()
+
+    # (b) a placed epmcmc_step at 4i(d)'s reduced config against the unplaced one
+    rcfg = dataclasses.replace(reduced(cfg), num_layers=4)
+    chains = epmcmc.num_chains((4, 1))
+    streams = [TokenStream(rcfg.vocab_size, 1, 1088, seed=0, shard_index=c, device=dev)
+               for c in range(chains)]
+    data = {k: torch.stack([st.batch(0)[k] for st in streams]) for k in ("tokens", "labels")}
+    kw = dict(num_shards=chains, shard_tokens=1088.0 * 100, step_size=1e-5, burn_in=0)
+    kernels.reset_launches()
+    ref, ref_m = epmcmc.epmcmc_step(epmcmc.init_state(0, rcfg, chains, device=dev), data,
+                                    rcfg, **kw)
+    tally("(b) unplaced epmcmc_step", 4 * chains, 4 * chains, "fma", placed=False)
+    kernels.reset_launches()
+    state = epmcmc.place_state(epmcmc.init_state(0, rcfg, chains, device=dev), rcfg, mesh)
+    state, m = epmcmc.epmcmc_step(state, epmcmc.place_batch(data, mesh), rcfg, **kw)
+    torch.cuda.synchronize()
+    tally("(b) placed epmcmc_step", 4 * chains, 4 * chains, "fma", placed=True)
+    diffs = {key: max(float((getattr(state, key)[n].full_tensor() - t).abs().max())
+                      for n, t in getattr(ref, key).items())
+             for key in ("params", "v", "m_mean", "m_var")}
+    diffs["loss_per_chain"] = float((m["loss_per_chain"].full_tensor()
+                                     - ref_m["loss_per_chain"]).abs().max())
+    scale = {key: max(float(t.abs().max()) for t in getattr(ref, key).values())
+             for key in ("params", "v", "m_mean")}
+    scale["loss_per_chain"] = float(ref_m["loss_per_chain"].abs().max())
+    ok = all(diffs[k] <= 1e-5 * scale[k] for k in scale) and diffs["m_var"] == 0.0
+    specs_seen = sorted({str(s) for s in epmcmc.state_specs(rcfg, mesh, state).params.values()})
+    print(f"  (b) placed epmcmc_step, {chains} chains of {rcfg.num_layers} layers, state_specs "
+          f"{json.dumps(specs_seen)[:160]}: max |placed - unplaced| {json.dumps(diffs)} "
+          f"({'bit for bit' if not any(diffs.values()) else 'within 1e-5 of each max'}; "
+          f"each max {json.dumps(scale)}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"(b) the placed epmcmc_step differs from the unplaced: {diffs}")
+    record["epmcmc"] = diffs
+    del state, ref, data
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"  4p launches {json.dumps(launches)}, flash by route {json.dumps(routes)}, "
+          f"backward {json.dumps(routes_bwd)}", flush=True)
+    return launches, routes, routes_bwd, record
+
+
 def multi_device_phase(dev, kernels, img_kernel, online_kernel, *, paper_theta, paper_errors,
                        paper_timings, paper_lr, sample_lr, paper_img, stream_sr, stream_theta,
                        stream_sub, launches_stream, stream_img, n_chunks, cells, mres):
@@ -3235,6 +3475,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "built earlier" in line \
                     or "warning" in line:
                 print(f"  {source}: {entry}{line.strip()}", flush=True)
+    if sys.argv[1:] == ["--phase", "4p"]:  # the build and phase 4p alone, a quick check
+        from repro_torch.configs import get_config
+
+        sharded_phase(dev, kernels, get_config, {})
+        print(f"  4p alone: {time.perf_counter() - t_start:.1f} s, the build included",
+              flush=True)
+        return 0
 
     phase("3 kernel vs plain version on the card")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -4427,6 +4674,9 @@ def main() -> int:
     (launches_vlm_serve, launches_qwen_serve, routes_vlm_serve, launches_vlm_train,
      routes_vlm_train, routes_vlm_train_bwd, vlm_record) = vlm_phase(dev, kernels, lm_config)
     torch.cuda.empty_cache()
+    (launches_sharded, routes_sharded, routes_sharded_bwd,
+     sharded_record) = sharded_phase(dev, kernels, lm_config, train_record)
+    torch.cuda.empty_cache()
 
     phase("5 timing (CUDA events)")
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)  # 256 MB > 50 MB L2
@@ -4845,7 +5095,8 @@ def main() -> int:
                                  "train_encdec": launches_encdec_train[name],
                                  "serve_vlm": launches_vlm_serve[name],
                                  "train_vlm": launches_vlm_train[name],
-                                 "serve_qwen": launches_qwen_serve[name]},
+                                 "serve_qwen": launches_qwen_serve[name],
+                                 "train_sharded": launches_sharded[name]},
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]
@@ -4871,7 +5122,8 @@ def main() -> int:
                                           "serve_vlm_bfloat16": routes_vlm_serve["bfloat16"],
                                           "serve_vlm_float32": routes_vlm_serve["float32"],
                                           "train_vlm": routes_vlm_train,
-                                          "serve_qwen_bfloat16": routes_vlm_serve["qwen_bfloat16"]}
+                                          "serve_qwen_bfloat16": routes_vlm_serve["qwen_bfloat16"],
+                                          "train_sharded": routes_sharded}
             entry["max_abs_err_by_route"] = flash_err64
             entry["lse_max_abs_err"] = lse_err
         if name == "flash_attention_bwd":  # the training runs' launches, by route
@@ -4880,7 +5132,8 @@ def main() -> int:
                                           "train_mla": routes_mla_train_bwd,
                                           "train_hybrid": routes_hybrid_train_bwd,
                                           "train_encdec": routes_encdec_train_bwd,
-                                          "train_vlm": routes_vlm_train_bwd}
+                                          "train_vlm": routes_vlm_train_bwd,
+                                          "train_sharded": routes_sharded_bwd}
             entry["max_abs_err_by_route"] = bwd_err64
             entry["train"] = train_record
             entry["moe"] = moe_record
@@ -4888,6 +5141,7 @@ def main() -> int:
             entry["hybrid"] = hybrid_record
             entry["encdec"] = encdec_record
             entry["vlm"] = vlm_record
+            entry["sharded"] = sharded_record
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

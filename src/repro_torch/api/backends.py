@@ -357,23 +357,26 @@ def resolve_mesh_devices(
 ) -> Tuple[torch.device, ...]:
     """The device of each chain group of ``mesh_shape = (ndata[, nmodel])``.
 
-    ``devices`` defaults to one CUDA device a group, and the call raises
-    with the visible count when fewer exist. An explicit list may name one
-    device more than once (the counterpart of ``repro``'s forced host device
-    count); it is never inferred. Every device is of ``primary``'s type:
-    the groups replay one generator's draws. A model axis above 1 raises:
-    a Bayes model's θ has nothing to shard.
+    The mesh is ndata × nmodel devices, row-major over (data, model), as the
+    reference's ``jax.make_mesh``: chain group g owns the model row of
+    devices g·nmodel … g·nmodel + nmodel − 1. A Bayes model's θ has nothing
+    to shard, so a group replicates over its row, as the reference's chains
+    do (``P("data")``, replicated over ``model``): the group runs on its
+    row's first device, and a replica would draw the same numbers, so the
+    results are the (ndata,) mesh's bit for bit.
+
+    ``devices`` defaults to one CUDA device a mesh position, and the call
+    raises with the visible count when fewer exist. An explicit list (all
+    ndata × nmodel of them) may name one device more than once (the
+    counterpart of ``repro``'s forced host device count); it is never
+    inferred. Every device is of ``primary``'s type: the groups replay one
+    generator's draws.
     """
     shape = tuple(int(x) for x in mesh_shape)
     if len(shape) not in (1, 2) or min(shape) < 1:
         raise ValueError(f"mesh_shape must be (ndata[, nmodel]) with positive sizes, got {shape}")
     ndata, nmodel = shape[0], (shape[1] if len(shape) == 2 else 1)
-    if nmodel > 1:
-        raise NotImplementedError(
-            f"mesh_shape={shape}: a model axis of {nmodel} shards one chain's parameters, and "
-            "a Bayes model's θ has nothing to shard; model-axis sharding (DTensor placements) "
-            "is ROADMAP Queue 1 item 11.10"
-        )
+    need = ndata * nmodel
     if num_chains is not None and num_chains % ndata:
         raise ValueError(f"mesh data axis {ndata} must divide M={num_chains}")
     primary = torch.device(primary)
@@ -381,17 +384,17 @@ def resolve_mesh_devices(
     if devices is None:
         if primary.type != "cuda":
             raise ValueError(
-                f"mesh_shape={shape} needs {ndata} devices: on the {primary.type} name them "
-                f"(e.g. devices={(primary.type,) * ndata})")
-        if visible < ndata:
+                f"mesh_shape={shape} needs {need} devices: on the {primary.type} name them "
+                f"(e.g. devices={(primary.type,) * need})")
+        if visible < need:
             raise ValueError(
-                f"mesh_shape={shape} needs {ndata} CUDA devices and {visible} visible; pass "
+                f"mesh_shape={shape} needs {need} CUDA devices and {visible} visible; pass "
                 "devices= to place several chain groups on one device")
-        return tuple(torch.device("cuda", i) for i in range(ndata))
+        return tuple(torch.device("cuda", i * nmodel) for i in range(ndata))
     devs = tuple(torch.device(d) for d in devices)
-    if len(devs) != ndata:
-        raise ValueError(f"mesh_shape={shape} has {ndata} chain groups and devices= names "
-                         f"{len(devs)}")
+    if len(devs) != need:
+        raise ValueError(f"mesh_shape={shape} has {need} devices (chain groups × model axis) "
+                         f"and devices= names {len(devs)}")
     for d in devs:
         if d.type != primary.type:
             raise ValueError(f"chain group device {d} is not a {primary.type} device like the "
@@ -402,7 +405,7 @@ def resolve_mesh_devices(
         for d in devs:
             if d.index >= visible:
                 raise ValueError(f"chain group device {d}: {visible} CUDA devices visible")
-    return devs
+    return devs[::nmodel]  # each group's model row, by its first device
 
 
 # transitions of the eager chunk the chain-group check watches

@@ -223,7 +223,10 @@ class Pipeline:
     into ndata groups, one on each of ``devices`` (default: one CUDA device a
     group; an explicit list may name a device twice), through
     :class:`~repro_torch.api.backends.MeshChunkBackend`: the same draws as
-    the batched run, bit for bit. ``(1, 1)`` is the batched backend. With no
+    the batched run, bit for bit. ``(ndata, nmodel)`` takes ndata × nmodel
+    devices, each group replicated over its model row (a Bayes θ has nothing
+    to shard; :func:`~repro_torch.api.backends.resolve_mesh_devices`): the
+    (ndata, 1) mesh's draws. ``(1, 1)`` is the batched backend. With no
     ``mesh_shape``, more than one visible CUDA device and M divisible by
     their count, the chains are split over all of them. One host thread
     queues every group's transitions, so while a transition's host work
@@ -249,8 +252,9 @@ class Pipeline:
             if count > 1 and spec.M % count == 0:
                 mesh_shape = (count, 1)  # the automatic mesh
         if mesh_shape is not None and mesh_shape[0] > 1:
-            self.mesh_shape: Optional[Tuple[int, ...]] = tuple(mesh_shape)
             self.devices = resolve_mesh_devices(mesh_shape, devices, self.device, spec.M)
+            # one device a chain group (a model row's first): the chains' mesh
+            self.mesh_shape: Optional[Tuple[int, ...]] = (int(mesh_shape[0]), 1)
         elif devices is not None:
             raise ValueError("devices= places chain groups: it needs a spec whose mesh_shape "
                              "has a data axis above 1")

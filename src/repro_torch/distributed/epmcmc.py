@@ -23,10 +23,13 @@ diagonal parametric (BvM) product at the end:
   combination stage.
 
 The reference vmaps the chain axis and lets GSPMD shard it; the port loops
-the chains on one device (``state_specs``, ``batch_spec`` and
-``chain_axes`` are sharding, ROADMAP Queue 1 item 11.10). A chain's model is
-an ``LM`` whose parameters are views of the stacked state
-(:func:`chain_view`), so the transition updates the state in place.
+the chains. A chain's model is an ``LM`` whose parameters are views of the
+stacked state (:func:`chain_view`), so the transition updates the state in
+place. Placed (:func:`chain_axes`, :func:`state_specs`, :func:`batch_spec`;
+:func:`place_state`, :func:`place_batch`), the chain axis lies over the
+data axes of a ``DeviceMesh`` and each rank steps its own chains, each
+tensor-parallel over ``model`` (its parameters DTensors on the model axis);
+:func:`num_chains` reads a mesh as the reference's does (pod × data).
 
 The combination and the checks of the MCMC pipeline:
 
@@ -37,8 +40,9 @@ The combination and the checks of the MCMC pipeline:
 - :func:`stack_subset_history` — per-step ``(C, d_sub)`` snapshots stacked
   into that dense layout;
 - :func:`assert_no_cross_chain_collectives` — the paper's "embarrassingly
-  parallel" claim, checked. ``repro`` parses the compiled HLO of the mesh
-  program for collectives whose device groups span chain groups. PyTorch
+  parallel" claim, checked (on a placed run from the rank groups of the
+  collectives it issued, ``mesh=``). ``repro`` parses the compiled HLO of
+  the mesh program for collectives whose device groups span chain groups. PyTorch
   runs no such program: here a :class:`~torch.utils._python_dispatch.
   TorchDispatchMode` watches every operator one eager chunk of each chain
   group dispatches (and every operand a hand-written kernel is handed,
@@ -50,6 +54,7 @@ The combination and the checks of the MCMC pipeline:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
@@ -61,7 +66,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import resolve_device
 from repro_torch.core.gaussian import GaussianMoments, product_moments_diag
 from repro_torch.data.tokens import seed_of
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import watch_operands
+from repro_torch.launch.mesh import mesh_shape
+from repro_torch.models.lm.placement import is_placed
 from repro_torch.models.lm import model as mdl
 from repro_torch.models.lm import steps
 from repro_torch.models.lm.config import ModelConfig
@@ -84,10 +92,42 @@ class EpmcmcState(NamedTuple):
     m_var: Tensors  # (C, ...) running Σ(θ−mean)² (Welford), float32
 
 
-def num_chains(mesh_shape: Sequence[int] = (1, 1)) -> int:
-    """Chains of a run on ``mesh_shape`` (data, model): one a data index
-    (the reference's pod × data axes; the port's host mesh is (1, 1))."""
-    return int(mesh_shape[0])
+def num_chains(mesh=(1, 1)) -> int:
+    """Chains of a run on ``mesh``: pod × data of a ``DeviceMesh`` or an
+    ``{axis: size}`` shape (the reference's rule); the first entry of a
+    (data, model) sequence (the port's chain groups)."""
+    if isinstance(mesh, (tuple, list)):
+        return int(mesh[0])
+    shape = mesh_shape(mesh)
+    return int(shape.get("pod", 1) * shape.get("data", 1)) if "data" in shape else 1
+
+
+# ---------------------------------------------------------------------------
+# sharding
+# ---------------------------------------------------------------------------
+
+
+def chain_axes(mesh) -> Tuple[str, ...]:
+    return shd.batch_axes(mesh)  # ('pod','data') / ('data',)
+
+
+def state_specs(cfg: ModelConfig, mesh, state: EpmcmcState) -> EpmcmcState:
+    """Specs of the stacked state: the chain axis over the data axes, each
+    chain's tensor-parallel spec inside (the sharding rules on the unstacked
+    leaf, FSDP forced off: the data axes belong to the chains). The
+    generators are dealt out by chain, as the reference's keys."""
+    ca = shd._norm(chain_axes(mesh))
+    cfg_tp = dataclasses.replace(cfg, fsdp=False)
+    pspec = {name: (ca, *shd.param_spec(cfg_tp, mesh, name, leaf.shape[1:]))
+             for name, leaf in state.params.items()}
+    return EpmcmcState(params=pspec, v=pspec, step=(), gens=(ca,), m_count=(ca,),
+                       m_mean=pspec, m_var=pspec)
+
+
+def batch_spec(mesh, batch: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
+    """EP-MCMC batches are (C, b, ...): the chain axis sharded, the rest local."""
+    ca = shd._norm(chain_axes(mesh))
+    return {k: (ca,) + (None,) * (v.dim() - 1) for k, v in batch.items()}
 
 
 def chain_generators(seed: int, n_chains: int, device) -> List[torch.Generator]:
@@ -143,6 +183,7 @@ def _neg_logpost_and_grads(
     *,
     num_shards: int,
     shard_tokens: float,
+    chain: Optional["_Chain"] = None,
 ) -> Tuple[torch.Tensor, Tensors]:
     """−log p_c(θ) up to a constant, for ONE chain (``model`` its view), and
     its gradient by name: the reference's ``_subposterior_neg_logpost`` and
@@ -157,6 +198,11 @@ def _neg_logpost_and_grads(
     params = dict(model.named_parameters())
     total, _ = steps.loss_fn(model, cfg, batch)
     grads = steps.grads_of(shard_tokens * total, params)
+    if is_placed(total):  # a placed chain: its blocks, and the model axis' split leaves
+        total = total.to_local()
+        grads = {n: g.redistribute(params[n].device_mesh, params[n].placements).to_local()
+                 for n, g in grads.items()}
+        params = {n: p.to_local() for n, p in params.items()}
     prior = 1.0 / (PRIOR_SIGMA**2 * num_shards)
     norms, out = [], {}
     with torch.no_grad():
@@ -169,9 +215,23 @@ def _neg_logpost_and_grads(
                                                      [t.to(params[n].dtype)
                                                       for n, t in zip(names, scaled)])))
             del scaled
-        sq = torch.stack(norms).square().sum()
+        sq = _sum_squares(norms, list(params), chain)
         value = shard_tokens * total.detach() + sq / (2.0 * PRIOR_SIGMA**2) / num_shards
     return value, out
+
+
+def _sum_squares(norms: List[torch.Tensor], names: List[str], chain=None) -> torch.Tensor:
+    """Σ norm² over the leaves; on a placed chain the leaves split over the
+    model axis add their blocks' sums over that axis (a collective inside
+    the chain's model row)."""
+    sq = torch.stack(norms).square()
+    if chain is None or not chain.split:
+        return sq.sum()
+    from torch.distributed import _functional_collectives as funcol
+
+    cut = torch.tensor([n in chain.split for n in names], device=sq.device)
+    part = funcol.all_reduce(torch.where(cut, sq, 0.0).sum(), "sum", chain.group)
+    return torch.where(cut, 0.0, sq).sum() + part
 
 
 def _chain_batch(batch: Dict[str, torch.Tensor], c: int) -> Dict[str, torch.Tensor]:
@@ -202,22 +262,113 @@ def leaf_groups(tensors: Tensors, *, lead: int = 0) -> List[List[str]]:
     return groups
 
 
+class _Chain(NamedTuple):
+    """One chain this rank steps: its global index, its model (parameters
+    views of the state, or DTensors over the model axis when placed), and
+    the plain tensors the update writes in place (the local blocks when
+    placed)."""
+
+    index: int
+    model: mdl.LM
+    params: Tensors
+    v: Tensors
+    m_mean: Tensors
+    m_var: Tensors
+    m_count: torch.Tensor  # () view of the chain's count
+    batch: Dict[str, torch.Tensor]
+    split: frozenset = frozenset()  # leaves split over the model axis
+    group: Any = None  # the model axis' process group
+    placements: Optional[Dict[str, list]] = None  # each leaf's on the model axis
+    mesh: Any = None  # the chain's model axis
+
+
+def _chains(state: EpmcmcState, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """The chains this rank holds: all of them unplaced; placed (the chain
+    axis over the data axes, each chain tensor-parallel over ``model``), the
+    local ones, their models on the model axis alone."""
+    first = next(iter(state.params.values()))
+    if not is_placed(first):
+        for c in range(state.m_count.shape[0]):
+            yield _Chain(c, chain_view(cfg, state.params, c),
+                         {n: p[c] for n, p in state.params.items()},
+                         {n: p[c] for n, p in state.v.items()},
+                         {n: p[c] for n, p in state.m_mean.items()},
+                         {n: p[c] for n, p in state.m_var.items()}, state.m_count[c],
+                         _chain_batch(batch, c))
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = first.device_mesh
+    names = mesh.mesh_dim_names
+    row = mesh["model"]
+    local = {k: {n: t.to_local() for n, t in getattr(state, k).items()}
+             for k in ("params", "v", "m_mean", "m_var")}
+    counts = state.m_count.to_local()
+    per_chain = counts.shape[0]
+    first_chain = per_chain * _chain_coordinate(mesh)
+    model_at = names.index("model")
+    placements = {}
+    for n, t in state.params.items():
+        p = t.placements[model_at]
+        placements[n] = [Shard(p.dim - 1) if isinstance(p, Shard) else Replicate()]
+    split = frozenset(n for n, pl in placements.items()
+                      if isinstance(pl[0], Shard) and row.size() > 1)
+    data = {k: v.to_local() if is_placed(v) else v for k, v in batch.items()}
+    for c in range(per_chain):
+        model = mdl.init_params(cfg, device="meta")
+        for n, _ in list(model.named_parameters()):
+            owner, _, leaf = n.rpartition(".")
+            whole = state.params[n].shape[1:]
+            stride = torch.empty(whole, device="meta").stride()
+            view = DTensor.from_local(local["params"][n][c], row, placements[n], run_check=False,
+                                      shape=whole, stride=stride)
+            setattr(model.get_submodule(owner) if owner else model, leaf,
+                    nn.Parameter(view, requires_grad=True))
+        chain_data = {k: DTensor.from_local(v[c], row, [Replicate()], run_check=False)
+                      for k, v in data.items()}
+        yield _Chain(first_chain + c, model, {n: t[c] for n, t in local["params"].items()},
+                     {n: t[c] for n, t in local["v"].items()},
+                     {n: t[c] for n, t in local["m_mean"].items()},
+                     {n: t[c] for n, t in local["m_var"].items()}, counts[c], chain_data,
+                     split, row.get_group(), placements, row)
+
+
+def _chain_coordinate(mesh) -> int:
+    """This rank's chain group: its row-major index over the chain axes."""
+    coord = mesh.get_coordinate()
+    index = 0
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name in chain_axes(mesh):
+            index = index * mesh.size(i) + coord[i]
+    return index
+
+
+def _noise(chain: _Chain, gen: torch.Generator, name: str, p: torch.Tensor) -> torch.Tensor:
+    """ξ for one leaf of the chain, float32: drawn whole (the chain's
+    generator, as the unplaced step draws it) and cut to this rank's block."""
+    if chain.placements is None:
+        return torch.randn(p.shape, generator=gen, dtype=torch.float32, device=p.device)
+    whole = torch.randn(chain.model.get_parameter(name).shape, generator=gen,
+                        dtype=torch.float32, device=p.device)
+    return shd.local_block(whole, chain.mesh, chain.placements[name])
+
+
 @torch.no_grad()
-def _welford(state: EpmcmcState, c: int, take: bool) -> None:
-    """Fold chain ``c``'s θ into its running moments, in place (a no-op
+def _welford(chain: _Chain, take: bool) -> None:
+    """Fold the chain's θ into its running moments, in place (a no-op
     before burn-in ends, where the reference adds zeros): per leaf, δ = θ −
     mean, mean += δ / n, var += δ·(θ − mean), by foreach passes."""
     if not take:
         return
-    state.m_count[c] += 1.0
-    n = state.m_count[c]
-    for names in leaf_groups(state.m_mean, lead=1):
-        p32 = [state.params[k][c].float() for k in names]
-        means = [state.m_mean[k][c] for k in names]
+    chain.m_count.add_(1.0)
+    n = chain.m_count
+    for names in leaf_groups(chain.m_mean):
+        p32 = [chain.params[k].float() for k in names]
+        means = [chain.m_mean[k] for k in names]
         delta = torch._foreach_sub(p32, means)
         torch._foreach_add_(means, torch._foreach_div(delta, n))
         torch._foreach_mul_(delta, torch._foreach_sub(p32, means))
-        torch._foreach_add_([state.m_var[k][c] for k in names], delta)
+        torch._foreach_add_([chain.m_var[k] for k in names], delta)
         del p32, delta
 
 
@@ -243,20 +394,27 @@ def epmcmc_step(
     chain* — still embarrassingly parallel, and it draws no noise.
     ``noise[c][name]`` (float32, the leaf's shape) replaces chain ``c``'s
     draws of ξ. Returns ``(state, {"loss_per_chain", "gnorm_per_chain"})``.
+
+    A placed state (:func:`place_state`: the chain axis over the data axes,
+    each chain tensor-parallel over ``model``) steps the chains this rank
+    holds, their forward and backward placed over the model axis and the
+    update on the local blocks; a chain's noise is drawn whole from its
+    generator and cut to the block, so the draws are the unplaced step's.
+    No collective leaves a chain's model row. The metrics are then placed
+    (C,) tensors.
     """
-    n_chains = state.m_count.shape[0]
     take = state.step >= burn_in
     losses, gnorms = [], []
-    for c in range(n_chains):
-        model = chain_view(cfg, state.params, c)
-        loss, grads = _neg_logpost_and_grads(model, cfg, _chain_batch(batch, c),
-                                             num_shards=num_shards, shard_tokens=shard_tokens)
-        del model
+    for chain in _chains(state, batch, cfg):
+        c = chain.index
+        loss, grads = _neg_logpost_and_grads(chain.model, cfg, chain.batch,
+                                             num_shards=num_shards, shard_tokens=shard_tokens,
+                                             chain=None if chain.placements is None else chain)
         with torch.no_grad():
             norms = []
             for names in leaf_groups(grads):
-                ps = [state.params[n][c] for n in names]
-                vs = [state.v[n][c] for n in names]
+                ps = [chain.params[n] for n in names]
+                vs = [chain.v[n] for n in names]
                 g32 = [grads.pop(n).float() for n in names]
                 norms += torch._foreach_norm(g32)
                 # v = decay·v + (1 − decay)·g²; G = 1/(√v + ε)
@@ -275,9 +433,11 @@ def epmcmc_step(
                 new = torch._foreach_sub([p.float() for p in ps], drift)
                 del drift
                 if temperature:
-                    xi = [noise[c][n] if noise is not None else torch.randn(
-                        p.shape, generator=state.gens[c], dtype=torch.float32, device=p.device)
-                        for n, p in zip(names, ps)]
+                    xi = [noise[c][n] if noise is not None else _noise(chain, state.gens[c], n, p)
+                          for n, p in zip(names, ps)]
+                    if noise is not None and chain.placements is not None:
+                        xi = [shd.local_block(x, chain.mesh, chain.placements[n])
+                              for n, x in zip(names, xi)]
                     torch._foreach_mul_(precond, step_size)
                     torch._foreach_mul_(precond, temperature)
                     torch._foreach_sqrt_(precond)
@@ -287,11 +447,45 @@ def epmcmc_step(
                 torch._foreach_copy_(ps, new)
                 del new, precond
             losses.append(loss)
-            gnorms.append(torch.stack(norms).square().sum().sqrt())
-        _welford(state, c, take)
+            gnorms.append(_sum_squares(norms, list(chain.params),
+                                       None if chain.placements is None else chain).sqrt())
+        _welford(chain, take)
+        del chain
     # NB: metrics stay PER-CHAIN, as in the reference (no reduction over chains)
     metrics = {"loss_per_chain": torch.stack(losses), "gnorm_per_chain": torch.stack(gnorms)}
+    if is_placed(state.m_count):
+        metrics = {k: _chain_placed(v, state.m_count) for k, v in metrics.items()}
     return state._replace(step=state.step + 1), metrics
+
+
+def _chain_placed(local: torch.Tensor, like_count: torch.Tensor) -> torch.Tensor:
+    """Per-chain values of this rank's chains as a (C,) DTensor placed as the
+    chain counts are."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, like_count.device_mesh, like_count.placements,
+                              run_check=False, shape=like_count.shape,
+                              stride=like_count.stride())
+
+
+def place_state(state: EpmcmcState, cfg: ModelConfig, mesh) -> EpmcmcState:
+    """The whole stacked ``state`` (every rank holds it) placed by
+    :func:`state_specs`: each rank keeps its chains' blocks; the step and the
+    generators stay as they are."""
+    specs = state_specs(cfg, mesh, state)
+    return EpmcmcState(
+        params={n: shd.place(t, mesh, specs.params[n]) for n, t in state.params.items()},
+        v={n: shd.place(t, mesh, specs.v[n]) for n, t in state.v.items()},
+        step=state.step, gens=state.gens,
+        m_count=shd.place(state.m_count, mesh, specs.m_count),
+        m_mean={n: shd.place(t, mesh, specs.m_mean[n]) for n, t in state.m_mean.items()},
+        m_var={n: shd.place(t, mesh, specs.m_var[n]) for n, t in state.m_var.items()})
+
+
+def place_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """A whole (C, b, ...) batch placed by :func:`batch_spec`."""
+    specs = batch_spec(mesh, batch)
+    return {k: shd.place(v, mesh, specs[k]) for k, v in batch.items()}
 
 
 def sgd_baseline_step(
@@ -310,6 +504,9 @@ def sgd_baseline_step(
     preconditioned step of every chain with the mean, in place. The mean is
     summed in float32 and cast to the parameter's dtype, as the reference's
     ``jnp.mean`` of the stacked gradients gives it."""
+    if is_placed(state.m_count):
+        raise NotImplementedError("the synchronous baseline steps an unplaced state; placed "
+                                  "states run epmcmc_step")
     n_chains = state.m_count.shape[0]
     losses, total = [], None
     for c in range(n_chains):
@@ -525,7 +722,7 @@ class _GroupWatch(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
-def assert_no_cross_chain_collectives(groups: Sequence[ChainGroup]) -> int:
+def assert_no_cross_chain_collectives(groups, *, mesh=None) -> int:
     """Run one eager chunk of every chain group under watch; raise
     :class:`CrossChainError` on any collective or cross-group read.
 
@@ -533,7 +730,24 @@ def assert_no_cross_chain_collectives(groups: Sequence[ChainGroup]) -> int:
     a mesh run). The operands of hand-written kernels are checked as the
     wrappers hand them over (``check_tensor``); their device code reads only
     those.
+
+    With ``mesh`` (a placed run, the reference's form): ``groups`` are the
+    ``(kind, ranks)`` of every collective a rank issued (what
+    :class:`repro_torch.launch.op_stats.Tally` records, the counterpart of
+    the reference's ``collective_groups`` of the HLO), and the check fails
+    when one's ranks span more than one (pod, data) coordinate: ranks are
+    row-major over (pod?, data, model), so rank r's chain is r // model.
+    Collectives inside a chain's model row pass. Returns how many were
+    checked.
     """
+    if mesh is not None:
+        model = mesh_shape(mesh).get("model", 1)
+        for kind, ranks in groups:
+            chains = {r // model for r in ranks}
+            if len(chains) > 1:
+                raise CrossChainError(f"{kind} crosses chain groups {sorted(chains)[:4]}: "
+                                      f"ranks {list(ranks)[:8]}")
+        return len(groups)
     owners = [{_storage_key(t) for t in _tensors(g.tensors)} - {None} for g in groups]
     checked = 0
     for i, g in enumerate(groups):

@@ -9,6 +9,9 @@ returns, which ``Pipeline(spec, data=...)`` accepts.
 :func:`from_reference_epmcmc_state` for the reference's stacked EP-MCMC
 training state, and :func:`to_reference_lm_grads` takes the port's
 gradients back to the reference's pytree, for comparison leaf by leaf.
+:func:`from_reference_lm_params_placed` places the carried model on a
+``DeviceMesh`` by the sharding rules, and :func:`reference_cache_leaves`
+maps the port's decode caches onto the reference's ``init_caches`` tree.
 """
 
 from __future__ import annotations
@@ -140,6 +143,31 @@ def reference_lm_leaves(cfg) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]
     return out
 
 
+def reference_cache_leaves(cfg) -> List[Tuple[int, str, Tuple[str, ...], Optional[int]]]:
+    """How the port's decode caches (``models/lm/model.py::init_caches``, one
+    entry a layer) map onto ``repro``'s ``init_caches`` tree: ``(layer, key
+    in the port's entry, reference path, index into a stacked leaf or
+    None)``. A GQA layer's ``k``/``v`` are ``g{i}/l{j}/k``; MLA's
+    ``c_kv``/``k_rope`` the same level; a Mamba-2 layer's ``SSMCache`` fields
+    ``x``, ``B``, ``C`` are ``conv/x``, ``conv/B``, ``conv/C`` and ``h`` is
+    ``h``. A group of more than one repeat stacks its layers, as its
+    parameters (:func:`reference_lm_leaves`)."""
+    from repro_torch.models.lm import model as mdl
+
+    keys = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope"), "mamba": ("x", "B", "C", "h")}
+    ref = {"x": ("conv", "x"), "B": ("conv", "B"), "C": ("conv", "C")}
+    out = []
+    layer = 0
+    for gi, group in enumerate(mdl.layer_groups(cfg)):
+        for r in range(group.repeat):
+            for li, spec in enumerate(group.specs):
+                idx = r if group.repeat > 1 else None
+                out += [(layer, key, (f"g{gi}", f"l{li}") + ref.get(key, (key,)), idx)
+                        for key in keys[spec.mixer]]
+                layer += 1
+    return out
+
+
 def _get(tree, path):
     for key in path:
         tree = tree[key]
@@ -211,6 +239,18 @@ def from_reference_lm_params(
                 raise ValueError(f"{name}: reference {tuple(w.shape)}, port {tuple(state[name].shape)}")
             state[name].copy_(w.to(state[name].dtype))
     return model
+
+
+def from_reference_lm_params_placed(params: Dict[str, Any], cfg, mesh, *, device=None,
+                                    specs=None):
+    """:func:`from_reference_lm_params` then
+    :func:`repro_torch.distributed.sharding.distribute_model`: the reference's
+    weights as a port model whose parameters are DTensors on ``mesh``, placed
+    by ``specs`` (default: the sharding rules' ``param_specs``)."""
+    from repro_torch.distributed import sharding as shd
+
+    model = from_reference_lm_params(params, cfg, device=device)
+    return shd.distribute_model(model, mesh, specs or shd.param_specs(cfg, mesh, model))
 
 
 def from_reference_epmcmc_state(

@@ -2,7 +2,9 @@
 
 CUDA tensors launch one of the three hand-written kernels of
 ``csrc/flash_attention.cu``, one launch per call; CPU tensors take the plain
-version (``ref.py``). :func:`_route` picks the kernel from the tensors alone,
+version (``ref.py``); meta tensors (the dry run) get the output shapes alone,
+and the work the kernel would do is added to :data:`META_WORK`; any other
+device raises. :func:`_route` picks the kernel from the tensors alone,
 before the launch. Both tensor-core routes need what TMA takes: every base
 pointer 16-byte aligned, a contiguous last axis and every other stride of an
 axis longer than 1 a positive multiple of 16 bytes. Then
@@ -219,6 +221,43 @@ def _kv_len(k: torch.Tensor, kv_len: Optional[int]) -> int:
     return kv_len
 
 
+# Work of the kernels' meta calls (shapes only, nothing computed), read by
+# ``launch/op_stats.py``: flops at 2·(hd + hd_v) a visible (query, kv) pair
+# forward and 2.5 times that backward (PERF.md §6 rows 6 and 7), and the
+# bytes of every operand read and result written once.
+META_WORK = {"flops": 0.0, "bytes": 0.0}
+
+
+def visible_pairs(s: int, t: int, causal: bool, kv_len: int) -> int:
+    """(query, kv) pairs a head sees: kv positions below ``kv_len`` and, when
+    causal, at or before the query's position."""
+    if not causal:
+        return s * kv_len
+    full = min(s, kv_len)  # rows i < kv_len see i + 1 positions, the rest kv_len
+    return full * (full + 1) // 2 + (s - full) * kv_len
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _meta(q, k, v, causal: bool, kv_len: int, *, backward: bool, extra=()):
+    """The meta device's flash: output shapes (forward: out (B, S, K, G, hd_v)
+    and the float32 lse; backward: dq, dk, dv), and the work tallied."""
+    b, s, kh, g, hd = q.shape
+    hd_v = v.shape[-1]
+    flops = 2.0 * (hd + hd_v) * b * kh * g * visible_pairs(s, k.shape[1], causal, kv_len)
+    if backward:
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        flops *= 2.5
+    else:
+        outs = (torch.empty((b, s, kh, g, hd_v), dtype=q.dtype, device=q.device),
+                torch.empty((b, s, kh, g), dtype=torch.float32, device=q.device))
+    META_WORK["flops"] += flops
+    META_WORK["bytes"] += _nbytes(q, k, v, *extra, *outs)
+    return outs
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, S, K, G, hd)
     k: torch.Tensor,  # (B, T, K, hd)
@@ -237,6 +276,9 @@ def flash_attention(
         return (out, lse) if return_lse else out
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len, return_lse=return_lse)
+    if q.device.type == "meta":
+        out, lse = _meta(q, k, v, causal, kv_len, backward=False)
+        return (out, lse) if return_lse else out
     raise ValueError(f"no flash_attention for device {q.device}")
 
 
@@ -427,4 +469,6 @@ def flash_attention_bwd(
         return _launch_bwd(q, k, v, out, lse, dout, causal, kv_len)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, kv_len=kv_len)
+    if q.device.type == "meta":
+        return _meta(q, k, v, causal, kv_len, backward=True, extra=(out, lse, dout))
     raise ValueError(f"no flash_attention_bwd for device {q.device}")

@@ -10,9 +10,15 @@ The port of ``repro/launch/train.py``. Modes:
 ``--mode sgd``     the baseline whose communication the paper deletes: the
                    chains' gradients averaged every step.
 
-The port runs the chains one after another on one device; ``--mesh`` takes
-``host`` only (``pod`` and ``multipod`` are sharding, ROADMAP Queue 1 item
-11.10), and ``--chains 0`` means one chain. Data is a function of (seed,
+``--mesh host`` (the default) runs the chains one after another on one
+device, and ``--chains 0`` means one chain. ``--mesh pod`` / ``multipod``
+(the reference's) places the run on the production mesh
+(``launch/mesh.make_production_mesh``: 256 or 512 ranks, one process a GPU,
+the process group started by the launcher, e.g. ``torchrun``; with fewer
+ranks it raises and names the count): ``--chains 0`` is then one chain a
+(pod, data) coordinate (``epmcmc.num_chains(mesh)``), each chain
+tensor-parallel over ``model`` (``epmcmc.place_state``), and adamw's model
+and batch placed by the sharding rules; no checkpoints, no ``sgd``. Data is a function of (seed,
 shard, step) (:class:`repro_torch.data.TokenStream`), so a restarted run
 replays the exact stream. Checkpoints go through the port's async
 :class:`~repro_torch.checkpoint.Checkpointer` every ``--ckpt-every`` steps
@@ -59,11 +65,15 @@ from repro_torch.checkpoint import Checkpointer, latest_step, restore
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenStream
 from repro_torch.distributed import epmcmc
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.lm import mamba2
 from repro_torch.models.lm import model as mdl
 from repro_torch.models.lm import steps as lm_steps
 from repro_torch.models.lm.config import reduced
-from repro_torch.optim.adamw import AdamWState
+from repro_torch.models.lm.layers import dtype_of
+from repro_torch.models.lm.placement import is_placed
+from repro_torch.optim.adamw import AdamWState, adamw_init
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -141,6 +151,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A placed tensor gathered whole; a plain one as it is."""
+    return t.full_tensor() if is_placed(t) else t
+
+
+def _gathered(state: epmcmc.EpmcmcState) -> epmcmc.EpmcmcState:
+    """A placed EP-MCMC state's moments gathered whole for the combination,
+    the one communicating stage (the unplaced state as it is)."""
+    whole = {k: {n: _whole(t) for n, t in getattr(state, k).items()}
+             for k in ("m_mean", "m_var")}
+    return state._replace(m_count=_whole(state.m_count), **whole)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI. Returns ``{"loss", "losses", "step_s", "peak_bytes",
     "state"}``: the last step's loss (the chains' mean), every step's loss
@@ -149,12 +172,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     AdamW state, or the EP-MCMC state), plus ``"combined"`` (epmcmc: the
     parametric product's moments)."""
     args = build_argparser().parse_args(argv)
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} shards the chains over a device mesh; the port runs them on "
-            "one device (--mesh host), sharding is ROADMAP Queue 1 item 11.10"
-        )
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh != "host":  # raises unless the process group has the mesh's ranks
+        mesh = make_production_mesh(multi_pod=args.mesh == "multipod", device_type=device.type)
+        if args.ckpt_dir or args.mode == "sgd":
+            raise NotImplementedError(f"--mesh {args.mesh} runs --mode epmcmc and adamw without "
+                                      "checkpoints (a placed state is not written)")
     cfg = get_config(args.arch)
     mdl.check_supported(cfg)
     if args.reduced:
@@ -163,7 +187,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if cfg.ssm is not None:
         mamba2.check_seq(cfg, args.seq)
-    n_chains = args.chains or max(epmcmc.num_chains(), 1)
+    n_chains = args.chains or max(epmcmc.num_chains(mesh if mesh is not None else (1, 1)), 1)
     shard_tokens = args.shard_tokens or float(args.batch * args.seq * 100)
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     resume = bool(ckpt and args.resume and latest_step(args.ckpt_dir) is not None)
@@ -177,6 +201,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                shard_index=c, num_shards=n_chains, device=device)
                    for c in range(n_chains)]
         state = epmcmc.init_state(args.seed, cfg, n_chains, device=device)
+        if mesh is not None:
+            state = epmcmc.place_state(state, cfg, mesh)
         if resume:
             leaves, meta = restore(args.ckpt_dir)
             if meta.get("num_chains") != n_chains:
@@ -194,11 +220,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         for step in range(start_step, args.steps):
             batches = [s.batch(step) for s in streams]
             batch = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+            if mesh is not None:
+                batch = epmcmc.place_batch(batch, mesh)
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch, cfg, **kwargs)
             _sync(device)
             step_s.append(time.perf_counter() - t0)
-            losses.append(metrics["loss_per_chain"].float().cpu())
+            losses.append(_whole(metrics["loss_per_chain"]).float().cpu())
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"step {step:5d} loss={float(losses[-1].mean()):.4f} "
                       f"({step_s[-1]:.2f}s/step)", flush=True)
@@ -208,7 +236,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                     "arch": cfg.name, "mode": args.mode})
         out = {"state": state}
         if args.mode == "epmcmc":
-            moments = epmcmc.combine_parametric_diag(state)
+            moments = epmcmc.combine_parametric_diag(_gathered(state))
             out["combined"] = moments
             first = next(iter(moments.mean.values()))
             print("combined posterior (parametric/BvM): "
@@ -217,6 +245,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     else:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         model, opt = lm_steps.init_train_state(gen, cfg, device=device)
+        if mesh is not None:
+            shd.distribute_model(model, mesh, shd.param_specs(cfg, mesh, model))
+            opt = adamw_init(dict(model.named_parameters()),
+                             state_dtype=dtype_of(cfg.opt_state_dtype))
         if resume:
             leaves, meta = restore(args.ckpt_dir)
             opt = restore_adamw(leaves, model, opt)
@@ -225,11 +257,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=args.seed, device=device)
         for step in range(start_step, args.steps):
             batch = stream.batch(step)
+            if mesh is not None:
+                batch = shd.distribute_tree(batch, mesh, shd.batch_specs(cfg, mesh, batch))
             t0 = time.perf_counter()
             model, opt, metrics = lm_steps.train_step(model, opt, batch, cfg)
             _sync(device)
             step_s.append(time.perf_counter() - t0)
-            losses.append(metrics["loss"].float().cpu())
+            losses.append(_whole(metrics["loss"]).float().cpu())
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"step {step:5d} loss={float(losses[-1]):.4f} ({step_s[-1]:.2f}s/step)",
                       flush=True)

@@ -59,6 +59,7 @@ from torch import nn
 
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.flash import flash_attention
+from repro_torch.models.lm.placement import is_placed, like, merge, split
 from repro_torch.models.lm.layers import (
     apply_rope,
     dtype_of,
@@ -98,25 +99,41 @@ class GQA(nn.Module):
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, max_len: int
                 ) -> Tuple[torch.Tensor, Cache]:
         """The causal forward and the k/v cache, zero beyond the prompt up to ``max_len``."""
-        b, s, _ = x.shape
         q, k, v = _project_qkv(self, x, positions)
         out = sdpa(self.cfg, q, k, v, causal=True)
-        cache = init_gqa_cache(self.cfg, b, max_len, k.dtype, device=k.device)
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
-        return out.reshape(b, s, -1) @ self.w_o.to(x.dtype), cache
+        # zeros after the prompt; a placed k, v pads each rank's own block
+        cache = {"k": _pad_seq(k, max_len), "v": _pad_seq(v, max_len)}
+        return merge(out, 2) @ self.w_o.to(x.dtype), cache
 
     def decode(self, x: torch.Tensor, cache: Cache, position: int) -> Tuple[torch.Tensor, Cache]:
         return gqa_decode(self, x, cache, position)
+
+
+def _pad_seq(t: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B, S, ...) → (B, max_len, ...), zeros after S."""
+    pad = [0, 0] * (t.dim() - 2) + [0, max_len - t.shape[1]]
+    return torch.nn.functional.pad(t, pad)
+
+
+def _write(cache: torch.Tensor, position: int, new: torch.Tensor) -> torch.Tensor:
+    """``cache`` (B, T, ...) with ``new`` (B, ...) at ``position``: in place on
+    a plain cache; on a placed one (its T may be sharded over ``model``) a new
+    cache, ``new`` selected by a one-hot over T."""
+    if not is_placed(cache):
+        cache[:, position] = new.to(cache.dtype)
+        return cache
+    hot = like(cache, torch.arange(cache.shape[1], device=cache.device) == position)
+    hot = hot.reshape((1, -1) + (1,) * (cache.dim() - 2))
+    return torch.where(hot, new[:, None].to(cache.dtype), cache)
 
 
 def _project_qkv(attn: GQA, x: torch.Tensor, positions: torch.Tensor):
     cfg = attn.cfg
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear(x, attn.w_q, attn.b_q).reshape(b, s, h, hd)
-    k = linear(x, attn.w_k, attn.b_k).reshape(b, s, kh, hd)
-    v = linear(x, attn.w_v, attn.b_v).reshape(b, s, kh, hd)
+    q = split(linear(x, attn.w_q, attn.b_q), 2, (h, hd))
+    k = split(linear(x, attn.w_k, attn.b_k), 2, (kh, hd))
+    v = split(linear(x, attn.w_v, attn.b_v), 2, (kh, hd))
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
@@ -131,14 +148,14 @@ def _einsum_attention(
 ) -> torch.Tensor:
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
-    qg = q.reshape(b, s, kh, h // kh, hd)
+    qg = split(q, 2, (kh, h // kh))
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * hd ** -0.5
     cols = torch.arange(t, device=q.device)
     if causal:
         qpos = torch.arange(s, device=q.device) + q_offset
-        scores = torch.where(qpos[:, None] >= cols[None, :], scores, NEG_INF)
+        scores = torch.where(like(q, qpos[:, None] >= cols[None, :]), scores, NEG_INF)
     if kv_valid_len is not None:
-        valid = cols[None, :] < kv_valid_len[:, None]  # (B, T)
+        valid = like(q, cols)[None, :] < like(q, kv_valid_len)[:, None]  # (B, T)
         scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
@@ -157,7 +174,7 @@ def sdpa(
     b, s, h, hd = q.shape
     kh = k.shape[2]
     if cfg.attn_impl == "chunked" and s > cfg.attn_chunk:
-        q5 = q.reshape(b, s, kh, h // kh, hd)
+        q5 = split(q, 2, (kh, h // kh))
         out = flash_attention(q5, k, v, causal, cfg.attn_chunk, cfg.attn_chunk)
     else:
         out = _einsum_attention(q, k, v, causal=causal)
@@ -171,7 +188,7 @@ def gqa_forward(
     b, s, _ = x.shape
     q, k, v = _project_qkv(attn, x, positions)
     out = sdpa(attn.cfg, q, k, v, causal=causal)
-    return out.reshape(b, s, -1) @ attn.w_o.to(x.dtype)
+    return merge(out, 2) @ attn.w_o.to(x.dtype)
 
 
 def init_gqa_cache(
@@ -191,13 +208,13 @@ def gqa_decode(
     b = x.shape[0]
     pos = torch.full((b, 1), position, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _project_qkv(attn, x, pos)
-    cache["k"][:, position] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, position] = v_new[:, 0].to(cache["v"].dtype)
+    cache["k"] = _write(cache["k"], position, k_new[:, 0])
+    cache["v"] = _write(cache["v"], position, v_new[:, 0])
     valid_len = torch.full((b,), position + 1, dtype=torch.int64, device=x.device)
     out = _einsum_attention(
         q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), causal=False, kv_valid_len=valid_len
     )
-    return out.reshape(b, 1, -1) @ attn.w_o.to(x.dtype), cache
+    return merge(out, 2) @ attn.w_o.to(x.dtype), cache
 
 
 class Cross(GQA):
@@ -215,11 +232,11 @@ def cross_forward(attn: GQA, x: torch.Tensor, memory: torch.Tensor) -> torch.Ten
     b, s, _ = x.shape
     t = memory.shape[1]
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear(x, attn.w_q, attn.b_q).reshape(b, s, h, hd)
-    k = linear(memory, attn.w_k, attn.b_k).reshape(b, t, kh, hd)
-    v = linear(memory, attn.w_v, attn.b_v).reshape(b, t, kh, hd)
+    q = split(linear(x, attn.w_q, attn.b_q), 2, (h, hd))
+    k = split(linear(memory, attn.w_k, attn.b_k), 2, (kh, hd))
+    v = split(linear(memory, attn.w_v, attn.b_v), 2, (kh, hd))
     out = _einsum_attention(q, k, v, causal=False)
-    return out.reshape(b, s, -1) @ attn.w_o.to(x.dtype)
+    return merge(out, 2) @ attn.w_o.to(x.dtype)
 
 
 class MLA(nn.Module):
@@ -258,14 +275,10 @@ class MLA(nn.Module):
         ``max_len``. The reference computes ``_mla_latents`` twice here (in
         ``mla_forward`` and again for the cache, reference ``model.py:181``);
         once gives the same values."""
-        b, s, _ = x.shape
         latents = _mla_latents(self, x, positions)
         out = mla_forward(self, x, positions, latents=latents)
         c_kv, k_rope = latents
-        cache = init_mla_cache(self.cfg, b, max_len, c_kv.dtype, device=c_kv.device)
-        cache["c_kv"][:, :s] = c_kv
-        cache["k_rope"][:, :s] = k_rope
-        return out, cache
+        return out, {"c_kv": _pad_seq(c_kv, max_len), "k_rope": _pad_seq(k_rope, max_len)}
 
     def decode(self, x: torch.Tensor, cache: Cache, position: int) -> Tuple[torch.Tensor, Cache]:
         return mla_decode(self, x, cache, position)
@@ -280,7 +293,7 @@ def _mla_q(attn: MLA, x: torch.Tensor, positions: torch.Tensor
         q = linear(rmsnorm(linear(x, attn.w_dq), attn.q_norm, cfg.norm_eps), attn.w_uq)
     else:
         q = linear(x, attn.w_q)
-    q = q.reshape(b, s, cfg.num_heads, m.nope_head_dim + m.rope_head_dim)
+    q = split(q, 2, (cfg.num_heads, m.nope_head_dim + m.rope_head_dim))
     q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -308,14 +321,14 @@ def mla_forward(
     h = cfg.num_heads
     q_nope, q_rope = _mla_q(attn, x, positions)
     c_kv, k_rope = _mla_latents(attn, x, positions) if latents is None else latents
-    k_nope = linear(c_kv, attn.w_uk).reshape(b, s, h, m.nope_head_dim)
-    v = linear(c_kv, attn.w_uv).reshape(b, s, h, m.v_head_dim)
+    k_nope = split(linear(c_kv, attn.w_uk), 2, (h, m.nope_head_dim))
+    v = split(linear(c_kv, attn.w_uv), 2, (h, m.v_head_dim))
     q_full = torch.cat([q_nope, q_rope], dim=-1)  # (B, S, H, nope + rope)
     # the concatenation writes k_rope into every head: k_full is contiguous,
     # with no stride-0 axis, so bf16 flash takes the tensor-core routes
     k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, m.rope_head_dim)], dim=-1)
     out = sdpa(cfg, q_full, k_full, v, causal=True)
-    return out.reshape(b, s, -1) @ attn.w_o.to(x.dtype)
+    return merge(out, 2) @ attn.w_o.to(x.dtype)
 
 
 def init_mla_cache(
@@ -341,18 +354,18 @@ def mla_decode(
     pos = torch.full((b, 1), position, dtype=torch.int64, device=x.device)
     q_nope, q_rope = _mla_q(attn, x, pos)  # (B, 1, H, nope), (B, 1, H, rope)
     c_new, kr_new = _mla_latents(attn, x, pos)
-    cache["c_kv"][:, position] = c_new[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, position] = kr_new[:, 0].to(cache["k_rope"].dtype)
+    cache["c_kv"] = _write(cache["c_kv"], position, c_new[:, 0])
+    cache["k_rope"] = _write(cache["k_rope"], position, kr_new[:, 0])
     cache_c, cache_r = cache["c_kv"].to(x.dtype), cache["k_rope"].to(x.dtype)
-    w_uk = attn.w_uk.to(x.dtype).reshape(m.kv_lora_rank, h, m.nope_head_dim)
+    w_uk = split(attn.w_uk.to(x.dtype), 1, (h, m.nope_head_dim))
     q_eff = torch.einsum("bshd,lhd->bshl", q_nope, w_uk)  # (B, 1, H, kv_lora)
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
     scores = (torch.einsum("bshl,btl->bhst", q_eff, cache_c)
               + torch.einsum("bshd,btd->bhst", q_rope, cache_r)).float() * scale
-    valid = torch.arange(cache_c.shape[1], device=x.device) <= position  # (T,)
+    valid = like(x, torch.arange(cache_c.shape[1], device=x.device) <= position)  # (T,)
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhst,btl->bshl", probs, cache_c)  # (B, 1, H, kv_lora)
-    w_uv = attn.w_uv.to(x.dtype).reshape(m.kv_lora_rank, h, m.v_head_dim)
-    out = torch.einsum("bshl,lhd->bshd", ctx, w_uv).reshape(b, 1, -1)
+    w_uv = split(attn.w_uv.to(x.dtype), 1, (h, m.v_head_dim))
+    out = merge(torch.einsum("bshl,lhd->bshd", ctx, w_uv), 2)
     return out @ attn.w_o.to(x.dtype), cache

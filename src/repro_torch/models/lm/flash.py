@@ -18,6 +18,14 @@ raises.
 GQA layout: q (B,S,K,G,hd), k/v (B,T,K,hd|hd_v). ``q_chunk`` and ``kv_chunk``
 are accepted for signature parity with the reference; the kernels pick
 their own tiles.
+
+Under placements (q, k, v DTensors) every rank runs the same function on its
+local shards through a ``local_map`` region: q, k and v may stay sharded on
+the batch (over the data axes) and on the KV heads (over ``model``), where
+attention is independent; every other placement is redistributed to
+``Replicate`` first (a sequence split could build a row with no visible
+key). The autograd function runs inside the region, so the forward and the
+backward each launch the kernel once a rank on the local shard.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.flash_attention import flash_attention_bwd as _flash_bwd_kernel
 from repro_torch.kernels.flash_attention.ops import _tma_ok
+from repro_torch.models.lm import placement
+from repro_torch.models.lm.placement import is_placed
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -57,6 +67,22 @@ def flash_attention(
     kv_chunk: int = 512,
 ) -> torch.Tensor:
     del q_chunk, kv_chunk  # the kernels' own tiles
+    if is_placed(q):
+        return _flash_placed(q, k, v, causal)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal)
     return _flash_kernel(q, k, v, causal=causal)
+
+
+def _flash_placed(q, k, v, causal: bool):
+    """Flash on local shards: batch over the data axes and KV heads over
+    ``model`` where q, k and v all have them, the rest replicated."""
+    mesh = q.device_mesh
+    keep = {}
+    for name in mesh.mesh_dim_names:
+        dim = 0 if name in placement.DATA_AXES else 2 if name == "model" else None
+        if dim is not None and all(placement.shards(t, name, dim) for t in (q, k, v)):
+            keep[name] = dim
+    pl = placement.placements(mesh, keep)
+    return placement.region(lambda a, b, c: flash_attention(a, b, c, causal), mesh, (q, k, v),
+                            (pl, pl, pl), pl)

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.lm.placement import fence, is_placed, like, placements, settle, shards
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -80,8 +82,8 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
     """Rotate even/odd pairs. x: (..., S, H, hd); positions: broadcastable to (..., S)."""
     hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, device=x.device)  # (hd/2,)
-    angles = positions[..., None].float() * freqs  # (..., S, hd/2)
+    freqs = like(x, rope_frequencies(hd, theta, device=x.device))  # (hd/2,)
+    angles = like(x, positions)[..., None].float() * freqs  # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
     x32 = x.float()
@@ -121,4 +123,11 @@ def init_embed(
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    if is_placed(table):
+        mesh = table.device_mesh  # the rows' FSDP split gathered first, as FSDP does
+        vocab = {n: 0 for n in mesh.mesh_dim_names if shards(table, n, 0)}
+        table = table.redistribute(mesh, placements(mesh, vocab))
+        if vocab:  # DTensor's vocab-parallel lookup, masked, then summed over the vocab axes
+            return fence(settle(F.embedding(like(table, tokens), table))).to(compute_dtype)
+        return table[like(table, tokens)].to(compute_dtype)  # whole rows: the plain lookup
     return table[tokens].to(compute_dtype)

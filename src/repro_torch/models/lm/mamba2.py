@@ -50,7 +50,9 @@ from torch import nn
 from torch.profiler import record_function
 
 from repro_torch.models.lm.config import ModelConfig
+from repro_torch.models.lm import placement
 from repro_torch.models.lm.layers import dtype_of, init_linear, rmsnorm, trainable
+from repro_torch.models.lm.placement import is_placed
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int]:
     s = cfg.ssm
@@ -219,6 +221,41 @@ def _ssd_core(
     return y_intra + y_inter  # (B, L, Q, H, hd)
 
 
+def _ssd(xh, bh, ch, dtc, cum, out_dtype: torch.dtype, hb: int) -> torch.Tensor:
+    """:func:`_ssd_core` over blocks of ``hb`` heads when they divide the heads."""
+    n_heads = xh.shape[3]
+    if hb and hb < n_heads and n_heads % hb == 0:
+        return torch.cat([
+            _ssd_core(xh[:, :, :, i:i + hb], bh, ch, dtc[..., i:i + hb], cum[..., i:i + hb],
+                      out_dtype)
+            for i in range(0, n_heads, hb)], dim=3)
+    return _ssd_core(xh, bh, ch, dtc, cum, out_dtype)
+
+
+def _ssd_placed(xh, bh, ch, dtc, cum, out_dtype: torch.dtype, hb: int) -> torch.Tensor:
+    """:func:`_ssd` on local shards (a ``local_map`` region): the batch over
+    the data axes and the heads over ``model`` where xh, dtc and cum all have
+    them; B and C replicated over ``model`` (every head reads them), their
+    gradients summed over it when the heads are split."""
+    mesh = xh.device_mesh
+    keep = {}
+    for name in mesh.mesh_dim_names:
+        if name in placement.DATA_AXES and all(placement.shards(t, name, 0)
+                                               for t in (xh, bh, ch, dtc, cum)):
+            keep[name] = 0
+        elif name == "model" and all(placement.shards(t, name, 3) for t in (xh, dtc, cum)):
+            keep[name] = 3
+    heads = [n for n, d in keep.items() if d == 3]
+    batch = {n: d for n, d in keep.items() if d == 0}
+    per_head = placement.placements(mesh, keep)
+    shared = placement.placements(mesh, batch)
+    return placement.region(
+        lambda a, b_, c, d, e: _ssd(a, b_, c, d, e, out_dtype, hb), mesh, (xh, bh, ch, dtc, cum),
+        (per_head, shared, shared, per_head, per_head), per_head,
+        (per_head, placement.placements(mesh, batch, partial=heads),
+         placement.placements(mesh, batch, partial=heads), per_head, per_head))
+
+
 def mamba2_forward(p: Mamba2, x: torch.Tensor) -> torch.Tensor:
     """Chunked SSD. x: (B, S, d) → (B, S, d); S a multiple of the chunk (or
     shorter than one, :func:`check_seq`)."""
@@ -241,14 +278,10 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor) -> torch.Tensor:
     cum = torch.cumsum(a_log.reshape(b, n_chunks, q, n_heads), dim=2)
     del a_log
 
-    hb = s_cfg.head_block
-    if hb and hb < n_heads and n_heads % hb == 0:
-        y = torch.cat([
-            _ssd_core(xh[:, :, :, i:i + hb], bh, ch, dtc[..., i:i + hb], cum[..., i:i + hb],
-                      x.dtype)
-            for i in range(0, n_heads, hb)], dim=3)
+    if is_placed(xh):
+        y = _ssd_placed(xh, bh, ch, dtc, cum, x.dtype, s_cfg.head_block)
     else:
-        y = _ssd_core(xh, bh, ch, dtc, cum, x.dtype)
+        y = _ssd(xh, bh, ch, dtc, cum, x.dtype, s_cfg.head_block)
     del bh, ch, dtc, cum
 
     y = y.reshape(b, seq, n_heads, hd)

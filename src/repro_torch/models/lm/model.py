@@ -70,6 +70,7 @@ from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import mamba2 as m2
 from repro_torch.models.lm import moe as moe_lib
 from repro_torch.models.lm.config import VISION_WIDTH, ModelConfig
+from repro_torch.models.lm.placement import like, rows
 from repro_torch.models.lm.layers import (
     MLP,
     dtype_of,
@@ -206,14 +207,14 @@ class Block(nn.Module):
             return x, None
         if self.spec.ffn == "moe":
             y, aux = (self.moe.decode if decode else self.moe)(self.ln2(x))
-            return x + y, aux
-        return x + self.mlp(self.ln2(x)), None
+            return x + rows(y), aux
+        return x + rows(self.mlp(self.ln2(x))), None
 
     def mix_memory(self, x: torch.Tensor, memory: Optional[torch.Tensor]) -> torch.Tensor:
         """x + cross(ln_cross(x), memory); x itself without cross-attention or memory."""
         if not self.spec.cross or memory is None:
             return x
-        return x + self.cross(self.ln_cross(x), memory)
+        return x + rows(self.cross(self.ln_cross(x), memory))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 memory: Optional[torch.Tensor] = None
@@ -226,7 +227,7 @@ class Block(nn.Module):
             h = self.attn(h, positions)
         else:
             h = self.attn(h, positions, causal=False)
-        return self.ffn(self.mix_memory(x + h, memory))
+        return self.ffn(self.mix_memory(x + rows(h), memory))
 
     def prefill(
         self, x: torch.Tensor, positions: torch.Tensor, max_len: int,
@@ -241,7 +242,7 @@ class Block(nn.Module):
             cache = m2.ssm_state_after(self.mamba, h_in)
         else:
             h, cache = self.attn.prefill(h_in, positions, max_len)
-        return self.ffn(self.mix_memory(x + h, memory))[0], cache
+        return self.ffn(self.mix_memory(x + rows(h), memory))[0], cache
 
     def decode(
         self, x: torch.Tensor, cache: Cache, position: int,
@@ -251,7 +252,7 @@ class Block(nn.Module):
             h, cache = m2.mamba2_decode(self.mamba, self.ln1(x), cache)
         else:
             h, cache = self.attn.decode(self.ln1(x), cache, position)
-        return self.ffn(self.mix_memory(x + h, memory), decode=True)[0], cache
+        return self.ffn(self.mix_memory(x + rows(h), memory), decode=True)[0], cache
 
 
 class LM(nn.Module):
@@ -305,7 +306,7 @@ def init_params(
 
 
 def _positions(h: torch.Tensor) -> torch.Tensor:
-    return torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+    return like(h, torch.arange(h.shape[1], device=h.device).expand(h.shape[:2]))
 
 
 def _inputs_to_h(
@@ -320,7 +321,7 @@ def _inputs_to_h(
     h = embed_lookup(model.embed, tokens, compute)
     n_prefix = 0
     if model.cfg.num_image_tokens and img_embeds is not None:
-        vis = img_embeds.to(compute) @ model.img_proj.to(compute)
+        vis = rows(img_embeds.to(compute) @ model.img_proj.to(compute))
         h = torch.cat([vis, h], dim=1)
         n_prefix = img_embeds.shape[1]
     return h, _positions(h), n_prefix
@@ -372,7 +373,8 @@ class _Remat(torch.autograd.Function):
         with torch.no_grad():
             out, aux = block(h, positions, memory)
         ctx.has_aux = aux is not None
-        return out, aux if ctx.has_aux else torch.zeros((), dtype=torch.float32, device=out.device)
+        return out, aux if ctx.has_aux else like(out, torch.zeros((), dtype=torch.float32,
+                                                                  device=out.device))
 
     @staticmethod
     @once_differentiable
@@ -415,8 +417,8 @@ def forward(
             h, aux = block(h, positions, memory)
         if block.spec.ffn == "moe":
             auxes.append(aux)
-    aux = torch.stack(auxes).sum() if auxes else torch.zeros((), dtype=torch.float32,
-                                                               device=h.device)
+    aux = torch.stack(auxes).sum() if auxes else like(h, torch.zeros((), dtype=torch.float32,
+                                                                    device=h.device))
     return model.head(h), aux
 
 

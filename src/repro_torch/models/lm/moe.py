@@ -38,6 +38,7 @@ first pass did.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -45,7 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.lm.config import ModelConfig
+from repro_torch.models.lm import placement
 from repro_torch.models.lm.layers import MLP, dtype_of, linear_param, trainable
+from repro_torch.models.lm.placement import is_placed
 
 
 def _expert_param(
@@ -142,6 +145,11 @@ class Plan(NamedTuple):
     dispatch: torch.Tensor  # (ng, g, E, C) float32, 1 where a (token, expert) pair holds slot c
     combine: torch.Tensor  # (ng, g, E, C) float32, the pair's top-k weight there
     aux: torch.Tensor  # () float32, the Switch load-balancing loss
+    # Σ probs (E,) and the top-1 counts (E,) over every (group, position):
+    # the aux loss's terms before their means (a placed MoE reduces them
+    # over the data axes before it forms the loss)
+    probs_sum: torch.Tensor
+    top1_count: torch.Tensor
 
 
 def plan(moe: MoE, x: torch.Tensor) -> Plan:
@@ -164,7 +172,8 @@ def plan(moe: MoE, x: torch.Tensor) -> Plan:
     # Switch load-balancing aux loss, E·Σ_e f_e·P_e, with the reference's
     # ce: the mean over experts of the top-1 fractions, a scalar (1/E)
     me = probs.mean(dim=(0, 1))
-    ce = (_one_hot(top_idx[..., 0], e).sum(dim=(0, 1)) / (ng * g)).mean(dim=0)
+    top1 = _one_hot(top_idx[..., 0], e).sum(dim=(0, 1))
+    ce = (top1 / (ng * g)).mean(dim=0)
     aux = e * (me * ce).sum()
 
     dispatch = torch.zeros((ng, g, e, cap), dtype=torch.float32, device=x.device)
@@ -178,24 +187,89 @@ def plan(moe: MoE, x: torch.Tensor) -> Plan:
         sel = keep[..., None] * _one_hot(pos.to(torch.int32), cap)  # (ng, g, E, C)
         dispatch = dispatch + sel
         combine = combine + top_vals[..., slot][..., None, None] * sel
-    return Plan(tokens, n, top_idx, dispatch, combine, aux)
+    return Plan(tokens, n, top_idx, dispatch, combine, aux, probs.sum(dim=(0, 1)), top1)
+
+
+def _experts(p: Plan, w_gate, w_up, w_down, dtype) -> torch.Tensor:
+    """The routed experts' SwiGLU on the plan's slots, combined: (ng, g, d)."""
+    expert_in = torch.einsum("gsec,gsd->egcd", p.dispatch.to(dtype), p.tokens)  # (E, ng, C, d)
+    h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, w_gate.to(dtype))) * torch.einsum(
+        "egcd,edf->egcf", expert_in, w_up.to(dtype))
+    expert_out = torch.einsum("egcf,efd->egcd", h, w_down.to(dtype))
+    return torch.einsum("gsec,egcd->gsd", p.combine.to(dtype), expert_out)
 
 
 def moe_forward(moe: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) → (y, aux loss)."""
+    if is_placed(x):
+        return _moe_forward_placed(moe, x)
     b, s, d = x.shape
     p = plan(moe, x)
-    dtype = x.dtype
     ex = moe.experts
-    expert_in = torch.einsum("gsec,gsd->egcd", p.dispatch.to(dtype), p.tokens)  # (E, ng, C, d)
-    h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, ex.w_gate.to(dtype))) * torch.einsum(
-        "egcd,edf->egcf", expert_in, ex.w_up.to(dtype))
-    expert_out = torch.einsum("egcf,efd->egcd", h, ex.w_down.to(dtype))
-    y = torch.einsum("gsec,egcd->gsd", p.combine.to(dtype), expert_out)
+    y = _experts(p, ex.w_gate, ex.w_up, ex.w_down, x.dtype)
     y = y.reshape(-1, d)[:p.n].reshape(b, s, d)
     if moe.shared is not None:
         y = y + moe.shared(x)
     return y, p.aux
+
+
+def _moe_forward_placed(moe: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_forward` on placed x, in a ``local_map`` region: each rank
+    plans its own tokens' groups (batch over the data axes when its tokens
+    fill whole groups, else replicated) over every expert (the router is
+    replicated), then runs its own block of experts (over ``model``) and
+    gives its share of y, summed over ``model``. The aux loss's sums come out
+    summed over the data axes, and the loss is formed from them after."""
+    m = moe.cfg.moe
+    b, s, d = x.shape
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    ex = moe.experts
+    g = min(m.group_size, b * s)
+    data = [n for n in names if n in placement.DATA_AXES and placement.shards(x, n, 0)]
+    local_b = b // math.prod(mesh.size(names.index(n)) for n in data)
+    if (local_b * s) % g:
+        data = []  # a group would straddle two ranks' tokens: plan over the whole batch
+    model = [n for n in names if n == "model" and placement.shards(ex.w_gate, n, 0)]
+    batch_keep = {n: 0 for n in data}
+    x_pl = placement.placements(mesh, batch_keep)
+    w_pl = placement.placements(mesh, {n: 0 for n in model})
+    r_pl = placement.placements(mesh, {})
+
+    def local(xl, router, w_gate, w_up, w_down):
+        p = plan(_Router(moe.cfg, router), xl)
+        e_loc = w_gate.shape[0]
+        lo = mesh.get_local_rank("model") * e_loc if model else 0
+        p = p._replace(dispatch=p.dispatch[:, :, lo:lo + e_loc],
+                       combine=p.combine[:, :, lo:lo + e_loc])
+        y = _experts(p, w_gate, w_up, w_down, xl.dtype)
+        y = y.reshape(-1, d)[:p.n].reshape(xl.shape)
+        return y, p.probs_sum, p.top1_count
+
+    y, probs_sum, top1 = placement.region(
+        local, mesh, (x, moe.router, ex.w_gate, ex.w_up, ex.w_down),
+        (x_pl, r_pl, w_pl, w_pl, w_pl),
+        (placement.placements(mesh, batch_keep, partial=model),
+         placement.placements(mesh, {}, partial=data),
+         placement.placements(mesh, {}, partial=data)),
+        (placement.placements(mesh, batch_keep, partial=model),
+         placement.placements(mesh, {}, partial=data + model),
+         placement.placements(mesh, {n: 0 for n in model}, partial=data),
+         placement.placements(mesh, {n: 0 for n in model}, partial=data),
+         placement.placements(mesh, {n: 0 for n in model}, partial=data)))
+    tokens = -(-(b * s) // g) * g  # the groups' rows, padding included
+    e = m.num_experts
+    aux = e * ((probs_sum / tokens) * (top1 / tokens).mean(dim=0)).sum()
+    if moe.shared is not None:
+        y = y + moe.shared(x)
+    return y, aux
+
+
+class _Router(NamedTuple):
+    """What :func:`plan` reads of an MoE layer: its config and router."""
+
+    cfg: ModelConfig
+    router: torch.Tensor
 
 
 def moe_forward_gather(moe: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -204,6 +278,9 @@ def moe_forward_gather(moe: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     m = moe.cfg.moe
     b, s, d = x.shape
     tokens = x.reshape(-1, d)
+    if is_placed(x):
+        raise NotImplementedError("the gather form of MoE decode runs unplaced only; placed "
+                                  "decode takes moe_decode_impl='dispatch'")
     _, top_vals, top_idx = route(moe, tokens)
     dtype = x.dtype
     ex = moe.experts

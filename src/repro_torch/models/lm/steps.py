@@ -29,6 +29,7 @@ from repro_torch.models.lm import model as mdl
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.layers import dtype_of
 from repro_torch.models.lm.loss import cross_entropy, shift_labels
+from repro_torch.models.lm.placement import is_placed, rows
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 
 MOE_AUX_COEFF = 0.01
@@ -103,22 +104,36 @@ class DecodeState(NamedTuple):
     memory: Optional[torch.Tensor] = None  # the encoder's output (encoder–decoder)
 
 
-@torch.inference_mode()
+def _serving(model: mdl.LM):
+    """``torch.inference_mode()``; ``torch.no_grad()`` for a placed model
+    (DTensor's views of parameters made outside inference mode fail in it)."""
+    return torch.no_grad() if is_placed(model.embed) else torch.inference_mode()
+
+
 def serve_prefill(model: mdl.LM, batch: Dict[str, torch.Tensor], max_len: int) -> DecodeState:
+    with _serving(model):
+        return _prefill(model, batch, max_len)
+
+
+def _prefill(model: mdl.LM, batch: Dict[str, torch.Tensor], max_len: int) -> DecodeState:
     tokens = batch["tokens"]
     logits, caches, memory = mdl.prefill(model, tokens, max_len,
                                          img_embeds=batch.get("img_embeds"),
                                          enc_frames=batch.get("enc_frames"))
-    token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    token = torch.argmax(rows(logits[:, -1]), dim=-1)[:, None]
     seq = tokens.shape[1] + (model.cfg.num_image_tokens if "img_embeds" in batch else 0)
     return DecodeState(caches=caches, position=seq, last_token=token, logits=logits,
                        memory=memory)
 
 
-@torch.inference_mode()
 def serve_decode_step(model: mdl.LM, state: DecodeState) -> Tuple[DecodeState, torch.Tensor]:
     """Greedy one-token step; returns (new state, logits (B, 1, V))."""
+    with _serving(model):
+        return _decode_step(model, state)
+
+
+def _decode_step(model: mdl.LM, state: DecodeState) -> Tuple[DecodeState, torch.Tensor]:
     logits, caches = mdl.decode_step(model, state.last_token, state.caches, state.position,
                                      memory=state.memory)
-    token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    token = torch.argmax(rows(logits[:, -1]), dim=-1)[:, None]
     return DecodeState(caches, state.position + 1, token, logits, state.memory), logits

@@ -27,16 +27,18 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params: Tensors, *, state_dtype: torch.dtype = torch.float32) -> AdamWState:
     """Zero moments in ``state_dtype`` (storage only: the update's arithmetic
-    is always float32)."""
+    is always float32), placed as their parameters are."""
     return AdamWState(
-        mu={n: torch.zeros(p.shape, dtype=state_dtype, device=p.device) for n, p in params.items()},
-        nu={n: torch.zeros(p.shape, dtype=state_dtype, device=p.device) for n, p in params.items()},
+        mu={n: torch.zeros_like(p, dtype=state_dtype) for n, p in params.items()},
+        nu={n: torch.zeros_like(p, dtype=state_dtype) for n, p in params.items()},
         count=0,
     )
 
 
 def global_norm(grads: Tensors) -> torch.Tensor:
-    """sqrt(Σ g²) over every gradient, in float32, on the gradients' device."""
+    """sqrt(Σ g²) over every gradient, in float32, on the gradients' device.
+    On placed gradients each leaf's sum reduces over the axes that shard it,
+    so the norm is the whole model's on every rank."""
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
 
 

@@ -80,6 +80,26 @@ def test_mesh_theta_is_the_batched_theta_bitwise(pair, ndata, chunked):
         assert torch.equal(mesh.accept, batched.accept)
 
 
+@pytest.mark.parametrize("chunked", [False, True], ids=["one_shot", "chunked"])
+def test_model_axis_mesh_equals_the_data_axis_mesh_bitwise(chunked):
+    """``mesh_shape=(2, 2)`` on four named devices (cpu, repeated): each chain
+    group replicates over its model row, so θ is the (2, 1) mesh's bit for
+    bit, as the reference's (ndata, nmodel) mesh equals its (ndata,) one."""
+    extra = dict(stream_every=10) if chunked else {}
+    subs = (lambda ev: None,) if chunked else ()
+    base = _spec("logreg/mala", **extra)
+    rows = Pipeline(dataclasses.replace(base, mesh_shape=(2, 1)), device="cpu",
+                    devices=_cpus(2)).sample(on_chunk=subs)
+    pipe = Pipeline(dataclasses.replace(base, mesh_shape=(2, 2)), device="cpu",
+                    devices=_cpus(4))
+    assert pipe.devices == (torch.device("cpu"),) * 2 and pipe.mesh_shape == (2, 1)
+    grid = pipe.sample(on_chunk=subs)
+    assert grid.backend == rows.backend
+    assert torch.equal(grid.theta, rows.theta)
+    assert resolve_mesh_devices((2, 2), ("cpu:0", "cpu:1", "cpu:2", "cpu:3"), "cpu") == (
+        torch.device("cpu", 0), torch.device("cpu", 2))
+
+
 @pytest.mark.parametrize("check", [True, False])
 def test_one_shot_mesh_reports_its_check_when_asked(check):
     """``sample_subposteriors(check=)`` keeps ``repro``'s signature: the mesh
@@ -248,7 +268,7 @@ def test_mesh_refusals():
         resolve_mesh_devices((2, 1), None, "cpu")
     with pytest.raises(ValueError, match="needs 4 CUDA devices and 0 visible"):
         resolve_mesh_devices((4, 1), None, "cuda")
-    with pytest.raises(NotImplementedError, match="item 11.10"):
+    with pytest.raises(ValueError, match="has 4 devices .* names 2"):
         resolve_mesh_devices((2, 2), _cpus(2), "cpu")
     with pytest.raises(ValueError, match="must divide M=4"):
         resolve_mesh_devices((3, 1), _cpus(3), "cpu", 4)

@@ -511,7 +511,7 @@ def test_train_cli_sgd_runs_and_others_raise():
     assert len(vlm["losses"]) == 1 and np.isfinite(vlm["loss"])
     model, opt = vlm["state"]
     assert float(opt.mu["img_proj"].abs().max()) == 0.0 and opt.count == 1
-    with pytest.raises(NotImplementedError, match="11.10"):
+    with pytest.raises(RuntimeError, match="256 ranks; found no process group"):
         train.main(BASE + ["--mesh", "pod"])
 
 
