@@ -99,7 +99,13 @@ a non-zero exit:
               sweep-route launch a kernel-mode IMG sweep, nothing else),
               each L2 (logL2 for the GMM) inside its band from the port's CPU
               runs, MMD² beside it (as in 4b), and for ``linear`` the
-              parametric mean against the closed-form posterior mean;
+              parametric mean against the closed-form posterior mean; then
+              the paper's §8.2 and §8.3 experiments at their sizes
+              (``python -m repro_torch.launch.gmm_multimodal`` and
+              ``hierarchical_poisson``): ``img_log_weights`` by route (one
+              sweep-route launch a kernel-mode IMG sweep of nonparametric
+              and semiparametric), the modes covered (parametric fewer than
+              nonparametric), the acceptance of the RWMH and MALA halves;
 4h. mesh    — multi-device EP-MCMC on one card, two chain groups on two
               streams of cuda:0 (an explicit device list naming it twice):
               (a) ``Pipeline(PAPER_SPEC, mesh_shape=(2, 1))``: θ bitwise
@@ -115,7 +121,10 @@ a non-zero exit:
               local port), logreg/MALA
               and Poisson/Gibbs: the 2-process ``online`` samples bitwise the
               1-process ones, each rank's bytes through the store exactly
-              its moments and acceptance rates; the walls of every part;
+              its moments and acceptance rates; (e) linear/HMC and GMM/rwmh
+              (``GMM_SPEC``; their per-chain sums run over a shard's rows)
+              on the two groups, θ bit for bit the one-group run's; the
+              walls of every part;
 4i. train   — LM training at llama3.2-3b's full width (bf16, batch 1 x
               seq 4,096, remat "full"), through ``python -m
               repro_torch.launch.train``'s ``main``: (a) one block's
@@ -179,11 +188,14 @@ a non-zero exit:
               recurrence in float64, the first decoded token's logits
               against the chunked forward's (a reading beside (a)'s bf16
               tolerance); (c) ``train.main`` at batch 8 x 4,096: adamw 4
-              steps, one ``train_step`` at 3e-5 lowering the loss, epmcmc 4
-              chains x 24 layers, sgd 2 chains; (d) ``lm_bayes_sgld.main
-              (["--full-width", "--steps", "30", "--burn-in", "10"])`` on the
-              reference's model (its 60 steps cut to 30 to keep the script
-              within half its limit): the (4, 20, 768) history, the
+              steps, one ``train_step`` at 3e-5 lowering the loss, epmcmc 2
+              chains (cut from 4) x 12 layers (cut from 24), sgd 2 chains
+              x 12 layers; (d) ``lm_bayes_sgld.main
+              (["--full-width", "--steps", "26", "--burn-in", "10",
+              "--chains", "2"])`` on the
+              reference's model (its 60 steps cut to 26, the last
+              checkpoint at 25, to keep the script within half its limit):
+              the (2, 16, 768) history, the
               restored Welford count exact, finite draws;
 4m. hybrid  — jamba-1.5-large-398b at full width, layers 0-4 of its period
               (mamba+mlp, mamba+moe, mamba+mlp, mamba+moe, attn+mlp: 23.99 B
@@ -225,6 +237,17 @@ a non-zero exit:
               beside 4i's, ``max_memory_allocated`` beside the estimate; (b)
               a placed ``epmcmc_step`` (``state_specs``, ``batch_spec``) at
               4i(d)'s reduced config, bit for bit the unplaced one;
+4q. dense   — minitron-8b, a dense config new to the card (32 layers, d
+              4,096, GQA K 8 G 4, hd 128, d_ff 16,384, vocab 256,000, 9.88 B
+              parameters): (a) ``serve.main`` bf16 whole at B=2 x 4,096 +
+              16 (32 ``tensor_core`` flash launches a prefill) and 4d's
+              invariant, the float32 model built after the bf16 one is
+              freed; (b) full width cut to 6 of 32 layers, batch 1 x 4,096:
+              the loss and gradients under remat none, full and dots bit
+              for bit one another (seconds, peak and the bytes saved for
+              the backward each: dots' strictly between), then one AdamW
+              ``train_step`` under full and under dots from the seed's
+              weights, the same loss and parameters after it;
 5. timing   — CUDA-event times of each kernel (warm and with a cold L2,
               and the host's enqueue time) and its plain version at the
               paths' shapes (``logreg_loglik_grad`` at both the sampling and
@@ -251,7 +274,8 @@ a non-zero exit:
               at B=2 and B=4 and ``tf32x3`` at B=2, and at
               llava-next-mistral-7b's (K = 8, G = 4, hd 128, S = T = 4,672)
               bf16 at B=2 and B=1 and ``tf32x3`` at B=2, and at qwen1.5-4b's
-              (K = 20, G = 1, hd 128) bf16 at B=2; the
+              (K = 20, G = 1, hd 128) bf16 at B=2, and at minitron-8b's (K =
+              8, G = 4, hd 128, S = T = 4,096) bf16 at B=2 and B=1; the
               KDE kernel's bound the largest of its bytes, its three TF32
               passes on the tensor cores and its exps on the MUFU;
               ``flash_attention_bwd`` at the training shape (the bf16
@@ -263,8 +287,8 @@ a non-zero exit:
               tensor-core design's 7-product bound and the float32 FMA
               bound) and the forward there with and without lse, at the
               training shapes (llama's, granite's, deepseek's MLA, jamba's
-              layer 4, whisper's encoder, non-causal at B=4, and llava's;
-              SDPA's kernels named);
+              layer 4, whisper's encoder, non-causal at B=4, llava's and
+              minitron's; SDPA's kernels named);
 6. summary  — one JSON line of the kernels, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -1832,13 +1856,14 @@ def ssm_phase(dev, kernels, lm_config):
     (``train_4k``'s batch of 256 cut to 8), bf16, remat full: adamw 4 steps
     at the reference's 3e-4 (its losses a reading), then one
     ``lm_steps.train_step`` at 3e-5 that must lower the loss on batches 0
-    and 1 (``adam_probe.first_step``); epmcmc 4 chains × 24 layers 3 steps,
-    burn-in 1; sgd 2 chains 2 steps; s a step split into forward + backward
+    and 1 (``adam_probe.first_step``); epmcmc 2 chains × 12 layers
+    (``SSM_CHAIN_LAYERS``) 3 steps, burn-in 1; sgd 2 chains × 12 layers 2
+    steps; s a step split into forward + backward
     and the rest, peak memory. (d) The EP-MCMC driver at the reference's
-    model, ``lm_bayes_sgld.main(["--full-width", ...])`` (4 chains, batch 4,
-    seq 128; its default 60 steps and burn-in 20 cut to 30 and 10, which
-    took the script from ~594 s to within its 600 s budget once 4m and 4n
-    were added): the (4, 20, 768) history, the restored step-25 Welford
+    model, ``lm_bayes_sgld.main(["--full-width", ...])`` (2 chains, batch 4,
+    seq 128; its default 4 chains, 60 steps and burn-in 20 cut to 2, 26 and
+    10 to keep the script within its 600 s budget as phases were added):
+    the (2, 16, 768) history, the restored step-25 Welford
     count exactly 15 a chain, finite combined draws.
     Returns (the bf16 serving run's launches, the training runs' launches,
     the driver's launches, the record printed)."""
@@ -1993,8 +2018,8 @@ def ssm_phase(dev, kernels, lm_config):
               {r: 0 for r in kernels.KERNELS["flash_attention_bwd"].route_launches})
     base = ["--arch", arch, "--batch", "8", "--seq", "4096", "--log-every", "1", "--seed", "0"]
 
-    def run(label, argv, *, chains, steps):
-        out = train_run(kernels, cfg, base, label, argv, layers=cfg.num_layers, chains=chains,
+    def run(label, argv, *, chains, steps, layers=cfg.num_layers):
+        out = train_run(kernels, cfg, base, label, argv, layers=layers, chains=chains,
                         steps=steps, totals=totals, record=record, attention_layers=0)
         idle(label)
         return out
@@ -2012,25 +2037,34 @@ def ssm_phase(dev, kernels, lm_config):
                              f"{descent}")
     record["adamw_first_step_3e-5"] = descent
     torch.cuda.empty_cache()
-    label = "(c) epmcmc 4 chains x 24 layers"
-    out = run(label, ["--mode", "epmcmc", "--steps", "3", "--burn-in", "1", "--chains", "4"],
-              chains=4, steps=3)
+    # 2 chains, cut from 4: 5.1 s a step of the script's 600 s; 12 layers of 24,
+    # cut with the §8.2 and §8.3 drivers' one-chain combines (+9 s in 4e)
+    label = f"(c) epmcmc 2 chains x {SSM_CHAIN_LAYERS} layers"
+    out = run(label, ["--mode", "epmcmc", "--steps", "3", "--burn-in", "1", "--chains", "2",
+                      "--layers", str(SSM_CHAIN_LAYERS)],
+              chains=2, steps=3, layers=SSM_CHAIN_LAYERS)
     count, finite = out["welford_count"], out["combined_finite"]
     print(f"  {label}: Welford count {count}, combine_parametric_diag over "
           f"{out['combined_dims']} dims finite {finite}", flush=True)
-    if count != [2.0] * 4 or not finite:
+    if count != [2.0] * 2 or not finite:
         raise AssertionError(f"{label}: Welford count {count} (want 2 a chain), combined "
                              f"finite {finite}")
     del out
     torch.cuda.empty_cache()
-    run("(c) sgd 2 chains", ["--mode", "sgd", "--steps", "2", "--chains", "2"], chains=2, steps=2)
+    run(f"(c) sgd 2 chains x {SSM_CHAIN_LAYERS} layers",
+        ["--mode", "sgd", "--steps", "2", "--chains", "2", "--layers", str(SSM_CHAIN_LAYERS)],
+        chains=2, steps=2, layers=SSM_CHAIN_LAYERS)
     torch.cuda.empty_cache()
     part_done("c")
 
     # (d) the EP-MCMC driver on the reference's own model
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = lm_bayes_sgld.main(["--full-width", "--steps", "30", "--burn-in", "10"])
+    # 26 steps, cut from 30: the checkpoint at step 25 is the last the
+    # restart check needs; 2 chains, cut from 4: a step of 4 chains is ~2 s
+    # of the script's 600 s
+    res = lm_bayes_sgld.main(["--full-width", "--steps", "26", "--burn-in", "10", "--chains",
+                              "2"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # the LM's chains launch nothing; the combination stage's weierstrass
@@ -2045,14 +2079,14 @@ def ssm_phase(dev, kernels, lm_config):
     launches_driver = counts
     history, restored = res["history"], res["restored"]
     finite = bool(torch.isfinite(res["combined"].samples).all())
-    print(f"  (d) lm_bayes_sgld --full-width ({arch}, 4 chains, batch 4 x 128, 30 steps, burn-in "
+    print(f"  (d) lm_bayes_sgld --full-width ({arch}, 2 chains, batch 4 x 128, 26 steps, burn-in "
           f"10): history {tuple(history.shape)}, restored step {res['restored_step']} with "
           f"Welford counts {restored.m_count.tolist()}, combined draws "
           f"{tuple(res['combined'].samples.shape)} finite {finite}; wall {wall:.2f} s; "
           f"launches {json.dumps(counts)}, img_log_weights by route {json.dumps(routes)}",
           flush=True)
-    if (tuple(history.shape) != (4, 20, 768) or res["restored_step"] != 25
-            or restored.m_count.tolist() != [15.0] * 4 or not finite):
+    if (tuple(history.shape) != (2, 16, 768) or res["restored_step"] != 25
+            or restored.m_count.tolist() != [15.0] * 2 or not finite):
         raise AssertionError("(d) lm_bayes_sgld: history, restore or combination wrong")
     record["lm_bayes_sgld_wall_s"] = wall
     del res, history, restored
@@ -2837,6 +2871,214 @@ def vlm_phase(dev, kernels, lm_config):
             routes_train_bwd, record)
 
 
+# the training depth of 4q: minitron-8b's embedding and head are 2 x 1.05 B
+# parameters and a layer 243 M. 8 of its 32 layers (4.04 B: bf16 weights and
+# gradients 16.2 GB, float32 AdamW moments 32.3 GB) ran out of the card's
+# memory in the update, whose float32 temporaries over the 1.05 B-element
+# embedding take ~4.2 GB each (72.84 GB allocated when it asked 3.91 GB more,
+# on an NVIDIA H100 80GB HBM3); 6 layers (3.56 B) leave ~6 GB more room
+MINITRON_TRAIN_LAYERS = 6
+
+
+def minitron_phase(dev, kernels, lm_config):
+    """Phase 4q: minitron-8b, a dense config never run on the card before
+    (32 layers, d 4,096, 32 heads GQA 8 of 128 so flash at K = 8, G = 4,
+    d_ff 16,384, vocab 256,000, untied; 9.87 B parameters, 19.7 GB in
+    bf16; random weights from the seed). (a) ``serve.main`` bf16 at B = 2 ×
+    4,096 + 16, whole depth: 32 flash launches a prefill, all
+    ``tensor_core``; the same weights warm, held to forward within twice
+    bf16's own error (4d's rule: the bf16 forward against the float32 model
+    of the same draws, built after the bf16 one is freed). (b) full width
+    cut to ``MINITRON_TRAIN_LAYERS`` layers, batch 1 × 4,096: the loss and
+    its gradients under remat ``"none"``, ``"full"`` and ``"dots"`` from the
+    same weights (seconds, peak and the bytes ``saved_tensors_hooks`` see
+    over the forward each, dots' strictly between; every gradient and the loss bit for
+    bit across the three: the recomputation is the same arithmetic, and
+    ``dots`` hands each product its kept output), then one ``train_step``
+    (AdamW at 3e-4) under ``"full"`` and one under ``"dots"``, each from the
+    weights drawn again from the seed: the same loss and parameters after
+    the step (a float64 sum a leaf) bit for bit. Flash launches by route,
+    both directions on the bf16 ``tensor_core`` routes. Returns (the serving
+    run's launches, its flash launches by route, the training runs'
+    launches, their flash launches by route forward and backward, the
+    record)."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import model as lm_model
+    from repro_torch.models.lm import steps as lm_steps
+
+    arch = "minitron-8b"
+    phase(f"4q dense: {arch} full width (32 layers, d 4096, GQA K 8 G 4, d_ff 16384, vocab "
+          f"256000): serve B=2 S=4096 bf16 whole; train {MINITRON_TRAIN_LAYERS} of 32 layers "
+          "batch 1 x 4096 under remat none, full and dots")
+    cfg = lm_config(arch)
+    n_layers, prompt_len, gen_len = cfg.num_layers, 4096, 16
+    fwd_kernel = kernels.KERNELS["flash_attention"]
+    bwd_kernel = kernels.KERNELS["flash_attention_bwd"]
+    record = {"train_layers": MINITRON_TRAIN_LAYERS, "of_layers": n_layers}
+    argv = ["--arch", arch, "--batch", "2", "--prompt-len", str(prompt_len), "--gen",
+            str(gen_len), "--seed", "0"]
+
+    # (a) the CLI, bf16, whole depth
+    out, launches_serve, routes_serve, peak = serve_run(
+        kernels, fwd_kernel, "(a) serve bfloat16, 32 layers (serve.main)",
+        argv + ["--dtype", "bfloat16"], flash=n_layers, route="tensor_core",
+        vocab=cfg.vocab_size)
+    record["serve_bfloat16"] = {"prefill_s": out["prefill_s"],
+                                "decode_s_per_tok": out["decode_s_per_tok"],
+                                "peak_gb": peak / 1e9}
+    del out
+    torch.cuda.empty_cache()
+    _, model16, prompt = serve.setup(serve.parse(argv + ["--dtype", "bfloat16"]))
+    n_params = sum(p.numel() for p in model16.parameters())
+    out16 = dict(serve.generate(model16, prompt, gen_len), prompt=prompt)
+    fwd16 = forward_tail(model16, out16)
+    print(f"  (a) {n_params / 1e9:.3f} B parameters; warm: prefill_s={out16['prefill_s']:.4f} "
+          f"decode_ms_per_tok={out16['decode_s_per_tok'] * 1e3:.3f}", flush=True)
+    del model16
+    torch.cuda.empty_cache()
+    _, model32, prompt32 = serve.setup(serve.parse(argv + ["--dtype", "float32"]))
+    if not torch.equal(prompt32, prompt):
+        raise AssertionError("(a) the float32 setup drew another prompt")
+    dev16 = float((fwd16 - forward_tail(model32, out16)).abs().max())
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  (a) bfloat16 forward vs float32 forward (the same draws) on the same tokens: max "
+          f"|diff| = {dev16:.4e}", flush=True)
+    gap16 = invariant("(a) bfloat16 decode vs forward", out16, fwd16, 2.0 * dev16)
+    record["serve_bfloat16"].update(
+        warm_prefill_s=out16["prefill_s"], warm_decode_s_per_tok=out16["decode_s_per_tok"],
+        invariant_gap=gap16, bfloat16_vs_float32=dev16, params_b=n_params / 1e9)
+    del out16, fwd16
+    torch.cuda.empty_cache()
+
+    # (b) the loss and its gradients under each remat, the same weights
+    layers = MINITRON_TRAIN_LAYERS
+    cfg_t = dataclasses.replace(cfg, num_layers=layers)
+    launches_train = {name: 0 for name in kernels.KERNELS}
+    routes_train = {route: 0 for route in fwd_kernel.route_launches}
+    routes_train_bwd = {route: 0 for route in bwd_kernel.route_launches}
+
+    def count(label, forward):
+        counts = kernels.launch_counts()
+        routes, routes_bwd = dict(fwd_kernel.route_launches), dict(bwd_kernel.route_launches)
+        if (counts["flash_attention"] != forward or counts["flash_attention_bwd"] != layers
+                or routes.get("tensor_core") != forward
+                or routes_bwd != {"tensor_core": layers, "fma": 0}
+                or any(n for k, n in counts.items() if not k.startswith("flash"))):
+            raise AssertionError(f"{label} launched {counts}, forward by route {routes}, "
+                                 f"backward by route {routes_bwd}; want {forward} forward and "
+                                 f"{layers} backward, all tensor_core")
+        for name in counts:
+            launches_train[name] += counts[name]
+        for rt in routes:
+            routes_train[rt] += routes[rt]
+        for rt in routes_bwd:
+            routes_train_bwd[rt] += routes_bwd[rt]
+        return routes, routes_bwd
+
+    batch = TokenStream(cfg.vocab_size, 1, prompt_len, seed=1, device=dev).batch(0)
+    model = lm_model.init_params(cfg_t, generator=torch.Generator(device=dev).manual_seed(0),
+                                 device=dev)
+    params = dict(model.named_parameters())
+    n_train = sum(p.numel() for p in params.values())
+    first, grad_runs = None, {}
+    for remat in ("none", "full", "dots"):
+        c = dataclasses.replace(cfg_t, remat=remat)
+        model.cfg = c
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        saved = [0]
+
+        def pack(t):
+            saved[0] += t.numel() * t.element_size()
+            return t
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            total, _ = lm_steps.loss_fn(model, c, batch)
+        grads = lm_steps.grads_of(total, params)
+        torch.cuda.synchronize()
+        secs, gpeak = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev)
+        loss = float(total.detach())
+        del total
+        routes, routes_bwd = count(f"(b) loss_fn + gradients, remat {remat}",
+                                   layers if remat == "none" else 2 * layers)
+        if first is None:
+            first, diff = (loss, grads), 0.0
+        else:
+            diff = max(float((g.float() - first[1][n].float()).abs().max())
+                       for n, g in grads.items())
+            del grads
+        same = loss == first[0] and diff == 0.0
+        grad_runs[remat] = {"loss": loss, "s": secs, "peak_gb": gpeak / 1e9,
+                            "saved_gb": saved[0] / 1e9,
+                            "max_grad_diff_from_none": diff, "bitwise": same,
+                            "flash_by_route": routes, "flash_bwd_by_route": routes_bwd}
+        print(f"  (b) remat {remat}: loss {loss:.6f}, forward + backward {secs:.4f} s, peak "
+              f"max_memory_allocated {gpeak / 1e9:.2f} GB, saved for the backward over the "
+              f"forward {saved[0] / 1e9:.3f} GB; flash_attention {json.dumps(routes)}"
+              f", flash_attention_bwd {json.dumps(routes_bwd)}; loss and every gradient against"
+              f" none's: max |diff| {diff:.3e} {'bit for bit' if same else 'FAIL'}", flush=True)
+        if not same:
+            raise AssertionError(f"(b) remat {remat}: loss {loss} against {first[0]}, gradients "
+                                 f"{diff} apart")
+    peaks = {r: grad_runs[r]["peak_gb"] for r in grad_runs}
+    saved = {r: grad_runs[r]["saved_gb"] for r in grad_runs}
+    print(f"  (b) {layers} of {n_layers} layers, {n_train / 1e9:.3f} B parameters: peaks "
+          f"{json.dumps(peaks)} GB (dots between full and none: "
+          f"{peaks['full'] < peaks['dots'] < peaks['none']}); saved {json.dumps(saved)} GB "
+          f"(dots between: {saved['full'] < saved['dots'] < saved['none']})", flush=True)
+    if not saved["full"] < saved["dots"] < saved["none"]:
+        raise AssertionError(f"(b) saved bytes {saved}: dots not between full and none")
+    record["grads"] = grad_runs
+    record["train_params_b"] = n_train / 1e9
+    del model, params, first
+    torch.cuda.empty_cache()
+
+    # (b) one train_step under full and under dots, each from the seed's weights
+    steps = {}
+    for remat in ("full", "dots"):
+        c = dataclasses.replace(cfg_t, remat=remat)
+        model, opt = lm_steps.init_train_state(torch.Generator(device=dev).manual_seed(0), c,
+                                               device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, metrics = lm_steps.train_step(model, opt, batch, c)
+        torch.cuda.synchronize()
+        secs, speak = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev)
+        count(f"(b) train_step, remat {remat}", 2 * layers)
+        with torch.no_grad():
+            sums = torch.stack([p.double().sum() for p in model.parameters()]).cpu()
+        steps[remat] = {"loss": float(metrics["loss"]), "s": secs, "peak_gb": speak / 1e9,
+                        "param_sums": sums}
+        print(f"  (b) train_step adamw, remat {remat}: loss {steps[remat]['loss']:.6f}, "
+              f"{secs:.4f} s, peak max_memory_allocated {speak / 1e9:.2f} GB", flush=True)
+        del model, opt, metrics
+        torch.cuda.empty_cache()
+    same = (steps["full"]["loss"] == steps["dots"]["loss"]
+            and torch.equal(steps["full"]["param_sums"], steps["dots"]["param_sums"]))
+    print(f"  (b) train_step under full and dots: the same loss and parameter sums after the "
+          f"step: {'bit for bit' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError("(b) the dots step differs from the full step")
+    record["train_step"] = {r: {k: v for k, v in st.items() if k != "param_sums"}
+                            for r, st in steps.items()}
+    print(f"  4q launches: serve (bf16) {json.dumps(launches_serve)}; train "
+          f"{json.dumps(launches_train)}, flash_attention by route {json.dumps(routes_train)}, "
+          f"flash_attention_bwd by route {json.dumps(routes_train_bwd)}", flush=True)
+    print(f"  minitron {json.dumps(record)}", flush=True)
+    return (launches_serve, routes_serve, launches_train, routes_train, routes_train_bwd,
+            record)
+
+
 @contextlib.contextmanager
 def flash_calls():
     """A list of (B, S, T, causal), one a call the model makes to flash
@@ -3207,14 +3449,96 @@ def sharded_phase(dev, kernels, lm_config, train_record):
     return launches, routes, routes_bwd, record
 
 
+# 4l(c)'s epmcmc and sgd depth, cut from mamba2-130m's 24 layers to keep the
+# script within half its limit
+SSM_CHAIN_LAYERS = 12
+
+# acceptance bands of the §8.3 experiment's two halves: repro's
+# examples/hierarchical_poisson.py at seeds 0-2 on the CPU gave 0.26-0.27
+# (RWMH) and 0.99-1.00 (MALA); widened by 0.1 for the draws' Monte Carlo
+# error, as tests/test_torch_experiments.py holds the port's
+POISSON_EXPERIMENT_ACCEPT = {"rwmh": (0.16, 0.37), "mala": (0.89, 1.0)}
+# modes covered by the §8.2 experiment's one-chain nonparametric and
+# semiparametric combines at T 1,500: repro's examples/gmm_multimodal.py at
+# seeds 0-4 on the CPU covered 1 of 4 on every seed; up to 2 since a stray
+# second mode crosses the 2 % share on some draws (the port's one-chain
+# semiparametric on seed 0's draws, CPU: 0.028)
+GMM_EXPERIMENT_MODES = (1, 2)
+
+
+def paper_experiments(kernels, img_kernel):
+    """Phase 4e's last part: the paper's §8.2 and §8.3 experiments on the card,
+    ``launch.gmm_multimodal`` (K 4, N 20,000, M 6, T 1,500) and
+    ``launch.hierarchical_poisson`` (N 50,000, M 10, T 2,000), each at its
+    defaults, the counts reset before it and read after it, the whole run.
+    Each runs nonparametric and semiparametric in kernel mode with one index
+    chain, as the examples do: ``img_log_weights``' sweep route exactly T
+    launches each, nothing else launched. §8.2: the pool covers the 4 modes,
+    nonparametric and semiparametric each ``GMM_EXPERIMENT_MODES``,
+    parametric fewer than nonparametric; §8.3: every combiner's mean and d2
+    finite, the halves' acceptance in ``POISSON_EXPERIMENT_ACCEPT``.
+    Returns each experiment's record."""
+    import torch
+
+    from repro_torch.launch import gmm_multimodal, hierarchical_poisson
+
+    record = {}
+    for label, mod in (("gmm_multimodal", gmm_multimodal),
+                       ("hierarchical_poisson", hierarchical_poisson)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = mod.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routes = kernels.launch_counts(), dict(img_kernel.route_launches)
+        sweeps = 2 * -(-mod.T // mod.IMG["n_batch"])
+        print(f"  {label} (python -m repro_torch.launch.{label}): wall {wall:.2f} s; launches "
+              f"{json.dumps(counts)}", flush=True)
+        check_img_routes(label, routes, generic=0, sweep=sweeps)
+        idle = {k: n for k, n in counts.items() if k != "img_log_weights" and n}
+        if idle:
+            raise AssertionError(f"{label}: kernels off this path launched: {idle}")
+        if label == "gmm_multimodal":
+            modes, (lo, hi) = res["modes"], GMM_EXPERIMENT_MODES
+            ok = (modes["pool"] == gmm_multimodal.K
+                  and all(lo <= modes[n] <= hi for n in ("nonparametric", "semiparametric"))
+                  and modes["parametric"] < modes["nonparametric"])
+            print(f"  {label}: modes covered {json.dumps(modes)} (pool all {gmm_multimodal.K}, "
+                  f"nonparametric and semiparametric {lo}-{hi}, parametric fewer than "
+                  f"nonparametric) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{label}: modes covered {modes}")
+            record[label] = {"wall_s": wall, "modes": modes, "img_routes": routes,
+                             "accept": [float(a) for a in res["accept"]]}
+        else:
+            bands = POISSON_EXPERIMENT_ACCEPT
+            ok = (all(math.isfinite(v) for v in res["d2"].values())
+                  and all(bool(torch.isfinite(m).all()) for m in res["means"].values())
+                  and bands["rwmh"][0] <= res["accept"][0] <= bands["rwmh"][1]
+                  and bands["mala"][0] <= res["accept"][1] <= bands["mala"][1])
+            print(f"  {label}: acceptance RWMH {res['accept'][0]:.4f}, MALA "
+                  f"{res['accept'][1]:.4f} (bands {json.dumps(bands)}); d2 {json.dumps(res['d2'])}"
+                  f" {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{label}: acceptance {res['accept']}, d2 {res['d2']}")
+            record[label] = {"wall_s": wall, "d2": res["d2"], "img_routes": routes,
+                             "accept": res["accept"]}
+        del res
+    return record
+
+
 def multi_device_phase(dev, kernels, img_kernel, online_kernel, *, paper_theta, paper_errors,
                        paper_timings, paper_lr, sample_lr, paper_img, stream_sr, stream_theta,
-                       stream_sub, launches_stream, stream_img, n_chunks, cells, mres):
+                       stream_sub, launches_stream, stream_img, n_chunks, cells, mres,
+                       gmm_theta):
     """Phase 4h: multi-device EP-MCMC on one card. Two chain groups on two
     streams of cuda:0 (the counterpart of a forced host device count): (a)
     the paper's pipeline, (b) the fused stream and an interrupted,
     checkpointed chunked run, (c) the 8-cell sweep fanned out, (d) the launch
-    in 1 and 2 processes. Returns the launches of (a) and (b) and the walls."""
+    in 1 and 2 processes, (e) linear/HMC and GMM/rwmh (``GMM_SPEC``, 4e's
+    one-group θ ``gmm_theta``), whose per-chain sums run over a shard's rows,
+    on two groups: θ bit for bit the one-group run's. Returns the launches
+    of (a) and (b) and the walls."""
     import tempfile
 
     import torch
@@ -3403,6 +3727,31 @@ def multi_device_phase(dev, kernels, img_kernel, online_kernel, *, paper_theta, 
         print(f"  (d) {label}: both ranks' online samples bitwise the 1-process run's; each "
               f"rank put {want_bytes} bytes (count, mean, m2 of {per} chains at d = {d} and "
               "their acceptance rates; no shape holds T)", flush=True)
+    # (e) per-chain sums over a shard's rows (models/bayes: linear's
+    # SquaredResiduals, the GMM's MixtureLogLik) in an order that does not
+    # follow the chain count: five chains a group draw the ten chains' bits
+    from repro_torch.launch.mcmc_run import GMM_SPEC, LINEAR_SPEC
+
+    hmc = dataclasses.replace(LINEAR_SPEC, sampler="hmc")
+    for label, spec, want in (("linear hmc", hmc, None), ("gmm rwmh", GMM_SPEC, gmm_theta)):
+        if want is None:
+            t0 = time.perf_counter()
+            want = Pipeline(spec).sample().theta
+            torch.cuda.synchronize()
+            walls[f"e_{label}_one_group"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        draws = Pipeline(dataclasses.replace(spec, mesh_shape=(2, 1)), devices=two).sample()
+        torch.cuda.synchronize()
+        walls[f"e_{label}_two_groups"] = time.perf_counter() - t0
+        gap = float((draws.theta - want).abs().max())
+        same = draws.backend == "mesh[cuda](2 devices)" and torch.equal(draws.theta, want)
+        print(f"  (e) {label} (M = {spec.M}, T = {spec.T}) on two groups of five: "
+              f"backend={draws.backend}, θ max |diff| from one group {gap:.3e}: "
+              f"{'bit for bit' if same else 'FAIL'}", flush=True)
+        if not same:
+            raise AssertionError(f"(e) {label}: the two groups' θ differs from one group's by "
+                                 f"{gap}")
+        del draws
     print(f"  4h walls: {json.dumps(walls)}", flush=True)
     return launches_a, launches_b, walls
 
@@ -4461,6 +4810,9 @@ def main() -> int:
         del pipe
     print(f"  poisson gibbs moments {json.dumps(gibbs_moments)}", flush=True)
     torch.cuda.empty_cache()
+    experiments = paper_experiments(kernels, img_kernel)
+    img_routes.update({label: d["img_routes"] for label, d in experiments.items()})
+    torch.cuda.empty_cache()
 
     phase("4f serve: the posterior server on SERVE_SPEC (PosteriorServer, 4 TCP probe readers)")
     import tempfile
@@ -4650,7 +5002,8 @@ def main() -> int:
         paper_errors=paper_errors, paper_timings=paper_timings, paper_lr=want_lr,
         sample_lr=sample_lr, paper_img=img_routes["paper"], stream_sr=sr,
         stream_theta=fused.theta, stream_sub=sub, launches_stream=launches_stream,
-        stream_img=img_routes["stream"], n_chunks=n_chunks, cells=cells, mres=mres)
+        stream_img=img_routes["stream"], n_chunks=n_chunks, cells=cells, mres=mres,
+        gmm_theta=other["gmm rwmh"]["theta"])
     torch.cuda.empty_cache()
 
     launches_train, routes_train, routes_train_bwd, train_record = train_phase(dev, kernels,
@@ -4676,6 +5029,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     (launches_sharded, routes_sharded, routes_sharded_bwd,
      sharded_record) = sharded_phase(dev, kernels, lm_config, train_record)
+    torch.cuda.empty_cache()
+    (launches_dense_serve, routes_dense_serve, launches_dense_train, routes_dense_train,
+     routes_dense_train_bwd, dense_record) = minitron_phase(dev, kernels, lm_config)
     torch.cuda.empty_cache()
 
     phase("5 timing (CUDA events)")
@@ -4970,7 +5326,9 @@ def main() -> int:
             ("llava bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 4, 128, 128, 4672, True)),
             ("llava bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 4, 128, 128, 4672, True)),
             ("llava float32 B=2", 2, torch.float32, "tf32x3", (8, 4, 128, 128, 4672, True)),
-            ("qwen bf16 B=2", 2, torch.bfloat16, "tensor_core", (20, 1, 128, 128))):
+            ("qwen bf16 B=2", 2, torch.bfloat16, "tensor_core", (20, 1, 128, 128)),
+            ("minitron bf16 B=2", 2, torch.bfloat16, "tensor_core", (8, 4, 128, 128)),
+            ("minitron bf16 B=1", 1, torch.bfloat16, "tensor_core", (8, 4, 128, 128))):
         K, G, hd, hd_v, S, causal = shape + (4096, True)[len(shape) - 4:]
         mode = "causal" if causal else "non-causal"
         if label == misaligned:
@@ -5049,14 +5407,16 @@ def main() -> int:
                             ("jamba", ("bf16 B=2", "bf16 B=1", "float32 B=2")),
                             ("whisper encoder", ("bf16 B=2", "bf16 B=4", "float32 B=2")),
                             ("llava", ("bf16 B=2", "bf16 B=1", "float32 B=2")),
-                            ("qwen", ("bf16 B=2",)))})
+                            ("qwen", ("bf16 B=2",)),
+                            ("minitron", ("bf16 B=2", "bf16 B=1")))})
     rows.append(flash_row)
     bwd_row = flash_bwd_timing(dev, gen, flush)
     for arch, kw in (("granite", dict(K=8, G=2, hd=64)),
                      ("deepseek", dict(K=128, G=1, hd=192, hd_v=128)),
                      ("jamba", dict(K=8, G=8, hd=128)),
                      ("whisper_encoder", dict(K=8, G=1, hd=64, B=4, S=1500, causal=False)),
-                     ("llava", dict(K=8, G=4, hd=128, S=4672))):
+                     ("llava", dict(K=8, G=4, hd=128, S=4672)),
+                     ("minitron", dict(K=8, G=4, hd=128))):
         bwd_row[f"at_{arch}"] = flash_bwd_timing(dev, gen, flush, **kw)
         del bwd_row[f"at_{arch}"]["name"]
     rows.append(bwd_row)
@@ -5081,6 +5441,9 @@ def main() -> int:
                                  "mesh_paper": launches_mesh[name],
                                  "mesh_stream": launches_mesh_stream[name],
                                  **{label: o["launches"][name] for label, o in other.items()},
+                                 **{label: sum(d["img_routes"].values())
+                                    if name == "img_log_weights" else 0
+                                    for label, d in experiments.items()},
                                  "train": launches_train[name],
                                  "serve_moe": launches_moe_serve[name],
                                  "train_moe": launches_moe_train[name],
@@ -5096,7 +5459,9 @@ def main() -> int:
                                  "serve_vlm": launches_vlm_serve[name],
                                  "train_vlm": launches_vlm_train[name],
                                  "serve_qwen": launches_qwen_serve[name],
-                                 "train_sharded": launches_sharded[name]},
+                                 "train_sharded": launches_sharded[name],
+                                 "serve_minitron": launches_dense_serve[name],
+                                 "train_minitron": launches_dense_train[name]},
         }
         if name in err32:
             entry["max_abs_err_float32_plain"] = err32[name]
@@ -5123,7 +5488,9 @@ def main() -> int:
                                           "serve_vlm_float32": routes_vlm_serve["float32"],
                                           "train_vlm": routes_vlm_train,
                                           "serve_qwen_bfloat16": routes_vlm_serve["qwen_bfloat16"],
-                                          "train_sharded": routes_sharded}
+                                          "train_sharded": routes_sharded,
+                                          "serve_minitron_bfloat16": routes_dense_serve,
+                                          "train_minitron": routes_dense_train}
             entry["max_abs_err_by_route"] = flash_err64
             entry["lse_max_abs_err"] = lse_err
         if name == "flash_attention_bwd":  # the training runs' launches, by route
@@ -5133,7 +5500,8 @@ def main() -> int:
                                           "train_hybrid": routes_hybrid_train_bwd,
                                           "train_encdec": routes_encdec_train_bwd,
                                           "train_vlm": routes_vlm_train_bwd,
-                                          "train_sharded": routes_sharded_bwd}
+                                          "train_sharded": routes_sharded_bwd,
+                                          "train_minitron": routes_dense_train_bwd}
             entry["max_abs_err_by_route"] = bwd_err64
             entry["train"] = train_record
             entry["moe"] = moe_record
@@ -5142,6 +5510,7 @@ def main() -> int:
             entry["encdec"] = encdec_record
             entry["vlm"] = vlm_record
             entry["sharded"] = sharded_record
+            entry["minitron"] = dense_record
         out.append(entry)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

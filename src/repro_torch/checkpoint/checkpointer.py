@@ -41,7 +41,7 @@ import re
 import shutil
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,9 +81,11 @@ def save(
     *,
     metadata: Optional[Dict[str, Any]] = None,
     keep: int = 3,
+    write: Optional[Callable[[pathlib.Path, Any], Tuple[tuple, str]]] = None,
 ) -> pathlib.Path:
     """Write one checkpoint synchronously; returns the committed directory.
-    ``keep`` newest steps survive (0 keeps all)."""
+    ``keep`` newest steps survive (0 keeps all). ``write(file, leaf) ->
+    (shape, dtype)``, if given, writes each leaf's ``.npy`` itself."""
     root = pathlib.Path(root)
     root.mkdir(parents=True, exist_ok=True)
     final = _step_dir(root, step)
@@ -94,11 +96,15 @@ def save(
     host_dir.mkdir(parents=True)
     leaves = []
     for i, (path, leaf) in enumerate(_flatten(tree)):
-        arr = _to_numpy(leaf)
         fname = f"leaf_{i:05d}.npy"
-        np.save(host_dir / fname, arr)
+        if write is None:
+            arr = _to_numpy(leaf)
+            np.save(host_dir / fname, arr)
+            shape, dtype = arr.shape, str(arr.dtype)
+        else:
+            shape, dtype = write(host_dir / fname, leaf)
         leaves.append({
-            "index": i, "path": path, "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "index": i, "path": path, "shape": list(shape), "dtype": dtype,
             "file": f"{_HOST_DIR}/{fname}",
         })
     manifest = {"step": step, "format": 1, "num_hosts": 1, "leaves": leaves,
@@ -131,10 +137,11 @@ def latest_step(root: str | os.PathLike) -> Optional[int]:
 
 
 def restore(
-    root: str | os.PathLike, *, step: Optional[int] = None
+    root: str | os.PathLike, *, step: Optional[int] = None, mmap: bool = False
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
     """Load a checkpoint (the newest if ``step`` is None):
-    ``({path: numpy array}, metadata)``."""
+    ``({path: numpy array}, metadata)``; ``mmap`` maps the files read-only
+    instead, so a reader takes only the parts it indexes."""
     root = pathlib.Path(root)
     if step is None:
         step = latest_step(root)
@@ -142,7 +149,9 @@ def restore(
             raise FileNotFoundError(f"no committed checkpoints under {root}")
     d = _step_dir(root, step)
     manifest = json.loads((d / "MANIFEST.json").read_text())
-    leaves = {leaf["path"]: np.load(d / leaf["file"]) for leaf in manifest["leaves"]}
+    mode = "r" if mmap else None
+    leaves = {leaf["path"]: np.load(d / leaf["file"], mmap_mode=mode)
+              for leaf in manifest["leaves"]}
     return leaves, manifest["metadata"]
 
 

@@ -503,17 +503,22 @@ def sgd_baseline_step(
     across chains* (the data-axis all-reduce EP-MCMC eliminates) and one
     preconditioned step of every chain with the mean, in place. The mean is
     summed in float32 and cast to the parameter's dtype, as the reference's
-    ``jnp.mean`` of the stacked gradients gives it."""
-    if is_placed(state.m_count):
-        raise NotImplementedError("the synchronous baseline steps an unplaced state; placed "
-                                  "states run epmcmc_step")
+    ``jnp.mean`` of the stacked gradients gives it.
+
+    A placed state (:func:`place_state`) sums the gradients of the chains
+    its rank holds (their local blocks, in chain order) and all-reduces
+    those sums over the chain axes (:func:`_sum_over_chains`), each leaf's
+    model-axis placement kept: the reference's data-axis all-reduce. The
+    sum's order is then the backend's over the ranks' partial sums, not the
+    unplaced step's chain order, so the placed step equals the unplaced one
+    to float32 rounding of the mean (``tests/test_torch_spmd.py`` states
+    the tolerance). The metrics are then placed (C,) tensors."""
     n_chains = state.m_count.shape[0]
-    losses, total = [], None
-    for c in range(n_chains):
-        model = chain_view(cfg, state.params, c)
-        loss, grads = _neg_logpost_and_grads(model, cfg, _chain_batch(batch, c),
-                                             num_shards=num_shards, shard_tokens=shard_tokens)
-        del model
+    losses, chains, total = [], [], None
+    for chain in _chains(state, batch, cfg):
+        loss, grads = _neg_logpost_and_grads(chain.model, cfg, chain.batch,
+                                             num_shards=num_shards, shard_tokens=shard_tokens,
+                                             chain=None if chain.placements is None else chain)
         with torch.no_grad():
             if total is None:
                 total = {n: g.float() for n, g in grads.items()}
@@ -522,16 +527,39 @@ def sgd_baseline_step(
                     total[n] += g.float()
         del grads
         losses.append(loss)
+        chains.append(chain)
+    placed = is_placed(state.m_count)
+    if placed:
+        total = _sum_over_chains(total, chains[0], state.m_count.device_mesh)
     with torch.no_grad():
         for name, gsum in total.items():
-            p_all, v_all = state.params[name], state.v[name]
-            g32 = (gsum / n_chains).to(p_all.dtype).float()
-            for c in range(n_chains):
-                v = v_all[c]
+            g32 = (gsum / n_chains).to(chains[0].params[name].dtype).float()
+            for chain in chains:
+                v, p = chain.v[name], chain.params[name]
                 v.mul_(rmsprop_decay).add_((1 - rmsprop_decay) * torch.square(g32))
                 precond = 1.0 / (torch.sqrt(v) + rmsprop_eps)
-                p_all[c].copy_(p_all[c].float() - 0.5 * step_size * precond * g32)
-    return state._replace(step=state.step + 1), {"loss_per_chain": torch.stack(losses)}
+                p.copy_(p.float() - 0.5 * step_size * precond * g32)
+    metrics = {"loss_per_chain": torch.stack(losses)}
+    if placed:
+        metrics = {k: _chain_placed(v, state.m_count) for k, v in metrics.items()}
+    return state._replace(step=state.step + 1), metrics
+
+
+def _sum_over_chains(partial: Tensors, chain: _Chain, mesh) -> Tensors:
+    """Each leaf's sum over every rank's chains: this rank's partial sum (a
+    local block) all-reduced over the chain axes, the model axis' placement
+    kept (a ``Partial`` → ``Replicate`` redistribution on those axes)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    model_at = mesh.mesh_dim_names.index("model")
+    out = {}
+    for name, t in partial.items():
+        on_model = chain.placements[name][0]
+        src = [on_model if i == model_at else Partial() for i in range(mesh.ndim)]
+        dst = [on_model if i == model_at else Replicate() for i in range(mesh.ndim)]
+        out[name] = DTensor.from_local(t, mesh, src, run_check=False).redistribute(
+            mesh, dst).to_local()
+    return out
 
 
 # ---------------------------------------------------------------------------

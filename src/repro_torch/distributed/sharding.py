@@ -279,17 +279,27 @@ def to_placements(mesh, spec: Spec):
             for i, a in enumerate(mesh.mesh_dim_names)]
 
 
-def local_block(t: torch.Tensor, mesh, placements) -> torch.Tensor:
-    """This rank's block of the whole tensor ``t`` under ``placements`` (mesh
-    dimensions in order, the first outermost): a view, no communication."""
+def block_index(shape, mesh, placements, coord=None) -> tuple:
+    """The slices of the rank at mesh coordinate ``coord`` (this rank's if
+    None) into a whole tensor of ``shape`` under ``placements`` (mesh
+    dimensions in order, the first outermost)."""
     from torch.distributed.tensor import Shard
 
-    coord = mesh.get_coordinate()
+    coord = mesh.get_coordinate() if coord is None else coord
+    index = [slice(None)] * len(shape)
     for i, p in enumerate(placements):
         if isinstance(p, Shard):
-            n = mesh.size(i)
-            t = t.narrow(p.dim, coord[i] * (t.shape[p.dim] // n), t.shape[p.dim] // n)
-    return t
+            s, n = index[p.dim], mesh.size(i)
+            start = s.start or 0
+            size = ((s.stop if s.stop is not None else shape[p.dim]) - start) // n
+            index[p.dim] = slice(start + coord[i] * size, start + (coord[i] + 1) * size)
+    return tuple(index)
+
+
+def local_block(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``placements``: a
+    view, no communication."""
+    return t[block_index(t.shape, mesh, placements)]
 
 
 def place(t: torch.Tensor, mesh, spec: Spec):

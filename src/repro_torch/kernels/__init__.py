@@ -149,6 +149,7 @@ _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()  # guards every kernel's counts
 _CAPTURING = threading.local()  # .tally: the LaunchTally of this thread's capture
 _OPERANDS = threading.local()  # .watch: called on every operand check_tensor passes
+_PLAIN = threading.local()  # .depth: runs of a plain version open on this thread
 
 
 def _nvcc() -> str:
@@ -300,6 +301,24 @@ def watch_operands(fn: Callable[[torch.Tensor, str], None]):
         yield
     finally:
         _OPERANDS.watch = None
+
+
+@contextlib.contextmanager
+def plain_version():
+    """Entered by a wrapper around its run of the kernel's plain version (a
+    CPU tensor's route): what runs inside is one kernel, as its launch on
+    the card is one opaque call, and :func:`in_plain_version` says so to a
+    dispatch mode that treats a kernel as one operation."""
+    _PLAIN.depth = getattr(_PLAIN, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _PLAIN.depth -= 1
+
+
+def in_plain_version() -> bool:
+    """Whether this thread is inside a kernel's plain version."""
+    return getattr(_PLAIN, "depth", 0) > 0
 
 
 def check_tensor(

@@ -72,7 +72,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import KERNELS, check_error, device_index, stream_handle
+from repro_torch.kernels import KERNELS, check_error, device_index, plain_version, stream_handle
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
 KERNEL = KERNELS["flash_attention"]
@@ -275,7 +275,9 @@ def flash_attention(
         out, lse = _launch(q, k, v, causal, kv_len, return_lse)
         return (out, lse) if return_lse else out
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len, return_lse=return_lse)
+        with plain_version():
+            return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
+                                       return_lse=return_lse)
     if q.device.type == "meta":
         out, lse = _meta(q, k, v, causal, kv_len, backward=False)
         return (out, lse) if return_lse else out
@@ -468,7 +470,9 @@ def flash_attention_bwd(
     if q.device.type == "cuda":
         return _launch_bwd(q, k, v, out, lse, dout, causal, kv_len)
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, kv_len=kv_len)
+        with plain_version():
+            return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                           kv_len=kv_len)
     if q.device.type == "meta":
         return _meta(q, k, v, causal, kv_len, backward=True, extra=(out, lse, dout))
     raise ValueError(f"no flash_attention_bwd for device {q.device}")

@@ -18,12 +18,21 @@ the process group started by the launcher, e.g. ``torchrun``; with fewer
 ranks it raises and names the count): ``--chains 0`` is then one chain a
 (pod, data) coordinate (``epmcmc.num_chains(mesh)``), each chain
 tensor-parallel over ``model`` (``epmcmc.place_state``), and adamw's model
-and batch placed by the sharding rules; no checkpoints, no ``sgd``. Data is a function of (seed,
-shard, step) (:class:`repro_torch.data.TokenStream`), so a restarted run
-replays the exact stream. Checkpoints go through the port's async
+and batch placed by the sharding rules; ``--mode sgd`` all-reduces the
+chains' gradients over the chain axes (``epmcmc.sgd_baseline_step``).
+Data is a function of (seed, shard, step)
+(:class:`repro_torch.data.TokenStream`), so a restarted run replays the
+exact stream. Checkpoints go through the port's async
 :class:`~repro_torch.checkpoint.Checkpointer` every ``--ckpt-every`` steps
 with the chains' generator states, and ``--resume`` restarts from the
-newest one bit for bit (the chain count must be the checkpoint's). Beyond
+newest one bit for bit (the chain count must be the checkpoint's: the
+reference's CLI restores onto a template of the new count without
+re-partitioning, so an elastic resume is refused here and left to the
+library's ``restore_elastic_chains``). A placed run writes whole leaves,
+as the reference's ``device_get`` does, but no rank holds a whole one: rank
+0 receives each leaf's blocks one at a time and writes them into the
+leaf's file (``save_placed``), and a resume reads each rank's own blocks
+from the memory-mapped files into a fresh placed state. Beyond
 the reference's flags: ``--device`` (``cuda`` unless ``cpu``) and
 ``--layers`` (cut the depth, the width unchanged; 0 keeps the config's).
 Every family (``check_supported``): ``--arch granite-moe-1b-a400m``, ``--arch
@@ -59,9 +68,11 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint import Checkpointer, latest_step, restore
+from repro_torch.checkpoint import Checkpointer, latest_step, restore, save
+from repro_torch.checkpoint.checkpointer import _flatten
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenStream
 from repro_torch.distributed import epmcmc
@@ -102,8 +113,9 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
-    """A tensor numpy can hold, bit for bit: bfloat16 as int16."""
-    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    """A tensor numpy can hold, bit for bit: bfloat16 as int16 (a placed
+    tensor as it is: its blocks are converted as they are written)."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 and not is_placed(t) else t
 
 
 def _unbits(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -112,20 +124,103 @@ def _unbits(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
+def _senders(t) -> list:
+    """``(rank, mesh coordinate)`` of one holder of each block of a placed
+    tensor: the ranks at coordinate 0 of every mesh dimension it is
+    replicated over."""
+    from torch.distributed.tensor import Shard
+
+    grid = t.device_mesh.mesh
+    return [(int(grid[c]), c) for c in np.ndindex(*grid.shape)
+            if all(c[i] == 0 for i, p in enumerate(t.placements) if not isinstance(p, Shard))]
+
+
+def _write_leaf(path, t) -> tuple:
+    """Rank 0's writer of one checkpoint leaf. A placed tensor is written
+    block by block into the leaf's file (a numpy memmap): its own block, then
+    each other holder's, received from that rank alone, so no rank holds
+    more of a leaf than one block."""
+    if not is_placed(t):
+        a = np.asarray(_bits(t.detach()).cpu().numpy() if isinstance(t, torch.Tensor) else t)
+        np.save(path, a)
+        return a.shape, str(a.dtype)
+    local = t.to_local().detach().contiguous()
+    dtype = _bits(local.reshape(-1)[:0]).cpu().numpy().dtype
+    mm = np.lib.format.open_memmap(path, mode="w+", dtype=dtype, shape=tuple(t.shape))
+    for rank, coord in _senders(t):
+        if rank == torch.distributed.get_rank():
+            block = local
+        else:  # sent as bytes: every backend carries them
+            block = torch.empty_like(local)
+            torch.distributed.recv(block.view(-1).view(torch.uint8), src=rank)
+        mm[shd.block_index(t.shape, t.device_mesh, t.placements, coord)] = (
+            _bits(block).cpu().numpy())
+        del block
+    mm.flush()
+    del mm
+    return tuple(t.shape), str(dtype)
+
+
+def save_placed(root, step: int, tree, *, metadata: dict) -> None:
+    """A checkpoint of a placed run, every rank joining: whole leaves, as the
+    reference's ``device_get`` writes them. Rank 0 writes (the manifest last,
+    ``checkpointer.save``) and receives each placed leaf's blocks one at a
+    time (``_write_leaf``); every other holder of a block sends it, in the
+    leaves' order; a barrier ends it, so any rank may then read it."""
+    if torch.distributed.get_rank() == 0:
+        save(root, step, tree, metadata=metadata, write=_write_leaf)
+    else:
+        for _, t in _flatten(tree):
+            if is_placed(t) and any(r == torch.distributed.get_rank() for r, _ in _senders(t)):
+                block = t.to_local().detach().contiguous()
+                torch.distributed.send(block.view(-1).view(torch.uint8), dst=0)
+    torch.distributed.barrier()
+
+
+def _load(t: torch.Tensor, a: np.ndarray) -> None:
+    """Copy the whole leaf ``a`` (an array or a read-only memmap) into ``t``:
+    a placed tensor reads its rank's block alone."""
+    if is_placed(t):
+        local = t.to_local()
+        local.copy_(_unbits(a[shd.block_index(a.shape, t.device_mesh, t.placements)], local))
+    else:
+        t.copy_(_unbits(a, t))
+
+
+def _rng_states(state: epmcmc.EpmcmcState) -> list:
+    """Every chain's generator state. A placed run draws chain c's noise only
+    on the ranks that hold chain c, so the states are gathered by chain as
+    the counts are placed."""
+    if not is_placed(state.m_count):
+        return [g.get_state() for g in state.gens]
+    from torch.distributed.tensor import DTensor
+
+    states = torch.stack([g.get_state() for g in state.gens])
+    count = state.m_count
+    local = count.to_local()
+    first = local.shape[0] * epmcmc._chain_coordinate(count.device_mesh)
+    rows = states[first:first + local.shape[0]].to(local.device)
+    whole = DTensor.from_local(rows, count.device_mesh, count.placements, run_check=False,
+                               shape=states.shape, stride=states.stride()).full_tensor()
+    return list(whole.cpu())
+
+
 def epmcmc_tree(state: epmcmc.EpmcmcState) -> dict:
-    """The checkpoint tree of an EP-MCMC state (generators as their states)."""
-    return {"params": {n: _bits(p) for n, p in state.params.items()}, "v": state.v,
-            "m_mean": state.m_mean, "m_var": state.m_var, "m_count": state.m_count,
-            "step": state.step, "rng": [g.get_state() for g in state.gens]}
+    """The checkpoint tree of an EP-MCMC state (generators as their states);
+    a placed leaf stays placed (``save_placed`` writes it whole)."""
+    return {"params": {n: _bits(p) for n, p in state.params.items()},
+            **{k: dict(getattr(state, k)) for k in ("v", "m_mean", "m_var")},
+            "m_count": state.m_count, "step": state.step, "rng": _rng_states(state)}
 
 
 def restore_epmcmc(leaves: Dict[str, np.ndarray], like: epmcmc.EpmcmcState) -> epmcmc.EpmcmcState:
-    """``like`` (a fresh state of the same shapes) loaded from a checkpoint."""
+    """``like`` (a fresh state of the same shapes, placed or not) loaded from
+    a checkpoint."""
     with torch.no_grad():
         for key in ("params", "v", "m_mean", "m_var"):
             for name, t in getattr(like, key).items():
-                t.copy_(_unbits(leaves[f"{key}/{name}"], t))
-        like.m_count.copy_(torch.from_numpy(leaves["m_count"]))
+                _load(t, leaves[f"{key}/{name}"])
+        _load(like.m_count, leaves["m_count"])
     for c, g in enumerate(like.gens):
         g.set_state(torch.from_numpy(leaves[f"rng/{c}"]))
     return like._replace(step=int(leaves["step"]))
@@ -133,16 +228,17 @@ def restore_epmcmc(leaves: Dict[str, np.ndarray], like: epmcmc.EpmcmcState) -> e
 
 def adamw_tree(model: mdl.LM, opt: AdamWState) -> dict:
     return {"params": {n: _bits(p.detach()) for n, p in model.named_parameters()},
-            "mu": opt.mu, "nu": opt.nu, "count": opt.count}
+            **{k: dict(getattr(opt, k)) for k in ("mu", "nu")},
+            "count": opt.count}
 
 
 def restore_adamw(leaves: Dict[str, np.ndarray], model: mdl.LM, opt: AdamWState) -> AdamWState:
     with torch.no_grad():
         for name, p in model.named_parameters():
-            p.copy_(_unbits(leaves[f"params/{name}"], p))
+            _load(p, leaves[f"params/{name}"])
         for key in ("mu", "nu"):
             for name, t in getattr(opt, key).items():
-                t.copy_(_unbits(leaves[f"{key}/{name}"], t))
+                _load(t, leaves[f"{key}/{name}"])
     return opt._replace(count=int(leaves["count"]))
 
 
@@ -176,9 +272,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     mesh = None
     if args.mesh != "host":  # raises unless the process group has the mesh's ranks
         mesh = make_production_mesh(multi_pod=args.mesh == "multipod", device_type=device.type)
-        if args.ckpt_dir or args.mode == "sgd":
-            raise NotImplementedError(f"--mesh {args.mesh} runs --mode epmcmc and adamw without "
-                                      "checkpoints (a placed state is not written)")
     cfg = get_config(args.arch)
     mdl.check_supported(cfg)
     if args.reduced:
@@ -189,8 +282,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         mamba2.check_seq(cfg, args.seq)
     n_chains = args.chains or max(epmcmc.num_chains(mesh if mesh is not None else (1, 1)), 1)
     shard_tokens = args.shard_tokens or float(args.batch * args.seq * 100)
-    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
-    resume = bool(ckpt and args.resume and latest_step(args.ckpt_dir) is not None)
+    # a placed run writes its checkpoints synchronously, every rank joining
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir and mesh is None else None
+
+    def checkpoint(step: int, tree, **metadata) -> None:
+        if mesh is None:
+            ckpt.save(step, tree, metadata=metadata)
+        else:
+            save_placed(args.ckpt_dir, step, tree, metadata=metadata)
+
+    resume = bool(args.ckpt_dir and args.resume and latest_step(args.ckpt_dir) is not None)
     start_step = 0
     losses, step_s = [], []
     if device.type == "cuda":
@@ -204,7 +305,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if mesh is not None:
             state = epmcmc.place_state(state, cfg, mesh)
         if resume:
-            leaves, meta = restore(args.ckpt_dir)
+            leaves, meta = restore(args.ckpt_dir, mmap=mesh is not None)
             if meta.get("num_chains") != n_chains:
                 raise ValueError(f"the checkpoint holds {meta.get('num_chains')} chains, "
                                  f"--chains asks for {n_chains}")
@@ -230,10 +331,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"step {step:5d} loss={float(losses[-1].mean()):.4f} "
                       f"({step_s[-1]:.2f}s/step)", flush=True)
-            if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, epmcmc_tree(state),
-                          metadata={"train_step": step + 1, "num_chains": n_chains,
-                                    "arch": cfg.name, "mode": args.mode})
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                checkpoint(step + 1, epmcmc_tree(state), train_step=step + 1,
+                           num_chains=n_chains, arch=cfg.name, mode=args.mode)
         out = {"state": state}
         if args.mode == "epmcmc":
             moments = epmcmc.combine_parametric_diag(_gathered(state))
@@ -250,7 +350,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             opt = adamw_init(dict(model.named_parameters()),
                              state_dtype=dtype_of(cfg.opt_state_dtype))
         if resume:
-            leaves, meta = restore(args.ckpt_dir)
+            leaves, meta = restore(args.ckpt_dir, mmap=mesh is not None)
             opt = restore_adamw(leaves, model, opt)
             start_step = int(meta["train_step"])
             print(f"resumed from step {start_step}", flush=True)
@@ -267,8 +367,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"step {step:5d} loss={float(losses[-1]):.4f} ({step_s[-1]:.2f}s/step)",
                       flush=True)
-            if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, adamw_tree(model, opt), metadata={"train_step": step + 1})
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                checkpoint(step + 1, adamw_tree(model, opt), train_step=step + 1)
         out = {"state": (model, opt)}
     if ckpt:
         ckpt.close()

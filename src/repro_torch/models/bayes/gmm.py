@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.models.bayes import registry
 from repro_torch.samplers.rwmh import Proposal
+from repro_torch.utils.rowwise import colsum, rowsum
 
 Data = Dict[str, torch.Tensor]
 
@@ -56,16 +57,39 @@ def log_prior(theta: torch.Tensor, sigma: float = 20.0) -> torch.Tensor:
     )
 
 
+class MixtureLogLik(torch.autograd.Function):
+    """Σ_i log Σ_k w_k N(x_i | μ_k, s² I) per chain and its gradient
+    Σ_i r_ik (x_i − μ_k)/s² (r the responsibilities), each sum over the
+    shard's N rows in an order the chain's own rows fix (``rowsum``,
+    ``colsum``): a CUDA reduction over N, and autograd's over ``(M, N, K,
+    2)``, split as the chain count says."""
+
+    @staticmethod
+    def forward(ctx, theta, x, weights, s2):
+        k = weights.shape[-1]
+        means = theta.reshape(theta.shape[:-1] + (k, DIM))
+        sq = ((x.unsqueeze(-2) - means.unsqueeze(-3)) ** 2).sum(dim=-1)  # (..., N, K)
+        log_comp = -0.5 * sq / s2 - torch.log(2.0 * math.pi * s2)
+        joint = log_comp + torch.log(weights)
+        lse = torch.logsumexp(joint, dim=-1)  # (..., N)
+        ctx.save_for_backward(x, means, joint, lse, s2)
+        ctx.theta_shape = theta.shape
+        return rowsum(lse)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, means, joint, lse, s2 = ctx.saved_tensors
+        resp = torch.exp(joint - lse.unsqueeze(-1))  # (..., N, K)
+        pull = resp.unsqueeze(-1) * (x.unsqueeze(-2) - means.unsqueeze(-3))  # (..., N, K, 2)
+        grad = g.unsqueeze(-1) * (colsum(pull.flatten(-2)) / s2)
+        return grad.sum_to_size(ctx.theta_shape), None, None, None
+
+
 def log_lik(theta: torch.Tensor, data: Data) -> torch.Tensor:
     """Σ_i log Σ_k w_k N(x_i | μ_k, s² I) with known w, s: θ ``(..., K·2)``
-    with ``x (..., N, 2)`` → ``(...)``."""
-    k = data["weights"].shape[-1]
-    means = theta.reshape(theta.shape[:-1] + (k, DIM))
-    s2 = data["component_std"] ** 2
-    x = data["x"]
-    sq = ((x.unsqueeze(-2) - means.unsqueeze(-3)) ** 2).sum(dim=-1)  # (..., N, K)
-    log_comp = -0.5 * sq / s2 - torch.log(2.0 * math.pi * s2)
-    return torch.logsumexp(log_comp + torch.log(data["weights"]), dim=-1).sum(dim=-1)
+    with ``x (..., N, 2)`` → ``(...)`` (:class:`MixtureLogLik`)."""
+    return MixtureLogLik.apply(theta, data["x"], data["weights"],
+                               data["component_std"] ** 2)
 
 
 def permutation_rw_proposal(k: int, step_size: float = 0.05) -> Proposal:

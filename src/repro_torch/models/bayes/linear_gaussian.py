@@ -19,7 +19,7 @@ import torch
 from repro_torch.core.gaussian import GaussianMoments
 from repro_torch.models.bayes import registry
 from repro_torch.samplers.gibbs import BlockUpdate
-from repro_torch.utils.rowwise import matvec
+from repro_torch.utils.rowwise import colsum, matvec, rowdot, rowsum
 
 Data = Dict[str, torch.Tensor]
 
@@ -39,12 +39,33 @@ def log_prior(theta: torch.Tensor, tau: float = 3.0) -> torch.Tensor:
     return -0.5 * (theta**2).sum(dim=-1) / tau**2 - 0.5 * d * math.log(2.0 * math.pi * tau**2)
 
 
+class SquaredResiduals(torch.autograd.Function):
+    """Σ_s (y_s − x_s·θ)² per chain and its gradient −2·Σ_s x_s (y_s − x_s·θ),
+    every sum in an order the chain's own rows fix (``utils/rowwise.py``):
+    the residuals from elementwise products, not the batched library
+    ``gemv``, and the backward's sum over the shard's S rows by ``colsum``,
+    not autograd's reduction over ``(M, S, d)``, whose split on the card
+    follows M. So a chain draws the same bits in a group of five as among
+    ten."""
+
+    @staticmethod
+    def forward(ctx, theta, x, y):
+        resid = y - rowdot(x, theta)
+        ctx.save_for_backward(x, resid)
+        ctx.theta_shape = theta.shape
+        return rowsum(resid * resid)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, resid = ctx.saved_tensors
+        grad = (-2.0 * g).unsqueeze(-1) * colsum(x * resid.unsqueeze(-1))
+        return grad.sum_to_size(ctx.theta_shape), None, None
+
+
 def log_lik(theta: torch.Tensor, data: Data, noise_std: float = 1.0) -> torch.Tensor:
-    resid = data["y"] - matvec(data["x"], theta)  # per chain (utils/rowwise.py)
     n = data["y"].shape[-1]
-    return -0.5 * (resid**2).sum(dim=-1) / noise_std**2 - 0.5 * n * math.log(
-        2.0 * math.pi * noise_std**2
-    )
+    sse = SquaredResiduals.apply(theta, data["x"], data["y"])
+    return -0.5 * sse / noise_std**2 - 0.5 * n * math.log(2.0 * math.pi * noise_std**2)
 
 
 def _moments(x, y, prior_prec, noise_std) -> GaussianMoments:

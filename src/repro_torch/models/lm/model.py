@@ -46,8 +46,10 @@ gradients from that, so the flash forward (or the SSD) runs twice a layer
 and a training step holds one layer's activations at a time. The
 gradients are those of the reference's per-period checkpoint. The encoder
 is not rematerialized (the reference's ``_encode`` is not checkpointed).
-``"none"`` runs plain; ``"dots"`` (save the matrix products' outputs), which
-no config sets, raises.
+``"none"`` runs plain. ``"dots"`` (the reference's ``checkpoint_dots``
+policy) is :class:`_Remat` keeping the block's matrix products' outputs
+as well, and replaying them in the recomputation (``models/lm/remat.py``):
+what each package saves and recomputes, flash included, is stated there.
 
 The image prefix: ``forward`` and ``prefill`` take ``img_embeds`` (a vlm
 config; ignored by the others and absent from a token-only batch, as in
@@ -59,6 +61,7 @@ tokens to generate.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, NamedTuple, Optional, Tuple, Union
 
@@ -69,6 +72,7 @@ from torch.autograd.function import once_differentiable
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import mamba2 as m2
 from repro_torch.models.lm import moe as moe_lib
+from repro_torch.models.lm import remat
 from repro_torch.models.lm.config import VISION_WIDTH, ModelConfig
 from repro_torch.models.lm.placement import like, rows
 from repro_torch.models.lm.layers import (
@@ -340,16 +344,12 @@ def _encode(model: LM, enc_frames: Optional[torch.Tensor]) -> Optional[torch.Ten
     return model.enc_norm(x)
 
 
-def _remat(cfg: ModelConfig) -> bool:
-    """Whether ``forward`` recomputes each block in the backward."""
-    if cfg.remat == "full":
-        return True
-    if cfg.remat == "none":
-        return False
-    raise NotImplementedError(
-        f"remat={cfg.remat!r} is not ported (no config sets it); the port runs 'full' and "
-        "'none', the rest is ROADMAP Queue 1 item 11"
-    )
+def _remat(cfg: ModelConfig) -> str:
+    """``cfg.remat``, checked: how ``forward`` recomputes each block in the
+    backward (``"none"``: it does not)."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r}: expected 'none', 'full' or 'dots'")
+    return cfg.remat
 
 
 class _Remat(torch.autograd.Function):
@@ -363,15 +363,21 @@ class _Remat(torch.autograd.Function):
     the gradients are the un-rematerialized ones. Unlike
     ``torch.utils.checkpoint`` (non-reentrant), the first run records no
     graph and packs no saved tensors, host work that sets the time of a
-    small-batch, host-bound step. Returns the block's output and its aux
+    small-batch, host-bound step. With ``dots`` (``remat="dots"``) the
+    first run also keeps every matrix product's output and the recorded run
+    takes them back instead of computing them (``remat.DotTape``); the
+    kept outputs are saved tensors. Returns the block's output and its aux
     loss (a zero for a block without one)."""
 
     @staticmethod
-    def forward(ctx, block, h, positions, memory, *params):
+    def forward(ctx, block, dots, h, positions, memory, *params):
         ctx.block = block
-        ctx.save_for_backward(h, positions, memory)
-        with torch.no_grad():
+        tape = remat.DotTape() if dots else contextlib.nullcontext()
+        with torch.no_grad(), tape:
             out, aux = block(h, positions, memory)
+        ctx.dots = dots
+        ctx.signatures = tape.signatures if dots else None
+        ctx.save_for_backward(h, positions, memory, *(tape.kept() if dots else ()))
         ctx.has_aux = aux is not None
         return out, aux if ctx.has_aux else like(out, torch.zeros((), dtype=torch.float32,
                                                                   device=out.device))
@@ -379,12 +385,16 @@ class _Remat(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, d_out, d_aux):
-        h, positions, memory = ctx.saved_tensors
+        h, positions, memory, *kept = ctx.saved_tensors
+        tape = remat.DotTape(kept, ctx.signatures) if ctx.dots else contextlib.nullcontext()
         with torch.enable_grad():
-            x = h.detach().requires_grad_(ctx.needs_input_grad[1])
+            x = h.detach().requires_grad_(ctx.needs_input_grad[2])
             mem = None if memory is None else memory.detach().requires_grad_(
-                ctx.needs_input_grad[3])
-            out, aux = ctx.block(x, positions, mem)
+                ctx.needs_input_grad[4])
+            with tape:
+                out, aux = ctx.block(x, positions, mem)
+            if ctx.dots:
+                tape.check_replayed()
             outs, grads = [out], [d_out]
             if ctx.has_aux:
                 outs.append(aux)
@@ -394,7 +404,7 @@ class _Remat(torch.autograd.Function):
                                            allow_unused=True))
         d_h = got.pop(0) if x.requires_grad else None
         d_mem = got.pop(0) if mem is not None and mem.requires_grad else None
-        return (None, d_h, None, d_mem, *got)
+        return (None, None, d_h, None, d_mem, *got)
 
 
 def forward(
@@ -406,13 +416,15 @@ def forward(
     the image prefix (vlm configs); ``enc_frames`` (B, T_enc, d): the
     encoder's input (encoder–decoder configs); each ignored by the other
     configs, as in the reference."""
-    remat = _remat(model.cfg) and torch.is_grad_enabled()
+    mode = _remat(model.cfg)
+    recompute = mode != "none" and torch.is_grad_enabled()
     memory = _encode(model, enc_frames)
     h, positions, _ = _inputs_to_h(model, tokens, img_embeds)
     auxes = []
     for block in model.blocks:
-        if remat:
-            h, aux = _Remat.apply(block, h, positions, memory, *block.parameters())
+        if recompute:
+            h, aux = _Remat.apply(block, mode == "dots", h, positions, memory,
+                                  *block.parameters())
         else:
             h, aux = block(h, positions, memory)
         if block.spec.ffn == "moe":

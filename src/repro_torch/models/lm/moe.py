@@ -274,25 +274,64 @@ class _Router(NamedTuple):
 
 def moe_forward_gather(moe: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dropless MoE for decode: each token gathers its top-k experts'
-    weights, with no capacity; the aux loss is 0."""
+    weights, with no capacity; the aux loss is 0. Placed x runs
+    :func:`_gather_placed`."""
+    if is_placed(x):
+        y = _gather_placed(moe, x)
+    else:
+        ex = moe.experts
+        y = _gather(moe, x, ex.w_gate, ex.w_up, ex.w_down)
+    if moe.shared is not None:
+        y = y + moe.shared(x)
+    return y, placement.like(y, torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _gather(moe, x: torch.Tensor, w_gate, w_up, w_down, lo: int = 0) -> torch.Tensor:
+    """The routed experts' sum for x (B, S, d), slot by slot, from the
+    expert stacks ``w_*`` that hold experts ``lo`` onwards: all of them
+    unplaced; placed, this rank's block, and a token whose slot's expert
+    lies outside it adds 0 for that slot."""
     m = moe.cfg.moe
     b, s, d = x.shape
     tokens = x.reshape(-1, d)
-    if is_placed(x):
-        raise NotImplementedError("the gather form of MoE decode runs unplaced only; placed "
-                                  "decode takes moe_decode_impl='dispatch'")
     _, top_vals, top_idx = route(moe, tokens)
     dtype = x.dtype
-    ex = moe.experts
-    w_gate, w_up, w_down = (w.to(dtype) for w in (ex.w_gate, ex.w_up, ex.w_down))
+    w_gate, w_up, w_down = (w.to(dtype) for w in (w_gate, w_up, w_down))
+    e_loc = w_gate.shape[0]
     y = None
     for slot in range(m.top_k):
-        idx = top_idx[:, slot]
+        idx, weight = top_idx[:, slot], top_vals[:, slot]
+        if e_loc != m.num_experts:
+            idx = idx - lo
+            weight = torch.where((idx >= 0) & (idx < e_loc), weight, 0.0)
+            idx = idx.clamp(0, e_loc - 1)
         h = F.silu(torch.einsum("nd,ndf->nf", tokens, w_gate[idx])) * torch.einsum(
             "nd,ndf->nf", tokens, w_up[idx])
-        out = torch.einsum("nf,nfd->nd", h, w_down[idx]) * top_vals[:, slot][:, None].to(dtype)
+        out = torch.einsum("nf,nfd->nd", h, w_down[idx]) * weight[:, None].to(dtype)
         y = out if y is None else y + out
-    y = y.reshape(b, s, d)
-    if moe.shared is not None:
-        y = y + moe.shared(x)
-    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    return y.reshape(b, s, d)
+
+
+def _gather_placed(moe: MoE, x: torch.Tensor) -> torch.Tensor:
+    """:func:`_gather` on placed x in a ``local_map`` region: each rank
+    routes its tokens (batch over the data axes where x has it; the router
+    replicated) and sums its own block of experts (over ``model``, the
+    placement ``distributed/sharding.py`` gives them), each token's slots on
+    other ranks' experts adding 0; the shares are summed over ``model``.
+    With two slots and two expert ranks that sum is the unplaced one's bit
+    for bit; otherwise it adds the same terms in another order."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    ex = moe.experts
+    data = {n: 0 for n in names if n in placement.DATA_AXES and placement.shards(x, n, 0)}
+    model = [n for n in names if n == "model" and placement.shards(ex.w_gate, n, 0)]
+    w_pl = placement.placements(mesh, {n: 0 for n in model})
+
+    def local(xl, router, w_gate, w_up, w_down):
+        lo = mesh.get_local_rank("model") * w_gate.shape[0] if model else 0
+        return _gather(_Router(moe.cfg, router), xl, w_gate, w_up, w_down, lo)
+
+    return placement.region(
+        local, mesh, (x, moe.router, ex.w_gate, ex.w_up, ex.w_down),
+        (placement.placements(mesh, data), placement.placements(mesh, {}), w_pl, w_pl, w_pl),
+        placement.placements(mesh, data, partial=model))

@@ -131,6 +131,53 @@ def test_two_chain_groups_on_one_card_draw_the_batched_draws(cuda_device):
     assert lr.launches - before == 2 * (per_group + CHECK_TRANSITIONS)
 
 
+CHAIN_BLIND = {"linear/hmc": ("linear", "hmc", 10_000), "gmm/rwmh": ("gmm", "rwmh", 20_000)}
+
+
+@pytest.mark.parametrize("pair", sorted(CHAIN_BLIND))
+def test_log_lik_and_gradient_do_not_follow_the_chain_count(cuda_device, pair):
+    """A chain's log-likelihood and its gradient at M = 10 chains equal, bit
+    for bit, the same chain's in either slice of 5: the sums over a shard's
+    rows take an order that the chain's own row fixes, not the batch."""
+    from repro_torch.core.subposterior import partition_data
+    from repro_torch.models.bayes import get_model
+    from repro_torch.samplers.mala import value_and_grad
+
+    name, _, n = CHAIN_BLIND[pair]
+    model = get_model(name)
+    data, _ = model.generate_data(torch.Generator(device=cuda_device).manual_seed(0), n)
+    shards = partition_data(data, 10, only=model.shard_keys)
+    keys = model.shard_keys or tuple(shards)
+    theta = torch.randn((10, model.d), generator=torch.Generator(device=cuda_device)
+                        .manual_seed(1), device=cuda_device)
+    ld, g = value_and_grad(lambda th: model.log_lik(th, shards), theta)
+    for half in (slice(0, 5), slice(5, 10)):
+        part = {k: (v[half] if k in keys else v) for k, v in shards.items()}
+        ld_h, g_h = value_and_grad(lambda th: model.log_lik(th, part), theta[half])
+        assert torch.equal(ld_h, ld[half]), float((ld_h - ld[half]).abs().max())
+        assert torch.equal(g_h, g[half]), float((g_h - g[half]).abs().max())
+
+
+@pytest.mark.parametrize("pair", sorted(CHAIN_BLIND))
+def test_linear_and_gmm_chain_groups_draw_the_batched_draws(cuda_device, pair):
+    """linear/HMC and GMM/rwmh on a (2, 1) mesh of cuda:0, each group of five
+    chains on its own stream: θ bit for bit the one-group run's."""
+    import dataclasses
+
+    from repro_torch.api import Pipeline, RunSpec
+
+    name, sampler, n = CHAIN_BLIND[pair]
+    spec = RunSpec(model=name, sampler=sampler, M=10, T=60, warmup=30, n=n, seed=0,
+                   groundtruth_T=100, combiner="parametric", score_metric="logl2")
+    batched = Pipeline(spec, device=cuda_device).sample()
+    mesh = Pipeline(dataclasses.replace(spec, mesh_shape=(2, 1)), device=cuda_device,
+                    devices=(cuda_device, cuda_device)).sample()
+    torch.cuda.synchronize()
+    assert mesh.backend == "mesh[cuda](2 devices)"
+    assert torch.equal(mesh.theta, batched.theta), float((mesh.theta - batched.theta)
+                                                         .abs().max())
+
+
 def test_chain_groups_are_queued_before_any_is_waited_for(cuda_device):
     """Two groups on two streams of one card: the second group's work does
     not wait for the first's (it ends while the first still sleeps), and the

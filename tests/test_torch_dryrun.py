@@ -163,6 +163,42 @@ def test_train_cli_takes_the_pod_mesh():
         proc.stdout[-2000:] + proc.stderr[-3000:])
 
 
+def test_train_cli_takes_sgd_and_checkpoints_on_the_pod_mesh(tmp_path):
+    """``launch.train --mesh pod`` over the fake 256-rank group takes ``--mode
+    sgd`` (the chains' gradients all-reduced over the data axis) and
+    ``--ckpt-dir``: epmcmc, sgd and adamw each write a committed step of
+    whole leaves (rank 0) and resume from it (a smoke of the path: the fake
+    group moves no data, so the values are not checked; the 8-rank gloo
+    run of ``tests/test_torch_spmd.py`` holds them)."""
+    code = (
+        "import json, logging, os, sys\n"
+        "logging.getLogger('torch.distributed.tensor._redistribute').setLevel(logging.ERROR)\n"
+        "from repro_torch.launch import dryrun, train\n"
+        "root = sys.argv[1]\n"
+        "base = ['--device', 'cpu', '--arch', 'llama3_2_3b', '--reduced', '--seq', '32',\n"
+        "        '--mesh', 'pod', '--log-every', '1', '--ckpt-every', '1']\n"
+        "dryrun.fake_group(256)\n"
+        "for mode, batch in (('sgd', '1'), ('epmcmc', '1'), ('adamw', '16')):\n"
+        "    d = os.path.join(root, mode)\n"
+        "    out = train.main(base + ['--mode', mode, '--batch', batch, '--steps', '1',\n"
+        "                             '--ckpt-dir', d])\n"
+        "    man = json.load(open(os.path.join(d, 'step_000000001', 'MANIFEST.json')))\n"
+        "    again = train.main(base + ['--mode', mode, '--batch', batch, '--steps', '2',\n"
+        "                               '--ckpt-dir', d, '--resume'])\n"
+        "    assert len(again['losses']) == 1, mode\n"
+        "    shapes = {l['path']: l['shape'] for l in man['leaves']}\n"
+        "    print(mode, shapes.get('params/embed'), shapes.get('m_count'))\n"
+        "print('placed')\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("placed"), (
+        proc.stdout[-2000:] + proc.stderr[-3000:])
+    lines = proc.stdout.strip().splitlines()
+    assert "sgd [16, 512, 128] [16]" in lines and "epmcmc [16, 512, 128] [16]" in lines
+    assert "adamw [512, 128] None" in lines
+    assert "resumed from step 1" in proc.stdout
+
+
 def test_reroofline_recomputes_the_saved_blocks(records, tmp_path):
     """``launch.reroofline`` rebuilds every ok record's roofline from its
     op_stats: the same block the run wrote."""

@@ -300,7 +300,7 @@ def _batch(seed, vocab, lead=(), seq=SEQ, batch=B):
     return {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 def test_loss_fn_value_and_every_gradient_match_the_reference(remat):
     """With frames: every leaf, the encoder's through each decoder block's
     cross-attention (under remat full the memory's gradient comes back out

@@ -347,15 +347,16 @@ def _batch(seed, vocab, lead=(), seq=32, batch=B):
     return {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 def test_loss_fn_value_and_every_gradient_match_the_reference(remat):
     """Sequence 32: two SSD chunks, layer 4 through flash and its backward,
     the MoE aux loss in the total; under remat full each block recomputed
-    in the backward. Both against the reference's gradient (its remat
-    changes no value: ``jax.checkpoint`` of the period)."""
+    in the backward, under dots from its kept matrix products. Each against
+    the reference's gradient under the same remat (``jax.checkpoint`` of the
+    period, with ``checkpoint_dots`` for dots)."""
     _, params, cfg, model = _model_pair(remat=remat)
     b = _batch(10, cfg.vocab_size)
-    (want, want_m), want_g = _ref_value_and_grad(params, _cfgs()[0], _ref_batch(b))
+    (want, want_m), want_g = _ref_value_and_grad(params, _cfgs(remat=remat)[0], _ref_batch(b))
     total, metrics = steps.loss_fn(model, cfg, _port_batch(b))
     grads = steps.grads_of(total, dict(model.named_parameters()))
     np.testing.assert_allclose(float(total.detach()), float(want), rtol=1e-5)

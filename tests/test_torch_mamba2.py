@@ -413,7 +413,7 @@ def _batch(seed, vocab, lead=(), seq=32, batch=B):
     return {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 def test_loss_fn_value_and_every_gradient_match_the_reference(remat):
     """Sequence 32, two chunks: the chunk recurrence's gradient too; under
     remat full each block recomputed in the backward."""

@@ -294,11 +294,14 @@ def test_init_caches_are_latent_for_mla_layers():
 # ------------------------------------------------------------------- training
 
 
-@pytest.mark.parametrize("q_lora", [48, 0], ids=["q_lora 48", "full-rank q"])
-def test_loss_fn_value_and_every_gradient_match_the_reference(q_lora):
+@pytest.mark.parametrize("q_lora,remat", [(48, "none"), (0, "none"), (48, "dots")],
+                         ids=["q_lora 48", "full-rank q", "q_lora 48, remat dots"])
+def test_loss_fn_value_and_every_gradient_match_the_reference(q_lora, remat):
     """Sequence 64 against attn_chunk 16: every layer's attention through
-    flash and its backward through the flash backward's plain version."""
-    ref_cfg, cfg = _cfgs(q_lora=q_lora, attn_chunk=16)
+    flash and its backward through the flash backward's plain version; under
+    remat dots the projections kept and flash recomputed, against the
+    reference's ``checkpoint_dots``."""
+    ref_cfg, cfg = _cfgs(q_lora=q_lora, attn_chunk=16, remat=remat)
     params = _np(ref_mdl.init_params(jax.random.PRNGKey(7), ref_cfg))
     model = from_reference_lm_params(params, cfg, device="cpu")
     b = _batch(8, cfg.vocab_size)

@@ -439,26 +439,30 @@ def test_remat_full_gives_the_loss_aux_and_gradients_of_none():
     _, _, cfg, model = _model_pair(seed=9)
     b = _port_batch(_batch(10, cfg.vocab_size))
     out = {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         model.cfg = dataclasses.replace(cfg, remat=remat)
         total, metrics = steps.loss_fn(model, model.cfg, b)
         out[remat] = (float(metrics["moe_aux"]),
                       torch.autograd.grad(total, list(model.parameters())))
-    assert out["full"][0] == out["none"][0]
-    for a, w in zip(out["full"][1], out["none"][1]):
-        assert float((a - w).abs().max()) <= 1e-6 * float(w.abs().max())
+    for remat in ("full", "dots"):
+        assert out[remat][0] == out["none"][0]
+        for a, w in zip(out[remat][1], out["none"][1]):
+            assert float((a - w).abs().max()) <= 1e-6 * float(w.abs().max()), remat
 
 
 # ------------------------------------------------------------------- training
 
 
-@pytest.mark.parametrize("cf", [4.0, 1.25], ids=["dropless", "granite's capacity"])
-def test_loss_fn_value_and_every_gradient_match_the_reference(cf):
-    over = {}
+@pytest.mark.parametrize("cf,remat", [(4.0, "none"), (1.25, "none"), (1.25, "dots")],
+                         ids=["dropless", "granite's capacity", "granite's capacity, remat dots"])
+def test_loss_fn_value_and_every_gradient_match_the_reference(cf, remat):
+    """Under remat dots the experts' products are kept and the routing
+    recomputed, against the reference's ``checkpoint_dots``."""
+    over = {"remat": remat}
     if cf != 4.0:
-        over = {"moe": dataclasses.replace(reduced(get_config(ARCH)).moe, capacity_factor=cf)}
-    ref_over = {k: dataclasses.replace(ref_reduced(ref_get_config(ARCH)).moe, capacity_factor=cf)
-                for k in over}
+        over["moe"] = dataclasses.replace(reduced(get_config(ARCH)).moe, capacity_factor=cf)
+    ref_over = {k: (dataclasses.replace(ref_reduced(ref_get_config(ARCH)).moe, capacity_factor=cf)
+                    if k == "moe" else v) for k, v in over.items()}
     ref_cfg = ref_reduced(ref_get_config(ARCH), attn_chunk=16, **ref_over)
     cfg = reduced(get_config(ARCH), attn_chunk=16, **over)
     params = _np(ref_mdl.init_params(jax.random.PRNGKey(11), ref_cfg))

@@ -23,7 +23,24 @@ placed step on its shards; rank 0 reports, and this file holds:
   ``fsdp`` on): loss within 1e-6 of its size, every gradient within 1e-5 of
   the largest, θ after the AdamW step within 1e-4 (a third of the rate: the
   first Adam step is lr·g/(|g| + ε), so a gradient entry near 0 turns its
-  rounding into a visible move).
+  rounding into a visible move);
+- the placed ``sgd_baseline_step`` (the chains' gradients all-reduced over
+  ``data``, each rank's partial sum first, so in another order than the
+  unplaced chain order) equal to the unplaced one: loss within 1e-6 of its
+  size, v within 1e-5 of its size (v = 0.01·ḡ² after one step from 0, ḡ's
+  float32 rounding doubled), θ within 1e-4 of the step's largest move
+  (ε_rms = 1, as above);
+- placed checkpoints (``launch.train``'s trees: whole leaves, rank 0
+  writing) for epmcmc, sgd and adamw: a restore into a fresh placed state
+  and one more step give the uninterrupted run's every leaf and generator
+  bit for bit;
+- the gather form of MoE decode placed (reduced granite: 8 experts top-2,
+  4 a rank over ``model``) bit for bit the unplaced form: with two slots
+  and two expert ranks each token's two terms are summed once either way;
+- ``remat="dots"`` placed (GQA with flash, Mamba-2's SSD, granite's MoE in
+  their ``local_map`` regions) against ``"none"`` unplaced: loss within
+  1e-6 of its size and every gradient within 1e-5 of the largest, the FSDP
+  check's tolerances.
 """
 
 import json
@@ -109,3 +126,28 @@ def test_placed_fsdp_train_step_equals_unplaced(result):
     assert r["loss"] <= 1e-6 * 10.0
     assert r["grad"] <= 1e-5 * r["grad_scale"]
     assert r["params"] <= 1e-4
+
+
+def test_placed_sgd_baseline_step_equals_unplaced(result):
+    r = result["sgd"]
+    assert r["loss"] <= 1e-6 * r["loss_scale"]
+    assert r["v"] <= 1e-5 * r["v_scale"]
+    assert 0 < r["move_scale"] and r["params"] <= 1e-4 * r["move_scale"]
+
+
+@pytest.mark.parametrize("mode", ["epmcmc", "sgd", "adamw"])
+def test_placed_checkpoint_resume_is_bitwise(result, mode):
+    assert result["resume"][mode] is True
+
+
+def test_placed_gather_decode_equals_unplaced(result):
+    r = result["gather"]
+    assert r["experts_split"] == 4 and r["scale"] > 0
+    assert r["bitwise"], r["diff"]
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "mamba2_130m", "granite_moe_1b"])
+def test_placed_remat_dots_equals_unplaced(result, arch):
+    r = result["dots"][arch]
+    assert r["loss"] <= 1e-6 * r["loss_scale"]
+    assert r["grad"] <= 1e-5 * r["grad_scale"]

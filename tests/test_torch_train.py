@@ -172,20 +172,91 @@ def test_loss_fn_value_and_every_gradient_match_the_reference(labels):
 
 def test_remat_full_gives_the_gradients_of_none():
     """remat="full" recomputes every block in the backward (the flash
-    forward twice a layer): the same gradients as "none", to float32
-    rounding of the recomputation (1e-6 of max|g|)."""
+    forward twice a layer), and "dots" recomputes it from its kept matrix
+    products: the same gradients as "none", to float32 rounding of the
+    recomputation (1e-6 of max|g|)."""
     _, _, cfg, model = _loss_pair(seed=1)
     b = _port_batch(_batch(4, cfg.vocab_size))
     out = {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         model.cfg = dataclasses.replace(cfg, remat=remat)
         total, _ = steps.loss_fn(model, model.cfg, b)
         out[remat] = torch.autograd.grad(total, list(model.parameters()))
-    for a, w in zip(out["full"], out["none"]):
-        assert float((a - w).abs().max()) <= 1e-6 * float(w.abs().max())
-    model.cfg = dataclasses.replace(cfg, remat="dots")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        steps.loss_fn(model, model.cfg, b)
+    for remat in ("full", "dots"):
+        for a, w in zip(out[remat], out["none"]):
+            assert float((a - w).abs().max()) <= 1e-6 * float(w.abs().max()), remat
+
+
+def _saved_bytes(model, cfg, batch):
+    """Bytes of the tensors autograd saves over one ``loss_fn`` forward."""
+    n = [0]
+
+    def pack(t):
+        n[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        total, _ = steps.loss_fn(model, cfg, batch)
+    torch.autograd.grad(total, list(model.parameters()))
+    return n[0]
+
+
+def test_remat_dots_saves_more_than_full_and_less_than_none():
+    """Over a forward, "dots" saves each block's input and its matrix
+    products' outputs: strictly more bytes than "full" (the input alone) and
+    strictly fewer than "none" (every op's saved operands)."""
+    _, _, cfg, model = _loss_pair(seed=1)
+    b = _port_batch(_batch(4, cfg.vocab_size))
+    got = {}
+    for remat in ("none", "full", "dots"):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        got[remat] = _saved_bytes(model, model.cfg, b)
+    assert got["full"] < got["dots"] < got["none"], got
+
+
+def test_remat_dots_replay_refuses_a_product_of_other_shapes():
+    """The recomputation's products are handed back by position: each is
+    checked against the op and operand shapes kept in its place, so a
+    recomputation that ran its products in another order fails, and a
+    kernel's plain version (flash on the CPU) is one opaque call, neither
+    kept nor replayed, as its launch on the card is."""
+    from repro_torch.kernels import plain_version
+    from repro_torch.models.lm.remat import DotTape
+
+    a, b, c = torch.ones(2, 3), torch.ones(3, 4), torch.ones(3, 5)
+    with DotTape() as keep:
+        a @ b
+        a @ c
+        with plain_version():
+            a @ b
+    kept = keep.kept()
+    assert len(kept) == 2
+    with DotTape(kept, keep.signatures) as replay:
+        assert torch.equal(a @ b, kept[0])
+        assert torch.equal(a @ c, kept[1])
+    replay.check_replayed()
+    with pytest.raises(RuntimeError, match="matrix product 0"):
+        with DotTape(kept, keep.signatures):
+            a @ c
+
+
+def test_remat_dots_matches_the_reference():
+    """The reference's ``jax.checkpoint(policy=checkpoint_dots)`` against the
+    port's kept products: loss and every gradient at the "full" tests'
+    tolerance (``_leaf_close``)."""
+    ref_cfg, params, cfg, model = _loss_pair(seed=2, remat="dots")
+    b = _batch(5, cfg.vocab_size)
+    (want, _), want_g = jax.jit(jax.value_and_grad(
+        functools.partial(ref_steps.loss_fn, cfg=ref_cfg), has_aux=True))(params, batch=_ref_batch(b))
+    total, _ = steps.loss_fn(model, cfg, _port_batch(b))
+    named = dict(model.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(total, list(named.values()))))
+    np.testing.assert_allclose(float(total.detach()), float(want), rtol=1e-5)
+    flat_want = jax.tree_util.tree_flatten_with_path(_np(want_g))[0]
+    flat_got = jax.tree_util.tree_flatten_with_path(to_reference_lm_grads(grads, cfg))[0]
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+    for (path, g), (_, w) in zip(flat_got, flat_want):
+        _leaf_close(g, w, what=jax.tree_util.keystr(path))
 
 
 # ---------------------------------------------------------------------------

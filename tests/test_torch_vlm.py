@@ -268,7 +268,7 @@ def _with_images(b, img):
         _port_batch(b), img_embeds=torch.from_numpy(img))
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 def test_loss_fn_value_and_every_gradient_match_the_reference(remat):
     """With images: the prefix's logits sliced off before the loss, every
     leaf's gradient, ``img_proj``'s through the prefix (nonzero)."""
